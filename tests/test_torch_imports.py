@@ -1,0 +1,47 @@
+"""Import hygiene of the PyTorch port: it never reaches JAX or the JAX package.
+
+Every ``.py`` under ``dro_sfm_torch/`` and ``chip_smoke.py`` is parsed and
+its imports checked; importing the package in a fresh interpreter must leave
+``jax`` out of ``sys.modules``.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dro_sfm_tpu")
+FILES = sorted((ROOT / "dro_sfm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_package_import_leaves_jax_out():
+    code = ("import sys, pkgutil, importlib, dro_sfm_torch\n"
+            "for m in pkgutil.walk_packages(dro_sfm_torch.__path__, 'dro_sfm_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+            "assert not bad, bad\n" % (FORBIDDEN,))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
