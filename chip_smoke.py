@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check their kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -19,17 +20,38 @@ result line):
 5. end to end: the same net and inputs with the plain warp on the card,
    compared with the kernel run in fp32 and in bf16;
 6. profile: device time by kernel over one B=8 request (torch.profiler),
-   and the card's busy share of that request.
+   and the card's busy share of that request;
+7. K2/K3 vs plain: the warp-cost backward kernels (`warp_diff_bwd_feat`,
+   `warp_diff_bwd_coords`) against their plain versions at the training
+   shapes (B=1 and 8, bf16 and fp32) and at edge cases, each beside its
+   stated tolerance, with timings of the kernel, the plain version, the
+   library yardstick (`grid_sampler_2d_backward`) and the bound;
+8. training: the supervised step (SupModelMF it12-h-out, bf16, 192x640,
+   N=2, B=8) through `make_train_step`, from random weights with the heads'
+   last convolution scaled down (`start_weights`): one warm-up step and 10
+   timed steps; every launch count is reset just before and read just
+   after, and must be 24 (K1), 24 (K2) and 18 (K3) per step; the loss
+   finite at every step, every parameter and BatchNorm statistic moved, and
+   Adam's moments finite;
+9. training end to end: one step's gradients with the kernels against the
+   plain warp on the card (B=2, flip off), fp32 with TF32 off and bf16,
+   each leaf against a stated bar; the bars must fail planted faults (K2 or
+   K3 leaving out one tap), as must phase 7's;
+10. profile: device time by kernel over one B=8 train step, and the card's
+   busy share of it.
 
-The last three lines of standard output are the ``kernels`` JSON line, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last three lines of standard output are the ``kernels`` JSON line (K1,
+K2, K3; launches from the training path), the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -40,6 +62,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 SERVE_H, SERVE_W, VIEWS, REQUESTS = 192, 640, 2, 20
 K1_STEPS_PER_REQUEST = 24          # it12: 3 outer x (4 depth + 4 pose) steps
+TRAIN_B, TRAIN_STEPS = 8, 10
+# Per train step: K1 and K2 run in all 24 refinement steps. K3 runs where the
+# coordinates need a gradient: not in the first depth and the first pose step
+# of each outer iteration, whose coordinates come from the detached state.
+TRAIN_LAUNCHES = {"K1": 24, "K2": 24, "K3": 3 * (3 + 3)}
+HEAD_SCALE = 0.1                   # on the random heads' last convolution
+# Kernel vs plain bf16 gradients: a leaf's bar is BF16_BAR, or
+# BF16_SHARE of bf16's own error where that reaches BF16_OWN_NOISY.
+BF16_BAR, BF16_OWN_NOISY, BF16_SHARE = 2e-2, 0.1, 0.25
 
 
 def fail(msg: str) -> None:
@@ -197,14 +228,16 @@ def make_request(gen, b):
     return target.cuda(), refs.cuda(), K.cuda()
 
 
-def phase_serving(DepthPoseNet, make_infer_fn, K1_COUNTER, gpu):
+def phase_serving(DepthPoseNet, make_infer_fn, counters, gpu):
     net = DepthPoseNet(version="it12-h-out", mixed_precision=True,
                        warp_impl="pallas", device="cuda",
                        generator=torch.Generator().manual_seed(0))
     infer = make_infer_fn(net, device="cuda")
     gen = torch.Generator().manual_seed(1)
     requests = {b: make_request(gen, b) for b in (1, 8)}
-    K1_COUNTER.reset()                       # the main path starts here
+    K1_COUNTER = counters["K1"]
+    for c in counters.values():              # the serving path starts here
+        c.reset()
     for b, req in requests.items():
         before = K1_COUNTER.launches
         infer(*req)                          # warm-up request
@@ -233,7 +266,9 @@ def phase_serving(DepthPoseNet, make_infer_fn, K1_COUNTER, gpu):
               f"{1e3 * b / ms:.1f} frames/s, K1 {launched // (REQUESTS + 1)} "
               f"launches/request, peak {torch.cuda.max_memory_allocated() / 2**20:.0f}"
               f" MiB on {gpu}", flush=True)
-    launches = K1_COUNTER.launches           # the main path ends here
+    launches = K1_COUNTER.launches           # the serving path ends here
+    if counters["K2"].launches or counters["K3"].launches:
+        fail("serving launched a backward kernel")
     return net, requests, launches
 
 
@@ -275,10 +310,6 @@ def profile_request(net, requests, make_infer_fn):
         infer(*req)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(device_us(e) for e in kernels)
@@ -294,6 +325,482 @@ def profile_request(net, requests, make_infer_fn):
                   f"{device_us(e) / e.count:.2f} us each")
 
 
+def k2_bound(coords, g, h, w, dtype):
+    """Least time of one K2 call: g and coords read once and d_features
+    written once in its dtype, over the memory rate; one multiply and one
+    add per channel of each in-view tap over the fp32 rate."""
+    bn, p, c = g.shape
+    n_bytes = (g.numel() * g.element_size() + coords.numel() * 4
+               + bn * h * w * c * torch.finfo(dtype).bits // 8)
+    ops = 2 * c * int(_taps(coords, h, w)[1].sum())
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def k3_bound(features, coords, g):
+    """Least time of one K3 call: g, coords and the feature rows the taps
+    reference read once, d_coords written once, over the memory rate; per
+    channel of each pixel with a tap in view, 4 tap differences, 4
+    weightings, 2 sums and 2 products with g accumulated (12 operations)
+    over the fp32 rate."""
+    bn, h, w, c = features.shape
+    index, valid = _taps(coords, h, w)[:2]
+    n_rows = torch.unique(index[valid]).numel()
+    n_bytes = (g.numel() * g.element_size() + coords.numel() * 4
+               + n_rows * c * features.element_size() + coords.numel() * 4)
+    ops = 12 * c * int(valid.any(0).sum())
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _taps(coords, h, w):
+    from dro_sfm_torch.ops.resample import bilinear_taps
+    return bilinear_taps(coords, h, w)
+
+
+def k2_tolerance(coords, g, h, w, dtype, ref):
+    """Stated bar for K2 vs plain. Both sum the same fp32 products into each
+    feature element, K2 with atomics in run-dependent order, the plain
+    version with index_add_: a reordering of n adds moves the sum by at most
+    n * 2^-24 of the sum of magnitudes. The bar allows 64 adds (a near-
+    identity warp sends 4 to 16 taps to an element) against the largest
+    sum of |w g|; in bf16 one rounding step (2^-7 of the largest output)
+    comes on top, since a reordered fp32 sum may round to the neighbour."""
+    from dro_sfm_torch.ops.tent_warp import warp_diff_bwd_feat_plain
+    mag = warp_diff_bwd_feat_plain(coords, g.float().abs(), h, w, torch.float32)
+    tol = 64 * 2.0 ** -24 * mag.abs().max().item()
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * ref.float().abs().max().item()
+    return tol + 1e-30
+
+
+def k3_tolerance(features, coords, g):
+    """Stated bar for K3 vs plain: the C channel products of a pixel are
+    summed in another order (16 lanes then a shuffle tree, against torch's
+    reduction), each order within C * 2^-24 of the sum of magnitudes; the
+    bar is twice that against the largest per-pixel sum of |g| times the
+    four taps' |F|, which bounds sum |g * dF|."""
+    bn, h, w, c = features.shape
+    index, valid = _taps(coords, h, w)[:2]
+    f = features.reshape(bn * h * w, c).float().abs()[index.reshape(-1)]
+    f = (f.reshape(4, *coords.shape[:2], c) * valid[..., None]).sum(0)
+    scale = (g.float().abs() * f).sum(-1).max().item()
+    return 2 * c * 2.0 ** -24 * scale + 1e-30
+
+
+def phase_k23(gen):
+    """K2 and K3 against their plain versions at the training shapes and at
+    the edge cases; returns the B=8 timings by dtype."""
+    from dro_sfm_torch.ops.tent_warp import (
+        warp_diff_bwd_coords,
+        warp_diff_bwd_coords_plain,
+        warp_diff_bwd_feat,
+        warp_diff_bwd_feat_plain,
+    )
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, 8):
+            cases.append((f"training B={b}", b, VIEWS, 24, 80, 128, dtype, "serving"))
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [("6x10", 2, VIEWS, 6, 10, 128, dtype, "serving"),
+                  ("6x10 C=6", 2, VIEWS, 6, 10, 6, dtype, "serving"),
+                  ("integer", 1, VIEWS, 24, 80, 128, dtype, "integer"),
+                  ("outside -10", 1, VIEWS, 24, 80, 128, dtype, "outside"),
+                  ("far +-1e8", 1, VIEWS, 24, 80, 128, dtype, "far")]
+    results = {}
+    for name, b, n, h, w, c, dtype, kind in cases:
+        _, features, coords = k1_inputs(gen, b, n, h, w, c, dtype, kind)
+        g = torch.randn(b * n, h * w, c, generator=gen, device="cuda").to(dtype)
+        d_feat = warp_diff_bwd_feat(coords, g, h, w, dtype)
+        d_co = warp_diff_bwd_coords(features, coords, g)
+        torch.cuda.synchronize()
+        ref_feat = warp_diff_bwd_feat_plain(coords, g, h, w, dtype)
+        ref_co = warp_diff_bwd_coords_plain(features, coords, g)
+        dt = str(dtype).replace("torch.", "")
+        err2 = (d_feat.float() - ref_feat.float()).abs().max().item()
+        err3 = (d_co - ref_co).abs().max().item()
+        tol2 = k2_tolerance(coords, g, h, w, dtype, ref_feat)
+        tol3 = k3_tolerance(features, coords, g)
+        line = (f"K2/K3 {name:12s} {dt:8s} K2 max_abs_err {err2:.3e} tol {tol2:.3e}"
+                f" | K3 max_abs_err {err3:.3e} tol {tol3:.3e}")
+        if d_feat.dtype != dtype or d_co.dtype != torch.float32:
+            fail(f"{line}: dtypes {d_feat.dtype}, {d_co.dtype}")
+        if not (torch.isfinite(d_feat).all() and torch.isfinite(d_co).all()):
+            fail(f"{line}: non-finite gradient")
+        if err2 > tol2 or err3 > tol3:
+            fail(line)
+        if kind in ("outside", "far"):
+            outside = (coords.abs() > 1e3).any(-1) | (coords < -3).any(-1)
+            if (d_co[outside] != 0).any():
+                fail(f"K3 {name} {dt}: out-of-view pixels have a coordinate gradient")
+            if kind == "outside" and (d_feat != 0).any():
+                fail(f"K2 {name} {dt}: out-of-view pixels scattered into the features")
+        if kind == "integer":
+            # every pixel with a tap in view has a nonzero coordinate gradient
+            inview = _taps(coords, h, w)[1].any(0)
+            nonzero = (d_co[inview] != 0).any(-1).float().mean().item()
+            line += f" | nonzero d_coords in view {100 * nonzero:.2f}%"
+            if nonzero < 0.99:
+                fail(f"K3 {name} {dt}: the right-sided subgradient is missing ({line})")
+        if name.startswith("training"):
+            # the bars must fail a kernel that leaves out one tap
+            bad2 = faulty_backward("K2")[1](coords, g, h, w, dtype)
+            bad3 = faulty_backward("K3")[1](features, coords, g)
+            e2 = (bad2.float() - ref_feat.float()).abs().max().item()
+            e3 = (bad3 - ref_co).abs().max().item()
+            line += f" | planted faults: K2 err {e2:.3e}, K3 err {e3:.3e}"
+            if e2 <= tol2 or e3 <= tol3:
+                fail(f"{line}: a bar passes a kernel that leaves out a tap")
+            results[(b, dt)] = time_k23(features, coords, g, dtype)
+            r = results[(b, dt)]
+            line += (f" | K2 kernel {r['K2']['ms']:.4f} ms plain {r['K2']['plain_ms']:.4f}"
+                     f" library {r['K2']['library_ms']:.4f} bound {r['K2']['bound_ms']:.4f}"
+                     f" | K3 kernel {r['K3']['ms']:.4f} ms plain {r['K3']['plain_ms']:.4f}"
+                     f" library {r['K3']['library_ms']:.4f} bound {r['K3']['bound_ms']:.4f}"
+                     f" | library K2+K3 in one call {r['library_both_ms']:.4f} ms")
+            r["K2"]["max_abs_err"], r["K3"]["max_abs_err"] = err2, err3
+        print(line, flush=True)
+    return results
+
+
+def time_k23(features, coords, g, dtype):
+    """Kernel, plain, library and bound times of K2 and K3 on one input.
+    The library yardstick is ATen's `grid_sampler_2d_backward` on the same
+    tensors (channel-last views, normalised grid in the features' dtype),
+    asked for the input gradient (K2), the grid gradient (K3), or both."""
+    from dro_sfm_torch.ops.tent_warp import (
+        warp_diff_bwd_coords,
+        warp_diff_bwd_coords_plain,
+        warp_diff_bwd_feat,
+        warp_diff_bwd_feat_plain,
+    )
+    bn, h, w, c = features.shape
+    p = coords.shape[1]
+    grid = (torch.stack([coords[..., 0] / (w - 1), coords[..., 1] / (h - 1)], -1)
+            * 2 - 1).to(dtype)[:, None]                        # [bn,1,P,2]
+    feat_nchw = features.permute(0, 3, 1, 2)
+    g_nchw = g.reshape(bn, 1, p, c).permute(0, 3, 1, 2)
+
+    def library(mask):
+        return torch.ops.aten.grid_sampler_2d_backward(
+            g_nchw, feat_nchw, grid, 0, 0, True, mask)
+
+    out = {"K2": {"ms": time_ms(lambda: warp_diff_bwd_feat(coords, g, h, w, dtype)),
+                  "plain_ms": time_ms(lambda: warp_diff_bwd_feat_plain(coords, g, h, w,
+                                                                       dtype)),
+                  "library_ms": time_ms(lambda: library([True, False]))},
+           "K3": {"ms": time_ms(lambda: warp_diff_bwd_coords(features, coords, g)),
+                  "plain_ms": time_ms(lambda: warp_diff_bwd_coords_plain(features, coords,
+                                                                         g)),
+                  "library_ms": time_ms(lambda: library([False, True]))},
+           "library_both_ms": time_ms(lambda: library([True, True]))}
+    out["K2"]["bound_ms"], out["K2"]["bound_by"] = k2_bound(coords, g, h, w, dtype)
+    out["K3"]["bound_ms"], out["K3"]["bound_by"] = k3_bound(features, coords, g)
+    return out
+
+
+def make_train_batch(b, h=SERVE_H, w=SERVE_W, n=VIEWS, seed=0):
+    """The synthetic batch of the JAX package's training benchmark: uniform
+    images, depth uniform in [1, 60], identity context poses, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    K = torch.tensor([[w * 0.8, 0, (w - 1) / 2], [0, w * 0.8, (h - 1) / 2],
+                      [0, 0, 1.0]])
+    batch = {"rgb": torch.rand(b, h, w, 3, generator=gen),
+             "rgb_context": torch.rand(b, n, h, w, 3, generator=gen),
+             "intrinsics": K.expand(b, 3, 3).contiguous(),
+             "depth": 1.0 + 59.0 * torch.rand(b, h, w, 1, generator=gen),
+             "pose_context": torch.eye(4).expand(b, n, 4, 4).contiguous()}
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def train_config(**overrides):
+    from dro_sfm_torch.models.sfm import SfmModelConfig, resolve_memory_policy
+    remat, unroll = resolve_memory_policy("auto", "auto", TRAIN_B, (SERVE_H, SERVE_W))
+    kw = dict(name="SupModelMF", version="it12-h-out", min_depth=0.2, max_depth=80.0,
+              flip_lr_prob=0.5, mixed_precision=True, warp_impl="pallas",
+              remat=remat, scan_unroll=unroll)
+    return SfmModelConfig(**{**kw, **overrides})
+
+
+def start_weights(cfg):
+    """The net the training phases start from: random weights from seed 0
+    with the last convolution of every depth and pose head scaled by
+    HEAD_SCALE. At the unscaled random weights the refinement's poses run to
+    10 and the gradient norm to 1e24 (the JAX package's step does the same
+    from its own random weights), Adam's second moment overflows for
+    millions of elements and those stop moving."""
+    net = cfg.build_net(device="cuda", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for k, p in net.named_parameters():
+            if k.endswith("head.conv2.weight"):
+                p.mul_(HEAD_SCALE)
+    return net
+
+
+def grad_norm(params):
+    return torch.sqrt(sum((p.grad.double() ** 2).sum() for p in params
+                          if p.grad is not None)).item()
+
+
+def phase_train(counters, gpu):
+    """The training path: SupModelMF it12-h-out bf16 192x640 N=2 B=8."""
+    from dro_sfm_torch.training.state import create_train_state, make_optimizer
+    from dro_sfm_torch.training.step import make_train_step
+    cfg = train_config()
+    net = start_weights(cfg)
+    opt = make_optimizer(net, steps_per_epoch=1000)     # config-default Adam, StepLR
+    state = create_train_state(net, opt, device="cuda")
+    train_step = make_train_step(cfg, net, opt, device="cuda")
+    batch = make_train_batch(TRAIN_B)
+    flips = torch.Generator().manual_seed(1)
+    before = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    for c in counters.values():              # the training path starts here
+        c.reset()
+    params = dict(net.named_parameters())
+    per_step, times, losses, norms = [], [], [], []
+    for i in range(TRAIN_STEPS + 1):         # one warm-up step, then timed
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        start = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, flips)
+        torch.cuda.synchronize()
+        if i > 0:
+            times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(metrics["loss"].item())
+        per_step.append({k: c.launches - start[k] for k, c in counters.items()})
+        if i in (0, TRAIN_STEPS):            # outside the timed steps
+            norms.append(grad_norm(params.values()))
+    launches = {k: c.launches for k, c in counters.items()}   # the path ends here
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for i, got in enumerate(per_step):
+        if got != TRAIN_LAUNCHES:
+            fail(f"train step {i}: launches {got}, want {TRAIN_LAUNCHES}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"training: non-finite loss {losses}")
+    # Every parameter and every BatchNorm statistic moved, and no element of
+    # Adam's moments overflowed (an infinite second moment freezes its
+    # element: the update m / sqrt(v) is zero).
+    after = net.state_dict()
+    stale = [k for k, v in before.items()
+             if not k.endswith("num_batches_tracked") and torch.equal(v, after[k])]
+    if stale:
+        fail(f"training: parameters or statistics never moved: {stale[:5]}")
+    moments = state.optimizer.torch_optimizer.state
+    n_bad = sum(int((~torch.isfinite(moments[p][m])).sum())
+                for p in params.values() for m in ("exp_avg", "exp_avg_sq"))
+    if n_bad:
+        fail(f"training: {n_bad} elements of Adam's moments are not finite")
+    print(f"training: all {len(params)} parameter tensors and every BatchNorm "
+          f"statistic moved, Adam's moments finite; gradient norm {norms[0]:.3e} "
+          f"(first step) -> {norms[-1]:.3e} (last step)", flush=True)
+    if state.step != TRAIN_STEPS + 1:
+        fail(f"training: state.step {state.step}")
+    times.sort()
+    ms = times[len(times) // 2]
+    print(f"training SupModelMF it12-h-out bf16 192x640 N=2 B={TRAIN_B} remat={cfg.remat}: "
+          f"median {ms:.2f} ms/step (min {times[0]:.2f}, max {times[-1]:.2f}, "
+          f"{TRAIN_STEPS} steps) {1e3 * TRAIN_B / ms:.1f} frames/s, peak {peak:.0f} MiB, "
+          f"launches/step {per_step[-1]}, loss {losses[0]:.4f} -> {losses[-1]:.4f} on {gpu}",
+          flush=True)
+    return state, train_step, batch, launches
+
+
+def train_gradients(cfg, state_dict, batch):
+    """Parameter gradients of one training forward + backward (flip off)."""
+    from dro_sfm_torch.models.sfm import forward_and_loss
+    net = cfg.build_net(device="cuda")
+    net.load_state_dict(state_dict, strict=True)
+    loss, _ = forward_and_loss(cfg, net, batch, None, do_flip=False)
+    loss.backward()
+    return {k: p.grad.detach().double() for k, p in net.named_parameters()}, loss.item()
+
+
+def faulty_backward(kernel):
+    """The warp backward with one planted fault: kernel K2 or K3 (``kernel``
+    "K2" or "K3") leaves out the (0, 0) tap of every pixel, the heaviest
+    tap of a near-identity warp. It runs the real kernel and takes that
+    tap's share back out. Returns (name of the `ops.tent_warp` function to
+    replace, the faulty function)."""
+    from dro_sfm_torch.ops import tent_warp
+    from dro_sfm_torch.ops.resample import bilinear_taps
+    k2, k3 = tent_warp.warp_diff_bwd_feat, tent_warp.warp_diff_bwd_coords
+
+    def feat(coords, g, h, w, dtype):
+        out = k2(coords, g, h, w, torch.float32)
+        index, valid, weight, _, _ = bilinear_taps(coords, h, w)
+        ok = valid[0]
+        out.view(-1, g.shape[-1]).index_add_(0, index[0][ok],
+                                             weight[0][ok][:, None] * g.float()[ok])
+        return out.to(dtype)
+
+    def coords_grad(features, coords, g):
+        # d = -<g, e> with e_x = (1-wy)(F01 - F00) + ..., e_y = (1-wx)(F10 - F00)
+        # + ...: without F00, d_x loses (1-wy)<g, F00> and d_y (1-wx)<g, F00>.
+        out = k3(features, coords, g)
+        bn, h, w, c = features.shape
+        index, valid, _, wx, wy = bilinear_taps(coords, h, w)
+        f00 = features.reshape(-1, c).float()[index[0]] * valid[0][..., None]
+        dot = (g.float() * f00).sum(-1)
+        return out - torch.stack([(1 - wy) * dot, (1 - wx) * dot], dim=-1)
+
+    return {"K2": ("warp_diff_bwd_feat", feat),
+            "K3": ("warp_diff_bwd_coords", coords_grad)}[kernel]
+
+
+def bf16_bar(own):
+    """The bf16 bar of one leaf, given bf16's own error there (the plain
+    warp's bf16 gradient against its fp32 gradient, relative L2)."""
+    return BF16_BAR if own < BF16_OWN_NOISY else max(BF16_BAR, BF16_SHARE * own)
+
+
+def compare_grads(got_all, ref_all, fp32_ref=None):
+    """Each leaf of ``got_all`` against ``ref_all`` in fp64: fp32 bars when
+    ``fp32_ref`` is None, else bf16 bars from bf16's own error against
+    ``fp32_ref``. Returns (leaves beyond their bar, leaves whose bf16 bar
+    is relaxed, (worst rel L2, its leaf), worst cosine); the entries of the
+    two lists are (leaf, rel L2, cosine, own error or None, bar). A zero
+    gradient must stay zero."""
+    beyond, relaxed, worst, worst_cos = [], [], (-1.0, ""), 1.0
+    for k, ref in ref_all.items():
+        got = got_all[k]
+        if not torch.isfinite(got).all():
+            fail(f"end to end training: non-finite gradient {k}")
+        if ref.norm().item() == 0:
+            if got.norm().item() != 0:
+                beyond.append((k, math.inf, 0.0, None, 0.0))
+            continue
+        r, cos = rel_l2(got, ref), cosine(got, ref)
+        if fp32_ref is None:
+            own, bar, ok = None, 1e-4, r <= 1e-4 and cos >= 0.99999
+        else:
+            own = rel_l2(ref, fp32_ref[k])
+            bar = bf16_bar(own)
+            ok = r <= bar
+            if own >= BF16_OWN_NOISY:
+                relaxed.append((k, r, cos, own, bar))
+        if not ok:
+            beyond.append((k, r, cos, own, bar))
+        worst, worst_cos = max(worst, (r, k)), min(worst_cos, cos)
+    return beyond, relaxed, worst, worst_cos
+
+
+def rel_l2(a, b):
+    return (a - b).norm().item() / b.norm().item()
+
+
+def cosine(a, b):
+    return (a * b).sum().item() / (a.norm().item() * b.norm().item())
+
+
+def phase_train_end_to_end():
+    """Gradients of one step through the kernels against the plain warp on
+    the card, same weights and batch, B=2, flip off, deterministic library
+    algorithms (cuDNN's, and index_add_ without atomics), so that the runs
+    differ by the warp's backward alone. The weights are those the training
+    phase starts from (`start_weights`).
+
+    fp32 (TF32 off): every leaf at cosine >= 0.99999 and relative L2 <= 1e-4
+    (K2 sums with atomics and K3 reduces channels in another order: fp32
+    reordering, carried through the backward).
+
+    bf16: every leaf at relative L2 <= 2e-2 (BF16_BAR), except where bf16's
+    own error (the plain warp's bf16 gradient against its fp32 gradient)
+    reaches 0.1: those leaves, where bf16's gradient sums with deep
+    cancellation, may differ by 0.25 of that error. The relaxed leaves are
+    printed with their readings.
+
+    Planted faults (`faulty_backward`: K2, then K3, leaves out one tap) must
+    fail the fp32 bar, and the K3 fault the bf16 bar. A K2 fault moves no
+    leaf by more than K2's share of it, printed here (under 1% on the chip),
+    which bf16's own error hides: phase 7's bar on K2 alone catches it.
+
+    Leaves are compared in fp64; a zero gradient stays zero."""
+    from dro_sfm_torch.ops import tent_warp
+    state_dict = start_weights(train_config()).state_dict()
+    batch = make_train_batch(2, seed=2)
+    grads, losses = {}, {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # ops with no deterministic twin
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for mp in (False, True):
+            for impl, fault in (("pallas", None), ("gather", None), ("pallas", "K2"),
+                                ("pallas", "K3")):
+                cfg = train_config(mixed_precision=mp, warp_impl=impl, remat=False)
+                name, fn = faulty_backward(fault) if fault else (None, None)
+                real = getattr(tent_warp, name) if fault else None
+                if fault:
+                    setattr(tent_warp, name, fn)
+                try:
+                    grads[mp, fault or impl], losses[mp, fault or impl] = \
+                        train_gradients(cfg, state_dict, batch)
+                finally:
+                    if fault:
+                        setattr(tent_warp, name, real)
+        torch.use_deterministic_algorithms(False)
+
+    fp32_ref = grads[False, "gather"]
+    top = max(g.norm().item() for g in fp32_ref.values())
+    for mp, dt in ((False, "fp32"), (True, "bf16")):
+        ref_all = grads[mp, "gather"]
+        own_ref = fp32_ref if mp else None
+        beyond, relaxed, worst, worst_cos = compare_grads(grads[mp, "pallas"], ref_all,
+                                                          own_ref)
+        for k, r, cos, own, bar in beyond:
+            print(f"  beyond its bar: {k} rel L2 {r:.3e} cosine {cos:.7f} own {own} "
+                  f"bar {bar:.3e}")
+        if beyond:
+            fail(f"end to end training {dt}: {len(beyond)} leaves beyond their bar")
+        extra = (f"; bar {BF16_BAR:g}, relaxed on {len(relaxed)} leaves (own error >= "
+                 f"{BF16_OWN_NOISY:g}), listed below" if mp else "")
+        print(f"end to end training {dt} B=2: kernel vs plain gradients over "
+              f"{len(ref_all)} leaves (largest fp32 norm {top:.3e}), worst rel L2 "
+              f"{worst[0]:.3e} ({worst[1]}), worst cosine {worst_cos:.7f}, loss "
+              f"{losses[mp, 'pallas']:.6f} vs {losses[mp, 'gather']:.6f}{extra}",
+              flush=True)
+        for k, r, cos, own, bar in relaxed:
+            print(f"  relaxed: {k} rel L2 {r:.3e} own {own:.3e} bar {bar:.3e}")
+        for fault in ("K2", "K3"):
+            beyond, _, worst, _ = compare_grads(grads[mp, fault], ref_all, own_ref)
+            print(f"end to end training {dt}, planted fault ({fault} leaves out one "
+                  f"tap): {len(beyond)} leaves beyond their bar, worst rel L2 "
+                  f"{worst[0]:.3e} ({worst[1]})", flush=True)
+            if not beyond and (fault == "K3" or not mp):
+                fail(f"end to end training {dt}: the bar passes a {fault} that leaves "
+                     "out a tap")
+
+
+def device_us(e):
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def profile_train_step(state, train_step, batch):
+    """Device time by kernel over one B=8 train step (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    flips = torch.Generator().manual_seed(3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch, flips)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(device_us(e) for e in kernels)
+    print(f"profile train step B={TRAIN_B}: wall {wall_us:.0f} us, device busy "
+          f"{total:.0f} us ({100 * total / wall_us:.1f}%), {sum(e.count for e in kernels)}"
+          " kernel launches", flush=True)
+    if total == 0:
+        print("profile train step: the profiler recorded no device time (not measured)")
+    for e in sorted(kernels, key=device_us, reverse=True)[:20]:
+        print(f"  {device_us(e):9.0f} us {e.count:5d}x  {e.key[:90]}")
+    for e in kernels:
+        if "tent_warp" in e.key:
+            print(f"profile train step: {e.key[:60]} {device_us(e):.0f} us over "
+                  f"{e.count} launches, {device_us(e) / e.count:.2f} us each")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this check runs on an NVIDIA GPU")
@@ -302,7 +809,14 @@ def main() -> int:
     from dro_sfm_torch import kernels
     from dro_sfm_torch.inference import make_infer_fn
     from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
-    from dro_sfm_torch.ops.tent_warp import K1_COUNTER, warp_diff, warp_diff_plain
+    from dro_sfm_torch.ops.tent_warp import (
+        K1_COUNTER,
+        K2_COUNTER,
+        K3_COUNTER,
+        warp_diff,
+        warp_diff_plain,
+    )
+    counters = {"K1": K1_COUNTER, "K2": K2_COUNTER, "K3": K3_COUNTER}
 
     # 1) device
     gpu = nvidia_smi_line()
@@ -327,10 +841,10 @@ def main() -> int:
     # 3) kernel vs plain
     k1 = phase_k1(warp_diff, warp_diff_plain)
 
-    # 4) serving (the main path)
-    net, requests, launches = phase_serving(DepthPoseNet, make_infer_fn,
-                                            K1_COUNTER, gpu)
-    if launches == 0:
+    # 4) serving
+    net, requests, serve_launches = phase_serving(DepthPoseNet, make_infer_fn,
+                                                  counters, gpu)
+    if serve_launches == 0:
         fail("the serving path never launched K1")
 
     # 5) end to end, kernel vs plain
@@ -338,12 +852,38 @@ def main() -> int:
 
     # 6) profile
     profile_request(net, requests, make_infer_fn)
+    del net, requests
 
-    line = {"name": "tent_warp_fwd_diff (K1)", "route": "cuda",
-            "source": "dro_sfm_torch/csrc/tent_warp_fwd.cu",
-            "replaces": "dro_sfm_tpu/ops/pallas/tent_warp.py:182",
-            "launches": launches, **k1[(8, "bfloat16")]}
-    print(json.dumps({"kernels": [line]}), flush=True)
+    # 7) K2/K3 vs plain
+    k23 = phase_k23(torch.Generator(device="cuda").manual_seed(1))
+
+    # 8) training (the main path: its launches go into the kernels line)
+    state, train_step, batch, launches = phase_train(counters, gpu)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the training path never launched {name}")
+
+    # 9) training end to end, kernel vs plain
+    phase_train_end_to_end()
+
+    # 10) profile
+    profile_train_step(state, train_step, batch)
+
+    src = "dro_sfm_torch/csrc/"
+    pallas = "dro_sfm_tpu/ops/pallas/tent_warp.py:"
+    timed = k23[(8, "bfloat16")]
+    lines = [
+        {"name": "tent_warp_fwd_diff (K1)", "route": "cuda",
+         "source": src + "tent_warp_fwd.cu", "replaces": pallas + "182",
+         "launches": launches["K1"], **k1[(8, "bfloat16")]},
+        {"name": "tent_warp_bwd_feat (K2)", "route": "cuda",
+         "source": src + "tent_warp_bwd.cu", "replaces": pallas + "264",
+         "launches": launches["K2"], **timed["K2"]},
+        {"name": "tent_warp_bwd_coords (K3)", "route": "cuda",
+         "source": src + "tent_warp_bwd.cu", "replaces": pallas + "205",
+         "launches": launches["K3"], **timed["K3"]},
+    ]
+    print(json.dumps({"kernels": lines}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,66 +30,14 @@
 // final rounding to the output dtype. Unlike the TPU kernel, the tent
 // weights stay in fp32 in bf16 mode.
 //
-// Coordinates are unbounded (the projection divides by z >= 1e-5), and
-// converting a float beyond the int range is undefined in C++, so x and y
-// are clamped to [-2, w + 1] and [-2, h + 1] before the floor. Every tap of
-// a clamped coordinate lies outside the map, so the result is unchanged: an
-// out-of-view pixel gives f1 - 0. NaN coordinates clamp to the bound too.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Coordinates are clamped before the floor and the taps computed as
+// tent_warp_common.cuh:make_taps says; the backward kernels
+// (tent_warp_bwd.cu) share that function.
+#include "tent_warp_common.cuh"
 
 namespace {
 
-constexpr int kGroup = 16;            // threads per output pixel
-constexpr int kBlock = 256;           // threads per block
-
-template <typename T> struct Vec;
-
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    float4 r = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
-    uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
-    uint4 r;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = r;
-  }
-};
-
-// One element at a time: the path for channel counts or pointers that do
-// not allow 16-byte accesses.
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void put_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-template <typename T> struct Scalar {
-  static constexpr int N = 1;
-  static __device__ __forceinline__ void load(const T* p, float* v) { v[0] = to_f32(p[0]); }
-  static __device__ __forceinline__ void store(T* p, const float* v) { put_f32(p, v[0]); }
-};
+using namespace tent_warp;
 
 template <typename T, typename V>
 __global__ void __launch_bounds__(kBlock)
@@ -103,27 +51,8 @@ tent_warp_fwd_diff_kernel(const T* __restrict__ f1, const T* __restrict__ feat,
   const int64_t p = pix - bn * P;              // pixel within the image
   const int64_t bt = bn / n_views;             // target of f1
 
-  const float2 c = __ldg(reinterpret_cast<const float2*>(coords) + pix);
-  const float x = fminf(fmaxf(c.x, -2.0f), (float)(w + 1));
-  const float y = fminf(fmaxf(c.y, -2.0f), (float)(h + 1));
-  const float x0f = floorf(x), y0f = floorf(y);
-  const float wx = __fsub_rn(x, x0f), wy = __fsub_rn(y, y0f);
-  const float ux = __fsub_rn(1.0f, wx), uy = __fsub_rn(1.0f, wy);
-  const int x0 = (int)x0f, y0 = (int)y0f;
-
-  // Taps in the plain version's order: (dy, dx) = (0,0), (0,1), (1,0), (1,1).
-  bool ok[4];
-  float wt[4];
-  int64_t off[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int dy = t >> 1, dx = t & 1;
-    const int xi = x0 + dx, yi = y0 + dy;
-    ok[t] = xi >= 0 && xi <= w - 1 && yi >= 0 && yi <= h - 1;
-    wt[t] = __fmul_rn(dx ? wx : ux, dy ? wy : uy);
-    off[t] = ((bn * h + yi) * w + xi) * (int64_t)C;
-  }
-
+  const Taps tp = make_taps(__ldg(reinterpret_cast<const float2*>(coords) + pix),
+                            bn, h, w, C);
   const T* f1_row = f1 + (bt * P + p) * (int64_t)C;
   T* out_row = out + pix * (int64_t)C;
   for (int ch = lane * V::N; ch < C; ch += kGroup * V::N) {
@@ -132,10 +61,10 @@ tent_warp_fwd_diff_kernel(const T* __restrict__ f1, const T* __restrict__ feat,
     for (int i = 0; i < V::N; ++i) acc[i] = 0.0f;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      if (!ok[t]) continue;
-      V::load(feat + off[t] + ch, tap);
+      if (!tp.ok[t]) continue;
+      V::load(feat + tp.off[t] + ch, tap);
 #pragma unroll
-      for (int i = 0; i < V::N; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(tap[i], wt[t]));
+      for (int i = 0; i < V::N; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(tap[i], tp.wt[t]));
     }
     V::load(f1_row + ch, base);
 #pragma unroll

@@ -17,9 +17,27 @@ class Pose:
         self.mat = mat
 
     @classmethod
+    def identity(cls, batch_shape=(), dtype=torch.float32, device=None) -> "Pose":
+        eye = torch.eye(4, dtype=dtype, device=device)
+        return cls(eye.expand(*batch_shape, 4, 4))
+
+    @classmethod
     def from_vec(cls, vec: torch.Tensor, mode: str = "euler") -> "Pose":
         """6-DoF vectors [..., 6] = [tx ty tz rx ry rz] -> poses."""
         return cls(pose_vec_to_mat(vec, mode))
+
+    def inverse(self) -> "Pose":
+        return Pose(invert_pose(self.mat))
+
+    def transform_points(self, points: torch.Tensor) -> torch.Tensor:
+        """Transform points [..., N, 3] or [..., H, W, 3] (channel-last): the
+        rotation and translation broadcast over the spatial dims between the
+        pose's batch dims and the coordinate axis."""
+        spatial = points.ndim - self.mat.ndim + 1
+        batch = self.mat.shape[:-2]
+        rot = self.mat[..., :3, :3].reshape(*batch, *([1] * spatial), 3, 3)
+        trans = self.mat[..., :3, 3].reshape(*batch, *([1] * spatial), 3)
+        return torch.einsum("...ij,...j->...i", rot, points) + trans
 
 
 def pose_vec_to_mat(vec: torch.Tensor, mode: str = "euler") -> torch.Tensor:

@@ -7,7 +7,8 @@ the CPU tests import every module on machines without ``nvcc``.
 
 The build directory is ``build/kernels`` beside the package (listed in
 ``.gitignore``) unless ``DRO_SFM_TORCH_BUILD_DIR`` names another. Library
-names carry a hash of the source and flags, so an edited source is rebuilt.
+names carry a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"tent_warp_fwd": CSRC / "tent_warp_fwd.cu"}
+SOURCES = {"tent_warp_fwd": CSRC / "tent_warp_fwd.cu",
+           "tent_warp_bwd": CSRC / "tent_warp_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,8 +50,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

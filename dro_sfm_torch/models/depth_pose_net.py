@@ -23,6 +23,7 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from dro_sfm_torch.geometry.camera import (
     invert_intrinsics,
@@ -45,6 +46,7 @@ from dro_sfm_torch.ops.upsample import convex_upsample
 from dro_sfm_torch.utils.device import resolve_device
 
 WARP_IMPLS = ("pallas", "gather", "matmul")
+REMAT_STEPS = (True, "steps", "save_named")   # recompute each step in backward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,9 +185,10 @@ class _OuterIteration(nn.Module):
     parameter tree, as in the JAX package."""
 
     def __init__(self, spec, context_dim, feat_dim, ratio, min_depth,
-                 max_depth, dtype, warp_impl, sep_conv, generator):
+                 max_depth, dtype, warp_impl, sep_conv, remat, generator):
         super().__init__()
         self.spec = spec
+        self.remat = remat
         self.min_depth, self.max_depth = min_depth, max_depth
         self.update_block_depth = _DepthStep(
             spec, context_dim, feat_dim, min_depth, max_depth, dtype,
@@ -194,9 +197,18 @@ class _OuterIteration(nn.Module):
             spec, context_dim, feat_dim, dtype, warp_impl, sep_conv, generator)
         self.mask_head = UpdateMaskHead(spec.hidden_dim, ratio, dtype, generator)
 
+    def _step(self, block, hidden, state, consts):
+        """One inner step; with ``remat`` its activations are recomputed in
+        the backward instead of kept."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, hidden, state, consts, use_reentrant=False)
+        return block(hidden, state, consts)
+
     def forward(self, hidden_d, hidden_p, inv_depth, poses, consts,
                 last_only: bool):
-        """Returns (kept inv-depths [B,h,w,1], their masks [B,9r^2,h,w] or
+        """Only the geometry (inverse depth and poses) is detached between
+        outer iterations, not the GRU hidden states, as in the JAX package.
+        Returns (kept inv-depths [B,h,w,1], their masks [B,9r^2,h,w] or
         None where ``last_only`` drops them, kept poses [B,N,6])."""
         spec = self.spec
         keep_d, keep_m, keep_p = [], [], []
@@ -216,13 +228,13 @@ class _OuterIteration(nn.Module):
                            "K": consts["K"], "inp": consts["inp_p"]}
             d_seq, h_seq, p_seq = [], [], []
             for _ in range(spec.seq_len):
-                hidden_d, inv_depth = self.update_block_depth(
-                    hidden_d, inv_depth, depth_consts)
+                hidden_d, inv_depth = self._step(
+                    self.update_block_depth, hidden_d, inv_depth, depth_consts)
                 d_seq.append(inv_depth)
                 h_seq.append(hidden_d)
             for _ in range(spec.seq_len):
-                hidden_p, poses = self.update_block_pose(hidden_p, poses,
-                                                         pose_consts)
+                hidden_p, poses = self._step(
+                    self.update_block_pose, hidden_p, poses, pose_consts)
                 p_seq.append(poses)
             if not spec.inter_sup:
                 d_seq, h_seq, p_seq = d_seq[-1:], h_seq[-1:], p_seq[-1:]
@@ -242,11 +254,16 @@ class DepthPoseNet(nn.Module):
     Built on ``device`` (the card unless the caller asks for the CPU) with
     weights drawn from ``generator`` (a CPU ``torch.Generator``; seed 0 when
     None). ``warp_impl`` takes the JAX names: ``"pallas"`` (the config
-    default) is kernel K1 on CUDA tensors and its plain version on CPU
-    tensors; ``"gather"`` and ``"matmul"`` are the plain version. ``remat``
-    and ``unroll`` are accepted and ignored: this package has no backward
-    pass yet and runs its loops eagerly. The module starts in eval mode;
-    train-mode BatchNorm is not ported.
+    default) is kernels K1 (forward), K2 and K3 (backward) on CUDA tensors
+    and their plain versions on CPU tensors; ``"gather"`` and ``"matmul"``
+    are the plain version, differentiated by autograd. ``remat``: True,
+    ``"steps"`` or ``"save_named"`` recompute each inner refinement step in
+    the backward (``torch.utils.checkpoint``; the JAX package's selective
+    ``"save_named"`` policy becomes the whole step); False keeps every
+    activation. ``"auto"`` is resolved by the caller for its batch and image
+    size (`dro_sfm_torch.models.sfm.resolve_memory_policy`). ``unroll`` is
+    accepted and ignored: the loops run eagerly. The module starts in eval
+    mode; ``train()`` switches BatchNorm to batch statistics.
     """
 
     def __init__(self, version: str = "it12-h-out", min_depth: float = 0.1,
@@ -258,6 +275,10 @@ class DepthPoseNet(nn.Module):
         super().__init__()
         if warp_impl not in WARP_IMPLS:
             raise ValueError(f"unknown warp_impl {warp_impl!r}")
+        if remat not in REMAT_STEPS and remat is not False:
+            raise ValueError(f"remat {remat!r}: want True, False, 'steps' or "
+                             "'save_named' ('auto' is resolved by "
+                             "models.sfm.resolve_memory_policy)")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -281,7 +302,7 @@ class DepthPoseNet(nn.Module):
                                            generator=g)
             self.refinement = _OuterIteration(
                 spec, context_dim, feat_dim, feat_ratio, min_depth, max_depth,
-                dt, warp_impl, sep_conv, g)
+                dt, warp_impl, sep_conv, remat in REMAT_STEPS, g)
         self.to(device)
         self.eval()
 

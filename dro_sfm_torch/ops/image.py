@@ -1,6 +1,7 @@
-"""Image resize on channel-last tensors.
+"""Image resize and horizontal flip on channel-last tensors.
 
-PyTorch counterpart of `resize_bilinear` in `dro_sfm_tpu/ops/image.py`.
+PyTorch counterpart of `resize_bilinear`, `flip_lr` and `flip_intrinsics` in
+`dro_sfm_tpu/ops/image.py`.
 """
 from __future__ import annotations
 
@@ -31,3 +32,17 @@ def resize_bilinear(image: torch.Tensor, shape,
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     grid = torch.stack([gx, gy], dim=-1).expand(*image.shape[:-3], ho, wo, 2)
     return bilinear_sample(image, grid)
+
+
+def flip_lr(image: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip of [..., H, W, C]."""
+    return torch.flip(image, dims=(-2,))
+
+
+def flip_intrinsics(K: torch.Tensor, width: int) -> torch.Tensor:
+    """Intrinsics [..., 3, 3] of a horizontally flipped image of ``width``:
+    fx -> -fx, cx -> width - cx."""
+    K = K.clone()
+    K[..., 0, 0] = -K[..., 0, 0]
+    K[..., 0, 2] = width - K[..., 0, 2]
+    return K

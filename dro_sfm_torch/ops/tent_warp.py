@@ -1,16 +1,20 @@
-"""Fused warp-subtract cost of the DRO refinement (kernel K1) and its plain
-version.
+"""Fused warp-subtract cost of the DRO refinement and its gradient: kernels
+K1 (forward), K2 (feature gradient) and K3 (coordinate gradient), each with
+its plain version.
 
 PyTorch counterpart of `dro_sfm_tpu/ops/pallas/tent_warp.py`:
-`warp_diff` ↔ `tent_warp_diff` (forward only: this package has no backward
-yet) and `warp_cost` ↔ `pallas_warp_cost`.
+`warp_diff` ↔ `tent_warp_diff` (a `torch.autograd.Function` whose backward
+follows `_tent_warp_diff_bwd`) and `warp_cost` ↔ `pallas_warp_cost`.
 
-On a CUDA tensor `warp_diff` launches the hand-written Hopper kernel
-(`dro_sfm_torch/csrc/tent_warp_fwd.cu`) or raises; it never falls back. On a
-CPU tensor it runs `warp_diff_plain`, the same function in plain PyTorch on
-top of `bilinear_sample`. The kernel and the plain version compute the
-bilinear taps in fp32 in the same order, so they agree bit for bit before the
-final rounding to the output dtype.
+On CUDA tensors `warp_diff` launches the hand-written Hopper kernels —
+`dro_sfm_torch/csrc/tent_warp_fwd.cu` forward, `csrc/tent_warp_bwd.cu`
+backward — or raises; it never falls back. On CPU tensors it runs the plain
+versions: `warp_diff_plain` on top of `bilinear_sample`,
+`warp_diff_bwd_feat_plain` and `warp_diff_bwd_coords_plain`. K1 and its
+plain version compute the bilinear taps in fp32 in the same order, so they
+agree bit for bit before the final rounding to the output dtype; K2 sums
+with atomics and K3 reduces channels in another order, so the backward
+agrees with its plain version to fp32 rounding.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import ctypes
 
 import torch
 
-from dro_sfm_torch.ops.resample import bilinear_sample
+from dro_sfm_torch.ops.resample import bilinear_sample, bilinear_taps
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,6 +38,8 @@ class LaunchCounter:
 
 
 K1_COUNTER = LaunchCounter()
+K2_COUNTER = LaunchCounter()
+K3_COUNTER = LaunchCounter()
 
 
 def warp_diff_plain(f1: torch.Tensor, features: torch.Tensor,
@@ -47,6 +53,42 @@ def warp_diff_plain(f1: torch.Tensor, features: torch.Tensor,
     warped = bilinear_sample(features.float(), coords.reshape(bn, 1, p, 2))
     base = f1.float().repeat_interleave(n_views, dim=0)
     return (base - warped.reshape(bn, p, -1)).to(f1.dtype)
+
+
+def warp_diff_bwd_feat_plain(coords: torch.Tensor, g: torch.Tensor, h: int,
+                             w: int, dtype: torch.dtype) -> torch.Tensor:
+    """Feature gradient of `warp_diff` in plain PyTorch (K2's plain version):
+    ``-W^T g``, each pixel's ``-weight * g`` added into its four taps' rows
+    with ``index_add_`` in fp32. coords [bn, P, 2] fp32, g [bn, P, C] ->
+    [bn, h, w, C] in ``dtype`` (the features')."""
+    bn, c = coords.shape[0], g.shape[-1]
+    index, valid, weight, _, _ = bilinear_taps(coords, h, w)
+    gf = g.float()
+    out = torch.zeros(bn * h * w, c, dtype=torch.float32, device=g.device)
+    for t in range(4):
+        ok = valid[t]
+        out.index_add_(0, index[t][ok], -(weight[t][ok][:, None] * gf[ok]))
+    return out.reshape(bn, h, w, c).to(dtype)
+
+
+def warp_diff_bwd_coords_plain(features: torch.Tensor, coords: torch.Tensor,
+                               g: torch.Tensor) -> torch.Tensor:
+    """Coordinate gradient of `warp_diff` in plain PyTorch (K3's plain
+    version): per pixel ``-<g, dW/dx F>`` and ``-<g, dW/dy F>`` from the tap
+    differences, out-of-view taps zero. At an integer coordinate k the taps
+    are k and k+1, so the result is the right-sided subgradient
+    ``F[k+1] - F[k]``. features [bn, h, w, C], coords [bn, P, 2] fp32,
+    g [bn, P, C] -> [bn, P, 2] fp32."""
+    bn, h, w, c = features.shape
+    index, valid, _, wx, wy = bilinear_taps(coords, h, w)
+    flat = features.reshape(bn * h * w, c).float()
+    f = flat[index.reshape(-1)].reshape(4, *coords.shape[:2], c)
+    f = f * valid[..., None]
+    wx, wy = wx[..., None], wy[..., None]
+    ex = (1 - wy) * (f[1] - f[0]) + wy * (f[3] - f[2])
+    ey = (1 - wx) * (f[2] - f[0]) + wx * (f[3] - f[1])
+    gf = g.float()
+    return -torch.stack([(gf * ex).sum(-1), (gf * ey).sum(-1)], dim=-1)
 
 
 def _check(f1, features, coords, n_views):
@@ -70,53 +112,168 @@ def _check(f1, features, coords, n_views):
         raise ValueError(f"warp_diff inputs on several devices: {devices}")
 
 
-def _launch_k1(f1, features, coords, n_views):
-    for name, t in (("f1", f1), ("features", features), ("coords", coords)):
-        if not t.is_contiguous():
-            raise ValueError(f"warp_diff kernel wants a contiguous {name} "
-                             f"(channel-minor); got strides {t.stride()}")
-    if coords.data_ptr() % 8:
-        raise ValueError("warp_diff kernel wants 8-byte aligned coords")
+def _kernel(name: str, argtypes):
+    """The C entry point ``name`` of library tent_warp_fwd/bwd, typed."""
     from dro_sfm_torch import kernels
 
-    lib = kernels.load("tent_warp_fwd")
-    fn = lib.tent_warp_fwd_diff
+    lib = kernels.load("tent_warp_fwd" if name == "tent_warp_fwd_diff"
+                       else "tent_warp_bwd")
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+    fn.argtypes = argtypes
+    return fn
+
+
+def _require_contiguous(op, **tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{op} kernel wants a contiguous {name} "
+                             f"(channel-minor); got strides {t.stride()}")
+
+
+def _vectorized(c, *tensors):
+    """16-byte channel accesses are allowed: C * element size a multiple of
+    16 and every pointer 16-byte aligned."""
+    return (c * tensors[0].element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _run(fn, device, *args):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+def _launch_k1(f1, features, coords, n_views):
+    _require_contiguous("warp_diff", f1=f1, features=features, coords=coords)
+    if coords.data_ptr() % 8:
+        raise ValueError("warp_diff kernel wants 8-byte aligned coords")
+    fn = _kernel("tent_warp_fwd_diff", [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     bn, h, w, c = features.shape
     p = f1.shape[1]
     out = torch.empty((bn, p, c), dtype=f1.dtype, device=f1.device)
-    vectorized = (c * f1.element_size()) % 16 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (f1, features, out))
-    with torch.cuda.device(f1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(f1.data_ptr(), features.data_ptr(), coords.data_ptr(),
-                 out.data_ptr(), bn, n_views, p, h, w, c,
-                 _DTYPE_CODE[f1.dtype], int(vectorized), stream)
-    if err != 0:
-        raise RuntimeError(f"tent_warp_fwd_diff launch failed: CUDA error {err}")
+    _run(fn, f1.device, f1.data_ptr(), features.data_ptr(), coords.data_ptr(),
+         out.data_ptr(), bn, n_views, p, h, w, c, _DTYPE_CODE[f1.dtype],
+         int(_vectorized(c, f1, features, out)))
     K1_COUNTER.launches += 1
     return out
 
 
+def _launch_k2(coords, g, h, w, dtype):
+    _require_contiguous("warp_diff backward (features)", coords=coords, g=g)
+    fn = _kernel("tent_warp_bwd_feat", [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    bn, p, c = g.shape
+    out = torch.zeros((bn, h, w, c), dtype=torch.float32, device=g.device)
+    _run(fn, g.device, coords.data_ptr(), g.data_ptr(), out.data_ptr(), bn, p, h,
+         w, c, _DTYPE_CODE[g.dtype], int(_vectorized(c, g, out)))
+    K2_COUNTER.launches += 1
+    return out if dtype == torch.float32 else out.to(dtype)
+
+
+def _launch_k3(features, coords, g):
+    _require_contiguous("warp_diff backward (coords)", features=features,
+                        coords=coords, g=g)
+    fn = _kernel("tent_warp_bwd_coords", [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    bn, h, w, c = features.shape
+    p = g.shape[1]
+    out = torch.empty((bn, p, 2), dtype=torch.float32, device=g.device)
+    _run(fn, g.device, features.data_ptr(), coords.data_ptr(), g.data_ptr(),
+         out.data_ptr(), bn, p, h, w, c, _DTYPE_CODE[g.dtype],
+         int(_vectorized(c, features, g)))
+    K3_COUNTER.launches += 1
+    return out
+
+
+def _on_device(name, device, kernel, plain):
+    """Kernel for CUDA tensors, plain version for CPU tensors, else raise."""
+    if device.type == "cuda":
+        return kernel()
+    if device.type == "cpu":
+        return plain()
+    raise ValueError(f"{name} has no path for device {device}")
+
+
+def warp_diff_bwd_feat(coords: torch.Tensor, g: torch.Tensor, h: int, w: int,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Feature gradient ``-W^T g`` of `warp_diff`: coords [bn, P, 2] fp32,
+    g [bn, P, C] (fp32 or bf16) -> [bn, h, w, C] in ``dtype``, accumulated
+    in fp32. CUDA tensors go to kernel K2, CPU tensors to
+    `warp_diff_bwd_feat_plain`."""
+    return _on_device("warp_diff_bwd_feat", g.device,
+                      lambda: _launch_k2(coords, g, h, w, dtype),
+                      lambda: warp_diff_bwd_feat_plain(coords, g, h, w, dtype))
+
+
+def warp_diff_bwd_coords(features: torch.Tensor, coords: torch.Tensor,
+                         g: torch.Tensor) -> torch.Tensor:
+    """Coordinate gradient of `warp_diff` (right-sided at integer
+    coordinates): features [bn, h, w, C], coords [bn, P, 2] fp32, g
+    [bn, P, C] in the features' dtype -> [bn, P, 2] fp32. CUDA tensors go to
+    kernel K3, CPU tensors to `warp_diff_bwd_coords_plain`."""
+    return _on_device("warp_diff_bwd_coords", g.device,
+                      lambda: _launch_k3(features, coords, g),
+                      lambda: warp_diff_bwd_coords_plain(features, coords, g))
+
+
+def _warp_diff_fwd(f1, features, coords, n_views):
+    return _on_device("warp_diff", f1.device,
+                      lambda: _launch_k1(f1, features, coords, n_views),
+                      lambda: warp_diff_plain(f1, features, coords, n_views))
+
+
+class _WarpDiff(torch.autograd.Function):
+    """`warp_diff` with the backward of `_tent_warp_diff_bwd`: saves
+    (features, coords); d_f1 is the fp32 sum of g over the views in g's
+    dtype, d_features is K2 (sign -1), d_coords is K3 (sign -1). Only the
+    gradients autograd asks for are computed."""
+
+    @staticmethod
+    def forward(ctx, f1, features, coords, n_views):
+        ctx.n_views = n_views
+        ctx.save_for_backward(features, coords)
+        return _warp_diff_fwd(f1, features, coords, n_views)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, coords = ctx.saved_tensors
+        # g arrives from diff * diff and the view mean: not always contiguous.
+        g = g.contiguous()
+        need_f1, need_feat, need_coords = ctx.needs_input_grad[:3]
+        d_f1 = d_feat = d_coords = None
+        if need_f1:
+            bn, p, c = g.shape
+            d_f1 = g.float().reshape(bn // ctx.n_views, ctx.n_views, p, c).sum(1)
+            d_f1 = d_f1.to(g.dtype)
+        if need_feat:
+            d_feat = warp_diff_bwd_feat(coords, g, features.shape[1],
+                                        features.shape[2], features.dtype)
+        if need_coords:
+            d_coords = warp_diff_bwd_coords(features, coords, g)
+        return d_f1, d_feat, d_coords, None
+
+
 def warp_diff(f1: torch.Tensor, features: torch.Tensor, coords: torch.Tensor,
               n_views: int) -> torch.Tensor:
-    """Fused warp-subtract ``f1 - bilinear_sample(features, coords)``.
+    """Fused warp-subtract ``f1 - bilinear_sample(features, coords)``,
+    differentiable in all three tensors.
 
     f1 [B, P, C] (each target broadcast over its ``n_views`` reference maps);
     features [B*n_views, h, w, C]; coords [B*n_views, P, 2] fp32 pixel
     coordinates -> [B*n_views, P, C] in f1's dtype (fp32 or bf16, the same as
     features'). Sampling is grid_sample with zeros padding and
-    align_corners=True. CUDA tensors go to kernel K1, CPU tensors to
-    `warp_diff_plain`.
+    align_corners=True. CUDA tensors go to kernel K1 (backward K2, K3), CPU
+    tensors to the plain versions.
     """
     _check(f1, features, coords, n_views)
-    if f1.device.type == "cuda":
-        return _launch_k1(f1, features, coords, n_views)
-    if f1.device.type == "cpu":
-        return warp_diff_plain(f1, features, coords, n_views)
-    raise ValueError(f"warp_diff has no path for device {f1.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (f1, features, coords)):
+        return _WarpDiff.apply(f1, features, coords, n_views)
+    return _warp_diff_fwd(f1, features, coords, n_views)
 
 
 def warp_cost(fmap1: torch.Tensor, fmaps_ref: torch.Tensor,
@@ -125,8 +282,9 @@ def warp_cost(fmap1: torch.Tensor, fmaps_ref: torch.Tensor,
 
     fmap1 [B,h,w,C]; fmaps_ref [B,N,h,w,C]; coords [B,N,h,w,2] pixel coords
     -> cost [B,N,h,w,C] in fmap1's dtype. ``impl="pallas"`` goes through
-    `warp_diff` (the kernel on CUDA tensors); ``"gather"`` and ``"matmul"``,
-    the JAX package's other samplers, run the plain version on any device.
+    `warp_diff` (the kernels on CUDA tensors); ``"gather"`` and ``"matmul"``,
+    the JAX package's other samplers, run the plain version on any device
+    and differentiate it with autograd.
     """
     b, n, h, w, c = fmaps_ref.shape
     f1 = fmap1.reshape(b, h * w, c)

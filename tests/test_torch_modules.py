@@ -207,6 +207,19 @@ def test_sep_conv_pallas_raises():
 
 
 def test_train_mode_batchnorm_raises():
-    enc = tenc.ResNetEncoder(8).train()
-    with pytest.raises(NotImplementedError):
-        enc(torch.zeros(1, 3, 32, 32))
+    """Train-mode BatchNorm no longer raises: it normalises with the batch
+    mean and *biased* variance over N, H, W and moves the running statistics
+    10% toward them, as flax's ``BatchNorm(momentum=0.9)`` does (the encoder
+    against flax is in `tests/test_torch_train_step.py`)."""
+    from dro_sfm_torch.models.layers import BatchNorm2d
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        2.0, 3.0, size=(2, 4, 5, 6)).astype(np.float32))
+    bn = BatchNorm2d(4).train()
+    y = bn(x)
+    mean = x.mean(dim=(0, 2, 3))
+    var = x.var(dim=(0, 2, 3), unbiased=False)
+    expected = (x - mean[:, None, None]) / torch.sqrt(var[:, None, None] + 1e-5)
+    np.testing.assert_allclose(y.detach().numpy(), expected.numpy(), **TOL)
+    np.testing.assert_allclose(bn.running_mean.numpy(), 0.1 * mean.numpy(), **TOL)
+    np.testing.assert_allclose(bn.running_var.numpy(), 0.9 + 0.1 * var.numpy(), **TOL)
