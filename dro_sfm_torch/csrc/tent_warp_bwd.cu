@@ -4,7 +4,10 @@
 //
 // Given the cotangent g [B*n_views, P, C] of `out`, the two halves below
 // compute the gradients of the features and of the coordinates. The gradient
-// of f1 (the sum of g over the views) is plain PyTorch in the wrapper.
+// of f1 (the sum of g over the views) is plain PyTorch in the wrapper. Both
+// take a `sign`: -1 for the warp-subtract, +1 for the bare warp (K4,
+// tent_warp_fwd.cu:tent_warp_fwd, whose fp32 cotangent K3 reads beside bf16
+// features). Below, "-" stands for that sign.
 //
 // K2, tent_warp_bwd_feat (replaces dro_sfm_tpu/ops/pallas/tent_warp.py:
 // _bwd_feat_kernel, launched by _run_bwd_feat):
@@ -50,23 +53,26 @@
 // 0.25 MB: also about 16 MB.
 #include "tent_warp_common.cuh"
 
+#include <type_traits>
+
 namespace {
 
 using namespace tent_warp;
 
-// dst[i] += -w * g[i] for the N channels of one thread, in float4 atomics
-// where N is a multiple of 4 (dst then 16-byte aligned), else one by one.
+// dst[i] += sw * g[i] (sw = sign * weight, so -w * g rounds as -(w * g))
+// for the N channels of one thread, in float4 atomics where N is a multiple
+// of 4 (dst then 16-byte aligned), else one by one.
 template <int N>
-__device__ __forceinline__ void scatter_add(float* dst, float w, const float* g) {
+__device__ __forceinline__ void scatter_add(float* dst, float sw, const float* g) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N; i += 4)
       atomicAdd(reinterpret_cast<float4*>(dst + i),
-                make_float4(-__fmul_rn(w, g[i]), -__fmul_rn(w, g[i + 1]),
-                            -__fmul_rn(w, g[i + 2]), -__fmul_rn(w, g[i + 3])));
+                make_float4(__fmul_rn(sw, g[i]), __fmul_rn(sw, g[i + 1]),
+                            __fmul_rn(sw, g[i + 2]), __fmul_rn(sw, g[i + 3])));
   } else {
 #pragma unroll
-    for (int i = 0; i < N; ++i) atomicAdd(dst + i, -__fmul_rn(w, g[i]));
+    for (int i = 0; i < N; ++i) atomicAdd(dst + i, __fmul_rn(sw, g[i]));
   }
 }
 
@@ -74,7 +80,7 @@ template <typename T, typename V>
 __global__ void __launch_bounds__(kBlock)
 tent_warp_bwd_feat_kernel(const float* __restrict__ coords, const T* __restrict__ g,
                           float* __restrict__ d_feat, int64_t n_pix, int P, int h, int w,
-                          int C) {
+                          int C, float sign) {
   const int64_t pix = (int64_t)blockIdx.x * (kBlock / kGroup) + threadIdx.x / kGroup;
   const int lane = threadIdx.x % kGroup;
   if (pix >= n_pix) return;
@@ -88,15 +94,22 @@ tent_warp_bwd_feat_kernel(const float* __restrict__ coords, const T* __restrict_
     V::load(g_row + ch, gv);
 #pragma unroll
     for (int t = 0; t < 4; ++t)
-      if (tp.ok[t]) scatter_add<V::N>(d_feat + tp.off[t] + ch, tp.wt[t], gv);
+      if (tp.ok[t]) scatter_add<V::N>(d_feat + tp.off[t] + ch, sign * tp.wt[t], gv);
   }
 }
 
-template <typename T, typename V>
+// g in TG, features in TF: the same type, or fp32 g beside bf16 features.
+// kVec: 16-byte loads, Vec<TF>::N channels a step (g in as many 16-byte
+// loads as that takes); else one channel a step.
+template <typename TF, typename TG, bool kVec>
 __global__ void __launch_bounds__(kBlock)
-tent_warp_bwd_coords_kernel(const T* __restrict__ feat, const float* __restrict__ coords,
-                            const T* __restrict__ g, float2* __restrict__ d_coords,
-                            int64_t n_pix, int P, int h, int w, int C) {
+tent_warp_bwd_coords_kernel(const TF* __restrict__ feat, const float* __restrict__ coords,
+                            const TG* __restrict__ g, float2* __restrict__ d_coords,
+                            int64_t n_pix, int P, int h, int w, int C, float sign) {
+  using VF = typename std::conditional<kVec, Vec<TF>, Scalar<TF>>::type;
+  using VG = typename std::conditional<kVec, Vec<TG>, Scalar<TG>>::type;
+  constexpr int N = VF::N;
+  static_assert(N % VG::N == 0, "g loads must tile the feature loads");
   const int64_t pix = (int64_t)blockIdx.x * (kBlock / kGroup) + threadIdx.x / kGroup;
   const int lane = threadIdx.x % kGroup;
   // No early return: every lane of the warp takes part in the shuffles.
@@ -107,22 +120,23 @@ tent_warp_bwd_coords_kernel(const T* __restrict__ feat, const float* __restrict_
     const Taps tp = make_taps(__ldg(reinterpret_cast<const float2*>(coords) + pix),
                               bn, h, w, C);
     const float ux = 1.0f - tp.wx, uy = 1.0f - tp.wy;
-    const T* g_row = g + pix * (int64_t)C;
+    const TG* g_row = g + pix * (int64_t)C;
     if (tp.ok[0] || tp.ok[1] || tp.ok[2] || tp.ok[3]) {
-      for (int ch = lane * V::N; ch < C; ch += kGroup * V::N) {
-        float gv[V::N], f[4][V::N];
-        V::load(g_row + ch, gv);
+      for (int ch = lane * N; ch < C; ch += kGroup * N) {
+        float gv[N], f[4][N];
+#pragma unroll
+        for (int i = 0; i < N; i += VG::N) VG::load(g_row + ch + i, gv + i);
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           if (tp.ok[t]) {
-            V::load(feat + tp.off[t] + ch, f[t]);
+            VF::load(feat + tp.off[t] + ch, f[t]);
           } else {
 #pragma unroll
-            for (int i = 0; i < V::N; ++i) f[t][i] = 0.0f;
+            for (int i = 0; i < N; ++i) f[t][i] = 0.0f;
           }
         }
 #pragma unroll
-        for (int i = 0; i < V::N; ++i) {
+        for (int i = 0; i < N; ++i) {
           const float ex = uy * (f[1][i] - f[0][i]) + tp.wy * (f[3][i] - f[2][i]);
           const float ey = ux * (f[2][i] - f[0][i]) + tp.wx * (f[3][i] - f[1][i]);
           dx += gv[i] * ex;
@@ -136,7 +150,7 @@ tent_warp_bwd_coords_kernel(const T* __restrict__ feat, const float* __restrict_
     dx += __shfl_xor_sync(0xffffffffu, dx, o, kGroup);
     dy += __shfl_xor_sync(0xffffffffu, dy, o, kGroup);
   }
-  if (active && lane == 0) d_coords[pix] = make_float2(-dx, -dy);
+  if (active && lane == 0) d_coords[pix] = make_float2(sign * dx, sign * dy);
 }
 
 unsigned grid_for(int64_t n_pix) {
@@ -146,27 +160,28 @@ unsigned grid_for(int64_t n_pix) {
 
 template <typename T>
 cudaError_t launch_feat(const float* coords, const void* g, float* d_feat, int64_t n_pix,
-                        int P, int h, int w, int C, bool vectorized, cudaStream_t s) {
+                        int P, int h, int w, int C, bool vectorized, float sign,
+                        cudaStream_t s) {
   if (vectorized) {
     tent_warp_bwd_feat_kernel<T, Vec<T>><<<grid_for(n_pix), kBlock, 0, s>>>(
-        coords, (const T*)g, d_feat, n_pix, P, h, w, C);
+        coords, (const T*)g, d_feat, n_pix, P, h, w, C, sign);
   } else {
     tent_warp_bwd_feat_kernel<T, Scalar<T>><<<grid_for(n_pix), kBlock, 0, s>>>(
-        coords, (const T*)g, d_feat, n_pix, P, h, w, C);
+        coords, (const T*)g, d_feat, n_pix, P, h, w, C, sign);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TF, typename TG>
 cudaError_t launch_coords(const void* feat, const float* coords, const void* g,
                           float2* d_coords, int64_t n_pix, int P, int h, int w, int C,
-                          bool vectorized, cudaStream_t s) {
+                          bool vectorized, float sign, cudaStream_t s) {
   if (vectorized) {
-    tent_warp_bwd_coords_kernel<T, Vec<T>><<<grid_for(n_pix), kBlock, 0, s>>>(
-        (const T*)feat, coords, (const T*)g, d_coords, n_pix, P, h, w, C);
+    tent_warp_bwd_coords_kernel<TF, TG, true><<<grid_for(n_pix), kBlock, 0, s>>>(
+        (const TF*)feat, coords, (const TG*)g, d_coords, n_pix, P, h, w, C, sign);
   } else {
-    tent_warp_bwd_coords_kernel<T, Scalar<T>><<<grid_for(n_pix), kBlock, 0, s>>>(
-        (const T*)feat, coords, (const T*)g, d_coords, n_pix, P, h, w, C);
+    tent_warp_bwd_coords_kernel<TF, TG, false><<<grid_for(n_pix), kBlock, 0, s>>>(
+        (const TF*)feat, coords, (const TG*)g, d_coords, n_pix, P, h, w, C, sign);
   }
   return cudaGetLastError();
 }
@@ -174,41 +189,47 @@ cudaError_t launch_coords(const void* feat, const float* coords, const void* g,
 }  // namespace
 
 // K2. coords [bn, P, 2] fp32, g [bn, P, C] (dtype: 0 = fp32, 1 = bf16),
-// d_feat [bn, h, w, C] fp32, zeroed by the caller; adds -W^T g into it.
+// d_feat [bn, h, w, C] fp32, zeroed by the caller; adds sign * W^T g into it.
 // vectorized: nonzero when C * sizeof(element of g) is a multiple of 16 and
 // g and d_feat are 16-byte aligned. Returns the CUDA error of the launch (0 on success);
 // the kernel runs on `stream`.
 extern "C" int tent_warp_bwd_feat(const void* coords, const void* g, void* d_feat,
                                   long long bn, int P, int h, int w, int C, int dtype,
-                                  int vectorized, void* stream) {
+                                  int vectorized, float sign, void* stream) {
   const int64_t n_pix = (int64_t)bn * P;
   if (n_pix == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)launch_feat<float>((const float*)coords, g, (float*)d_feat, n_pix, P, h,
-                                   w, C, vectorized != 0, s);
+                                   w, C, vectorized != 0, sign, s);
   if (dtype == 1)
     return (int)launch_feat<__nv_bfloat16>((const float*)coords, g, (float*)d_feat, n_pix,
-                                           P, h, w, C, vectorized != 0, s);
+                                           P, h, w, C, vectorized != 0, sign, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K3. feat [bn, h, w, C] and g [bn, P, C] of one dtype (0 = fp32,
-// 1 = bf16), coords [bn, P, 2] fp32 -> d_coords [bn, P, 2] fp32, every
-// element written. vectorized: nonzero when C * sizeof(element) is a
-// multiple of 16 and feat and g are 16-byte aligned.
+// K3. feat [bn, h, w, C] (feat_dtype: 0 = fp32, 1 = bf16), g [bn, P, C] in
+// the same dtype or fp32 (g_dtype), coords [bn, P, 2] fp32 -> d_coords
+// [bn, P, 2] fp32, every element written, times sign. vectorized: nonzero
+// when C * sizeof(element) is a multiple of 16 for both and feat and g are
+// 16-byte aligned.
 extern "C" int tent_warp_bwd_coords(const void* feat, const void* coords, const void* g,
                                     void* d_coords, long long bn, int P, int h, int w,
-                                    int C, int dtype, int vectorized, void* stream) {
+                                    int C, int feat_dtype, int g_dtype, int vectorized,
+                                    float sign, void* stream) {
   const int64_t n_pix = (int64_t)bn * P;
   if (n_pix == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)launch_coords<float>(feat, (const float*)coords, g, (float2*)d_coords,
-                                     n_pix, P, h, w, C, vectorized != 0, s);
-  if (dtype == 1)
-    return (int)launch_coords<__nv_bfloat16>(feat, (const float*)coords, g,
-                                             (float2*)d_coords, n_pix, P, h, w, C,
-                                             vectorized != 0, s);
+  const bool v = vectorized != 0;
+  const float* co = (const float*)coords;
+  float2* out = (float2*)d_coords;
+  if (feat_dtype == 0 && g_dtype == 0)
+    return (int)launch_coords<float, float>(feat, co, g, out, n_pix, P, h, w, C, v, sign, s);
+  if (feat_dtype == 1 && g_dtype == 1)
+    return (int)launch_coords<__nv_bfloat16, __nv_bfloat16>(feat, co, g, out, n_pix, P, h,
+                                                             w, C, v, sign, s);
+  if (feat_dtype == 1 && g_dtype == 0)
+    return (int)launch_coords<__nv_bfloat16, float>(feat, co, g, out, n_pix, P, h, w, C, v,
+                                                     sign, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,11 @@ The build directory is ``build/kernels`` beside the package (listed in
 ``.gitignore``) unless ``DRO_SFM_TORCH_BUILD_DIR`` names another. Library
 names carry a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source or header is rebuilt.
+
+Beside the build: `LaunchCounter` (each wrapper counts its launches),
+`entry` (a typed C entry point), `launch` (call one on the current stream
+and raise on a CUDA error) and `on_device` (the device rule of every
+wrapper: the kernel for CUDA tensors, the plain version for CPU tensors).
 """
 from __future__ import annotations
 
@@ -22,9 +27,13 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"tent_warp_fwd": CSRC / "tent_warp_fwd.cu",
-           "tent_warp_bwd": CSRC / "tent_warp_bwd.cu"}
+           "tent_warp_bwd": CSRC / "tent_warp_bwd.cu",
+           "gru_pass_fwd": CSRC / "gru_pass_fwd.cu",
+           "gru_pass_bwd": CSRC / "gru_pass_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -103,3 +112,42 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _loaded.setdefault(name, ctypes.CDLL(str(library_path(name))))
     return lib
+
+
+class LaunchCounter:
+    """Number of times a wrapper launched its kernel."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def reset(self):
+        self.launches = 0
+
+
+def entry(library: str, name: str, argtypes):
+    """The C entry point ``name`` of kernel library ``library``, typed
+    (pointers and the stream as ``c_void_p``, so they are not cut to 32
+    bits)."""
+    fn = getattr(load(library), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def launch(fn, device, *args) -> None:
+    """Call entry point ``fn`` with ``args`` and the current stream of
+    ``device``; raise if the launch returned a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+def on_device(name: str, device: torch.device, kernel, plain):
+    """Kernel for CUDA tensors, plain version for CPU tensors, else raise."""
+    if device.type == "cuda":
+        return kernel()
+    if device.type == "cpu":
+        return plain()
+    raise ValueError(f"{name} has no path for device {device}")

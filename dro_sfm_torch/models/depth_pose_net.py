@@ -256,7 +256,11 @@ class DepthPoseNet(nn.Module):
     None). ``warp_impl`` takes the JAX names: ``"pallas"`` (the config
     default) is kernels K1 (forward), K2 and K3 (backward) on CUDA tensors
     and their plain versions on CPU tensors; ``"gather"`` and ``"matmul"``
-    are the plain version, differentiated by autograd. ``remat``: True,
+    are the plain version, differentiated by autograd. ``sep_conv`` picks
+    the GRU's directional passes (`SepConvGRU`): ``"split"`` (the default),
+    ``"conv"`` and ``"matmul"`` are library convolutions; ``"pallas"`` is
+    one fused pass each, kernel K5 with backward K6-input and K6-weight on
+    CUDA tensors and their plain versions on CPU tensors. ``remat``: True,
     ``"steps"`` or ``"save_named"`` recompute each inner refinement step in
     the backward (``torch.utils.checkpoint``; the JAX package's selective
     ``"save_named"`` policy becomes the whole step); False keeps every

@@ -12,6 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dro_sfm_torch.models.layers import Conv2d
+from dro_sfm_torch.ops.gru_pass import gru_sep1d_pass
 
 
 class DepthHead(nn.Module):
@@ -61,24 +62,24 @@ class SepConvGRU(nn.Module):
 
     The z and r gates read the same [h, x] input, so each direction runs
     them as one fused ``convzr`` conv with 2 * hidden_dim outputs, z first,
-    then r. The JAX package's ``conv`` and ``split`` paths are the same math
-    here; ``pallas`` (kernel K5) is not ported yet and raises.
+    then r. The JAX package's ``conv``, ``split`` and ``matmul`` paths are the
+    same math here (convolutions in the compute dtype). ``pallas`` runs each
+    directional pass as one fused `gru_sep1d_pass` (kernel K5, backward K6
+    on the card; the plain version with the same rounding points on the
+    CPU), with the same parameters.
     """
 
     def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128,
                  dtype=torch.float32, conv_impl: str = "split",
                  generator=None):
         super().__init__()
-        if conv_impl == "pallas":
-            raise NotImplementedError(
-                "sep_conv='pallas' needs kernel K5 (gru_sep1d_pass), which is "
-                "not ported yet; see ROADMAP.md queue B")
-        if conv_impl not in ("conv", "split", "matmul"):
+        if conv_impl not in ("conv", "split", "matmul", "pallas"):
             raise ValueError(f"unknown sep_conv {conv_impl!r}")
         kw = {"dtype": dtype, "generator": generator}
         cin = hidden_dim + input_dim
         self.hidden_dim = hidden_dim
         self.dtype = dtype
+        self.conv_impl = conv_impl
         self.convzr1 = Conv2d(cin, 2 * hidden_dim, (1, 5), **kw)
         self.convq1 = Conv2d(cin, hidden_dim, (1, 5), **kw)
         self.convzr2 = Conv2d(cin, 2 * hidden_dim, (5, 1), **kw)
@@ -87,6 +88,8 @@ class SepConvGRU(nn.Module):
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         h = h.to(self.dtype)
         x = x.to(self.dtype)
+        if self.conv_impl == "pallas":
+            return self._fused_passes(h, x)
         for convzr, convq in ((self.convzr1, self.convq1),
                               (self.convzr2, self.convq2)):
             zr = torch.sigmoid(convzr(torch.cat([h, x], dim=1)))
@@ -94,6 +97,19 @@ class SepConvGRU(nn.Module):
             q = torch.tanh(convq(torch.cat([r * h, x], dim=1)))
             h = (1.0 - z) * h + z * q
         return h
+
+    def _fused_passes(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Both passes channel-minor: h and x are laid out [B,H,W,C] once,
+        the (1,5) then the (5,1) pass run there, and h' goes back as an NCHW
+        view. Each OIHW weight enters as a [5, Cin, out] view of the fp32
+        parameter (`gru_sep1d_pass` casts it)."""
+        h = h.permute(0, 2, 3, 1).contiguous()
+        x = x.permute(0, 2, 3, 1).contiguous()
+        for convzr, convq, axis in ((self.convzr1, self.convq1, 2),
+                                    (self.convzr2, self.convq2, 1)):
+            h = gru_sep1d_pass(h, x, convzr.weight.flatten(2).permute(2, 1, 0), convzr.bias,
+                               convq.weight.flatten(2).permute(2, 1, 0), convq.bias, axis)
+        return h.permute(0, 3, 1, 2)
 
 
 class ProjectionInputDepth(nn.Module):

@@ -199,11 +199,18 @@ def test_every_leaf_loads_strictly(version):
     assert len(sd) == n_leaves + n_bn
 
 
-def test_sep_conv_pallas_raises():
-    with pytest.raises(NotImplementedError, match="K5"):
-        tupd.SepConvGRU(16, 16, conv_impl="pallas")
-    with pytest.raises(NotImplementedError, match="K5"):
-        DepthPoseNet(version="it4-h-out", sep_conv="pallas", device="cpu")
+def test_sep_conv_pallas_builds_and_unknown_raises():
+    """``sep_conv="pallas"`` builds (the fused pass, `gru_sep1d_pass`; its
+    parity is in `tests/test_torch_gru_pass.py`); an unknown value raises."""
+    gru = tupd.SepConvGRU(16, 16, conv_impl="pallas")
+    h, x = torch.zeros(1, 16, 3, 4), torch.zeros(1, 16, 3, 4)
+    with torch.no_grad():
+        assert gru(h, x).shape == (1, 16, 3, 4)
+    DepthPoseNet(version="it4-h-out", sep_conv="pallas", device="cpu")
+    with pytest.raises(ValueError, match="sep_conv"):
+        tupd.SepConvGRU(16, 16, conv_impl="fused")
+    with pytest.raises(ValueError, match="sep_conv"):
+        DepthPoseNet(version="it4-h-out", sep_conv="fused", device="cpu")
 
 
 def test_train_mode_batchnorm_raises():
