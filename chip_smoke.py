@@ -44,8 +44,10 @@ result line):
    (counts reset before, read after) launches K4, K2 and K3 once each;
 12. K5/K6 vs plain: the fused GRU pass and its two backward kernels at the
    path's depth and pose shapes, both axes, bf16 and fp32, B=1, and edge
-   cases, each beside its bar, with planted faults and timings against the
-   bound and the split path's pass;
+   cases, each beside its bar; two K6 calls must give the same bits; planted
+   faults (K5 and K6-input leaving out a tap, K6-weight a split's pixels);
+   the CUDA launches of one K6 call; timings against the bound, the split
+   path's pass and, for K6-weight, cuDNN's weight gradients;
 13. serving with ``sep_conv="pallas"``: B=1 and B=8 through `make_infer_fn`,
    24 K1 and 48 K5 launches a request, the split path timed in turns; both
    paths' outputs compared in fp32 and bf16;
@@ -53,7 +55,8 @@ result line):
    K2 24, K3 18, K5 48, K6-input 48, K6-weight 48;
 15. its gradients through K5/K6 against the plain GRU pass (B=2, fp32 and
    bf16);
-16. profile of one of its train steps.
+16. profile of one of its train steps, with the device time of the K6
+   kernels summed by name prefix.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -1000,35 +1003,116 @@ def k5_fault(inp, axis, gru_pass):
                                  inp["bq"], axis)
 
 
-def k6_fault(inp, axis, gru_pass, dh, dx):
-    """K6-input leaving out tap 0 of the daq transposed conv (the tap that
-    pairs daq[s - 2] with Wq[4]): the real kernel's dh and dx with that tap's
-    share taken back out, the share from the plain version's daq and r."""
+def gru_intermediates(inp, axis, gru_pass):
+    """The plain version's operands of the weight gradients, in the layout
+    [B,H,W,*] and the compute dtype: [h, x], [r h, x], T(daq), T(dazr); and
+    r in fp32."""
     args = [inp[k] for k in ("h", "x", "wzr", "bzr", "wq", "bq")]
     cdt = inp["h"].dtype
     hs = gru_pass._shift_last(args[0], axis)
     xs = gru_pass._shift_last(args[1], axis)
     d = hs.shape[-1]
-    _, z, r, _, q, _ = gru_pass._recompute(hs, xs, args[2].to(cdt), args[3],
-                                           args[4].to(cdt), args[5])
+    hx, z, r, rhx, q, _ = gru_pass._recompute(hs, xs, args[2].to(cdt), args[3],
+                                              args[4].to(cdt), args[5])
     gf = gru_pass._shift_last(inp["g"], axis).float()
-    daq = ((gf * z.float()) * (1.0 - q.float() * q.float())).to(cdt)
-    share = gru_pass._taps(daq.float())[0] @ args[4][4].to(cdt).float().t()
+    qf, zf, hf, rf = q.float(), z.float(), hs.float(), r.float()
+    daq = ((gf * zf) * (1.0 - qf * qf)).to(cdt)
+    drh = gru_pass._conv_t(daq, args[4].to(cdt))[..., :d]
+    dazr = torch.cat([gf * (qf - hf) * zf * (1.0 - zf), drh * hf * rf * (1.0 - rf)],
+                     dim=-1).to(cdt)
+    return [gru_pass._shift_last(t, axis) for t in (hx, rhx, daq, dazr, rf)]
+
+
+def k6_fault(inp, axis, gru_pass, dh, dx, mid):
+    """K6-input leaving out tap 0 of the daq transposed conv (the tap that
+    pairs daq[s - 2] with Wq[4]): the real kernel's dh and dx with that tap's
+    share taken back out, the share from the plain version's daq and r."""
+    _, _, daq, _, r = mid
+    d = dh.shape[-1]
+    cdt = inp["h"].dtype
+    daq_s = gru_pass._shift_last(daq, axis)
+    share = gru_pass._taps(daq_s.float())[0] @ inp["wq"][4].to(cdt).float().t()
     share = gru_pass._shift_last(share, axis)
-    r = gru_pass._shift_last(r, axis).float()
     return ((dh.float() - share[..., :d] * r).to(dh.dtype),
             (dx.float() - share[..., d:]).to(dx.dtype))
+
+
+def k6w_fault(inp, axis, gru_pass, dwq, mid):
+    """K6-weight leaving out one split's pixels of dWq (the middle split of
+    the wrapper's plan): the real kernel's dWq with the plain `_conv_w` of
+    those pixels taken back out."""
+    _, rhx, daq, _, _ = mid
+    b, hh, ww, d = inp["h"].shape
+    plan = gru_pass.k6_weight_plan(b, hh, ww, axis, gru_pass._round16(d),
+                                   gru_pass._round16(inp["x"].shape[-1]), gru_pass._sm_count(0))
+    pixels = gru_pass.k6_split_pixels(b, hh, ww, axis, *plan)[plan[1] // 2]
+    mask = torch.zeros(b * hh * ww, dtype=daq.dtype, device=daq.device)
+    mask[torch.tensor(pixels, device=daq.device)] = 1
+    mask = mask.view(b, hh, ww, 1)
+    shift = lambda t: gru_pass._shift_last(t, axis)          # noqa: E731
+    return dwq - gru_pass._conv_w(shift(rhx), shift(daq * mask))
+
+
+def kernel_name(key):
+    """A profiler key's kernel name, without return type, namespace,
+    template arguments and parameters."""
+    name = key.split("(")[0].split("<")[0].split()
+    return name[-1].split("::")[-1] if name else key
+
+
+K6_PREFIXES = {"K6-input": "gru_pass_bwd_input", "K6-weight": "gru_pass_bwd_weight"}
+
+
+def k6_cuda_launches(inp, axis, gru_pass):
+    """The CUDA launches of one K6-input and one K6-weight wrapper call:
+    the kernel nodes of a CUDA graph that captures the call, counted through
+    the CUDA driver (cuGraphGetNodes, cuGraphNodeGetType)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} failed: CUresult {err}")
+
+    args = [inp[k] for k in ("h", "x", "wzr", "bzr", "wq", "bq")]
+    prep = gru_pass._Prepared(*args)
+    _, _, scratch = gru_pass._launch_k6_input(prep, inp["g"], axis)
+    calls = {"K6-input": lambda: gru_pass._launch_k6_input(prep, inp["g"], axis),
+             "K6-weight": lambda: gru_pass._launch_k6_weight(prep, scratch, axis)}
+    out = {}
+    for k, fn in calls.items():
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+        handle = ctypes.c_void_p(graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        kinds = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            kinds.append(kind.value)
+        del graph
+        out[k] = (kinds.count(0), len(kinds))       # 0: CU_GRAPH_NODE_TYPE_KERNEL
+    return out
 
 
 def phase_gru(gen):
     """K5, K6-input and K6-weight against their plain versions on the card:
     the depth pass's shape of the training path (B=8, 24x80, D=128, Cx=160)
     and the pose pass's (B*N=16), both axes, bf16 and fp32; B=1; D=32 Cx=24
-    (not multiples of 16); a 3-pixel line; 6x10. Each result beside its bar
-    (`gru_bars`); the bars must fail K5 leaving out a tap and K6-input
-    leaving out a tap of a transposed conv (`k5_fault`, `k6_fault`). At the
-    path's shapes (bf16 and fp32): kernel, plain, split-pass and bound
-    times. Returns the timings at the depth shape, bf16, horizontal pass."""
+    (not multiples of 16); D=32 Cx=20 (in bf16 not whole 16-byte chunks:
+    the wrapper pads); a 3-pixel line; 6x10. Each result beside its bar
+    (`gru_bars`); two K6 calls on the same inputs must give the same bits;
+    the bars must fail K5 leaving out a tap, K6-input leaving out a tap of a
+    transposed conv and K6-weight leaving out a split's pixels (`k5_fault`,
+    `k6_fault`, `k6w_fault`). At the path's shapes (bf16 and fp32): kernel,
+    plain, split-pass, cuDNN weight-gradient and bound times. Returns the
+    timings at the depth shape, bf16, horizontal pass."""
     from dro_sfm_torch.ops import gru_pass
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1037,14 +1121,22 @@ def phase_gru(gen):
                 cases.append((what, b, 24, 80, GRU_D, GRU_CX, dtype, axis))
         for axis in (2, 1):
             cases += [("D32 Cx24", 2, 8, 16, 32, 24, dtype, axis),
+                      ("D32 Cx20", 2, 8, 16, 32, 20, dtype, axis),
                       ("3-px line", 2, 3, 7, 32, 24, dtype, axis),
                       ("6x10", 2, 6, 10, GRU_D, GRU_CX, dtype, axis)]
     timings = {}
+    inp = gru_inputs(gen, 8, 24, 80, GRU_D, GRU_CX, torch.bfloat16)
+    for axis in (2, 1):
+        for k, (n_kernels, n_nodes) in k6_cuda_launches(inp, axis, gru_pass).items():
+            print(f"K5/K6 CUDA launches of one {k} call (depth, bf16, axis {axis}): "
+                  f"{n_kernels} (kernel nodes of the captured call, of {n_nodes} nodes)",
+                  flush=True)
     for what, b, hh, ww, d, cx, dtype, axis in cases:
         inp = gru_inputs(gen, b, hh, ww, d, cx, dtype)
         args = [inp[k] for k in ("h", "x", "wzr", "bzr", "wq", "bq")]
         out = gru_pass.gru_pass_fwd(*args, axis)
         grads = gru_pass.gru_pass_bwd(*args, inp["g"], axis)
+        again = gru_pass.gru_pass_bwd(*args, inp["g"], axis)
         torch.cuda.synchronize()
         ref = gru_pass.gru_pass_plain(*args, axis)
         refs = gru_pass.gru_pass_bwd_plain(*args, inp["g"], axis)
@@ -1066,48 +1158,81 @@ def phase_gru(gen):
             bad |= (errs[name] > bar or got.shape != want.shape or got.dtype != want.dtype
                     or not torch.isfinite(got).all())
         line += f" (bars {bars['act']:.1e}, {bars['weight']:.1e})"
-        if bad or not torch.isfinite(out).all():
+        same = all(torch.equal(a, c) for a, c in zip(grads, again))
+        line += f" | two K6 calls bitwise equal: {same}"
+        if bad or not same or not torch.isfinite(out).all():
             fail(line)
+        mid = gru_intermediates(inp, axis, gru_pass)
         f5 = rel(k5_fault(inp, axis, gru_pass), ref)
-        f6 = max(rel(a, r) for a, r in zip(k6_fault(inp, axis, gru_pass, *grads[:2]),
+        f6 = max(rel(a, r) for a, r in zip(k6_fault(inp, axis, gru_pass, *grads[:2], mid),
                                            refs[:2]))
-        line += f" | planted faults: K5 {f5:.2e}, K6-input {f6:.2e}"
-        if f5 <= bars["fwd"] or f6 <= bars["act"]:
-            fail(f"{line}: a bar passes a kernel that leaves out a tap")
+        f6w = rel(k6w_fault(inp, axis, gru_pass, grads[4], mid), refs[4])
+        line += f" | planted faults: K5 {f5:.2e}, K6-input {f6:.2e}, K6-weight {f6w:.2e}"
+        if f5 <= bars["fwd"] or f6 <= bars["act"] or f6w <= bars["weight"]:
+            fail(f"{line}: a bar passes a planted fault")
         if what in ("depth", "pose") and (axis == 2 or dtype == torch.bfloat16):
-            r = time_gru(inp, axis, gru_pass)
+            r = time_gru(inp, axis, gru_pass, mid)
             for k in r:
                 r[k]["max_abs_err"] = max(errs[n] for n in (
                     ("K5",) if k == "K5" else ("dh", "dx") if k == "K6-input"
                     else GRU_GRADS[2:]))
             line += "".join(f" | {k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} "
-                            f"split {v['library_ms']:.4f} bound {v['bound_ms']:.4f}"
-                            for k, v in r.items())
+                            f"split {v['split_ms']:.4f} library {v['library_ms']:.4f} "
+                            f"bound {v['bound_ms']:.4f}" for k, v in r.items())
+            pair = r["K6-input"]["ms"] + r["K6-weight"]["ms"]
+            line += (f" | K6 pair {pair:.4f} ms vs split backward "
+                     f"{r['K6-input']['split_ms']:.4f} ms")
             timings[(what, dt, axis)] = r
         print(line, flush=True)
     return timings
 
 
-def time_gru(inp, axis, gru_pass):
-    """Kernel, plain, split-pass and bound times of K5, K6-input and
-    K6-weight on one input. The plain time of both K6 halves is that of
+def wgrad_yardstick(inp, axis, mid):
+    """K6-weight's yardstick: cuDNN's weight and bias gradients of the split
+    path's two convolutions (`convolution_backward`, output_mask (False,
+    True, True)) on the plain version's operands, as one function. Timed
+    beside the kernel; the port never calls it."""
+    hx, rhx, daq, dazr, _ = mid
+    cdt = inp["h"].dtype
+    pad = [0, 2] if axis == 2 else [2, 0]
+    nchw = lambda t: t.permute(0, 3, 1, 2)                   # noqa: E731
+
+    def weight(w):                                           # [5, C1, O] -> OIHW
+        wt = w.permute(2, 1, 0).to(cdt)
+        return (wt[:, :, None, :] if axis == 2 else wt[:, :, :, None]).contiguous()
+
+    ops = [(nchw(dazr), nchw(hx), weight(inp["wzr"])), (nchw(daq), nchw(rhx), weight(inp["wq"]))]
+
+    def run():
+        return [torch.ops.aten.convolution_backward(
+            g, x, w, [w.shape[0]], [1, 1], pad, [1, 1], False, [0, 0], 1,
+            [False, True, True]) for g, x, w in ops]
+    return run
+
+
+def time_gru(inp, axis, gru_pass, mid):
+    """Kernel, plain, split-pass, library and bound times of K5, K6-input
+    and K6-weight on one input. The plain time of both K6 halves is that of
     `gru_pass_bwd_plain`, which computes all six gradients; the split time of
-    K5 is the split pass's forward, of K6-input its backward (all its
-    gradients: cuDNN's data and weight gradients of both convolutions and
-    the glue), of K6-weight the same."""
+    K5 is the split pass's forward, of K6-input and K6-weight its backward
+    (all its gradients: cuDNN's data and weight gradients of both
+    convolutions and the glue). The library time is the split time but for
+    K6-weight: cuDNN's weight and bias gradients alone (`wgrad_yardstick`)."""
     args = [inp[k] for k in ("h", "x", "wzr", "bzr", "wq", "bq")]
     prep = gru_pass._Prepared(*args)
     _, _, scratch = gru_pass._launch_k6_input(prep, inp["g"], axis)
     split_fwd, split_bwd = split_pass(inp, axis)
     bwd_plain = time_ms(lambda: gru_pass.gru_pass_bwd_plain(*args, inp["g"], axis), reps=5)
-    split_bwd_ms = time_ms(split_bwd)
+    split_bwd_ms, split_fwd_ms = time_ms(split_bwd), time_ms(split_fwd)
     out = {"K5": {"ms": time_ms(lambda: gru_pass._launch_k5(prep, axis)),
                   "plain_ms": time_ms(lambda: gru_pass.gru_pass_plain(*args, axis), reps=5),
-                  "library_ms": time_ms(split_fwd)},
+                  "split_ms": split_fwd_ms, "library_ms": split_fwd_ms},
            "K6-input": {"ms": time_ms(lambda: gru_pass._launch_k6_input(prep, inp["g"], axis)),
-                        "plain_ms": bwd_plain, "library_ms": split_bwd_ms},
+                        "plain_ms": bwd_plain, "split_ms": split_bwd_ms,
+                        "library_ms": split_bwd_ms},
            "K6-weight": {"ms": time_ms(lambda: gru_pass._launch_k6_weight(prep, scratch, axis)),
-                         "plain_ms": bwd_plain, "library_ms": split_bwd_ms}}
+                         "plain_ms": bwd_plain, "split_ms": split_bwd_ms,
+                         "library_ms": time_ms(wgrad_yardstick(inp, axis, mid))}}
     for k, (ms, by) in gru_bounds(inp).items():
         out[k]["bound_ms"], out[k]["bound_by"] = ms, by
     return out
@@ -1338,9 +1463,15 @@ def device_us(e):
 
 
 def profile_train_step(state, train_step, batch):
-    """Device time by kernel over one B=8 train step (torch.profiler)."""
+    """Device time by kernel over one B=8 train step (torch.profiler); with
+    ``sep_conv="pallas"`` also the sums over the K6 kernels by name prefix,
+    each with its mean per wrapper call."""
     from torch.profiler import ProfilerActivity, profile
+
+    from dro_sfm_torch.ops.gru_pass import K6I_COUNTER, K6W_COUNTER
     flips = torch.Generator().manual_seed(3)
+    wrappers = {"K6-input": K6I_COUNTER, "K6-weight": K6W_COUNTER}
+    before = {k: c.launches for k, c in wrappers.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1361,6 +1492,15 @@ def profile_train_step(state, train_step, batch):
         if "tent_warp" in e.key or "gru_pass" in e.key:
             print(f"profile train step: {e.key[:60]} {device_us(e):.0f} us over "
                   f"{e.count} launches, {device_us(e) / e.count:.2f} us each")
+    for k, prefix in K6_PREFIXES.items():
+        calls = wrappers[k].launches - before[k]
+        if not calls:
+            continue
+        mine = [e for e in kernels if kernel_name(e.key).startswith(prefix)]
+        total = sum(device_us(e) for e in mine)
+        print(f"profile train step: {k} ({prefix}*) {total:.0f} us over "
+              f"{sum(e.count for e in mine)} launches in {calls} wrapper calls, "
+              f"{total / calls:.2f} us a call", flush=True)
 
 
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",

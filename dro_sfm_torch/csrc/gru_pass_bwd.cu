@@ -1,7 +1,6 @@
-// Backward of one separable-GRU pass (kernel K5, gru_pass_fwd.cu), in two
-// launches: K6-input and K6-weight. Given the cotangent g of h', with
-// z, r, q, r*h recomputed as the forward computes them (fp32 sums, T
-// roundings):
+// Backward of one separable-GRU pass (kernel K5, gru_pass_fwd.cu): K6-input
+// and K6-weight. Given the cotangent g of h', with z, r, q, r*h recomputed
+// as the forward computes them (fp32 sums, T roundings):
 //
 //   dz   = g (q - h)                      daq  = (g z)(1 - q^2)   [fp32]
 //   drhx = conv5^T(T(daq), Wq)            drh, dxq = drhx[:D], drhx[D:]
@@ -11,526 +10,639 @@
 //   dWzr[k] = sum_p [h, x](p + k - 2)^T T(dazr)(p)   dbzr = sum_p dazr
 //   dWq[k]  = sum_p [r h, x](p + k - 2)^T T(daq)(p)  dbq  = sum_p daq
 //
-// K6-input (gru_pass_bwd_input) replaces the TPU kernel
-// dro_sfm_tpu/ops/pallas/gru_pass.py:_bwd_input_kernel, K6-weight
-// (gru_pass_bwd_weight) its _bwd_weight_kernel; the arithmetic is
+// K6-input replaces the TPU kernel dro_sfm_tpu/ops/pallas/gru_pass.py:
+// _bwd_input_kernel, K6-weight its _bwd_weight_kernel; the arithmetic is
 // _grad_intermediates', rounding point by rounding point: daq and dazr are
 // rounded to T before the transposed convs and the weight products, the
-// bias gradients sum the unrounded fp32 values.
+// bias gradients sum the unrounded fp32 values, dh = (g (1 - z) + drh r) +
+// dhx[:D] in fp32 with one rounding.
 //
-// K6-input. A block owns windows of lines as K5 does, with an 8-row halo:
-// dh at s needs dazr at s +- 2, which needs daq at s +- 4, which needs q at
-// s +- 4 and so r at s +- 6 and [h, x] at s +- 8. It recomputes zr (outputs
-// +- 6 rows) and q (+- 4), forms daq and dazr's z half in q's epilogue,
-// runs the h columns of the daq transposed conv on +- 2 rows for dazr's r
-// half, then for the output rows both transposed convs (the daq one again
-// for all columns: the h columns are recomputed, 7% more products at D = 128
-// than keeping fp32 partials in shared memory). Transposed taps read the
-// weights column major, so no transposed copy exists. It writes dh and dx,
-// and for K6-weight r*h, T(daq) and T(dazr) of its own rows (in T, padded
-// widths) and its per-block fp32 bias sums. Unlike the TPU pair, K6-weight
-// recomputes nothing.
+// Every product is an implicit GEMM on the tile engine of gru_gemm.cuh. The
+// pixels are walked line by line along the shift axis, in segments of 8, 16
+// or 32 positions (`Geo`); a staged tile holds each segment with two more
+// positions either side, zero-filled by cp.async past the line's ends, so
+// one staged tile serves all five taps, with no padded copy; the vertical
+// pass reads with the W-pixel stride, no transpose. The intermediates go
+// through device memory, where at these sizes they stay in the 50 MB L2.
 //
-// K6-weight. Hopper's blocks run in no order, so the TPU kernel's sum over
-// its sequential grid becomes an output-stationary product: each block owns
-// a 64 x 64 tile of one tap of dWzr or dWq and walks all pixels of the batch
-// in fixed order, 128 at a time, staging [h, x] or [r h, x] shifted by the tap
-// (zero where the shift leaves the line) and T(dazr) or T(daq) in shared
-// memory. One more block sums the bias partials in block order. No atomics:
-// the result is the same from run to run.
+// K6-input, four launches on the stream, each a grid of 128 x 64 tiles (128
+// pixels of whole segments), a K step a tap of a chunk of channels:
+//   gru_pass_bwd_input_zr   azr = conv5([h, x], Wzr); z, r, r*h in T;
+//   gru_pass_bwd_input_q    aq = conv5([r h, x], Wq); q, T(daq), the z half
+//                           of T(dazr), per-block bias sums of both;
+//   gru_pass_bwd_input_drh  drh = conv5^T(T(daq), Wq)[:, :D]; the r half of
+//                           T(dazr) and its bias sums; g (1 - z) + drh r in
+//                           fp32;
+//   gru_pass_bwd_input_dhx  dh: conv5^T(T(dazr), Wzr)[:, :D] added to it;
+//                           dx: conv5^T([T(daq), T(dazr)], [Wq, Wzr])[:, D:]
+//                           as one sum over both.
+// The products are the 2 * 5 * C1 * 6D a pixel of the bound plus the drh
+// stage's 2 * 5 * D^2 (7%), and what the tiles pad at their edges (dx's 160
+// columns take three 64-column tiles).
 //
-// Products: bf16 on the tensor cores (nvcuda::wmma, fp32 accumulators), fp32
-// in FMA (never TF32), as gru_pass_common.cuh:Tile says.
+// K6-weight, two launches: gru_pass_bwd_weight_gemm computes dWzr and dWq
+// as products over the pixels, a block 64 channels x 64 outputs of one
+// weight for all five taps (one warp a tap, all reading one staged tile of
+// [h | x] or [r h | x]; `TapLoader`), the segments split into n_split ranges
+// (split-K) so that the grid fills the card once; each split writes its fp32
+// partial. Then gru_pass_bwd_weight_reduce sums the partials in split order
+// and the bias sums of K6-input's tiles in a fixed order. No atomics: the
+// same inputs give the same bits.
 //
-// Bound: operations. Per pixel K6-input makes 2 * 5 * C1 * 6D multiply-adds
-// (the forward's 3D and the two transposed convs' 3D), K6-weight
-// 2 * 5 * C1 * 3D: at the depth pass of it12-h-out training (B = 8,
-// 24 x 80, D = 128, Cx = 160) 34.0 and 17.0 GFLOP, 34 and 17 us at 989
-// TFLOP/s bf16.
+// Transposed taps read the weights as they are ([n][k], k contiguous), so
+// no transposed copy exists. Products: bf16 on the tensor cores through
+// mma.sync (fp32 accumulators), fp32 in FMA, never TF32.
+//
+// Bound: operations. K6-input makes 2 * 5 * C1 * 6D operations a pixel,
+// K6-weight 2 * 5 * C1 * 3D: at the depth pass of it12-h-out training
+// (B = 8, 24 x 80, D = 128, Cx = 160) 34.0 and 17.0 GFLOP, 34 and 17 us at
+// 989 TFLOP/s bf16.
+#include "gru_gemm.cuh"
 #include "gru_pass_common.cuh"
+
+using namespace gru_gemm;
+using gru_pass::rnd;
+using gru_pass::sigmoidf;
+using gru_pass::to_f32;
 
 namespace {
 
-using namespace gru_pass;
+// The pixels (m = b H W + i W + j), walked line by line along the shift
+// axis (position s of a line at stride ss) in segments of 2^seg_shift
+// positions: spl segments a line, n_segs in all; segment g covers positions
+// [(g % spl) 2^seg_shift, + 2^seg_shift) of line g / spl.
+struct Geo {
+  int N, S, ss, D, Cx, Dp, Cxp, seg_shift, spl, n_segs;
+  // Position 0 of a line.
+  __device__ __forceinline__ int64_t line_pixel(int line) const {
+    return (int64_t)(line / ss) * S * ss + line % ss;
+  }
+  // The pixel u positions after segment g's first, or -1 past the line's
+  // ends or past the last segment.
+  __device__ __forceinline__ int seg_pixel(int g, int u) const {
+    const int line = g / spl, s = ((g - line * spl) << seg_shift) + u;
+    if (g >= n_segs || s < 0 || s >= S) return -1;
+    return (int)(line_pixel(line) + (int64_t)s * ss);
+  }
+  // The pixel of row `row` of K6-input's row tile `tile` (kBM rows, whole
+  // segments), or -1.
+  __device__ __forceinline__ int tile_pixel(int tile, int row) const {
+    return seg_pixel(tile * (kBM >> seg_shift) + (row >> seg_shift),
+                     row & ((1 << seg_shift) - 1));
+  }
+};
 
-constexpr int kMaxMT6 = 5;         // K6-input row tiles of a block: at most 80 rows
-
-// Sum a tile column's 16 values: lane l holds rows l/16 + 2i of column
-// l % 16 in `v`; lanes l and l + 16 add in fixed order. Returns the sum in
-// lanes 0..15.
-__device__ __forceinline__ float column_sum(float v) {
-  return v + __shfl_down_sync(0xffffffffu, v, 16);
+Geo make_geo(int B, int H, int W, int D, int Cx, int Dp, int Cxp, int axis, int seg_shift) {
+  Geo g;
+  g.N = B * H * W;
+  g.S = axis == 2 ? W : H;
+  g.ss = axis == 2 ? 1 : W;
+  g.D = D; g.Cx = Cx; g.Dp = Dp; g.Cxp = Cxp;
+  g.seg_shift = seg_shift;
+  const int L = seg_shift >= 3 && seg_shift <= 5 ? 1 << seg_shift : 8;   // else refused
+  g.spl = (g.S + L - 1) / L;
+  g.n_segs = g.S > 0 ? g.N / g.S * g.spl : 0;
+  return g;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gru_pass_bwd_input_kernel(const T* __restrict__ h, const T* __restrict__ x,
-                          const T* __restrict__ wzr, const float* __restrict__ bzr,
-                          const T* __restrict__ wq, const float* __restrict__ bq,
-                          const T* __restrict__ g, T* __restrict__ dh, T* __restrict__ dx,
-                          T* __restrict__ rh_out, T* __restrict__ daq_out,
-                          T* __restrict__ dazr_out, float* __restrict__ bias_part,
-                          Lines ln, Windows wi, int D, int Cx, int Dp, int Cxp, bool vec) {
+template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
+template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
+                                                                   float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+template <typename T> __device__ __forceinline__ float2 load2(const T* p) {
+  return make_float2(to_f32(p[0]), to_f32(p[1]));
+}
+
+// One conv of K6-input as a GEMM: A = [a0 | a1] along K (a1's channels from
+// K index `split`; a chunk is valid below its source's `real` channels), B
+// the weight taps. Forward taps: B(k, n) = w0[tap][k][n]. Transposed taps:
+// B(k, n) = w_s[4 - tap][n_off + n][k'] with source s = k >= split and k'
+// its channel.
+template <typename T> struct ConvOp {
+  const T* a[2];
+  int lda[2], real[2];
+  int split, K;
+  const T* w[2];
+  int64_t ts[2];
+  int ldw[2];
+  int n_off, n_out;
+};
+
+// The cp.async copies of a conv's K loop (`mainloop`): A, a chunk of BK
+// channels of the tile's segments with two more positions either side (row
+// major, CPR chunks of V channels a row); B, one tap's weights for the
+// chunk, row major for forward taps, column major for transposed ones.
+template <typename T, bool kTransposed>
+struct ConvLoader {
+  using L = Layout<T, kTransposed>;
+  static constexpr int CPR = L::CPR, RPP = kThreads / CPR;
+  static constexpr int A_PER = (L::MAX_A_ROWS + RPP - 1) / RPP;
+  ConvOp<T> op;
+  int n0, a_rows;
+  int am[A_PER];                  // this thread's A rows' pixels (-1: zero)
+
+  __device__ ConvLoader(const ConvOp<T>& o, const Geo& g, int tile, int n0_)
+      : op(o), n0(n0_), a_rows(L::a_rows(g.seg_shift)) {
+    const int span = (1 << g.seg_shift) + 4;
+#pragma unroll
+    for (int j = 0; j < A_PER; ++j) {
+      const int r = threadIdx.x / CPR + RPP * j;
+      am[j] = g.seg_pixel(tile * (kBM >> g.seg_shift) + r / span, r % span - 2);
+    }
+  }
+
+  __device__ __forceinline__ void load_a(int chunk, T* As) const {
+    constexpr int V = L::V;
+    const int ac = threadIdx.x % CPR, k = chunk * L::BK + ac * V;
+    // selects, not indexing: an indexed member array would live on the stack
+    const bool src = k >= op.split;
+    const int chan = src ? k - op.split : k, lda = src ? op.lda[1] : op.lda[0];
+    const T* a = src ? op.a[1] : op.a[0];
+    const bool chan_ok = k < op.K && chan < (src ? op.real[1] : op.real[0]);
+#pragma unroll
+    for (int j = 0; j < A_PER; ++j) {
+      const int r = threadIdx.x / CPR + RPP * j;
+      if (r < a_rows) {
+        const bool ok = chan_ok && am[j] >= 0;
+        const T* p = ok ? a + (int64_t)am[j] * lda + chan : op.a[0];
+        cp_async16(As + r * L::LDA + ac * V, p, ok);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void load_b(int chunk, int tap, T* Bs) const {
+    constexpr int V = L::V, kPer = kBN / V;         // kPer: chunks of a staged k row
+    constexpr int B_PER = (kTransposed ? kBN * CPR : L::BK * kPer) / kThreads;
+    const int k0 = chunk * L::BK;
+#pragma unroll
+    for (int j = 0; j < B_PER; ++j) {
+      const int idx = threadIdx.x + kThreads * j;
+      if (!kTransposed) {
+        const int kr = idx / kPer, n = n0 + idx % kPer * V, k = k0 + kr;
+        const bool ok = k < op.K && n < op.n_out;
+        const T* p = ok ? op.w[0] + tap * op.ts[0] + (int64_t)k * op.ldw[0] + n : op.w[0];
+        cp_async16(Bs + L::b_off(kr, idx % kPer * V), p, ok);
+      } else {
+        const int nr = idx / CPR, k = k0 + idx % CPR * V, n = n0 + nr;
+        const bool src = k >= op.split;
+        const bool ok = k < op.K && n < op.n_out;
+        const T* p = ok ? (src ? op.w[1] : op.w[0]) +
+                              (kTaps - 1 - tap) * (src ? op.ts[1] : op.ts[0]) +
+                              (int64_t)(op.n_off + n) * (src ? op.ldw[1] : op.ldw[0]) +
+                              (src ? k - op.split : k)
+                        : op.w[0];
+        cp_async16(Bs + L::b_off(idx % CPR * V, nr), p, ok);
+      }
+    }
+  }
+};
+
+// Everything the K6-input stages read and write. Scratch, in T unless
+// said: zr [N, 2 Dp] (z, then r), rh [N, Dp], daq [N, Dp], dazr [N, 2 Dp],
+// dhp [N, Dp] fp32 (g (1 - z) + drh r), bias_part [row tiles, 3 Dp] fp32
+// (dbzr's z and r halves, then dbq, summed over each row tile).
+template <typename T> struct InputArgs {
+  const T *h, *x, *g, *wzr, *wq;
+  const float *bzr, *bq;
+  T *zr, *rh, *daq, *dazr, *dh, *dx;
+  float *dhp, *bias_part;
+  Geo geo;
+};
+
+template <typename T, bool kTransposed>
+__device__ __forceinline__ void conv_product(Acc& acc, const ConvOp<T>& op, const Geo& geo,
+                                             int tile, int n0) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int C1p = Dp + Cxp, M = wi.M, rows = M + 4;
-  // buffer row strides: [h | x], the D-wide buffers, dazr
-  const int lhx = C1p + kPad<T>, ld = Dp + kPad<T>, ld2 = 2 * Dp + kPad<T>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* base = reinterpret_cast<T*>(smem_raw);
-  const int64_t n_elems = (int64_t)rows * (lhx + 4 * ld + ld2);
-  T* hx = base + 2 * lhx;                                  // [h | x]
-  T* zb = base + (int64_t)rows * lhx + 2 * ld;             // z
-  T* rb = zb + (int64_t)rows * ld;                         // r
-  T* rh = rb + (int64_t)rows * ld;                         // r*h
-  T* daq = rh + (int64_t)rows * ld;                        // T(daq)
-  T* dazr = daq + (int64_t)rows * ld - 2 * ld + 2 * ld2;   // T(dazr), 2 Dp wide
-  float* scratch = reinterpret_cast<float*>(base + n_elems) + warp * 2 * kTile * kTile;
-  float* bias = reinterpret_cast<float*>(base + n_elems) + kWarps * 2 * kTile * kTile;
-  T* slab = reinterpret_cast<T*>(bias + 3 * Dp);
-
-  for (int64_t i = threadIdx.x; i < n_elems * (int64_t)sizeof(T) / 16; i += kThreads)
-    reinterpret_cast<uint4*>(base)[i] = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < 3 * Dp; i += kThreads) bias[i] = 0.0f;
-  __syncthreads();
-  for (int R = warp; R < M; R += kWarps) {
-    const RowPos rp = row_pos(ln, wi, R);
-    if (!rp.in_line) continue;
-    const int64_t pix = ln.pixel(rp.line, rp.s);
-    copy_row(hx + (int64_t)R * lhx, h + pix * D, D, vec, lane);
-    copy_row(hx + (int64_t)R * lhx + Dp, x + pix * Cx, Cx, vec, lane);
-  }
-  __syncthreads();
-
-  // A warp owns a column tile of each product over all the block's row
-  // tiles (kMaxMT6 accumulators), so each weight tile is read once per warp.
-  // 1. zr on the outputs +- 6 rows: z, r, r*h in T.
-  {
-    const unsigned need = tiles_needed(ln, wi, 6);
-    for (int nt0 = 0; nt0 < 2 * Dp / kTile; nt0 += kWarps) {
-      const int nt = nt0 + warp;
-      Tile<T> acc[kMaxMT6];
-#pragma unroll
-      for (int mt = 0; mt < kMaxMT6; ++mt) acc[mt].zero();
-      conv_block<T, false>(acc, need, nt < 2 * Dp / kTile, hx, lhx, 0, C1p / kTile, wzr,
-                           (int64_t)C1p * 2 * Dp, 2 * Dp, 0, nt0 * kTile,
-                           min(kSlabCols, 2 * Dp - nt0 * kTile), slab);
-      if (nt >= 2 * Dp / kTile) continue;
-#pragma unroll
-      for (int mt = 0; mt < kMaxMT6; ++mt) {
-        if (!(need >> mt & 1u)) continue;
-        acc[mt].store(scratch, kTile);
-        __syncwarp();
-        for (int e = lane; e < kTile * kTile; e += 32) {
-          const int R = mt * kTile + e / kTile, o = nt * kTile + e % kTile;
-          const float v = rnd<T>(sigmoidf(__fadd_rn(scratch[e], bzr[o])));
-          if (o < Dp) {
-            zb[(int64_t)R * ld + o] = from_f32<T>(v);
-          } else {
-            const int c = o - Dp;
-            const T rhv = from_f32<T>(__fmul_rn(v, to_f32(hx[(int64_t)R * lhx + c])));
-            rb[(int64_t)R * ld + c] = from_f32<T>(v);
-            rh[(int64_t)R * ld + c] = rhv;
-            const RowPos rp = row_pos(ln, wi, R);
-            if (rp.own) rh_out[ln.pixel(rp.line, rp.s) * Dp + c] = rhv;
-          }
-        }
-        __syncwarp();
-      }
-    }
-  }
-  __syncthreads();
-
-  // 2. q on the outputs +- 4 rows, then daq and dazr's z half, and their
-  //    bias sums over the own rows (lane l: column l % 16, in row order).
-  {
-    const unsigned need = tiles_needed(ln, wi, 4);
-    for (int nt0 = 0; nt0 < Dp / kTile; nt0 += kWarps) {
-      const int nt = nt0 + warp;
-      const bool active = nt < Dp / kTile;
-      const int n_cols = min(kSlabCols, Dp - nt0 * kTile);
-      Tile<T> acc[kMaxMT6];
-#pragma unroll
-      for (int mt = 0; mt < kMaxMT6; ++mt) acc[mt].zero();
-      conv_block<T, false>(acc, need, active, rh, ld, 0, Dp / kTile, wq, (int64_t)C1p * Dp,
-                           Dp, 0, nt0 * kTile, n_cols, slab);
-      conv_block<T, false>(acc, need, active, hx, lhx, Dp, Cxp / kTile, wq,
-                           (int64_t)C1p * Dp, Dp, Dp, nt0 * kTile, n_cols, slab);
-      if (!active) continue;
-      float sum_q = 0.0f, sum_z = 0.0f;
-#pragma unroll
-      for (int mt = 0; mt < kMaxMT6; ++mt) {
-        if (!(need >> mt & 1u)) continue;
-        acc[mt].store(scratch, kTile);
-        __syncwarp();
-        for (int e = lane; e < kTile * kTile; e += 32) {
-          const int R = mt * kTile + e / kTile, o = nt * kTile + e % kTile;
-          const RowPos rp = row_pos(ln, wi, R);
-          const int64_t pix = rp.in_line ? ln.pixel(rp.line, rp.s) : 0;
-          const float gv = (rp.in_line && o < D) ? to_f32(g[pix * D + o]) : 0.0f;
-          const float q = rnd<T>(tanhf(__fadd_rn(scratch[e], bq[o])));
-          const float z = to_f32(zb[(int64_t)R * ld + o]);
-          const float hv = to_f32(hx[(int64_t)R * lhx + o]);
-          const float dz = __fmul_rn(gv, __fsub_rn(q, hv));
-          const float daq_f = __fmul_rn(__fmul_rn(gv, z), __fsub_rn(1.0f, __fmul_rn(q, q)));
-          const float dazr_f = __fmul_rn(__fmul_rn(dz, z), __fsub_rn(1.0f, z));
-          const T daq_t = from_f32<T>(daq_f), dazr_t = from_f32<T>(dazr_f);
-          daq[(int64_t)R * ld + o] = daq_t;
-          dazr[(int64_t)R * ld2 + o] = dazr_t;
-          if (rp.own) {
-            sum_q += daq_f;
-            sum_z += dazr_f;
-            daq_out[pix * Dp + o] = daq_t;
-            dazr_out[pix * 2 * Dp + o] = dazr_t;
-          }
-        }
-        __syncwarp();
-      }
-      sum_q = column_sum(sum_q);
-      sum_z = column_sum(sum_z);
-      if (lane < kTile) {
-        bias[nt * kTile + lane] = sum_z;
-        bias[2 * Dp + nt * kTile + lane] = sum_q;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. drh = conv^T(daq, Wq)[:, :Dp] on the outputs +- 2 rows, then dazr's
-  //    r half: (drh h) r (1 - r).
-  {
-    const unsigned need = tiles_needed(ln, wi, 2);
-    for (int nt0 = 0; nt0 < Dp / kTile; nt0 += kWarps) {
-      const int nt = nt0 + warp;
-      Tile<T> acc[kMaxMT6];
-#pragma unroll
-      for (int mt = 0; mt < kMaxMT6; ++mt) acc[mt].zero();
-      conv_block<T, true>(acc, need, nt < Dp / kTile, daq, ld, 0, Dp / kTile, wq,
-                          (int64_t)C1p * Dp, Dp, 0, nt0 * kTile,
-                          min(kSlabCols, Dp - nt0 * kTile), slab);
-      if (nt >= Dp / kTile) continue;
-      float sum_r = 0.0f;
-#pragma unroll
-      for (int mt = 0; mt < kMaxMT6; ++mt) {
-        if (!(need >> mt & 1u)) continue;
-        acc[mt].store(scratch, kTile);
-        __syncwarp();
-        for (int e = lane; e < kTile * kTile; e += 32) {
-          const int R = mt * kTile + e / kTile, c = nt * kTile + e % kTile;
-          const float r = to_f32(rb[(int64_t)R * ld + c]);
-          const float dr = __fmul_rn(scratch[e], to_f32(hx[(int64_t)R * lhx + c]));
-          const float dazr_f = __fmul_rn(__fmul_rn(dr, r), __fsub_rn(1.0f, r));
-          const T dazr_t = from_f32<T>(dazr_f);
-          dazr[(int64_t)R * ld2 + Dp + c] = dazr_t;
-          const RowPos rp = row_pos(ln, wi, R);
-          if (rp.own) {
-            sum_r += dazr_f;
-            dazr_out[ln.pixel(rp.line, rp.s) * 2 * Dp + Dp + c] = dazr_t;
-          }
-        }
-        __syncwarp();
-      }
-      sum_r = column_sum(sum_r);
-      if (lane < kTile) bias[Dp + nt * kTile + lane] = sum_r;
-    }
-  }
-  __syncthreads();
-
-  // 4. The outputs: drhx = conv^T(daq, Wq), dhx = conv^T(dazr, Wzr);
-  //    dh = (g (1 - z) + drh r) + dhx[:D], dx = dxq + dhx[D:].
-  {
-    const unsigned need = tiles_needed(ln, wi, 0);
-    float* s1 = scratch;
-    float* s2 = scratch + kTile * kTile;
-    for (int nt0 = 0; nt0 < C1p / kTile; nt0 += kWarps) {
-      const int nt = nt0 + warp;
-      const bool active = nt < C1p / kTile;
-      const int n_cols = min(kSlabCols, C1p - nt0 * kTile);
-      Tile<T> a1[kMaxMT6], a2[kMaxMT6];
-#pragma unroll
-      for (int mt = 0; mt < kMaxMT6; ++mt) {
-        a1[mt].zero();
-        a2[mt].zero();
-      }
-      conv_block<T, true>(a1, need, active, daq, ld, 0, Dp / kTile, wq, (int64_t)C1p * Dp,
-                          Dp, 0, nt0 * kTile, n_cols, slab);
-      conv_block<T, true>(a2, need, active, dazr, ld2, 0, 2 * Dp / kTile, wzr,
-                          (int64_t)C1p * 2 * Dp, 2 * Dp, 0, nt0 * kTile, n_cols, slab);
-      if (!active) continue;
-#pragma unroll
-      for (int mt = 0; mt < kMaxMT6; ++mt) {
-        if (!(need >> mt & 1u)) continue;
-        a1[mt].store(s1, kTile);
-        a2[mt].store(s2, kTile);
-        __syncwarp();
-        for (int e = lane; e < kTile * kTile; e += 32) {
-          const int R = mt * kTile + e / kTile, c = nt * kTile + e % kTile;
-          const RowPos rp = row_pos(ln, wi, R);
-          if (!rp.own) continue;
-          const int64_t pix = ln.pixel(rp.line, rp.s);
-          if (c < Dp) {
-            if (c >= D) continue;
-            const float z = to_f32(zb[(int64_t)R * ld + c]);
-            const float r = to_f32(rb[(int64_t)R * ld + c]);
-            const float dh0 = __fmul_rn(to_f32(g[pix * D + c]), __fsub_rn(1.0f, z));
-            const float v = __fadd_rn(__fadd_rn(dh0, __fmul_rn(s1[e], r)), s2[e]);
-            dh[pix * D + c] = from_f32<T>(v);
-          } else {
-            const int cx = c - Dp;
-            if (cx >= Cx) continue;
-            dx[pix * Cx + cx] = from_f32<T>(__fadd_rn(s1[e], s2[e]));
-          }
-        }
-        __syncwarp();
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * Dp; i += kThreads)
-    bias_part[(int64_t)blockIdx.x * 3 * Dp + i] = bias[i];
+  using L = Layout<T, kTransposed>;
+  const ConvLoader<T, kTransposed> load(op, geo, tile, n0);
+  acc.zero();
+  mainloop<T, kTransposed>(
+      acc, reinterpret_cast<T*>(smem_raw), (op.K + L::BK - 1) / L::BK, geo.seg_shift,
+      [&](int c, T* As) { load.load_a(c, As); },
+      [&](int c, int tap, T* Bs) { load.load_b(c, tap, Bs); });
 }
 
-constexpr int kWT = 64;                 // K6-weight output tile (channels x outputs)
-constexpr int kWP = 128;                // pixels staged a step
-constexpr int kWLd = kWT + 8;           // staged row stride
-
-// K6-weight. Blocks [0, n_zr) own tiles of dWzr, [n_zr, n_zr + n_q) tiles
-// of dWq (tap, channel tile, output tile), the last one the bias sums. Each
-// step stages kWP pixels: the [h, x] or [r h, x] rows the tap reads and the
-// T(dazr) or T(daq) rows, every thread first issuing all its loads (16 bytes
-// each when kVec), then storing them.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gru_pass_bwd_weight_kernel(const T* __restrict__ h, const T* __restrict__ x,
-                           const T* __restrict__ rh_s, const T* __restrict__ daq_s,
-                           const T* __restrict__ dazr_s, const float* __restrict__ bias_part,
-                           int n_part, float* __restrict__ dwzr, float* __restrict__ dbzr,
-                           float* __restrict__ dwq, float* __restrict__ dbq, Lines ln, int D,
-                           int Cx, int Dp, int Cxp) {
+__device__ __forceinline__ float* reduce_smem() {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);
-  T* Bs = As + kWP * kWLd;
-  const int C1p = Dp + Cxp;
-  const int ct_n = (C1p + kWT - 1) / kWT;
-  const int n_zr = kTaps * ct_n * ((2 * Dp + kWT - 1) / kWT);
-  const int n_q = kTaps * ct_n * ((Dp + kWT - 1) / kWT);
-  int b = blockIdx.x;
-  if (b >= n_zr + n_q) {               // the bias sums, in block order
-    for (int i = threadIdx.x; i < 3 * Dp; i += kThreads) {
-      float s = 0.0f;
-      for (int p = 0; p < n_part; ++p) s += bias_part[(int64_t)p * 3 * Dp + i];
-      if (i < 2 * Dp) dbzr[i] = s; else dbq[i - 2 * Dp] = s;
-    }
-    return;
-  }
-  const bool is_q = b >= n_zr;
-  if (is_q) b -= n_zr;
-  const int n_out = is_q ? Dp : 2 * Dp;
-  const int ot_n = (n_out + kWT - 1) / kWT;
-  const int k = b / (ct_n * ot_n), c0 = (b / ot_n) % ct_n * kWT, o0 = b % ot_n * kWT;
-  const T* grad = is_q ? daq_s : dazr_s;
-  const int warp = threadIdx.x >> 5;
-  const int n_pix = ln.n_lines * ln.S;
-  using Chunk = typename std::conditional<kVec, uint4, T>::type;
-  constexpr int kStep = sizeof(Chunk) / sizeof(T);
-  constexpr int kPerRow = kWT / kStep;
-  constexpr int kPerThread = 2 * kWP * kPerRow / kThreads;
-
-  // The source of staged item idx (A rows first, then B rows), or null
-  // where it is zero, and where it goes.
-  auto item = [&](int p0, int idx, T** dst) -> const T* {
-    const bool is_a = idx < kWP * kPerRow;
-    const int rem = is_a ? idx : idx - kWP * kPerRow;
-    const int pl = rem / kPerRow, col = rem % kPerRow * kStep;
-    *dst = (is_a ? As : Bs) + pl * kWLd + col;
-    const int p = p0 + pl;
-    if (p >= n_pix) return nullptr;
-    const int line = p / ln.S, s = p - line * ln.S;
-    if (!is_a) return o0 + col < n_out ? grad + ln.pixel(line, s) * n_out + o0 + col : nullptr;
-    const int sk = s + k - 2, c = c0 + col;            // the tap's shifted pixel
-    if (sk < 0 || sk >= ln.S || c >= C1p) return nullptr;
-    const int64_t pix = ln.pixel(line, sk);
-    if (c < Dp) {
-      if (is_q) return rh_s + pix * Dp + c;
-      return c < D ? h + pix * D + c : nullptr;
-    }
-    return c - Dp < Cx ? x + pix * Cx + (c - Dp) : nullptr;
-  };
-
-  Tile<T> acc[2];
-  acc[0].zero();
-  acc[1].zero();
-  constexpr int kBatch = kPerThread < 8 ? kPerThread : 8;   // loads in flight
-  for (int p0 = 0; p0 < n_pix; p0 += kWP) {
-    for (int i0 = 0; i0 < kPerThread; i0 += kBatch) {
-      Chunk buf[kBatch];
-      T* dst[kBatch];
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        const T* src = item(p0, threadIdx.x + (i0 + i) * kThreads, &dst[i]);
-        if constexpr (kVec)
-          buf[i] = src ? __ldg(reinterpret_cast<const uint4*>(src)) : make_uint4(0, 0, 0, 0);
-        else
-          buf[i] = src ? *src : from_f32<T>(0.0f);
-      }
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) *reinterpret_cast<Chunk*>(dst[i]) = buf[i];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int f = warp + i * kWarps, fc = f / 4 * kTile, fo = f % 4 * kTile;
-      if (c0 + fc >= C1p || o0 + fo >= n_out) continue;
-#pragma unroll
-      for (int kk = 0; kk < kWP; kk += kTile)
-        acc[i].template mma<ColMajor, RowMajor>(As + kk * kWLd + fc, kWLd,
-                                                Bs + kk * kWLd + fo, kWLd);
-    }
-    __syncthreads();
-  }
-  float* dw = is_q ? dwq : dwzr;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int f = warp + i * kWarps, fc = f / 4 * kTile, fo = f % 4 * kTile;
-    if (c0 + fc >= C1p || o0 + fo >= n_out) continue;
-    acc[i].store(dw + ((int64_t)k * C1p + c0 + fc) * n_out + o0 + fo, n_out);
-  }
-}
-
-// The K6-input windows and shared-memory bytes (0: channels too wide).
-template <typename T>
-Windows input_windows(const Lines& ln, int Dp, int Cxp, size_t* smem) {
-  const int64_t row_bytes = (int64_t)(Dp + Cxp + 6 * Dp + 6 * kPad<T>) * sizeof(T);
-  const int64_t fixed = kWarps * 2 * kTile * kTile * sizeof(float) + 3 * Dp * sizeof(float) +
-                        slab_bytes<T>() + 32;
-  const int max_rows = max_rows_for(row_bytes, fixed, kMaxMT6 * kTile);
-  if (max_rows < 32) {                          // too wide for shared memory
-    *smem = 0;
-    return Windows{};
-  }
-  const Windows wi = make_windows(ln, 8, max_rows);
-  *smem = (size_t)(wi.M + 4) * row_bytes + fixed;
-  return wi;
-}
-
-template <typename T>
-long long input_blocks(int B, int H, int W, int Dp, int Cxp, int axis) {
-  const Lines ln = make_lines(B, H, W, axis);
-  size_t smem;
-  const Windows wi = input_windows<T>(ln, Dp, Cxp, &smem);
-  if (smem == 0) return -1;
-  return (wi.count + wi.nl - 1) / wi.nl;
-}
-
-template <typename T>
-cudaError_t launch_input(const void* h, const void* x, const void* wzr, const float* bzr,
-                         const void* wq, const float* bq, const void* g, void* dh, void* dx,
-                         void* rh_s, void* daq_s, void* dazr_s, float* bias_part, int B,
-                         int H, int W, int D, int Cx, int Dp, int Cxp, int axis, bool vec,
-                         cudaStream_t s) {
-  const Lines ln = make_lines(B, H, W, axis);
-  if (ln.n_lines == 0 || ln.S == 0) return cudaSuccess;
-  size_t smem;
-  const Windows wi = input_windows<T>(ln, Dp, Cxp, &smem);
-  if (smem == 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gru_pass_bwd_input_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((wi.count + wi.nl - 1) / wi.nl);
-  gru_pass_bwd_input_kernel<T><<<grid, kThreads, smem, s>>>(
-      (const T*)h, (const T*)x, (const T*)wzr, bzr, (const T*)wq, bq, (const T*)g, (T*)dh,
-      (T*)dx, (T*)rh_s, (T*)daq_s, (T*)dazr_s, bias_part, ln, wi, D, Cx, Dp, Cxp, vec);
-  return cudaGetLastError();
-}
-
-template <typename T, bool kVec>
-cudaError_t launch_weight_as(const void* h, const void* x, const void* rh_s,
-                             const void* daq_s, const void* dazr_s, const float* bias_part,
-                             int n_part, float* dwzr, float* dbzr, float* dwq, float* dbq,
-                             const Lines& ln, int D, int Cx, int Dp, int Cxp, cudaStream_t s) {
-  const int ct_n = (Dp + Cxp + kWT - 1) / kWT;
-  const int blocks = kTaps * ct_n * ((2 * Dp + kWT - 1) / kWT + (Dp + kWT - 1) / kWT) + 1;
-  const size_t smem = 2 * kWP * kWLd * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(gru_pass_bwd_weight_kernel<T, kVec>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  gru_pass_bwd_weight_kernel<T, kVec><<<blocks, kThreads, smem, s>>>(
-      (const T*)h, (const T*)x, (const T*)rh_s, (const T*)daq_s, (const T*)dazr_s, bias_part,
-      n_part, dwzr, dbzr, dwq, dbq, ln, D, Cx, Dp, Cxp);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_weight(const void* h, const void* x, const void* rh_s, const void* daq_s,
-                          const void* dazr_s, const float* bias_part, int n_part, float* dwzr,
-                          float* dbzr, float* dwq, float* dbq, int B, int H, int W, int D,
-                          int Cx, int Dp, int Cxp, int axis, bool vec, cudaStream_t s) {
-  const Lines ln = make_lines(B, H, W, axis);
-  if (vec)
-    return launch_weight_as<T, true>(h, x, rh_s, daq_s, dazr_s, bias_part, n_part, dwzr,
-                                     dbzr, dwq, dbq, ln, D, Cx, Dp, Cxp, s);
-  return launch_weight_as<T, false>(h, x, rh_s, daq_s, dazr_s, bias_part, n_part, dwzr,
-                                    dbzr, dwq, dbq, ln, D, Cx, Dp, Cxp, s);
+  return reinterpret_cast<float*>(smem_raw);
 }
 
 }  // namespace
 
-// The number of K6-input blocks (rows of the bias partials that the caller
-// allocates, [blocks, 3 Dp] fp32), or -1 when the channels are too wide for
-// shared memory.
-extern "C" long long gru_pass_bwd_blocks(int B, int H, int W, int Dp, int Cxp, int axis,
-                                         int dtype) {
-  if (dtype == 0) return input_blocks<float>(B, H, W, Dp, Cxp, axis);
-  if (dtype == 1) return input_blocks<__nv_bfloat16>(B, H, W, Dp, Cxp, axis);
-  return -1;
+// Stage 1: z, r, r*h.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gru_pass_bwd_input_zr(InputArgs<T> a) {
+  const Geo& geo = a.geo;
+  const int Dp = geo.Dp, tile = blockIdx.x, n0 = blockIdx.y * kBN;
+  ConvOp<T> op{{a.h, a.x}, {geo.D, geo.Cx}, {geo.D, geo.Cx}, Dp, Dp + geo.Cxp,
+               {a.wzr, a.wzr}, {(int64_t)(Dp + geo.Cxp) * 2 * Dp, 0}, {2 * Dp, 0}, 0, 2 * Dp};
+  Acc acc;
+  conv_product<T, false>(acc, op, geo, tile, n0);
+  for_each_pair(acc, [&](int, int row, int col, float v0, float v1) {
+    const int m = geo.tile_pixel(tile, row), n = n0 + col;
+    if (m < 0 || n >= 2 * Dp) return;
+    const float s0 = rnd<T>(sigmoidf(__fadd_rn(v0, a.bzr[n])));
+    const float s1 = rnd<T>(sigmoidf(__fadd_rn(v1, a.bzr[n + 1])));
+    store2(a.zr + (int64_t)m * 2 * Dp + n, s0, s1);
+    if (n >= Dp) {
+      const int c = n - Dp;
+      const float2 hv = c < geo.D ? load2(a.h + (int64_t)m * geo.D + c) : make_float2(0.f, 0.f);
+      store2(a.rh + (int64_t)m * Dp + c, __fmul_rn(s0, hv.x), __fmul_rn(s1, hv.y));
+    }
+  });
 }
 
-// K6-input. h, x, weights, biases as for gru_pass_fwd; g [B, H, W, D] in
-// dtype. Writes dh [B, H, W, D] and dx [B, H, W, Cx] in dtype, and for
-// K6-weight rh_s [B, H, W, Dp], daq_s [B, H, W, Dp], dazr_s [B, H, W, 2 Dp]
-// in dtype and bias_part [blocks, 3 Dp] fp32 (dbzr's z and r halves, then
-// dbq, summed over each block's pixels). vec: as for gru_pass_fwd.
+// Stage 2: q, T(daq), the z half of T(dazr), their bias sums.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gru_pass_bwd_input_q(InputArgs<T> a) {
+  const Geo& geo = a.geo;
+  const int Dp = geo.Dp, D = geo.D, tile = blockIdx.x, n0 = blockIdx.y * kBN;
+  ConvOp<T> op{{a.rh, a.x}, {Dp, geo.Cx}, {Dp, geo.Cx}, Dp, Dp + geo.Cxp,
+               {a.wq, a.wq}, {(int64_t)(Dp + geo.Cxp) * Dp, 0}, {Dp, 0}, 0, Dp};
+  Acc acc;
+  conv_product<T, false>(acc, op, geo, tile, n0);
+  float sq[4][2] = {}, sz[4][2] = {};
+  for_each_pair(acc, [&](int j, int row, int col, float v0, float v1) {
+    const int m = geo.tile_pixel(tile, row), o = n0 + col;
+    if (m < 0 || o >= Dp) return;
+    float dq[2], dzr[2];
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int oe = o + e;
+      const float q = rnd<T>(tanhf(__fadd_rn(v[e], a.bq[oe])));
+      const float gv = oe < D ? to_f32(a.g[(int64_t)m * D + oe]) : 0.0f;
+      const float hv = oe < D ? to_f32(a.h[(int64_t)m * D + oe]) : 0.0f;
+      const float z = to_f32(a.zr[(int64_t)m * 2 * Dp + oe]);
+      const float dz = __fmul_rn(gv, __fsub_rn(q, hv));
+      dq[e] = __fmul_rn(__fmul_rn(gv, z), __fsub_rn(1.0f, __fmul_rn(q, q)));
+      dzr[e] = __fmul_rn(__fmul_rn(dz, z), __fsub_rn(1.0f, z));
+      sq[j][e] += dq[e];
+      sz[j][e] += dzr[e];
+    }
+    store2(a.daq + (int64_t)m * Dp + o, dq[0], dq[1]);
+    store2(a.dazr + (int64_t)m * 2 * Dp + o, dzr[0], dzr[1]);
+  });
+  float* part = a.bias_part + (int64_t)tile * 3 * Dp;
+  block_column_sums(sz, reduce_smem(), part, n0, Dp);
+  block_column_sums(sq, reduce_smem(), part + 2 * Dp, n0, Dp);
+}
+
+// Stage 3: drh, the r half of T(dazr) and its bias sums, g (1 - z) + drh r.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gru_pass_bwd_input_drh(InputArgs<T> a) {
+  const Geo& geo = a.geo;
+  const int Dp = geo.Dp, D = geo.D, tile = blockIdx.x, n0 = blockIdx.y * kBN;
+  ConvOp<T> op{{a.daq, a.daq}, {Dp, 0}, {Dp, 0}, Dp, Dp,
+               {a.wq, a.wq}, {(int64_t)(Dp + geo.Cxp) * Dp, 0}, {Dp, 0}, 0, Dp};
+  Acc acc;
+  conv_product<T, true>(acc, op, geo, tile, n0);
+  float sr[4][2] = {};
+  for_each_pair(acc, [&](int j, int row, int col, float v0, float v1) {
+    const int m = geo.tile_pixel(tile, row), c = n0 + col;
+    if (m < 0 || c >= Dp) return;
+    float dr_[2], dhp[2];
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ce = c + e;
+      const float gv = ce < D ? to_f32(a.g[(int64_t)m * D + ce]) : 0.0f;
+      const float hv = ce < D ? to_f32(a.h[(int64_t)m * D + ce]) : 0.0f;
+      const float z = to_f32(a.zr[(int64_t)m * 2 * Dp + ce]);
+      const float r = to_f32(a.zr[(int64_t)m * 2 * Dp + Dp + ce]);
+      const float dr = __fmul_rn(v[e], hv);
+      dr_[e] = __fmul_rn(__fmul_rn(dr, r), __fsub_rn(1.0f, r));
+      dhp[e] = __fadd_rn(__fmul_rn(gv, __fsub_rn(1.0f, z)), __fmul_rn(v[e], r));
+      sr[j][e] += dr_[e];
+    }
+    store2(a.dazr + (int64_t)m * 2 * Dp + Dp + c, dr_[0], dr_[1]);
+    store2(a.dhp + (int64_t)m * Dp + c, dhp[0], dhp[1]);
+  });
+  block_column_sums(sr, reduce_smem(), a.bias_part + (int64_t)tile * 3 * Dp + Dp,
+                    n0, Dp);
+}
+
+// Stage 4: dx (column tiles [0, n_xt)) and dh (the rest).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gru_pass_bwd_input_dhx(InputArgs<T> a) {
+  const Geo& geo = a.geo;
+  const int Dp = geo.Dp, C1p = Dp + geo.Cxp, tile = blockIdx.x;
+  const int n_xt = (geo.Cxp + kBN - 1) / kBN;
+  const bool is_x = (int)blockIdx.y < n_xt;
+  const int n0 = (is_x ? blockIdx.y : blockIdx.y - n_xt) * kBN;
+  const int64_t ts_q = (int64_t)C1p * Dp, ts_zr = (int64_t)C1p * 2 * Dp;
+  const ConvOp<T> op =
+      is_x ? ConvOp<T>{{a.daq, a.dazr}, {Dp, 2 * Dp}, {Dp, 2 * Dp}, Dp, 3 * Dp,
+                       {a.wq, a.wzr}, {ts_q, ts_zr}, {Dp, 2 * Dp}, Dp, geo.Cxp}
+           : ConvOp<T>{{a.dazr, a.dazr}, {2 * Dp, 0}, {2 * Dp, 0}, 2 * Dp, 2 * Dp,
+                       {a.wzr, a.wzr}, {ts_zr, 0}, {2 * Dp, 0}, 0, Dp};
+  Acc acc;
+  conv_product<T, true>(acc, op, geo, tile, n0);
+  for_each_pair(acc, [&](int, int row, int col, float v0, float v1) {
+    const int m = geo.tile_pixel(tile, row), c = n0 + col;
+    if (m < 0) return;
+    if (is_x) {
+      if (c < geo.Cx) store2(a.dx + (int64_t)m * geo.Cx + c, v0, v1);
+    } else if (c < geo.D) {
+      const float2 p = *reinterpret_cast<const float2*>(a.dhp + (int64_t)m * Dp + c);
+      store2(a.dh + (int64_t)m * geo.D + c, __fadd_rn(p.x, v0), __fadd_rn(p.y, v1));
+    }
+  });
+}
+
+namespace {
+
+// K6-weight's tiles: a block owns kTapCh channel rows and kTapOut output
+// columns of one weight gradient for all five taps, one warp a tap. A stage
+// holds kTapPix pixels as segments of L = 2^seg_shift positions of one line
+// (8, 16 or 32): B (T(dazr) or T(daq)) their L rows, A ([h | x] or [r h |
+// x]) L + 4 rows, from two positions before the segment to two after, zero
+// past the line's ends. Tap k of the stage's pixel j reads A row tap_row(j)
+// + k, so the five taps multiply one staged A.
+constexpr int kTapCh = 64, kTapOut = 64, kTapPix = 32, kTapThreads = 32 * kTaps;
+
+template <typename T> struct TapLayout {
+  static constexpr int V = 16 / (int)sizeof(T);
+  static constexpr int LDA = kTapCh + V, LDB = kTapOut + V;
+  static constexpr int A_ROWS = kTapPix + 4 * (kTapPix / 8);   // the most: segments of 8
+  static constexpr int A_ELEMS = A_ROWS * LDA, STAGE = A_ELEMS + kTapPix * LDB;
+  static constexpr int BYTES = kTapStages * STAGE * (int)sizeof(T);
+};
+
+// K6-weight's operands: [h | x] against T(dazr) for dWzr, [r h | x] against
+// T(daq) for dWq; fp32 partials [n_split, 5 C1p (2 Dp + Dp)] (dWzr's, then
+// dWq's), split s summing the segments of its steps_per stages.
+template <typename T> struct WeightArgs {
+  const T *h, *x, *rh, *daq, *dazr;
+  float* part;
+  int steps_per;
+  Geo geo;
+};
+
+// The cp.async copies of one stage of a five-tap weight product. Each
+// thread copies for one segment of the stage (tps threads a segment).
+template <typename T>
+struct TapLoader {
+  using TL = TapLayout<T>;
+  const T *a0, *a1, *grad;      // A's channels below `split` from a0, the rest from a1
+  int lda0, lda1, real0, real1, split, c0, n0, n_out;
+  int g_base, g_end, my_seg, lt, tps;
+  Geo geo;
+
+  __device__ __forceinline__ void operator()(int step, T* As, T* Bs) const {
+    constexpr int V = TL::V, CPR = kTapCh / V, CPRB = kTapOut / V;
+    const int L = 1 << geo.seg_shift, S = geo.S, ss = geo.ss;
+    const int g = g_base + step * (kTapPix >> geo.seg_shift) + my_seg;
+    const bool seg_ok = g < g_end;
+    const int line = seg_ok ? g / geo.spl : 0;
+    const int s0 = (g - line * geo.spl) << geo.seg_shift;
+    const int64_t pix0 = geo.line_pixel(line);
+    for (int idx = lt; idx < (L + 4) * CPR; idx += tps) {
+      const int u = idx / CPR, c = idx % CPR, s = s0 + u - 2, ch = c0 + c * V;
+      const bool src = ch >= split;
+      const int chan = src ? ch - split : ch;
+      const bool ok = seg_ok && s >= 0 && s < S && chan < (src ? real1 : real0);
+      const T* p = ok ? (src ? a1 : a0) + (pix0 + (int64_t)s * ss) * (src ? lda1 : lda0) + chan
+                      : grad;
+      cp_async16(As + (my_seg * (L + 4) + u) * TL::LDA + c * V, p, ok);
+    }
+    for (int idx = lt; idx < L * CPRB; idx += tps) {
+      const int u = idx / CPRB, c = idx % CPRB, s = s0 + u, n = n0 + c * V;
+      const bool ok = seg_ok && s < S && n < n_out;
+      const T* p = ok ? grad + (pix0 + (int64_t)s * ss) * n_out + n : grad;
+      cp_async16(Bs + (my_seg * L + u) * TL::LDB + c * V, p, ok);
+    }
+  }
+};
+
+}  // namespace
+
+template <typename T>
+__global__ void __launch_bounds__(kTapThreads, 2) gru_pass_bwd_weight_gemm(WeightArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  using TL = TapLayout<T>;
+  const Geo& geo = a.geo;
+  const int Dp = geo.Dp, C1p = Dp + geo.Cxp;
+  const int n_ct = (C1p + kTapCh - 1) / kTapCh, n_zr = (2 * Dp + kTapOut - 1) / kTapOut;
+  int b = blockIdx.x;
+  const bool is_q = b >= n_ct * n_zr;
+  if (is_q) b -= n_ct * n_zr;
+  const int n_nt = is_q ? (Dp + kTapOut - 1) / kTapOut : n_zr;
+  const int c0 = b / n_nt * kTapCh, n0 = b % n_nt * kTapOut, n_out = is_q ? Dp : 2 * Dp;
+
+  TapLoader<T> load;
+  load.a0 = is_q ? a.rh : a.h;
+  load.lda0 = load.real0 = is_q ? Dp : geo.D;
+  load.a1 = a.x;
+  load.lda1 = load.real1 = geo.Cx;
+  load.split = Dp;
+  load.c0 = c0;
+  load.grad = is_q ? a.daq : a.dazr;
+  load.n0 = n0;
+  load.n_out = n_out;
+  const int nseg = kTapPix >> geo.seg_shift;                 // segments a stage
+  load.g_base = blockIdx.y * a.steps_per * nseg;
+  load.g_end = min(load.g_base + a.steps_per * nseg, geo.n_segs);
+  load.tps = kTapThreads / nseg;
+  load.my_seg = threadIdx.x / load.tps;
+  load.lt = threadIdx.x % load.tps;
+  load.geo = geo;
+  const int steps = max(0, (load.g_end - load.g_base + nseg - 1) / nseg);
+
+  const int tap = threadIdx.x >> 5, seg_shift = geo.seg_shift;
+  AccN<8> acc;
+  acc.zero();
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  ring<kTapStages>(
+      steps,
+      [&](int step) {
+        T* st = smem + (step % kTapStages) * TL::STAGE;
+        load(step, st, st + TL::A_ELEMS);
+      },
+      [&](int step) {
+        const T* st = smem + (step % kTapStages) * TL::STAGE;
+        tap_product<kTapPix>(acc, st, st + TL::A_ELEMS, TL::LDA, TL::LDB, tap, seg_shift);
+      });
+  const int M = kTaps * C1p;
+  float* out = a.part + (int64_t)blockIdx.y * M * 3 * Dp + (is_q ? (int64_t)M * 2 * Dp : 0) +
+               (int64_t)tap * C1p * n_out;
+  for_each_pair(acc, 0, 0, [&](int, int row, int col, float v0, float v1) {
+    const int c = c0 + row, n = n0 + col;
+    if (c < C1p && n < n_out)
+      *reinterpret_cast<float2*>(out + (int64_t)c * n_out + n) = make_float2(v0, v1);
+  });
+}
+
+// out[e] = sum over splits of part[s][e] for the n_w weight elements, in
+// split order, 4 elements a thread (the first n_w / 4 threads); then the
+// 3 Dp bias sums over the n_rows rows of bias_part, 4 columns a warp (the
+// warps from w0 on): lane l sums rows l, l + 32, ... in order, then the
+// lanes are summed by a butterfly. A fixed order either way.
+__global__ void __launch_bounds__(256) gru_pass_bwd_weight_reduce(
+    const float* __restrict__ part, int n_split, int n_w, const float* __restrict__ bias_part,
+    int n_rows, int nb, int w0, float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n_w / 4) {
+    const float* src = part + 4 * t;
+    float4 s = *reinterpret_cast<const float4*>(src);
+#pragma unroll 4
+    for (int k = 1; k < n_split; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(src + (int64_t)k * n_w);
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    *reinterpret_cast<float4*>(out + 4 * t) = s;
+    return;
+  }
+  const int warp = t / 32 - w0, lane = t & 31;
+  if (warp < 0 || warp >= nb / 4) return;           // whole warps
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = lane; r < n_rows; r += 32) {
+    const float4 v = *reinterpret_cast<const float4*>(bias_part + (int64_t)r * nb + 4 * warp);
+    s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+    s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+    s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
+  }
+  if (lane == 0) *reinterpret_cast<float4*>(out + n_w + 4 * warp) = s;
+}
+
+namespace {
+
+template <class Kernel, class Args>
+cudaError_t launch(Kernel kernel, int threads, int bytes, dim3 grid, const Args& args,
+                   cudaStream_t s) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, bytes, s>>>(args);
+  return cudaGetLastError();
+}
+
+// K6-input's row tiles: kBM rows of whole segments.
+int row_tiles(const Geo& g) { return (g.n_segs + (kBM >> g.seg_shift) - 1) / (kBM >> g.seg_shift); }
+
+template <typename T>
+cudaError_t run_input(InputArgs<T> a, cudaStream_t s) {
+  const Geo& g = a.geo;
+  const unsigned mt = row_tiles(g);
+  const unsigned dt = (g.Dp + kBN - 1) / kBN, xt = (g.Cxp + kBN - 1) / kBN;
+  const int fwd = Layout<T, false>::bytes(g.seg_shift), tr = Layout<T, true>::bytes(g.seg_shift);
+  cudaError_t err;
+  if ((err = launch(gru_pass_bwd_input_zr<T>, kThreads, fwd, dim3(mt, 2 * dt), a, s))) return err;
+  if ((err = launch(gru_pass_bwd_input_q<T>, kThreads, fwd, dim3(mt, dt), a, s))) return err;
+  if ((err = launch(gru_pass_bwd_input_drh<T>, kThreads, tr, dim3(mt, dt), a, s))) return err;
+  return launch(gru_pass_bwd_input_dhx<T>, kThreads, tr, dim3(mt, xt + dt), a, s);
+}
+
+template <typename T>
+cudaError_t run_weight(WeightArgs<T> a, int n_split, const float* bias_part, int n_rows,
+                       float* out, cudaStream_t s) {
+  const Geo& g = a.geo;
+  const int C1p = g.Dp + g.Cxp, M = kTaps * C1p;
+  const unsigned tiles = ((C1p + kTapCh - 1) / kTapCh) *
+                         ((2 * g.Dp + kTapOut - 1) / kTapOut + (g.Dp + kTapOut - 1) / kTapOut);
+  cudaError_t err = launch(gru_pass_bwd_weight_gemm<T>, kTapThreads, TapLayout<T>::BYTES,
+                           dim3(tiles, n_split), a, s);
+  if (err) return err;
+  const int n_w = M * 3 * g.Dp, nb = 3 * g.Dp;
+  const int w0 = (n_w / 4 + 31) / 32, threads = 32 * (w0 + nb / 4);
+  gru_pass_bwd_weight_reduce<<<(threads + 255) / 256, 256, 0, s>>>(
+      a.part, n_split, n_w, bias_part, n_rows, nb, w0, out);
+  return cudaGetLastError();
+}
+
+bool geo_ok(const Geo& g, int elem, int axis) {
+  const int V = 16 / elem;
+  return g.N > 0 && g.seg_shift >= 3 && g.seg_shift <= 5 && (axis == 1 || axis == 2) &&
+         g.Dp % 16 == 0 && g.Cxp % 16 == 0 && g.D % V == 0 && g.Cx % V == 0 && g.D <= g.Dp &&
+         g.Cx <= g.Cxp;
+}
+
+}  // namespace
+
+// The tiles the wrapper plans with: K6-input's kBM pixels (bias_part has a
+// row per kBM pixels) and kBN columns; K6-weight's kTapCh channels, kTapOut
+// outputs and kTapPix pixels a stage.
+extern "C" int gru_pass_bwd_tile(int which) {
+  const int tiles[] = {kBM, kBN, kTapCh, kTapOut, kTapPix};
+  return which >= 0 && which < 5 ? tiles[which] : -1;
+}
+
+// K6-input. h [N, D], x [N, Cx], g [N, D] in dtype (N = B H W, channel
+// minor, D and Cx multiples of 16 bytes, 16-byte aligned); wzr, bzr, wq, bq
+// padded as for gru_pass_fwd. The pixels are walked line by line in
+// segments of 2^seg_shift positions (seg_shift 3 to 5), kBM / 2^seg_shift
+// segments a row tile. Writes dh [N, D] and dx [N, Cx] in dtype, and the
+// scratch of InputArgs: zr_s, rh_s, daq_s, dazr_s in dtype, dhp_s and
+// bias_part [row tiles, 3 Dp] fp32. K6-weight reads rh_s, daq_s, dazr_s and
+// bias_part.
 extern "C" int gru_pass_bwd_input(const void* h, const void* x, const void* wzr,
                                   const void* bzr, const void* wq, const void* bq,
-                                  const void* g, void* dh, void* dx, void* rh_s, void* daq_s,
-                                  void* dazr_s, void* bias_part, int B, int H, int W, int D,
-                                  int Cx, int Dp, int Cxp, int axis, int dtype, int vec,
-                                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((axis != 1 && axis != 2) || Dp % kTile || Cxp % kTile) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_input<float>(h, x, wzr, (const float*)bzr, wq, (const float*)bq, g,
-                                    dh, dx, rh_s, daq_s, dazr_s, (float*)bias_part, B, H, W,
-                                    D, Cx, Dp, Cxp, axis, vec != 0, s);
-  if (dtype == 1)
-    return (int)launch_input<__nv_bfloat16>(h, x, wzr, (const float*)bzr, wq,
-                                            (const float*)bq, g, dh, dx, rh_s, daq_s, dazr_s,
-                                            (float*)bias_part, B, H, W, D, Cx, Dp, Cxp, axis,
-                                            vec != 0, s);
+                                  const void* g, void* dh, void* dx, void* zr_s, void* rh_s,
+                                  void* daq_s, void* dazr_s, void* dhp_s, void* bias_part,
+                                  int B, int H, int W, int D, int Cx, int Dp, int Cxp, int axis,
+                                  int seg_shift, int dtype, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Geo geo = make_geo(B, H, W, D, Cx, Dp, Cxp, axis, seg_shift);
+  if (dtype == 0) {
+    if (!geo_ok(geo, 4, axis)) return (int)cudaErrorInvalidValue;
+    using T = float;
+    return (int)run_input<T>(
+        InputArgs<T>{(const T*)h, (const T*)x, (const T*)g, (const T*)wzr, (const T*)wq,
+                     (const float*)bzr, (const float*)bq, (T*)zr_s, (T*)rh_s, (T*)daq_s,
+                     (T*)dazr_s, (T*)dh, (T*)dx, (float*)dhp_s, (float*)bias_part, geo},
+        s);
+  }
+  if (dtype == 1) {
+    if (!geo_ok(geo, 2, axis)) return (int)cudaErrorInvalidValue;
+    using T = __nv_bfloat16;
+    return (int)run_input<T>(
+        InputArgs<T>{(const T*)h, (const T*)x, (const T*)g, (const T*)wzr, (const T*)wq,
+                     (const float*)bzr, (const float*)bq, (T*)zr_s, (T*)rh_s, (T*)daq_s,
+                     (T*)dazr_s, (T*)dh, (T*)dx, (float*)dhp_s, (float*)bias_part, geo},
+        s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// K6-weight. Reads h, x and K6-input's rh_s, daq_s, dazr_s and n_part rows
-// of bias_part; writes dwzr [5, Dp + Cxp, 2 Dp], dbzr [2 Dp], dwq
-// [5, Dp + Cxp, Dp], dbq [Dp], all fp32, every element. vec: as for
-// gru_pass_fwd.
+// K6-weight. Reads h, x and K6-input's rh_s, daq_s, dazr_s and its n_rows
+// rows of bias_part; part is fp32 scratch [n_split, 5 (Dp + Cxp) 3 Dp]. The
+// segments are K6-input's, kTapPix / 2^seg_shift a stage; split s sums
+// stages [s steps_per, (s + 1) steps_per), and the splits must cover every
+// segment. Writes out, fp32: dwzr [5, Dp + Cxp, 2 Dp], dwq [5, Dp + Cxp,
+// Dp], dbzr [2 Dp], dbq [Dp], one after the other, every element.
 extern "C" int gru_pass_bwd_weight(const void* h, const void* x, const void* rh_s,
                                    const void* daq_s, const void* dazr_s,
-                                   const void* bias_part, int n_part, void* dwzr, void* dbzr,
-                                   void* dwq, void* dbq, int B, int H, int W, int D, int Cx,
-                                   int Dp, int Cxp, int axis, int dtype, int vec,
+                                   const void* bias_part, int n_rows, void* part, void* out,
+                                   int n_split, int steps_per, int B, int H, int W, int D,
+                                   int Cx, int Dp, int Cxp, int axis, int seg_shift, int dtype,
                                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((axis != 1 && axis != 2) || Dp % kTile || Cxp % kTile) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_weight<float>(h, x, rh_s, daq_s, dazr_s, (const float*)bias_part,
-                                     n_part, (float*)dwzr, (float*)dbzr, (float*)dwq,
-                                     (float*)dbq, B, H, W, D, Cx, Dp, Cxp, axis, vec != 0, s);
-  if (dtype == 1)
-    return (int)launch_weight<__nv_bfloat16>(h, x, rh_s, daq_s, dazr_s,
-                                             (const float*)bias_part, n_part, (float*)dwzr,
-                                             (float*)dbzr, (float*)dwq, (float*)dbq, B, H, W,
-                                             D, Cx, Dp, Cxp, axis, vec != 0, s);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Geo geo = make_geo(B, H, W, D, Cx, Dp, Cxp, axis, seg_shift);
+  if (!geo_ok(geo, dtype == 1 ? 2 : 4, axis) || n_split < 1 || steps_per < 1 ||
+      (int64_t)n_split * steps_per * (kTapPix >> seg_shift) < geo.n_segs)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    using T = float;
+    return (int)run_weight<T>(WeightArgs<T>{(const T*)h, (const T*)x, (const T*)rh_s,
+                                            (const T*)daq_s, (const T*)dazr_s, (float*)part,
+                                            steps_per, geo},
+                              n_split, (const float*)bias_part, n_rows, (float*)out, s);
+  }
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    return (int)run_weight<T>(WeightArgs<T>{(const T*)h, (const T*)x, (const T*)rh_s,
+                                            (const T*)daq_s, (const T*)dazr_s, (float*)part,
+                                            steps_per, geo},
+                              n_split, (const float*)bias_part, n_rows, (float*)out, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -29,6 +29,7 @@ Weights enter in fp32 (the parameters) and are cast inside, as `_run_fwd` and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -219,50 +220,141 @@ def _launch_k5(p: _Prepared, axis):
     return out
 
 
+# K6's tiles (`csrc/gru_gemm.cuh`, `csrc/gru_pass_bwd.cu`). Both kernels walk
+# the pixels line by line along the shift axis in segments of 8, 16 or 32
+# positions (`k6_segment`). K6-input's row tiles are K6_BM pixels of whole
+# segments x K6_BN columns; K6-weight's blocks K6W_CH channels x K6W_OUT
+# outputs for all five taps, over stages of K6W_PIX pixels. K6-weight splits
+# the stages (split-K) into as many ranges as the grid holds
+# _K6W_BLOCKS_PER_SM blocks an SM in one wave, each at least _K6W_MIN_STEPS
+# stages.
+K6_BM, K6_BN = 128, 64
+K6W_CH, K6W_OUT, K6W_PIX = 64, 64, 32
+_K6W_MIN_STEPS, _K6W_BLOCKS_PER_SM = 8, 2
+
+
+def k6_segment(s: int) -> int:
+    """K6's segment for lines of ``s`` positions: of 32, 16 and 8 the one
+    that leaves the fewest positions empty, the longest of those."""
+    return min((32, 16, 8), key=lambda seg: (-(-s // seg) * seg - s, -seg))
+
+
+def k6_row_tiles(b: int, hh: int, ww: int, axis: int) -> int:
+    """K6-input's row tiles: K6_BM rows of whole segments each (so rows of
+    its bias sums)."""
+    s = ww if axis == 2 else hh
+    seg = k6_segment(s)
+    return -(-(b * hh * ww // s * -(-s // seg)) // (K6_BM // seg))
+
+
+def k6_weight_plan(b: int, hh: int, ww: int, axis: int, dp: int, cxp: int, sms: int):
+    """K6-weight's launch plan on a card with ``sms`` SMs: (segment length,
+    number of splits, stages a split)."""
+    s = ww if axis == 2 else hh
+    seg = k6_segment(s)
+    steps = -(-(b * hh * ww // s) * -(-s // seg) // (K6W_PIX // seg))
+    tiles = -(-(dp + cxp) // K6W_CH) * (-(-2 * dp // K6W_OUT) + -(-dp // K6W_OUT))
+    want = _K6W_BLOCKS_PER_SM * sms // tiles
+    per = -(-steps // max(1, min(want, steps // _K6W_MIN_STEPS)))
+    return seg, -(-steps // per), per
+
+
+def k6_split_pixels(b: int, hh: int, ww: int, axis: int, seg: int, n_split: int, per: int):
+    """The pixels (b H W + i W + j) each of K6-weight's splits sums over, in
+    split order and in the order the split walks them: line by line along
+    the shift axis, segment by segment."""
+    s, ss = (ww, 1) if axis == 2 else (hh, ww)
+    spl = -(-s // seg)
+    n_segs = b * hh * ww // s * spl
+    out = []
+    for y in range(n_split):
+        pix = []
+        for g in range(y * per * (K6W_PIX // seg), min((y + 1) * per * (K6W_PIX // seg), n_segs)):
+            line, s0 = g // spl, g % spl * seg
+            base = line // ss * s * ss + line % ss
+            pix += [base + p * ss for p in range(s0, min(s0 + seg, s))]
+        out.append(pix)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _check_k6_tiles() -> None:
+    fn = entry("gru_pass_bwd", "gru_pass_bwd_tile", [ctypes.c_int])
+    want = (K6_BM, K6_BN, K6W_CH, K6W_OUT, K6W_PIX)
+    got = tuple(fn(i) for i in range(len(want)))
+    if got != want:
+        raise RuntimeError(f"gru_pass_bwd tiles {got}, the wrapper plans for {want}")
+
+
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (a copy if need be)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_k6_input(p: _Prepared, g, axis):
-    """K6-input: (dh, dx, scratch) with scratch = (r*h, T(daq), T(dazr) in
-    the compute dtype at padded widths, per-block fp32 bias sums, their row
-    count), which K6-weight reads."""
+    """K6-input: (dh, dx, scratch). The kernels read whole 16-byte chunks
+    of a pixel's channels: where D or Cx is not a multiple of 16 bytes, h, x
+    and g go in zero padded to Dp and Cxp, and dh, dx come back cut.
+    scratch = (h, x as the kernels read them, their widths, r*h, T(daq),
+    T(dazr) in the compute dtype at padded widths, the fp32 bias sums of each
+    K6_BM-pixel tile), which K6-weight reads."""
+    _check_k6_tiles()
     b, hh, ww, d, cx, dp, cxp = p.sizes
-    blocks_fn = entry("gru_pass_bwd", "gru_pass_bwd_blocks", [ctypes.c_int] * 7)
-    blocks_fn.restype = ctypes.c_longlong
-    n_part = blocks_fn(b, hh, ww, dp, cxp, axis, p.code)
-    if n_part < 0:
-        raise ValueError(f"gru_sep1d_pass backward: D={d}, Cx={cx} too wide for the "
-                         "kernel's shared memory")
-    g = g.to(p.dtype).contiguous()
+    g = _aligned(g.to(p.dtype))
+    h, x, dk, cxk = p.h, p.x, d, cx
+    if not p.vec:
+        h, x, g, dk, cxk = (F.pad(h, (0, dp - d)), F.pad(x, (0, cxp - cx)),
+                            F.pad(g, (0, dp - d)), dp, cxp)
+    n = b * hh * ww
+    seg = k6_segment(ww if axis == 2 else hh)
     dev, cdt = p.h.device, p.dtype
-    dh, dx = torch.empty_like(p.h), torch.empty_like(p.x)
-    rh_s = torch.empty((b, hh, ww, dp), dtype=cdt, device=dev)
-    daq_s = torch.empty((b, hh, ww, dp), dtype=cdt, device=dev)
-    dazr_s = torch.empty((b, hh, ww, 2 * dp), dtype=cdt, device=dev)
-    part = torch.empty((max(n_part, 1), 3 * dp), dtype=torch.float32, device=dev)
+    dh = torch.empty((b, hh, ww, dk), dtype=cdt, device=dev)
+    dx = torch.empty((b, hh, ww, cxk), dtype=cdt, device=dev)
+    zr_s = torch.empty((n, 2 * dp), dtype=cdt, device=dev)
+    rh_s = torch.empty((n, dp), dtype=cdt, device=dev)
+    daq_s = torch.empty((n, dp), dtype=cdt, device=dev)
+    dazr_s = torch.empty((n, 2 * dp), dtype=cdt, device=dev)
+    dhp_s = torch.empty((n, dp), dtype=torch.float32, device=dev)
+    part = torch.empty((k6_row_tiles(b, hh, ww, axis), 3 * dp), dtype=torch.float32,
+                       device=dev)
     fn = entry("gru_pass_bwd", "gru_pass_bwd_input",
-               [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    launch(fn, dev, p.h.data_ptr(), p.x.data_ptr(), p.wzr.data_ptr(), p.bzr.data_ptr(),
-           p.wq.data_ptr(), p.bq.data_ptr(), g.data_ptr(), dh.data_ptr(), dx.data_ptr(),
-           rh_s.data_ptr(), daq_s.data_ptr(), dazr_s.data_ptr(), part.data_ptr(), *p.sizes,
-           axis, p.code, p.vec)
+               [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    launch(fn, dev, *(t.data_ptr() for t in (h, x, p.wzr, p.bzr, p.wq, p.bq, g, dh, dx,
+                                              zr_s, rh_s, daq_s, dazr_s, dhp_s, part)),
+           b, hh, ww, dk, cxk, dp, cxp, axis, seg.bit_length() - 1, p.code)
     K6I_COUNTER.launches += 1
-    return dh, dx, (rh_s, daq_s, dazr_s, part, n_part)
+    if dk != d or cxk != cx:
+        dh, dx = dh[..., :d].contiguous(), dx[..., :cx].contiguous()
+    return dh, dx, (h, x, dk, cxk, rh_s, daq_s, dazr_s, part)
 
 
 def _launch_k6_weight(p: _Prepared, scratch, axis):
     """K6-weight: (dwzr, dbzr, dwq, dbq) fp32 from K6-input's scratch."""
-    rh_s, daq_s, dazr_s, part, n_part = scratch
+    h, x, dk, cxk, rh_s, daq_s, dazr_s, part = scratch
     b, hh, ww, d, cx, dp, cxp = p.sizes
     dev, c1p = p.h.device, dp + cxp
-    dwzr = torch.empty((K_TAPS, c1p, 2 * dp), dtype=torch.float32, device=dev)
-    dwq = torch.empty((K_TAPS, c1p, dp), dtype=torch.float32, device=dev)
-    dbzr = torch.empty(2 * dp, dtype=torch.float32, device=dev)
-    dbq = torch.empty(dp, dtype=torch.float32, device=dev)
+    seg, n_split, per = k6_weight_plan(b, hh, ww, axis, dp, cxp, _sm_count(dev.index or 0))
+    m = K_TAPS * c1p
+    n_w = m * 3 * dp
+    partials = torch.empty((n_split, n_w), dtype=torch.float32, device=dev)
+    out = torch.empty(n_w + 3 * dp, dtype=torch.float32, device=dev)
     fn = entry("gru_pass_bwd", "gru_pass_bwd_weight",
-               [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-               + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    launch(fn, dev, p.h.data_ptr(), p.x.data_ptr(), rh_s.data_ptr(), daq_s.data_ptr(),
-           dazr_s.data_ptr(), part.data_ptr(), n_part, dwzr.data_ptr(), dbzr.data_ptr(),
-           dwq.data_ptr(), dbq.data_ptr(), *p.sizes, axis, p.code, p.vec)
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+               + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    launch(fn, dev, h.data_ptr(), x.data_ptr(), rh_s.data_ptr(), daq_s.data_ptr(),
+           dazr_s.data_ptr(), part.data_ptr(), part.shape[0], partials.data_ptr(),
+           out.data_ptr(), n_split, per, b, hh, ww, dk, cxk, dp, cxp, axis,
+           seg.bit_length() - 1, p.code)
     K6W_COUNTER.launches += 1
+    dwzr = out[:m * 2 * dp].view(K_TAPS, c1p, 2 * dp)
+    dwq = out[m * 2 * dp:n_w].view(K_TAPS, c1p, dp)
+    dbzr, dbq = out[n_w:n_w + 2 * dp], out[n_w + 2 * dp:]
     return (_unpad_weight(dwzr, d, cx, 2), _unpad_bias(dbzr, d, 2),
             _unpad_weight(dwq, d, cx, 1), _unpad_bias(dbq, d, 1))
 
