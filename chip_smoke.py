@@ -23,9 +23,11 @@ result line):
    and the card's busy share of that request;
 7. K2/K3 vs plain: the warp-cost backward kernels (`warp_diff_bwd_feat`,
    `warp_diff_bwd_coords`) against their plain versions at the training
-   shapes (B=1 and 8, bf16 and fp32) and at edge cases, each beside its
-   stated tolerance, with timings of the kernel, the plain version, the
-   library yardstick (`grid_sampler_2d_backward`) and the bound;
+   shapes (B=1 and 8, bf16 and fp32) and at edge cases (a warp that
+   collapses into one cell among them), each beside its stated tolerance;
+   two K2 calls must give the same bits; timings of the kernel, the plain
+   version, the library yardstick (`grid_sampler_2d_backward`) and the
+   bound;
 8. training: the supervised step (SupModelMF it12-h-out, bf16, 192x640,
    N=2, B=8) through `make_train_step`, from random weights with the heads'
    last convolution scaled down (`start_weights`): one warm-up step and 10
@@ -44,10 +46,11 @@ result line):
    (counts reset before, read after) launches K4, K2 and K3 once each;
 12. K5/K6 vs plain: the fused GRU pass and its two backward kernels at the
    path's depth and pose shapes, both axes, bf16 and fp32, B=1, and edge
-   cases, each beside its bar; two K6 calls must give the same bits; planted
-   faults (K5 and K6-input leaving out a tap, K6-weight a split's pixels);
-   the CUDA launches of one K6 call; timings against the bound, the split
-   path's pass and, for K6-weight, cuDNN's weight gradients;
+   cases, each beside its bar; two K5 calls and two K6 calls must give the
+   same bits; planted faults (K5 and K6-input leaving out a tap, K6-weight a
+   split's pixels); the CUDA launches of one K5, K6-input and K6-weight call
+   (2, 4 and 2); timings against the bound, the split path's pass and, for
+   K6-weight, cuDNN's weight gradients;
 13. serving with ``sep_conv="pallas"``: B=1 and B=8 through `make_infer_fn`,
    24 K1 and 48 K5 launches a request, the split path timed in turns; both
    paths' outputs compared in fp32 and bf16;
@@ -55,8 +58,8 @@ result line):
    K2 24, K3 18, K5 48, K6-input 48, K6-weight 48;
 15. its gradients through K5/K6 against the plain GRU pass (B=2, fp32 and
    bf16);
-16. profile of one of its train steps, with the device time of the K6
-   kernels summed by name prefix.
+16. profile of one of its train steps, with the device time of the K5 and
+   K6 kernels summed by name prefix.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -155,7 +158,7 @@ def k1_inputs(gen, b, n, h, w, c, dtype, kind):
     """f1 [b,h*w,c], features [b*n,h,w,c], coords [b*n,h*w,2] on the card.
     ``kind``: "serving" (the pixel grid moved by a near-identity pose, a few
     pixels of noise, some pixels out of view), "integer", "outside" (-10),
-    "far" (+-1e8)."""
+    "far" (+-1e8), "collapse" (every pixel of a view in one cell)."""
     dev = "cuda"
     p = h * w
     f1 = torch.randn(b, p, c, generator=gen, device=dev).to(dtype)
@@ -173,6 +176,9 @@ def k1_inputs(gen, b, n, h, w, c, dtype, kind):
         sign = torch.randint(0, 2, (b * n, p, 2), generator=gen, device=dev) * 2 - 1
         coords = torch.where(torch.rand(b * n, p, 2, generator=gen, device=dev) < 0.5,
                              1e8 * sign, grid.expand(b * n, p, 2))
+    elif kind == "collapse":
+        cell = torch.tensor([w // 2, h // 2], device=dev)
+        coords = cell + 0.25 + 0.5 * torch.rand(b * n, p, 2, generator=gen, device=dev)
     else:
         raise ValueError(kind)
     return f1, features, coords.float().contiguous()
@@ -385,8 +391,9 @@ def _taps(coords, h, w):
 
 def k2_tolerance(coords, g, h, w, dtype, ref):
     """Stated bar for K2 vs plain. Both sum the same fp32 products into each
-    feature element, K2 with atomics in run-dependent order, the plain
-    version with index_add_: a reordering of n adds moves the sum by at most
+    feature element, K2 in its fixed order, the plain version with
+    index_add_ (on the card, atomics in run-dependent order): a reordering
+    of n adds moves the sum by at most
     n * 2^-24 of the sum of magnitudes. The bar allows 64 adds (a near-
     identity warp sends 4 to 16 taps to an element) against the largest
     sum of |w g|; in bf16 one rounding step (2^-7 of the largest output)
@@ -415,7 +422,8 @@ def k3_tolerance(features, coords, g):
 
 def phase_k23(gen):
     """K2 and K3 against their plain versions at the training shapes and at
-    the edge cases; returns the B=8 timings by dtype."""
+    the edge cases, K2 twice (the same bits), K2 timed where the warp
+    collapses into one cell; returns the B=8 timings by dtype."""
     from dro_sfm_torch.ops.tent_warp import (
         warp_diff_bwd_coords,
         warp_diff_bwd_coords_plain,
@@ -431,12 +439,14 @@ def phase_k23(gen):
                   ("6x10 C=6", 2, VIEWS, 6, 10, 6, dtype, "serving"),
                   ("integer", 1, VIEWS, 24, 80, 128, dtype, "integer"),
                   ("outside -10", 1, VIEWS, 24, 80, 128, dtype, "outside"),
-                  ("far +-1e8", 1, VIEWS, 24, 80, 128, dtype, "far")]
+                  ("far +-1e8", 1, VIEWS, 24, 80, 128, dtype, "far"),
+                  ("collapse B=8", 8, VIEWS, 24, 80, 128, dtype, "collapse")]
     results = {}
     for name, b, n, h, w, c, dtype, kind in cases:
         _, features, coords = k1_inputs(gen, b, n, h, w, c, dtype, kind)
         g = torch.randn(b * n, h * w, c, generator=gen, device="cuda").to(dtype)
         d_feat = warp_diff_bwd_feat(coords, g, h, w, dtype)
+        again = warp_diff_bwd_feat(coords, g, h, w, dtype)
         d_co = warp_diff_bwd_coords(features, coords, g)
         torch.cuda.synchronize()
         ref_feat = warp_diff_bwd_feat_plain(coords, g, h, w, dtype)
@@ -446,8 +456,12 @@ def phase_k23(gen):
         err3 = (d_co - ref_co).abs().max().item()
         tol2 = k2_tolerance(coords, g, h, w, dtype, ref_feat)
         tol3 = k3_tolerance(features, coords, g)
+        same = torch.equal(d_feat, again)
         line = (f"K2/K3 {name:12s} {dt:8s} K2 max_abs_err {err2:.3e} tol {tol2:.3e}"
-                f" | K3 max_abs_err {err3:.3e} tol {tol3:.3e}")
+                f" | K3 max_abs_err {err3:.3e} tol {tol3:.3e} | two K2 calls bitwise equal:"
+                f" {same}")
+        if not same:
+            fail(line)
         if d_feat.dtype != dtype or d_co.dtype != torch.float32:
             fail(f"{line}: dtypes {d_feat.dtype}, {d_co.dtype}")
         if not (torch.isfinite(d_feat).all() and torch.isfinite(d_co).all()):
@@ -467,7 +481,10 @@ def phase_k23(gen):
             line += f" | nonzero d_coords in view {100 * nonzero:.2f}%"
             if nonzero < 0.99:
                 fail(f"K3 {name} {dt}: the right-sided subgradient is missing ({line})")
-        if name.startswith("training"):
+        if kind == "collapse":
+            ms = time_ms(lambda: warp_diff_bwd_feat(coords, g, h, w, dtype))
+            line += f" | K2 kernel {ms:.4f} ms ({k2_split(coords, g, h, w, dtype)})"
+        if name.startswith("training") or kind == "collapse":
             # the bars must fail a kernel that leaves out one tap
             bad2 = faulty_backward("K2")[1](coords, g, h, w, dtype)
             bad3 = faulty_backward("K3")[1](features, coords, g)
@@ -476,16 +493,44 @@ def phase_k23(gen):
             line += f" | planted faults: K2 err {e2:.3e}, K3 err {e3:.3e}"
             if e2 <= tol2 or e3 <= tol3:
                 fail(f"{line}: a bar passes a kernel that leaves out a tap")
+        if name.startswith("training"):
             results[(b, dt)] = time_k23(features, coords, g, dtype)
             r = results[(b, dt)]
             line += (f" | K2 kernel {r['K2']['ms']:.4f} ms plain {r['K2']['plain_ms']:.4f}"
                      f" library {r['K2']['library_ms']:.4f} bound {r['K2']['bound_ms']:.4f}"
                      f" | K3 kernel {r['K3']['ms']:.4f} ms plain {r['K3']['plain_ms']:.4f}"
                      f" library {r['K3']['library_ms']:.4f} bound {r['K3']['bound_ms']:.4f}"
-                     f" | library K2+K3 in one call {r['library_both_ms']:.4f} ms")
+                     f" | library K2+K3 in one call {r['library_both_ms']:.4f} ms"
+                     f" | K2 by launch: {k2_split(coords, g, h, w, dtype)}")
             r["K2"]["max_abs_err"], r["K3"]["max_abs_err"] = err2, err3
         print(line, flush=True)
     return results
+
+
+K2_KERNELS = ("tent_warp_bwd_feat_plan", "tent_warp_bwd_feat_gather")
+
+
+def kernel_us(fn, names, reps=10):
+    """Mean device us a call of ``fn`` spends in the kernels whose names
+    hold each of ``names`` (torch.profiler over ``reps`` calls, the second
+    of two sessions: the first can drop launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {n: sum(device_us(e) for e in events if n in e.key) / reps for n in names}
+
+
+def k2_split(coords, g, h, w, dtype):
+    """K2's device time by launch, as text."""
+    from dro_sfm_torch.ops.tent_warp import warp_diff_bwd_feat
+    us = kernel_us(lambda: warp_diff_bwd_feat(coords, g, h, w, dtype), K2_KERNELS)
+    return ", ".join(f"{n.rsplit('_', 1)[-1]} {v:.2f} us" for n, v in us.items())
 
 
 def time_k23(features, coords, g, dtype):
@@ -1060,13 +1105,15 @@ def kernel_name(key):
     return name[-1].split("::")[-1] if name else key
 
 
-K6_PREFIXES = {"K6-input": "gru_pass_bwd_input", "K6-weight": "gru_pass_bwd_weight"}
+GRU_PREFIXES = {"K5": "gru_pass_fwd", "K6-input": "gru_pass_bwd_input",
+                "K6-weight": "gru_pass_bwd_weight"}
+GRU_CUDA_LAUNCHES = {"K5": 2, "K6-input": 4, "K6-weight": 2}
 
 
-def k6_cuda_launches(inp, axis, gru_pass):
-    """The CUDA launches of one K6-input and one K6-weight wrapper call:
-    the kernel nodes of a CUDA graph that captures the call, counted through
-    the CUDA driver (cuGraphGetNodes, cuGraphNodeGetType)."""
+def gru_cuda_launches(inp, axis, gru_pass):
+    """The CUDA launches of one K5, one K6-input and one K6-weight wrapper
+    call: the kernel nodes of a CUDA graph that captures the call, counted
+    through the CUDA driver (cuGraphGetNodes, cuGraphNodeGetType)."""
     import ctypes
     cu = ctypes.CDLL("libcuda.so.1")
 
@@ -1077,7 +1124,8 @@ def k6_cuda_launches(inp, axis, gru_pass):
     args = [inp[k] for k in ("h", "x", "wzr", "bzr", "wq", "bq")]
     prep = gru_pass._Prepared(*args)
     _, _, scratch = gru_pass._launch_k6_input(prep, inp["g"], axis)
-    calls = {"K6-input": lambda: gru_pass._launch_k6_input(prep, inp["g"], axis),
+    calls = {"K5": lambda: gru_pass._launch_k5(prep, axis),
+             "K6-input": lambda: gru_pass._launch_k6_input(prep, inp["g"], axis),
              "K6-weight": lambda: gru_pass._launch_k6_weight(prep, scratch, axis)}
     out = {}
     for k, fn in calls.items():
@@ -1107,12 +1155,14 @@ def phase_gru(gen):
     and the pose pass's (B*N=16), both axes, bf16 and fp32; B=1; D=32 Cx=24
     (not multiples of 16); D=32 Cx=20 (in bf16 not whole 16-byte chunks:
     the wrapper pads); a 3-pixel line; 6x10. Each result beside its bar
-    (`gru_bars`); two K6 calls on the same inputs must give the same bits;
+    (`gru_bars`); two K5 calls and two K6 calls on the same inputs must give
+    the same bits; one K5 call must make 2 CUDA launches, K6-input 4,
+    K6-weight 2;
     the bars must fail K5 leaving out a tap, K6-input leaving out a tap of a
     transposed conv and K6-weight leaving out a split's pixels (`k5_fault`,
-    `k6_fault`, `k6w_fault`). At the path's shapes (bf16 and fp32): kernel,
-    plain, split-pass, cuDNN weight-gradient and bound times. Returns the
-    timings at the depth shape, bf16, horizontal pass."""
+    `k6_fault`, `k6w_fault`). At the path's shapes (bf16 and fp32) and at
+    B=1 (bf16): kernel, plain, split-pass, cuDNN weight-gradient and bound
+    times. Returns the timings by (shape, dtype, axis)."""
     from dro_sfm_torch.ops import gru_pass
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1127,14 +1177,17 @@ def phase_gru(gen):
     timings = {}
     inp = gru_inputs(gen, 8, 24, 80, GRU_D, GRU_CX, torch.bfloat16)
     for axis in (2, 1):
-        for k, (n_kernels, n_nodes) in k6_cuda_launches(inp, axis, gru_pass).items():
-            print(f"K5/K6 CUDA launches of one {k} call (depth, bf16, axis {axis}): "
-                  f"{n_kernels} (kernel nodes of the captured call, of {n_nodes} nodes)",
-                  flush=True)
+        for k, (n_kernels, n_nodes) in gru_cuda_launches(inp, axis, gru_pass).items():
+            line = (f"K5/K6 CUDA launches of one {k} call (depth, bf16, axis {axis}): "
+                    f"{n_kernels} (kernel nodes of the captured call, of {n_nodes} nodes)")
+            if n_kernels != GRU_CUDA_LAUNCHES[k]:
+                fail(f"{line}, want {GRU_CUDA_LAUNCHES[k]}")
+            print(line, flush=True)
     for what, b, hh, ww, d, cx, dtype, axis in cases:
         inp = gru_inputs(gen, b, hh, ww, d, cx, dtype)
         args = [inp[k] for k in ("h", "x", "wzr", "bzr", "wq", "bq")]
         out = gru_pass.gru_pass_fwd(*args, axis)
+        out_again = gru_pass.gru_pass_fwd(*args, axis)
         grads = gru_pass.gru_pass_bwd(*args, inp["g"], axis)
         again = gru_pass.gru_pass_bwd(*args, inp["g"], axis)
         torch.cuda.synchronize()
@@ -1158,9 +1211,10 @@ def phase_gru(gen):
             bad |= (errs[name] > bar or got.shape != want.shape or got.dtype != want.dtype
                     or not torch.isfinite(got).all())
         line += f" (bars {bars['act']:.1e}, {bars['weight']:.1e})"
+        same5 = torch.equal(out, out_again)
         same = all(torch.equal(a, c) for a, c in zip(grads, again))
-        line += f" | two K6 calls bitwise equal: {same}"
-        if bad or not same or not torch.isfinite(out).all():
+        line += f" | two K5 calls bitwise equal: {same5}, two K6 calls: {same}"
+        if bad or not same or not same5 or not torch.isfinite(out).all():
             fail(line)
         mid = gru_intermediates(inp, axis, gru_pass)
         f5 = rel(k5_fault(inp, axis, gru_pass), ref)
@@ -1170,7 +1224,8 @@ def phase_gru(gen):
         line += f" | planted faults: K5 {f5:.2e}, K6-input {f6:.2e}, K6-weight {f6w:.2e}"
         if f5 <= bars["fwd"] or f6 <= bars["act"] or f6w <= bars["weight"]:
             fail(f"{line}: a bar passes a planted fault")
-        if what in ("depth", "pose") and (axis == 2 or dtype == torch.bfloat16):
+        if (what in ("depth", "pose") and (axis == 2 or dtype == torch.bfloat16)
+                or what == "B=1" and dtype == torch.bfloat16):
             r = time_gru(inp, axis, gru_pass, mid)
             for k in r:
                 r[k]["max_abs_err"] = max(errs[n] for n in (
@@ -1464,13 +1519,13 @@ def device_us(e):
 
 def profile_train_step(state, train_step, batch):
     """Device time by kernel over one B=8 train step (torch.profiler); with
-    ``sep_conv="pallas"`` also the sums over the K6 kernels by name prefix,
-    each with its mean per wrapper call."""
+    ``sep_conv="pallas"`` also the sums over the K5 and K6 kernels by name
+    prefix, each with its mean per wrapper call."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dro_sfm_torch.ops.gru_pass import K6I_COUNTER, K6W_COUNTER
+    from dro_sfm_torch.ops.gru_pass import K5_COUNTER, K6I_COUNTER, K6W_COUNTER
     flips = torch.Generator().manual_seed(3)
-    wrappers = {"K6-input": K6I_COUNTER, "K6-weight": K6W_COUNTER}
+    wrappers = {"K5": K5_COUNTER, "K6-input": K6I_COUNTER, "K6-weight": K6W_COUNTER}
     before = {k: c.launches for k, c in wrappers.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1492,7 +1547,7 @@ def profile_train_step(state, train_step, batch):
         if "tent_warp" in e.key or "gru_pass" in e.key:
             print(f"profile train step: {e.key[:60]} {device_us(e):.0f} us over "
                   f"{e.count} launches, {device_us(e) / e.count:.2f} us each")
-    for k, prefix in K6_PREFIXES.items():
+    for k, prefix in GRU_PREFIXES.items():
         calls = wrappers[k].launches - before[k]
         if not calls:
             continue

@@ -17,13 +17,12 @@
 // bias gradients sum the unrounded fp32 values, dh = (g (1 - z) + drh r) +
 // dhx[:D] in fp32 with one rounding.
 //
-// Every product is an implicit GEMM on the tile engine of gru_gemm.cuh. The
-// pixels are walked line by line along the shift axis, in segments of 8, 16
-// or 32 positions (`Geo`); a staged tile holds each segment with two more
-// positions either side, zero-filled by cp.async past the line's ends, so
-// one staged tile serves all five taps, with no padded copy; the vertical
-// pass reads with the W-pixel stride, no transpose. The intermediates go
-// through device memory, where at these sizes they stay in the 50 MB L2.
+// Every product is an implicit GEMM on the tile engine of gru_gemm.cuh over
+// the line segments of gru_conv.cuh, whose staged tile serves all five taps
+// with no padded copy; the vertical pass reads with the W-pixel stride, no
+// transpose. The first two stages are K5's two launches with other
+// epilogues. The intermediates go through device memory, where at these
+// sizes they stay in the 50 MB L2.
 //
 // K6-input, four launches on the stream, each a grid of 128 x 64 tiles (128
 // pixels of whole segments), a K step a tap of a chunk of channels:
@@ -57,149 +56,12 @@
 // K6-weight 2 * 5 * C1 * 3D: at the depth pass of it12-h-out training
 // (B = 8, 24 x 80, D = 128, Cx = 160) 34.0 and 17.0 GFLOP, 34 and 17 us at
 // 989 TFLOP/s bf16.
-#include "gru_gemm.cuh"
-#include "gru_pass_common.cuh"
+#include "gru_conv.cuh"
 
 using namespace gru_gemm;
-using gru_pass::rnd;
-using gru_pass::sigmoidf;
-using gru_pass::to_f32;
+using namespace gru_pass;
 
 namespace {
-
-// The pixels (m = b H W + i W + j), walked line by line along the shift
-// axis (position s of a line at stride ss) in segments of 2^seg_shift
-// positions: spl segments a line, n_segs in all; segment g covers positions
-// [(g % spl) 2^seg_shift, + 2^seg_shift) of line g / spl.
-struct Geo {
-  int N, S, ss, D, Cx, Dp, Cxp, seg_shift, spl, n_segs;
-  // Position 0 of a line.
-  __device__ __forceinline__ int64_t line_pixel(int line) const {
-    return (int64_t)(line / ss) * S * ss + line % ss;
-  }
-  // The pixel u positions after segment g's first, or -1 past the line's
-  // ends or past the last segment.
-  __device__ __forceinline__ int seg_pixel(int g, int u) const {
-    const int line = g / spl, s = ((g - line * spl) << seg_shift) + u;
-    if (g >= n_segs || s < 0 || s >= S) return -1;
-    return (int)(line_pixel(line) + (int64_t)s * ss);
-  }
-  // The pixel of row `row` of K6-input's row tile `tile` (kBM rows, whole
-  // segments), or -1.
-  __device__ __forceinline__ int tile_pixel(int tile, int row) const {
-    return seg_pixel(tile * (kBM >> seg_shift) + (row >> seg_shift),
-                     row & ((1 << seg_shift) - 1));
-  }
-};
-
-Geo make_geo(int B, int H, int W, int D, int Cx, int Dp, int Cxp, int axis, int seg_shift) {
-  Geo g;
-  g.N = B * H * W;
-  g.S = axis == 2 ? W : H;
-  g.ss = axis == 2 ? 1 : W;
-  g.D = D; g.Cx = Cx; g.Dp = Dp; g.Cxp = Cxp;
-  g.seg_shift = seg_shift;
-  const int L = seg_shift >= 3 && seg_shift <= 5 ? 1 << seg_shift : 8;   // else refused
-  g.spl = (g.S + L - 1) / L;
-  g.n_segs = g.S > 0 ? g.N / g.S * g.spl : 0;
-  return g;
-}
-
-template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
-template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
-                                                                   float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-template <typename T> __device__ __forceinline__ float2 load2(const T* p) {
-  return make_float2(to_f32(p[0]), to_f32(p[1]));
-}
-
-// One conv of K6-input as a GEMM: A = [a0 | a1] along K (a1's channels from
-// K index `split`; a chunk is valid below its source's `real` channels), B
-// the weight taps. Forward taps: B(k, n) = w0[tap][k][n]. Transposed taps:
-// B(k, n) = w_s[4 - tap][n_off + n][k'] with source s = k >= split and k'
-// its channel.
-template <typename T> struct ConvOp {
-  const T* a[2];
-  int lda[2], real[2];
-  int split, K;
-  const T* w[2];
-  int64_t ts[2];
-  int ldw[2];
-  int n_off, n_out;
-};
-
-// The cp.async copies of a conv's K loop (`mainloop`): A, a chunk of BK
-// channels of the tile's segments with two more positions either side (row
-// major, CPR chunks of V channels a row); B, one tap's weights for the
-// chunk, row major for forward taps, column major for transposed ones.
-template <typename T, bool kTransposed>
-struct ConvLoader {
-  using L = Layout<T, kTransposed>;
-  static constexpr int CPR = L::CPR, RPP = kThreads / CPR;
-  static constexpr int A_PER = (L::MAX_A_ROWS + RPP - 1) / RPP;
-  ConvOp<T> op;
-  int n0, a_rows;
-  int am[A_PER];                  // this thread's A rows' pixels (-1: zero)
-
-  __device__ ConvLoader(const ConvOp<T>& o, const Geo& g, int tile, int n0_)
-      : op(o), n0(n0_), a_rows(L::a_rows(g.seg_shift)) {
-    const int span = (1 << g.seg_shift) + 4;
-#pragma unroll
-    for (int j = 0; j < A_PER; ++j) {
-      const int r = threadIdx.x / CPR + RPP * j;
-      am[j] = g.seg_pixel(tile * (kBM >> g.seg_shift) + r / span, r % span - 2);
-    }
-  }
-
-  __device__ __forceinline__ void load_a(int chunk, T* As) const {
-    constexpr int V = L::V;
-    const int ac = threadIdx.x % CPR, k = chunk * L::BK + ac * V;
-    // selects, not indexing: an indexed member array would live on the stack
-    const bool src = k >= op.split;
-    const int chan = src ? k - op.split : k, lda = src ? op.lda[1] : op.lda[0];
-    const T* a = src ? op.a[1] : op.a[0];
-    const bool chan_ok = k < op.K && chan < (src ? op.real[1] : op.real[0]);
-#pragma unroll
-    for (int j = 0; j < A_PER; ++j) {
-      const int r = threadIdx.x / CPR + RPP * j;
-      if (r < a_rows) {
-        const bool ok = chan_ok && am[j] >= 0;
-        const T* p = ok ? a + (int64_t)am[j] * lda + chan : op.a[0];
-        cp_async16(As + r * L::LDA + ac * V, p, ok);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void load_b(int chunk, int tap, T* Bs) const {
-    constexpr int V = L::V, kPer = kBN / V;         // kPer: chunks of a staged k row
-    constexpr int B_PER = (kTransposed ? kBN * CPR : L::BK * kPer) / kThreads;
-    const int k0 = chunk * L::BK;
-#pragma unroll
-    for (int j = 0; j < B_PER; ++j) {
-      const int idx = threadIdx.x + kThreads * j;
-      if (!kTransposed) {
-        const int kr = idx / kPer, n = n0 + idx % kPer * V, k = k0 + kr;
-        const bool ok = k < op.K && n < op.n_out;
-        const T* p = ok ? op.w[0] + tap * op.ts[0] + (int64_t)k * op.ldw[0] + n : op.w[0];
-        cp_async16(Bs + L::b_off(kr, idx % kPer * V), p, ok);
-      } else {
-        const int nr = idx / CPR, k = k0 + idx % CPR * V, n = n0 + nr;
-        const bool src = k >= op.split;
-        const bool ok = k < op.K && n < op.n_out;
-        const T* p = ok ? (src ? op.w[1] : op.w[0]) +
-                              (kTaps - 1 - tap) * (src ? op.ts[1] : op.ts[0]) +
-                              (int64_t)(op.n_off + n) * (src ? op.ldw[1] : op.ldw[0]) +
-                              (src ? k - op.split : k)
-                        : op.w[0];
-        cp_async16(Bs + L::b_off(idx % CPR * V, nr), p, ok);
-      }
-    }
-  }
-};
 
 // Everything the K6-input stages read and write. Scratch, in T unless
 // said: zr [N, 2 Dp] (z, then r), rh [N, Dp], daq [N, Dp], dazr [N, 2 Dp],
@@ -213,19 +75,6 @@ template <typename T> struct InputArgs {
   Geo geo;
 };
 
-template <typename T, bool kTransposed>
-__device__ __forceinline__ void conv_product(Acc& acc, const ConvOp<T>& op, const Geo& geo,
-                                             int tile, int n0) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  using L = Layout<T, kTransposed>;
-  const ConvLoader<T, kTransposed> load(op, geo, tile, n0);
-  acc.zero();
-  mainloop<T, kTransposed>(
-      acc, reinterpret_cast<T*>(smem_raw), (op.K + L::BK - 1) / L::BK, geo.seg_shift,
-      [&](int c, T* As) { load.load_a(c, As); },
-      [&](int c, int tap, T* Bs) { load.load_b(c, tap, Bs); });
-}
-
 __device__ __forceinline__ float* reduce_smem() {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   return reinterpret_cast<float*>(smem_raw);
@@ -237,23 +86,10 @@ __device__ __forceinline__ float* reduce_smem() {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) gru_pass_bwd_input_zr(InputArgs<T> a) {
   const Geo& geo = a.geo;
-  const int Dp = geo.Dp, tile = blockIdx.x, n0 = blockIdx.y * kBN;
-  ConvOp<T> op{{a.h, a.x}, {geo.D, geo.Cx}, {geo.D, geo.Cx}, Dp, Dp + geo.Cxp,
-               {a.wzr, a.wzr}, {(int64_t)(Dp + geo.Cxp) * 2 * Dp, 0}, {2 * Dp, 0}, 0, 2 * Dp};
+  const int tile = blockIdx.x, n0 = blockIdx.y * kBN;
   Acc acc;
-  conv_product<T, false>(acc, op, geo, tile, n0);
-  for_each_pair(acc, [&](int, int row, int col, float v0, float v1) {
-    const int m = geo.tile_pixel(tile, row), n = n0 + col;
-    if (m < 0 || n >= 2 * Dp) return;
-    const float s0 = rnd<T>(sigmoidf(__fadd_rn(v0, a.bzr[n])));
-    const float s1 = rnd<T>(sigmoidf(__fadd_rn(v1, a.bzr[n + 1])));
-    store2(a.zr + (int64_t)m * 2 * Dp + n, s0, s1);
-    if (n >= Dp) {
-      const int c = n - Dp;
-      const float2 hv = c < geo.D ? load2(a.h + (int64_t)m * geo.D + c) : make_float2(0.f, 0.f);
-      store2(a.rh + (int64_t)m * Dp + c, __fmul_rn(s0, hv.x), __fmul_rn(s1, hv.y));
-    }
-  });
+  conv_product<T, false>(acc, zr_op(a.h, a.x, a.wzr, geo), geo, tile, n0);
+  zr_epilogue(acc, geo, tile, n0, a.bzr, a.h, a.zr, 2 * geo.Dp, a.rh);
 }
 
 // Stage 2: q, T(daq), the z half of T(dazr), their bias sums.
@@ -261,10 +97,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) gru_pass_bwd_input_q(InputArgs<T> a) {
   const Geo& geo = a.geo;
   const int Dp = geo.Dp, D = geo.D, tile = blockIdx.x, n0 = blockIdx.y * kBN;
-  ConvOp<T> op{{a.rh, a.x}, {Dp, geo.Cx}, {Dp, geo.Cx}, Dp, Dp + geo.Cxp,
-               {a.wq, a.wq}, {(int64_t)(Dp + geo.Cxp) * Dp, 0}, {Dp, 0}, 0, Dp};
   Acc acc;
-  conv_product<T, false>(acc, op, geo, tile, n0);
+  conv_product<T, false>(acc, q_op(a.rh, a.x, a.wq, geo), geo, tile, n0);
   float sq[4][2] = {}, sz[4][2] = {};
   for_each_pair(acc, [&](int j, int row, int col, float v0, float v1) {
     const int m = geo.tile_pixel(tile, row), o = n0 + col;
@@ -516,19 +350,6 @@ __global__ void __launch_bounds__(256) gru_pass_bwd_weight_reduce(
 
 namespace {
 
-template <class Kernel, class Args>
-cudaError_t launch(Kernel kernel, int threads, int bytes, dim3 grid, const Args& args,
-                   cudaStream_t s) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, bytes, s>>>(args);
-  return cudaGetLastError();
-}
-
-// K6-input's row tiles: kBM rows of whole segments.
-int row_tiles(const Geo& g) { return (g.n_segs + (kBM >> g.seg_shift) - 1) / (kBM >> g.seg_shift); }
-
 template <typename T>
 cudaError_t run_input(InputArgs<T> a, cudaStream_t s) {
   const Geo& g = a.geo;
@@ -557,13 +378,6 @@ cudaError_t run_weight(WeightArgs<T> a, int n_split, const float* bias_part, int
   gru_pass_bwd_weight_reduce<<<(threads + 255) / 256, 256, 0, s>>>(
       a.part, n_split, n_w, bias_part, n_rows, nb, w0, out);
   return cudaGetLastError();
-}
-
-bool geo_ok(const Geo& g, int elem, int axis) {
-  const int V = 16 / elem;
-  return g.N > 0 && g.seg_shift >= 3 && g.seg_shift <= 5 && (axis == 1 || axis == 2) &&
-         g.Dp % 16 == 0 && g.Cxp % 16 == 0 && g.D % V == 0 && g.Cx % V == 0 && g.D <= g.Dp &&
-         g.Cx <= g.Cxp;
 }
 
 }  // namespace

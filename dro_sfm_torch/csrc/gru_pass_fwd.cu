@@ -10,184 +10,123 @@
 // _run_fwd; arithmetic of _recompute). Rounding follows it point by point:
 // products of T operands summed in fp32, the bias added in fp32, sigmoid and
 // tanh on the fp32 sums then rounded to T, r*h rounded to T, and the update
-// one T rounding per operation (explicit _rn intrinsics, no contraction).
+// one T rounding per operation (explicit _rn intrinsics, no contraction):
+// a = T(T(1 - z) h), b = T(z q), h' = T(a + b).
 //
 // Design. The TPU kernel held whole maps in VMEM and ran each tap as one MXU
-// product over the folded batch. Here a block owns windows of lines along
-// the shift axis (gru_pass_common.cuh:Windows): the candidate conv at
-// position s reads r at s-2..s+2, so a window carries a 4-row halo of [h, x]
-// on each side and computes zr on 2 rows beyond its outputs. Shared memory
-// holds [h | x] of the window (the concat is never written: the loader puts
-// h's channels in columns [0, Dp) and x's in [Dp, Dp + Cxp)), then z and r*h
-// in T; each product tile goes through a per-warp 16x16 fp32 scratch for its
-// epilogue (bias, sigmoid or tanh, update). A warp owns a 16-column tile of
-// a conv's output over all the block's rows, so each weight tile is read
-// once per block for up to 8 row tiles, staged through shared memory while
-// the previous one is multiplied (gru_pass_common.cuh:conv_block). The
-// vertical pass reads its
-// lines with a stride of W pixels, so no transpose is made. Products: bf16
-// on the tensor cores (nvcuda::wmma 16x16x16, fp32 accumulators, channels
-// zero padded to 16 by the wrapper), fp32 in FMA (never TF32: the TPU kernel
-// runs Precision.HIGHEST there). Every block reads all the weights (from
-// L2).
+// product over the folded batch. Here the pass is two chained implicit GEMMs
+// on the tile engine (gru_gemm.cuh) over the line segments of gru_conv.cuh,
+// two launches on the stream, each a grid of 128-pixel x 64-column tiles
+// with 4 blocks an SM; r*h goes through device memory, where it stays in the
+// 50 MB L2:
+//   gru_pass_fwd_zr   azr = conv5([h, x], Wzr); z and T(r h) to scratch
+//                     (the epilogue K6-input's first stage uses; r itself
+//                     is not kept);
+//   gru_pass_fwd_q    aq = conv5([r h, x], Wq); h' straight from the
+//                     accumulators' registers, columns below D only.
+// A staged tile of a segment with two positions either side serves all five
+// taps, so no halo is recomputed: the second launch reads the first's r*h
+// at the neighbouring positions. Products: bf16 on the tensor cores through
+// ldmatrix and mma.sync (fp32 accumulators), fp32 in FMA (never TF32: the
+// TPU kernel runs Precision.HIGHEST there).
 //
 // Bound: operations. Per pixel 2 * 5 * C1 * 3D multiply-adds (C1 = D + Cx):
 // at the depth pass of it12-h-out training (B = 8, 24 x 80, D = 128,
 // Cx = 160) 17.0 GFLOP, 17 us at 989 TFLOP/s bf16, against 12.8 MB of h, x
-// and h' (3.8 us at 3.35 TB/s). The halo rows add (Sw + 4)/Sw to the zr
-// conv, and the M rounding to 16 rows some more.
-#include "gru_pass_common.cuh"
+// and h' (3.8 us at 3.35 TB/s). The tiles pad the segments to whole row
+// tiles and the columns to 64.
+#include "gru_conv.cuh"
+
+using namespace gru_gemm;
+using namespace gru_pass;
 
 namespace {
 
-using namespace gru_pass;
+// What K5's launches read and write: h [N, D], x [N, Cx]; scratch z and r h
+// [N, Dp] in T; out [N, D].
+template <typename T> struct FwdArgs {
+  const T *h, *x, *wzr, *wq;
+  const float *bzr, *bq;
+  T *z, *rh, *out;
+  Geo geo;
+};
 
-constexpr int kMaxMT = 8;          // row tiles of a block: at most 128 rows
+}  // namespace
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gru_pass_fwd_kernel(const T* __restrict__ h, const T* __restrict__ x,
-                    const T* __restrict__ wzr, const float* __restrict__ bzr,
-                    const T* __restrict__ wq, const float* __restrict__ bq,
-                    T* __restrict__ out, Lines ln, Windows wi, int D, int Cx, int Dp, int Cxp,
-                    bool vec) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int C1p = Dp + Cxp, M = wi.M, rows = M + 4;
-  const int lhx = C1p + kPad<T>, ld = Dp + kPad<T>;        // buffer row strides
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* base = reinterpret_cast<T*>(smem_raw);
-  const int64_t n_elems = (int64_t)rows * (lhx + 2 * ld);
-  T* hx = base + 2 * lhx;                                   // [h | x], rows -2..M+1
-  T* zb = base + (int64_t)rows * lhx + 2 * ld;              // z
-  T* rh = zb + (int64_t)rows * ld;                          // r*h
-  float* scratch = reinterpret_cast<float*>(base + n_elems) + warp * kTile * kTile;
-  T* slab = reinterpret_cast<T*>(reinterpret_cast<float*>(base + n_elems) +
-                                 kWarps * kTile * kTile);
-
-  for (int64_t i = threadIdx.x; i < n_elems * (int64_t)sizeof(T) / 16; i += kThreads)
-    reinterpret_cast<uint4*>(base)[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-  for (int R = warp; R < M; R += kWarps) {
-    const RowPos rp = row_pos(ln, wi, R);
-    if (!rp.in_line) continue;
-    const int64_t pix = ln.pixel(rp.line, rp.s);
-    copy_row(hx + (int64_t)R * lhx, h + pix * D, D, vec, lane);
-    copy_row(hx + (int64_t)R * lhx + Dp, x + pix * Cx, Cx, vec, lane);
-  }
-  __syncthreads();
-
-  // zr = sigmoid(conv([h, x], Wzr) + bzr) on the outputs and 2 rows beyond.
-  // A warp owns a column tile over all row tiles (kMaxMT accumulators);
-  // the block walks the column tiles in rounds of kWarps.
-  const unsigned need_zr = tiles_needed(ln, wi, 2), need_q = tiles_needed(ln, wi, 0);
-  for (int nt0 = 0; nt0 < 2 * Dp / kTile; nt0 += kWarps) {
-    const int nt = nt0 + warp;
-    Tile<T> acc[kMaxMT];
-#pragma unroll
-    for (int mt = 0; mt < kMaxMT; ++mt) acc[mt].zero();
-    conv_block<T, false>(acc, need_zr, nt < 2 * Dp / kTile, hx, lhx, 0, C1p / kTile, wzr,
-                         (int64_t)C1p * 2 * Dp, 2 * Dp, 0, nt0 * kTile,
-                         min(kSlabCols, 2 * Dp - nt0 * kTile), slab);
-    if (nt >= 2 * Dp / kTile) continue;
-#pragma unroll
-    for (int mt = 0; mt < kMaxMT; ++mt) {
-      if (!(need_zr >> mt & 1u)) continue;
-      acc[mt].store(scratch, kTile);
-      __syncwarp();
-      for (int e = lane; e < kTile * kTile; e += 32) {
-        const int R = mt * kTile + e / kTile, o = nt * kTile + e % kTile;
-        const float v = rnd<T>(sigmoidf(__fadd_rn(scratch[e], bzr[o])));
-        if (o < Dp) {
-          zb[(int64_t)R * ld + o] = from_f32<T>(v);
-        } else {
-          const int c = o - Dp;
-          rh[(int64_t)R * ld + c] = from_f32<T>(__fmul_rn(v, to_f32(hx[(int64_t)R * lhx + c])));
-        }
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-
-  // q = tanh(conv([r*h, x], Wq) + bq); h' = (1 - z) h + z q on the outputs.
-  for (int nt0 = 0; nt0 < Dp / kTile; nt0 += kWarps) {
-    const int nt = nt0 + warp;
-    const bool active = nt < Dp / kTile;
-    const int n_cols = min(kSlabCols, Dp - nt0 * kTile);
-    Tile<T> acc[kMaxMT];
-#pragma unroll
-    for (int mt = 0; mt < kMaxMT; ++mt) acc[mt].zero();
-    conv_block<T, false>(acc, need_q, active, rh, ld, 0, Dp / kTile, wq, (int64_t)C1p * Dp,
-                         Dp, 0, nt0 * kTile, n_cols, slab);
-    conv_block<T, false>(acc, need_q, active, hx, lhx, Dp, Cxp / kTile, wq,
-                         (int64_t)C1p * Dp, Dp, Dp, nt0 * kTile, n_cols, slab);
-    if (!active) continue;
-#pragma unroll
-    for (int mt = 0; mt < kMaxMT; ++mt) {
-      if (!(need_q >> mt & 1u)) continue;
-      acc[mt].store(scratch, kTile);
-      __syncwarp();
-      for (int e = lane; e < kTile * kTile; e += 32) {
-        const int R = mt * kTile + e / kTile, o = nt * kTile + e % kTile;
-        if (o >= D) continue;
-        const RowPos rp = row_pos(ln, wi, R);
-        if (!rp.own) continue;
-        const float q = rnd<T>(tanhf(__fadd_rn(scratch[e], bq[o])));
-        const float z = to_f32(zb[(int64_t)R * ld + o]);
-        const float hv = to_f32(hx[(int64_t)R * lhx + o]);
-        const float a = rnd<T>(__fmul_rn(rnd<T>(__fsub_rn(1.0f, z)), hv));
-        const float b = rnd<T>(__fmul_rn(z, q));
-        out[ln.pixel(rp.line, rp.s) * D + o] = from_f32<T>(__fadd_rn(a, b));
-      }
-      __syncwarp();
-    }
-  }
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gru_pass_fwd_zr(FwdArgs<T> a) {
+  const Geo& geo = a.geo;
+  const int tile = blockIdx.x, n0 = blockIdx.y * kBN;
+  Acc acc;
+  conv_product<T, false>(acc, zr_op(a.h, a.x, a.wzr, geo), geo, tile, n0);
+  zr_epilogue(acc, geo, tile, n0, a.bzr, a.h, a.z, geo.Dp, a.rh);
 }
 
 template <typename T>
-cudaError_t launch(const void* h, const void* x, const void* wzr, const float* bzr,
-                   const void* wq, const float* bq, void* out, int B, int H, int W, int D,
-                   int Cx, int Dp, int Cxp, int axis, bool vec, cudaStream_t s) {
-  const Lines ln = make_lines(B, H, W, axis);
-  if (ln.n_lines == 0 || ln.S == 0) return cudaSuccess;
-  const int64_t row_bytes = (int64_t)(Dp + Cxp + 3 * kPad<T> + 2 * Dp) * sizeof(T);
-  const int64_t fixed = kWarps * kTile * kTile * sizeof(float) + slab_bytes<T>();
-  const int max_rows = max_rows_for(row_bytes, fixed, kMaxMT * kTile);
-  if (max_rows < 16) return cudaErrorInvalidValue;
-  const Windows wi = make_windows(ln, 4, max_rows);
-  const size_t smem = (size_t)(wi.M + 4) * row_bytes + fixed;
-  cudaError_t err = cudaFuncSetAttribute(gru_pass_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((wi.count + wi.nl - 1) / wi.nl);
-  gru_pass_fwd_kernel<T><<<grid, kThreads, smem, s>>>(
-      (const T*)h, (const T*)x, (const T*)wzr, bzr, (const T*)wq, bq, (T*)out, ln, wi, D,
-      Cx, Dp, Cxp, vec);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gru_pass_fwd_q(FwdArgs<T> a) {
+  const Geo& geo = a.geo;
+  const int D = geo.D, tile = blockIdx.x, n0 = blockIdx.y * kBN;
+  Acc acc;
+  conv_product<T, false>(acc, q_op(a.rh, a.x, a.wq, geo), geo, tile, n0);
+  for_each_pair(acc, [&](int, int row, int col, float v0, float v1) {
+    const int m = geo.tile_pixel(tile, row), o = n0 + col;
+    if (m < 0 || o >= D) return;                   // D is even: o + 1 < D too
+    const float2 z = load2(a.z + (int64_t)m * geo.Dp + o);
+    const float2 hv = load2(a.h + (int64_t)m * D + o);
+    const float zs[2] = {z.x, z.y}, hs[2] = {hv.x, hv.y}, v[2] = {v0, v1};
+    float out[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float q = rnd<T>(tanhf(__fadd_rn(v[e], a.bq[o + e])));
+      const float keep = rnd<T>(__fmul_rn(rnd<T>(__fsub_rn(1.0f, zs[e])), hs[e]));
+      out[e] = __fadd_rn(keep, rnd<T>(__fmul_rn(zs[e], q)));
+    }
+    store2(a.out + (int64_t)m * D + o, out[0], out[1]);
+  });
+}
+
+namespace {
+
+template <typename T>
+cudaError_t run_fwd(const FwdArgs<T>& a, int tiles, cudaStream_t s) {
+  const unsigned dt = (a.geo.Dp + kBN - 1) / kBN;
+  const int bytes = Layout<T, false>::bytes(a.geo.seg_shift);
+  cudaError_t err = launch(gru_pass_fwd_zr<T>, kThreads, bytes, dim3(tiles, 2 * dt), a, s);
+  if (err) return err;
+  return launch(gru_pass_fwd_q<T>, kThreads, bytes, dim3(tiles, dt), a, s);
 }
 
 }  // namespace
 
-// K5. h [B, H, W, D], x [B, H, W, Cx] contiguous in dtype (0 = fp32,
-// 1 = bf16); wzr [5, Dp + Cxp, 2 Dp] and wq [5, Dp + Cxp, Dp] in that dtype,
-// bzr [2 Dp] and bq [Dp] fp32, padded as gru_pass_common.cuh says (Dp, Cxp
-// multiples of 16, weight pointers 32-byte aligned); out [B, H, W, D] in
-// dtype. axis: 2 for the (1,5) pass along W, 1 for the (5,1) pass along H.
-// vec: nonzero when D and Cx are multiples of 16 / sizeof(element) and h and
-// x are 16-byte aligned. Returns the CUDA error of the launch (0 on
-// success); the kernel runs on `stream`.
+// K5. h [N, D], x [N, Cx] in dtype (0 = fp32, 1 = bf16; N = B H W, channel
+// minor, D and Cx multiples of 16 bytes, 16-byte aligned); wzr [5, Dp + Cxp,
+// 2 Dp] and wq [5, Dp + Cxp, Dp] in that dtype, bzr [2 Dp] and bq [Dp] fp32,
+// padded as gru_conv.cuh says; out [N, D] in dtype; scratch z_s and rh_s
+// [N, Dp] in dtype. axis: 2 for the (1,5) pass along W, 1 for the (5,1)
+// pass along H. The pixels are walked line by line in segments of
+// 2^seg_shift positions (seg_shift 3 to 5), `tiles` row tiles of kBM pixels
+// of whole segments (the wrapper's plan, which must be the kernel's).
+// Returns the CUDA error of the launches (0 on success); both run on
+// `stream`.
 extern "C" int gru_pass_fwd(const void* h, const void* x, const void* wzr, const void* bzr,
-                            const void* wq, const void* bq, void* out, int B, int H, int W,
-                            int D, int Cx, int Dp, int Cxp, int axis, int dtype, int vec,
-                            void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((axis != 1 && axis != 2) || Dp % kTile || Cxp % kTile) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch<float>(h, x, wzr, (const float*)bzr, wq, (const float*)bq, out, B, H,
-                              W, D, Cx, Dp, Cxp, axis, vec != 0, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(h, x, wzr, (const float*)bzr, wq, (const float*)bq,
-                                      out, B, H, W, D, Cx, Dp, Cxp, axis, vec != 0, s);
-  return (int)cudaErrorInvalidValue;
+                            const void* wq, const void* bq, void* out, void* z_s, void* rh_s,
+                            int tiles, int B, int H, int W, int D, int Cx, int Dp, int Cxp,
+                            int axis, int seg_shift, int dtype, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Geo geo = make_geo(B, H, W, D, Cx, Dp, Cxp, axis, seg_shift);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (!geo_ok(geo, dtype == 1 ? 2 : 4, axis) || tiles != row_tiles(geo))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    using T = float;
+    return (int)run_fwd<T>(FwdArgs<T>{(const T*)h, (const T*)x, (const T*)wzr, (const T*)wq,
+                                      (const float*)bzr, (const float*)bq, (T*)z_s, (T*)rh_s,
+                                      (T*)out, geo},
+                           tiles, s);
+  }
+  using T = __nv_bfloat16;
+  return (int)run_fwd<T>(FwdArgs<T>{(const T*)h, (const T*)x, (const T*)wzr, (const T*)wq,
+                                    (const float*)bzr, (const float*)bq, (T*)z_s, (T*)rh_s,
+                                    (T*)out, geo},
+                         tiles, s);
 }

@@ -72,6 +72,7 @@ struct Taps {
   float wt[4];      // fp32 bilinear weight
   int64_t off[4];   // element offset of the tap's feature row
   float wx, wy;     // fractional position inside the cell
+  int x0, y0;       // the cell: tap 0's position (of the clamped coordinate)
 };
 
 // Coordinates are unbounded (the projection divides by z >= 1e-5), and
@@ -90,6 +91,8 @@ __device__ __forceinline__ Taps make_taps(float2 c, int64_t bn, int h, int w, in
   tp.wy = __fsub_rn(y, y0f);
   const float ux = __fsub_rn(1.0f, tp.wx), uy = __fsub_rn(1.0f, tp.wy);
   const int x0 = (int)x0f, y0 = (int)y0f;
+  tp.x0 = x0;
+  tp.y0 = y0;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int dy = t >> 1, dx = t & 1;

@@ -203,55 +203,76 @@ class _Prepared:
             if t.data_ptr() % 32:
                 raise ValueError(f"gru_sep1d_pass kernel wants a 32-byte aligned {name}")
         vec = 16 // self.h.element_size()
-        self.vec = int(d % vec == 0 and cx % vec == 0 and self.h.data_ptr() % 16 == 0
-                       and self.x.data_ptr() % 16 == 0)
+        self.vec = (d % vec == 0 and cx % vec == 0 and self.h.data_ptr() % 16 == 0
+                    and self.x.data_ptr() % 16 == 0)
         self.dtype = cdt
         self.code = _DTYPE_CODE[cdt]
 
+    def chunked(self, g=None):
+        """(h, x, g, D, Cx) as the kernels read them: whole 16-byte chunks
+        of a pixel's channels, 16-byte aligned. Where D or Cx is not a
+        multiple of 16 bytes, h, x and g go in zero padded to Dp and Cxp
+        (D and Cx then name the padded widths), and the caller cuts its
+        outputs."""
+        if self.vec:
+            return self.h, self.x, g, self.sizes[3], self.sizes[4]
+        d, cx, dp, cxp = self.sizes[3:]
+        return (F.pad(self.h, (0, dp - d)), F.pad(self.x, (0, cxp - cx)),
+                None if g is None else F.pad(g, (0, dp - d)), dp, cxp)
 
-def _launch_k5(p: _Prepared, axis):
-    fn = entry("gru_pass_fwd", "gru_pass_fwd",
-               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    out = torch.empty_like(p.h)
-    launch(fn, p.h.device, p.h.data_ptr(), p.x.data_ptr(), p.wzr.data_ptr(),
-           p.bzr.data_ptr(), p.wq.data_ptr(), p.bq.data_ptr(), out.data_ptr(), *p.sizes,
-           axis, p.code, p.vec)
-    K5_COUNTER.launches += 1
-    return out
 
-
-# K6's tiles (`csrc/gru_gemm.cuh`, `csrc/gru_pass_bwd.cu`). Both kernels walk
+# The tiles of K5 and K6 (`csrc/gru_gemm.cuh`, `csrc/gru_conv.cuh`). All walk
 # the pixels line by line along the shift axis in segments of 8, 16 or 32
-# positions (`k6_segment`). K6-input's row tiles are K6_BM pixels of whole
-# segments x K6_BN columns; K6-weight's blocks K6W_CH channels x K6W_OUT
-# outputs for all five taps, over stages of K6W_PIX pixels. K6-weight splits
-# the stages (split-K) into as many ranges as the grid holds
-# _K6W_BLOCKS_PER_SM blocks an SM in one wave, each at least _K6W_MIN_STEPS
-# stages.
-K6_BM, K6_BN = 128, 64
+# positions (`gru_segment`). K5's two launches and K6-input's four are grids
+# of row tiles of GRU_BM pixels of whole segments x GRU_BN columns;
+# K6-weight's blocks K6W_CH channels x K6W_OUT outputs for all five taps,
+# over stages of K6W_PIX pixels. K6-weight splits the stages (split-K) into
+# as many ranges as the grid holds _K6W_BLOCKS_PER_SM blocks an SM in one
+# wave, each at least _K6W_MIN_STEPS stages.
+GRU_BM, GRU_BN = 128, 64
 K6W_CH, K6W_OUT, K6W_PIX = 64, 64, 32
 _K6W_MIN_STEPS, _K6W_BLOCKS_PER_SM = 8, 2
 
 
-def k6_segment(s: int) -> int:
-    """K6's segment for lines of ``s`` positions: of 32, 16 and 8 the one
-    that leaves the fewest positions empty, the longest of those."""
+def gru_segment(s: int) -> int:
+    """The segment of K5 and K6 for lines of ``s`` positions: of 32, 16 and
+    8 the one that leaves the fewest positions empty, the longest of
+    those."""
     return min((32, 16, 8), key=lambda seg: (-(-s // seg) * seg - s, -seg))
 
 
-def k6_row_tiles(b: int, hh: int, ww: int, axis: int) -> int:
-    """K6-input's row tiles: K6_BM rows of whole segments each (so rows of
-    its bias sums)."""
+def gru_row_tiles(b: int, hh: int, ww: int, axis: int) -> int:
+    """The row tiles of K5's launches and K6-input's: GRU_BM rows of whole
+    segments each (so rows of K6-input's bias sums)."""
     s = ww if axis == 2 else hh
-    seg = k6_segment(s)
-    return -(-(b * hh * ww // s * -(-s // seg)) // (K6_BM // seg))
+    seg = gru_segment(s)
+    return -(-(b * hh * ww // s * -(-s // seg)) // (GRU_BM // seg))
+
+
+def _launch_k5(p: _Prepared, axis):
+    """K5: two CUDA launches (the gate conv, then the candidate conv with
+    the update in its epilogue); z and r*h go through a transient scratch.
+    The kernel refuses a plan of row tiles other than its own."""
+    b, hh, ww, d, cx, dp, cxp = p.sizes
+    h, x, _, dk, cxk = p.chunked()
+    dev = p.h.device
+    out = torch.empty((b, hh, ww, dk), dtype=p.dtype, device=dev)
+    scratch = torch.empty((2, b * hh * ww, dp), dtype=p.dtype, device=dev)   # z, r*h
+    fn = entry("gru_pass_fwd", "gru_pass_fwd",
+               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    launch(fn, dev, *(t.data_ptr() for t in (h, x, p.wzr, p.bzr, p.wq, p.bq, out,
+                                              scratch[0], scratch[1])),
+           gru_row_tiles(b, hh, ww, axis), b, hh, ww, dk, cxk, dp, cxp, axis,
+           gru_segment(ww if axis == 2 else hh).bit_length() - 1, p.code)
+    K5_COUNTER.launches += 1
+    return out if dk == d else out[..., :d].contiguous()
 
 
 def k6_weight_plan(b: int, hh: int, ww: int, axis: int, dp: int, cxp: int, sms: int):
     """K6-weight's launch plan on a card with ``sms`` SMs: (segment length,
     number of splits, stages a split)."""
     s = ww if axis == 2 else hh
-    seg = k6_segment(s)
+    seg = gru_segment(s)
     steps = -(-(b * hh * ww // s) * -(-s // seg) // (K6W_PIX // seg))
     tiles = -(-(dp + cxp) // K6W_CH) * (-(-2 * dp // K6W_OUT) + -(-dp // K6W_OUT))
     want = _K6W_BLOCKS_PER_SM * sms // tiles
@@ -283,9 +304,9 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _check_k6_tiles() -> None:
+def _check_gru_tiles() -> None:
     fn = entry("gru_pass_bwd", "gru_pass_bwd_tile", [ctypes.c_int])
-    want = (K6_BM, K6_BN, K6W_CH, K6W_OUT, K6W_PIX)
+    want = (GRU_BM, GRU_BN, K6W_CH, K6W_OUT, K6W_PIX)
     got = tuple(fn(i) for i in range(len(want)))
     if got != want:
         raise RuntimeError(f"gru_pass_bwd tiles {got}, the wrapper plans for {want}")
@@ -298,21 +319,16 @@ def _aligned(t):
 
 
 def _launch_k6_input(p: _Prepared, g, axis):
-    """K6-input: (dh, dx, scratch). The kernels read whole 16-byte chunks
-    of a pixel's channels: where D or Cx is not a multiple of 16 bytes, h, x
-    and g go in zero padded to Dp and Cxp, and dh, dx come back cut.
-    scratch = (h, x as the kernels read them, their widths, r*h, T(daq),
-    T(dazr) in the compute dtype at padded widths, the fp32 bias sums of each
-    K6_BM-pixel tile), which K6-weight reads."""
-    _check_k6_tiles()
+    """K6-input: (dh, dx, scratch), dh and dx cut to D and Cx where the
+    operands went in padded (`_Prepared.chunked`). scratch = (h, x as the
+    kernels read them, their widths, r*h, T(daq), T(dazr) in the compute
+    dtype at padded widths, the fp32 bias sums of each GRU_BM-pixel tile),
+    which K6-weight reads."""
+    _check_gru_tiles()
     b, hh, ww, d, cx, dp, cxp = p.sizes
-    g = _aligned(g.to(p.dtype))
-    h, x, dk, cxk = p.h, p.x, d, cx
-    if not p.vec:
-        h, x, g, dk, cxk = (F.pad(h, (0, dp - d)), F.pad(x, (0, cxp - cx)),
-                            F.pad(g, (0, dp - d)), dp, cxp)
+    h, x, g, dk, cxk = p.chunked(_aligned(g.to(p.dtype)))
     n = b * hh * ww
-    seg = k6_segment(ww if axis == 2 else hh)
+    seg = gru_segment(ww if axis == 2 else hh)
     dev, cdt = p.h.device, p.dtype
     dh = torch.empty((b, hh, ww, dk), dtype=cdt, device=dev)
     dx = torch.empty((b, hh, ww, cxk), dtype=cdt, device=dev)
@@ -321,7 +337,7 @@ def _launch_k6_input(p: _Prepared, g, axis):
     daq_s = torch.empty((n, dp), dtype=cdt, device=dev)
     dazr_s = torch.empty((n, 2 * dp), dtype=cdt, device=dev)
     dhp_s = torch.empty((n, dp), dtype=torch.float32, device=dev)
-    part = torch.empty((k6_row_tiles(b, hh, ww, axis), 3 * dp), dtype=torch.float32,
+    part = torch.empty((gru_row_tiles(b, hh, ww, axis), 3 * dp), dtype=torch.float32,
                        device=dev)
     fn = entry("gru_pass_bwd", "gru_pass_bwd_input",
                [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p])

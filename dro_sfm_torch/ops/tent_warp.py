@@ -15,9 +15,12 @@ tensors they run the plain versions: `warp_diff_plain` and
 `tent_warp_plain` on top of `bilinear_sample`, `warp_diff_bwd_feat_plain`
 and `warp_diff_bwd_coords_plain`. K1, K4 and their plain versions compute
 the bilinear taps in fp32 in the same order, so they agree bit for bit
-before the final rounding to the output dtype; K2 sums with atomics and K3
-reduces channels in another order, so the backward agrees with its plain
-version to fp32 rounding.
+before the final rounding to the output dtype. K2 gathers each feature
+gradient in a fixed order (`k2_gather_order`, `k2_sum_ranges`), for all but
+crowded cells the order of its plain version's fp32 adds on the CPU; on the
+card the plain version's
+`index_add_` sums with atomics and K3 reduces channels in another order, so
+the backward agrees with its plain version to fp32 rounding there.
 """
 from __future__ import annotations
 
@@ -73,6 +76,52 @@ def warp_diff_bwd_feat_plain(coords: torch.Tensor, g: torch.Tensor, h: int,
         ok = valid[t]
         out.index_add_(0, index[t][ok], sign * (weight[t][ok][:, None] * gf[ok]))
     return out.reshape(bn, h, w, c).to(dtype)
+
+
+def k2_gather_order(coords: torch.Tensor, h: int, w: int):
+    """The order in which kernel K2 sums each output pixel's contributors,
+    in plain PyTorch (a mirror of its plan; the card path never calls it).
+
+    Each pixel p with a tap in view falls in the bucket of its top-left
+    tap's cell (y0, x0), y0 in [-1, h-1], x0 in [-1, w-1]; a bucket holds
+    its pixels in ascending p. Output pixel (y, x) takes the buckets of the
+    cells (y, x), (y, x-1), (y-1, x), (y-1, x-1), in which it is tap 0, 1,
+    2, 3. coords [bn, P, 2] fp32 -> for each view, for each output pixel
+    y w + x, the list of its (p, tap) in that order."""
+    bn, p = coords.shape[:2]
+    _, valid, _, _, _ = bilinear_taps(coords, h, w)
+    x0 = coords[..., 0].clamp(-2.0, w + 1.0).floor().long()
+    y0 = coords[..., 1].clamp(-2.0, h + 1.0).floor().long()
+    cell = torch.where(valid.any(0), (y0 + 1) * (w + 1) + x0 + 1, -1)
+    out = []
+    for v in range(bn):
+        order = torch.argsort(cell[v], stable=True).tolist()
+        buckets = {}
+        for q in order:
+            buckets.setdefault(int(cell[v, q]), []).append(q)
+        view = []
+        for y in range(h):
+            for x in range(w):
+                c0 = (y + 1) * (w + 1) + x + 1
+                view.append([(q, tap) for tap, c in enumerate((c0, c0 - 1, c0 - (w + 1),
+                                                              c0 - (w + 2)))
+                             for q in buckets.get(c, [])])
+        out.append(view)
+    return out
+
+
+# K2's gather sums a list of up to K2_LONG entries in list order; it splits a
+# longer one into K2_GROUPS equal ranges, sums each in list order and adds
+# the partial sums in range order (`csrc/tent_warp_bwd.cu`: kLong, kGroups).
+K2_LONG, K2_GROUPS = 64, 16
+
+
+def k2_sum_ranges(n: int):
+    """The ranges [lo, hi) of a list of ``n`` entries that K2 sums apart, in
+    the order it adds their sums."""
+    if n <= K2_LONG:
+        return [(0, n)]
+    return [(i * n // K2_GROUPS, (i + 1) * n // K2_GROUPS) for i in range(K2_GROUPS)]
 
 
 def warp_diff_bwd_coords_plain(features: torch.Tensor, coords: torch.Tensor,
@@ -155,15 +204,22 @@ def _launch_k1(f1, features, coords, n_views):
 
 
 def _launch_k2(coords, g, h, w, dtype, sign):
+    """K2: two CUDA launches (the plan, then the gather) into an output in
+    ``dtype``; the plan is a transient int32 scratch."""
     _require_contiguous("warp backward (features)", coords=coords, g=g)
-    fn = _kernel("tent_warp_bwd_feat", [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    if coords.data_ptr() % 8:
+        raise ValueError("warp backward kernel wants 8-byte aligned coords")
+    fn = _kernel("tent_warp_bwd_feat", [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     bn, p, c = g.shape
-    out = torch.zeros((bn, h, w, c), dtype=torch.float32, device=g.device)
-    launch(fn, g.device, coords.data_ptr(), g.data_ptr(), out.data_ptr(), bn, p, h,
-           w, c, _DTYPE_CODE[g.dtype], int(_vectorized(c, g, out)), float(sign))
+    out = torch.empty((bn, h, w, c), dtype=dtype, device=g.device)
+    plan = torch.empty(bn * (5 * p + 2 * (h + 1) * (w + 1) + 1), dtype=torch.int32,
+                       device=g.device)
+    launch(fn, g.device, coords.data_ptr(), g.data_ptr(), out.data_ptr(), plan.data_ptr(),
+           bn, p, h, w, c, _DTYPE_CODE[g.dtype], _DTYPE_CODE[dtype],
+           int(_vectorized(c, g) and _vectorized(c, out)), float(sign))
     K2_COUNTER.launches += 1
-    return out if dtype == torch.float32 else out.to(dtype)
+    return out
 
 
 def _launch_k3(features, coords, g, sign):

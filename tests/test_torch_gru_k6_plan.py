@@ -13,8 +13,8 @@ from pathlib import Path
 import pytest
 
 from dro_sfm_torch import kernels
-from dro_sfm_torch.ops.gru_pass import (K6_BM, K6W_CH, K6W_OUT, K6W_PIX, _round16,
-                                        k6_row_tiles, k6_segment, k6_split_pixels,
+from dro_sfm_torch.ops.gru_pass import (GRU_BM, K6W_CH, K6W_OUT, K6W_PIX, _round16,
+                                        gru_row_tiles, gru_segment, k6_split_pixels,
                                         k6_weight_plan)
 
 CSRC = Path(kernels.__file__).resolve().parent / "csrc"
@@ -49,7 +49,7 @@ def test_split_ranges_cover_every_pixel_once_in_order(what, b, h, w, d, cx, axis
 @pytest.mark.parametrize("s, want", [(80, 16), (24, 8), (3, 8), (10, 16), (7, 8), (64, 32),
                                      (96, 32), (16, 16)])
 def test_segment_leaves_fewest_positions_empty(s, want):
-    assert k6_segment(s) == want
+    assert gru_segment(s) == want
 
 
 @pytest.mark.parametrize("axis", [2, 1])
@@ -65,10 +65,10 @@ def test_weight_grid_fills_one_wave_of_two_blocks_an_sm(what, b, axis):
 @pytest.mark.parametrize("axis", [2, 1])
 def test_input_row_tiles_hold_every_segment(what, b, h, w, d, cx, axis):
     s = w if axis == 2 else h
-    seg = k6_segment(s)
+    seg = gru_segment(s)
     n_segs = b * h * w // s * -(-s // seg)
-    tiles = k6_row_tiles(b, h, w, axis)
-    assert (tiles - 1) * (K6_BM // seg) < n_segs <= tiles * (K6_BM // seg)
+    tiles = gru_row_tiles(b, h, w, axis)
+    assert (tiles - 1) * (GRU_BM // seg) < n_segs <= tiles * (GRU_BM // seg)
 
 
 def test_stage_holds_whole_segments():
