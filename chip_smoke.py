@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check their kernels.
+"""Drive the PyTorch port's serving and training paths, and its trainer, on
+one NVIDIA GPU and check their kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -59,7 +59,19 @@ result line):
 15. its gradients through K5/K6 against the plain GRU pass (B=2, fp32 and
    bf16);
 16. profile of one of its train steps, with the device time of the K5 and
-   K6 kernels summed by name prefix.
+   K6 kernels summed by name prefix;
+17. trainer: `Trainer.fit` on ``configs/train_synthetic_192x640.yaml``
+   through the port's config reader (2 epochs of 2 B=8 steps on 16
+   synthetic scenes, one B=4 validation batch each, checkpoints under
+   ``build/trainer``), from the config's own initialisation: every count
+   reset just before and read just after, K1 24, K2 24, K3 18 a train step
+   and K1 48 an eval batch; losses and metrics finite; the last epoch's
+   checkpoint written; a resume whose net, Adam moments and step equal the
+   file's bits; the eval CLI (``python -m dro_sfm_torch.scripts.eval``) in
+   a subprocess, its ``abs_rel_pp_gt`` within 1e-5 relative of the last
+   validation's; one more epoch with ``sep_conv="pallas"`` (K5, K6-input,
+   K6-weight 48 a step, K5 96 an eval batch). It prints the train frames/s
+   beside phase 8's, the loader's alone and the ms of an eval batch.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -677,7 +689,7 @@ def phase_train(counters, gpu, sep_conv="split", want=TRAIN_LAUNCHES):
           f"{TRAIN_STEPS} steps) {1e3 * TRAIN_B / ms:.1f} frames/s, peak {peak:.0f} MiB, "
           f"launches/step {per_step[-1]}, loss {losses[0]:.4f} -> {losses[-1]:.4f} on {gpu}",
           flush=True)
-    return state, train_step, batch, launches
+    return state, train_step, batch, launches, ms
 
 
 def train_gradients(cfg, state_dict, batch):
@@ -1558,9 +1570,227 @@ def profile_train_step(state, train_step, batch):
               f"{total / calls:.2f} us a call", flush=True)
 
 
+# --- the trainer: training and evaluation from a config -----------------------
+
+TRAINER_CONFIG = ROOT / "configs" / "train_synthetic_192x640.yaml"
+TRAINER_EPOCHS = 2
+# Per evaluation batch: the forward and the flipped forward, each 24 K1 (and
+# with sep_conv="pallas" 48 K5) launches.
+EVAL_LAUNCHES = {"K1": 48}
+EVAL_LAUNCHES_PALLAS = {"K1": 48, "K5": 96}
+
+
+def trainer_config(sep_conv="split", max_epochs=TRAINER_EPOCHS):
+    """`TRAINER_CONFIG` cut to 2 training steps an epoch (16 scenes, B=8)
+    and one validation batch (4 scenes, B=4; the test split the same, for
+    the eval CLI), checkpoints and depth files under ``build/``."""
+    from dro_sfm_torch.utils.config import load_config
+    build = ROOT / "build" / "trainer"
+    evaluation = {"dataset": ["Synthetic"], "path": ["7"], "split": ["4"],
+                  "batch_size": 4, "num_workers": 2}
+    return load_config(str(TRAINER_CONFIG), overrides={
+        "arch": {"max_epochs": max_epochs},
+        "checkpoint": {"filepath": str(build / "ckpt")},
+        "save": {"folder": str(build / "depth"),
+                 "depth": {"png": False, "rgb": False, "viz": False}},
+        "model": {"depth_net": {"sep_conv": sep_conv}},
+        "datasets": {"train": {"split": ["16"], "repeat": [1]},
+                     "validation": evaluation, "test": evaluation}})
+
+
+class CountedStep:
+    """A training or evaluation step that records, for every call, the
+    launches of each kernel and what the step returned; with ``timed`` also
+    its milliseconds (host clock between synchronisations)."""
+
+    def __init__(self, fn, counters, timed=False):
+        self.fn, self.counters, self.timed = fn, counters, timed
+        self.launches, self.outputs, self.ms = [], [], []
+
+    def __call__(self, *args, **kwargs):
+        start = {k: c.launches for k, c in self.counters.items()}
+        if self.timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        if self.timed:
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+        self.launches.append({k: c.launches - start[k] for k, c in self.counters.items()})
+        self.outputs.append(out)
+        return out
+
+
+def counted_trainer(trainer, counters):
+    """Wrap the trainer's training step, its evaluation step and its epochs
+    (to keep each epoch's train metrics)."""
+    train = trainer.train_step = CountedStep(trainer.train_step, counters)
+    evaluate = CountedStep(trainer.eval_step_for(False), counters, timed=True)
+    trainer._eval_steps[False] = evaluate
+    epochs = trainer.train_epoch = CountedStep(trainer.train_epoch, {})
+    return train, evaluate, epochs
+
+
+def check_launches(what, calls, want, counters):
+    want = {k: want.get(k, 0) for k in counters}
+    for i, got in enumerate(calls):
+        if got != want:
+            fail(f"trainer: {what} {i}: launches {got}, want {want}")
+
+
+def trainer_state(trainer):
+    """The net's tensors, Adam's moments by parameter name, and the step."""
+    names = {id(p): k for k, p in trainer.net.named_parameters()}
+    moments = {names[id(p)]: v for p, v in trainer.optimizer.torch_optimizer.state.items()}
+    return dict(trainer.net.state_dict()), moments, trainer.state.step
+
+
+def saved_state(trainer, path):
+    """The same three from the checkpoint file (the optimizer's state is
+    keyed by parameter index, in the order of `named_parameters`)."""
+    payload = torch.load(path, map_location="cuda", weights_only=True)
+    names = [k for k, _ in trainer.net.named_parameters()]
+    moments = {names[i]: v for i, v in payload["optimizer"]["state"].items()}
+    return payload["net"], moments, payload["step"]
+
+
+def same_state(a, b):
+    """Names of the tensors that differ in any bit between two states."""
+    (net_a, mom_a, step_a), (net_b, mom_b, step_b) = a, b
+    bad = [k for k in net_a.keys() | net_b.keys()
+           if k not in net_a or k not in net_b or not torch.equal(net_a[k], net_b[k])]
+    bad += [f"adam {k}.{m}" for k in mom_a.keys() | mom_b.keys()
+            for m in ("exp_avg", "exp_avg_sq", "step")
+            if k not in mom_a or k not in mom_b
+            or not torch.equal(mom_a[k][m].cpu(), mom_b[k][m].cpu())]
+    return bad + (["step"] if step_a != step_b else [])
+
+
+def check_finite(what, metrics):
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad:
+        fail(f"trainer: {what}: non-finite metrics {dict(list(bad.items())[:6])}")
+
+
+def phase_trainer(counters, gpu, step_ms):
+    """The port's program around the step: `Trainer.fit` on
+    `TRAINER_CONFIG` (SupModelMF it12-h-out bf16 192x640 B=8, the config's
+    own initialisation from arch.seed, Adam with the global-norm clip),
+    `TRAINER_EPOCHS` epochs of 2 steps, each validated (one B=4 batch) and
+    checkpointed; a resume from the last checkpoint, bit for bit; the eval
+    CLI on it in a subprocess, against the last validation; one more epoch
+    with ``sep_conv="pallas"``. ``step_ms``: phase 8's median ms/step in this
+    run (None when phase 8 did not run)."""
+    import shutil
+
+    from dro_sfm_torch.training.trainer import Trainer
+    # The trainer runs with torch's default precision settings, as a user
+    # of the CLIs does (cuDNN may take TF32 in the fp32 head convolutions),
+    # so that the eval CLI's process computes what this one computes.
+    precision = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    shutil.rmtree(ROOT / "build" / "trainer", ignore_errors=True)
+    try:
+        cfg = trainer_config()
+        trainer = Trainer(cfg, device="cuda")
+        t0 = time.perf_counter()
+        n = sum(len(b["idx"]) for b in trainer.train_loader)
+        loader_fps = n / (time.perf_counter() - t0)
+        train, evaluate, epochs = counted_trainer(trainer, counters)
+        for c in counters.values():          # the trainer's path starts here
+            c.reset()
+        metrics = trainer.fit()
+        launches = {k: c.launches for k, c in counters.items()}   # and ends here
+        steps = len(train.launches)
+        if steps != TRAINER_EPOCHS * len(trainer.train_loader) or len(evaluate.ms) != TRAINER_EPOCHS:
+            fail(f"trainer: {steps} train steps, {len(evaluate.ms)} eval batches")
+        check_launches("train step", train.launches, TRAIN_LAUNCHES, counters)
+        check_launches("eval batch", evaluate.launches, EVAL_LAUNCHES, counters)
+        want = {k: steps * TRAIN_LAUNCHES.get(k, 0) + TRAINER_EPOCHS * EVAL_LAUNCHES.get(k, 0)
+                for k in counters}
+        if launches != want:
+            fail(f"trainer: launches over fit() {launches}, want {want}")
+        losses = [m["loss"].item() for _, m in train.outputs]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"trainer: non-finite loss at the config's initialisation {losses}; "
+                 "see ROADMAP C")
+        check_finite("fit()", metrics)
+        for out in evaluate.outputs:
+            if not bool(torch.isfinite(out["metrics"]).all()):
+                fail("trainer: non-finite per-sample metrics in an eval batch")
+        last = [p for _, p in trainer.checkpointer.saved
+                if Path(p).name.startswith(f"epoch={TRAINER_EPOCHS - 1:02d}_")]
+        if not last or not Path(last[0]).is_file():
+            fail(f"trainer: no checkpoint of the last epoch in {trainer.checkpointer.saved}")
+        ckpt = last[0]
+        fps = [e["train_frames_per_sec"] for e in epochs.outputs]
+        vs = (f", phase 8's bare step {1e3 * TRAIN_B / step_ms:.1f} frames/s "
+              f"({step_ms:.2f} ms/step)" if step_ms else "")
+        print(f"trainer fit {TRAINER_CONFIG.name} it12-h-out bf16 192x640 B={TRAIN_B}: "
+              f"{TRAINER_EPOCHS} epochs x {len(trainer.train_loader)} steps, train "
+              f"{' / '.join(f'{v:.1f}' for v in fps)} frames/s by epoch{vs}; loader alone "
+              f"{loader_fps:.1f} frames/s ({trainer.train_loader.num_workers} threads); "
+              f"eval batch B=4 {' / '.join(f'{v:.1f}' for v in evaluate.ms)} ms; losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; abs_rel_pp_gt "
+              f"{metrics['abs_rel_pp_gt']:.6f}; launches per step {train.launches[-1]}, "
+              f"per eval batch {evaluate.launches[-1]}; on {gpu}", flush=True)
+
+        # Resume: the restored state is the saved one, bit for bit.
+        resumed = Trainer(cfg, resume=ckpt, device="cuda")
+        bad = same_state(trainer_state(resumed), saved_state(resumed, ckpt))
+        bad += same_state(trainer_state(resumed), trainer_state(trainer))
+        if bad or resumed.current_epoch != TRAINER_EPOCHS:
+            fail(f"trainer: resume differs in {bad[:6]} (epoch {resumed.current_epoch})")
+        print(f"trainer resume: {len(trainer_state(resumed)[0])} net tensors, Adam's "
+              f"moments and step {resumed.state.step} equal to the checkpoint's bits",
+              flush=True)
+        del trainer, resumed
+
+        # The eval CLI in its own process, on the same checkpoint.
+        res = subprocess.run([sys.executable, "-m", "dro_sfm_torch.scripts.eval",
+                              "--checkpoint", ckpt], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"trainer: eval CLI failed ({res.returncode}):\n{res.stderr[-3000:]}")
+        evaluated = json.loads(res.stdout[res.stdout.rindex("\n{") + 1:])
+        a, b = evaluated["abs_rel_pp_gt"], metrics["abs_rel_pp_gt"]
+        if not abs(a - b) <= 1e-5 * abs(b):
+            fail(f"trainer: eval CLI abs_rel_pp_gt {a!r}, last validation {b!r}")
+        check_finite("eval CLI", evaluated)
+        print(f"trainer eval CLI: abs_rel_pp_gt {a!r} against validation's {b!r} "
+              f"(relative {abs(a - b) / abs(b):.2e}, bar 1e-5)", flush=True)
+
+        # One more epoch with the fused GRU passes.
+        fused = Trainer(trainer_config("pallas", TRAINER_EPOCHS + 1), resume=ckpt,
+                        device="cuda")
+        train, evaluate, epochs = counted_trainer(fused, counters)
+        for c in counters.values():
+            c.reset()
+        metrics_p = fused.fit()
+        check_launches("pallas train step", train.launches, TRAIN_LAUNCHES_PALLAS, counters)
+        check_launches("pallas eval batch", evaluate.launches, EVAL_LAUNCHES_PALLAS,
+                       counters)
+        if len(train.launches) != len(fused.train_loader) or len(evaluate.ms) != 1:
+            fail(f"trainer: pallas epoch ran {len(train.launches)} steps, "
+                 f"{len(evaluate.ms)} eval batches")
+        losses_p = [m["loss"].item() for _, m in train.outputs]
+        if not all(math.isfinite(v) for v in losses_p):
+            fail(f"trainer: non-finite loss with sep_conv=pallas {losses_p}")
+        check_finite("pallas fit()", metrics_p)
+        print(f"trainer sep_conv=pallas epoch {TRAINER_EPOCHS}: train "
+              f"{epochs.outputs[0]['train_frames_per_sec']:.1f} frames/s, eval batch "
+              f"{evaluate.ms[0]:.1f} ms, losses {' '.join(f'{v:.4f}' for v in losses_p)}, "
+              f"abs_rel_pp_gt {metrics_p['abs_rel_pp_gt']:.6f}; launches per step "
+              f"{train.launches[-1]}, per eval batch {evaluate.launches[-1]}", flush=True)
+        del fused
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = precision
+        torch.cuda.empty_cache()
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
-          "train_pallas_profile")
+          "train_pallas_profile", "trainer")
 
 
 def main() -> int:
@@ -1644,8 +1874,9 @@ def main() -> int:
 
     # 8) training (a main path: its K1-K3 launches go into the kernels line)
     trained = phase("train", phase_train, counters, gpu)
+    step_ms = None
     if trained is not None:
-        _, _, _, launches = trained
+        launches, step_ms = trained[3], trained[4]
         for name in TRAIN_LAUNCHES:
             if launches[name] == 0:
                 fail(f"the training path never launched {name}")
@@ -1679,6 +1910,9 @@ def main() -> int:
         phase("train_pallas_e2e", phase_train_pallas_end_to_end)
         phase("train_pallas_profile", profile_train_step, *trained_p[:3])
         del trained_p
+
+    # 17) the trainer: fit, resume, the eval CLI, a sep_conv="pallas" epoch
+    phase("trainer", phase_trainer, counters, gpu, step_ms)
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)

@@ -16,7 +16,8 @@ from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
 from dro_sfm_torch.ops.depth_ops import inv2depth
 from dro_sfm_torch.utils.device import resolve_device
 
-_META = ("version", "min_depth", "max_depth", "mixed_precision")
+_META = ("version", "min_depth", "max_depth", "mixed_precision", "warp_impl",
+         "sep_conv", "remat")
 
 
 def save_model(net: DepthPoseNet, path: str) -> None:
@@ -27,10 +28,12 @@ def save_model(net: DepthPoseNet, path: str) -> None:
 
 def load_model(path: str, device=None) -> DepthPoseNet:
     """Rebuild a `DepthPoseNet` from `save_model`'s file on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU). A key the file lacks (files
+    written before ``warp_impl``, ``sep_conv`` and ``remat`` were saved)
+    takes the `DepthPoseNet` default."""
     device = resolve_device(device)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    net = DepthPoseNet(**{k: ckpt[k] for k in _META}, device=device)
+    net = DepthPoseNet(**{k: ckpt[k] for k in _META if k in ckpt}, device=device)
     net.load_state_dict(ckpt["state_dict"], strict=True)
     return net
 

@@ -291,6 +291,7 @@ class DepthPoseNet(nn.Module):
         self.min_depth, self.max_depth = min_depth, max_depth
         self.feat_ratio = feat_ratio
         self.mixed_precision = mixed_precision
+        self.warp_impl, self.sep_conv, self.remat = warp_impl, sep_conv, remat
         self.dtype = dt = torch.bfloat16 if mixed_precision else torch.float32
         hdim = spec.hidden_dim
         g = generator

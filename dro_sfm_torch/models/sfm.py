@@ -76,8 +76,8 @@ class SfmModelConfig:
     def __post_init__(self):
         if self.name in MF_MODEL_NAMES + SF_MODEL_NAMES:
             if self.name not in PORTED_MODEL_NAMES:
-                item = "12 (self-supervised path)" if self.name in MF_MODEL_NAMES \
-                    else "13 (single-frame models)"
+                item = "6 (self-supervised path)" if self.name in MF_MODEL_NAMES \
+                    else "7 (single-frame models)"
                 raise NotImplementedError(
                     f"{self.name} is not ported yet: ROADMAP.md queue A item {item}")
         else:

@@ -1,11 +1,13 @@
-"""The training step.
+"""The training step and the evaluation step.
 
-PyTorch counterpart of `make_train_step` in `dro_sfm_tpu/training/step.py`:
-forward with the random flip, the task loss, the backward pass, the
-optimizer update and the BatchNorm running-statistics update (the last made
-by the net's train-mode forward). It runs eagerly on the device the net is
-on: on CUDA tensors the refinement's warp cost is kernel K1 forward and K2,
-K3 backward.
+PyTorch counterpart of `make_train_step` and `make_eval_step` in
+`dro_sfm_tpu/training/step.py`. The training step: forward with the random
+flip, the task loss, the backward pass, the optimizer update and the
+BatchNorm running-statistics update (the last made by the net's train-mode
+forward). The evaluation step: the forward and the forward on the flipped
+images, their flip fusion, and the depth metrics in four modes. Both run
+eagerly on the device the net is on: on CUDA tensors the refinement's warp
+cost is kernel K1 forward and K2, K3 backward.
 """
 from __future__ import annotations
 
@@ -13,9 +15,14 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from dro_sfm_torch.geometry.pose import Pose
 from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
-from dro_sfm_torch.models.sfm import SfmModelConfig, forward_and_loss
+from dro_sfm_torch.models.sfm import SfmModelConfig, forward, forward_and_loss
+from dro_sfm_torch.ops.depth_ops import inv2depth
+from dro_sfm_torch.ops.image import flip_intrinsics, flip_lr
+from dro_sfm_torch.training.metrics import MetricsConfig, compute_depth_metrics
 from dro_sfm_torch.training.state import Optimizer, TrainState
+from dro_sfm_torch.utils.depth import post_process_inv_depth
 from dro_sfm_torch.utils.device import resolve_device
 
 BATCH_KEYS = ("rgb", "rgb_context", "intrinsics", "depth", "pose_context")
@@ -54,3 +61,62 @@ def make_train_step(model_cfg: SfmModelConfig, net: DepthPoseNet,
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(model_cfg: SfmModelConfig, net: DepthPoseNet,
+                   metrics_cfg: MetricsConfig, demon_scaling: bool = False,
+                   device=None) -> Callable[[Dict], Dict[str, Optional[torch.Tensor]]]:
+    """The evaluation step on ``device`` (the card unless the caller asks
+    for the CPU; ``net`` must already be there):
+
+    ``eval_step(batch)`` -> ``metrics`` [4,B,9] (modes '', _pp, _gt, _pp_gt
+    of `METRIC_MODES`; None without ``depth`` in the batch), ``inv_depth``
+    and ``inv_depth_pp`` [B,H,W,1], ``depth_pp`` [B,H,W,1] and ``pose``
+    [B,N,4,4]. ``batch`` holds ``rgb``, ``rgb_context``, ``intrinsics`` and,
+    for the metrics, ``depth`` (and ``pose_context`` with
+    ``demon_scaling``). It runs the net in eval mode under
+    ``torch.inference_mode()`` and leaves it in the mode it found.
+    """
+    device = resolve_device(device)
+
+    def eval_step(batch: Dict) -> Dict[str, Optional[torch.Tensor]]:
+        batch = {k: torch.as_tensor(batch[k]).to(device=device, dtype=torch.float32)
+                 for k in BATCH_KEYS if k in batch}
+        was_training = net.training
+        try:
+            with torch.inference_mode():
+                return _evaluate(net, batch, metrics_cfg, demon_scaling)
+        finally:
+            net.train(was_training)
+
+    return eval_step
+
+
+def _evaluate(net, batch, metrics_cfg, demon_scaling):
+    out = forward(net, batch, train=False, last_only=True)
+    inv_depth = out["inv_depths"][-1]                          # [B,H,W,1]
+    pose_vecs = out["pose_vecs"][:, :, -1]                     # [B,N,6]
+
+    width = batch["rgb"].shape[2]
+    flipped = {"rgb": flip_lr(batch["rgb"]),
+               "rgb_context": flip_lr(batch["rgb_context"]),
+               "intrinsics": flip_intrinsics(batch["intrinsics"], width)}
+    out_f = forward(net, flipped, train=False, last_only=True)
+    inv_depth_pp = post_process_inv_depth(inv_depth, out_f["inv_depths"][-1],
+                                          method="mean")
+    depth = inv2depth(inv_depth)
+    depth_pp = inv2depth(inv_depth_pp)
+
+    metrics = None
+    gt = batch.get("depth")
+    if gt is not None:
+        rows = [compute_depth_metrics(gt, depth_pp if pp else depth, metrics_cfg,
+                                      use_gt_scale=gt_scale,
+                                      gt_pose=batch.get("pose_context"),
+                                      demon_scaling=demon_scaling, reduce=False)
+                for pp, gt_scale in ((False, False), (True, False),
+                                     (False, True), (True, True))]
+        metrics = torch.stack(rows)                            # [4,B,9]
+    return {"metrics": metrics, "inv_depth": inv_depth,
+            "inv_depth_pp": inv_depth_pp, "depth_pp": depth_pp,
+            "pose": Pose.from_vec(pose_vecs, "euler").mat}      # [B,N,4,4]

@@ -1,0 +1,344 @@
+"""The trainer: datasets, steps, state, checkpoints and the epoch loops.
+
+PyTorch counterpart of `dro_sfm_tpu/training/trainer.py`, on one device in
+one process. The Trainer owns the config, the datasets and loaders, the
+training step (`make_train_step`) and the flip-fused evaluation step
+(`make_eval_step`), the training state (the net, Adam and the step), the
+top-k checkpoints and the metric sums. On the card the training step runs
+kernels K1, K2 and K3 (and K5, K6 with ``sep_conv: "pallas"``) and every
+evaluation batch runs K1 (and K5).
+
+Not ported: several processes and ``arch.spatial_shards`` > 1 (ROADMAP A8),
+warm starts from flax msgpack files (``model.checkpoint_path``,
+``model.depth_net.pretrained_encoders``; ROADMAP A4).
+"""
+from __future__ import annotations
+
+import os
+import signal
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from dro_sfm_torch.data import make_loader, setup_dataset
+from dro_sfm_torch.data.loader import device_prefetch, to_device
+from dro_sfm_torch.loggers import make_logger
+from dro_sfm_torch.models.sfm import SfmModelConfig, resolve_memory_policy
+from dro_sfm_torch.training.checkpoint import (
+    CheckpointManager,
+    load_checkpoint,
+    save_checkpoint,
+    sync_checkpoint_dir,
+)
+from dro_sfm_torch.training.metrics import (
+    ALL_METRIC_NAMES,
+    METRIC_MODES,
+    MetricsConfig,
+    compute_pose_metrics,
+)
+from dro_sfm_torch.training.state import create_train_state, group_schedule, make_optimizer
+from dro_sfm_torch.training.step import BATCH_KEYS, make_eval_step, make_train_step
+from dro_sfm_torch.utils.device import resolve_device
+from dro_sfm_torch.utils.logging import AvgMeter, pcolor, print_metrics_table
+from dro_sfm_torch.utils.save import check_save_flags, save_depth
+
+_A8 = "is not ported yet: one process on one device (ROADMAP A8)"
+_A4 = "reads a flax msgpack file, which the port cannot read yet (ROADMAP A4)"
+
+
+def model_config_from(cfg) -> SfmModelConfig:
+    """The task-model config of a full config. The "auto" memory knobs
+    resolve for the training batch and image size."""
+    loss = cfg.model.loss
+    remat, scan_unroll = resolve_memory_policy(
+        cfg.model.depth_net.get("remat", True),
+        cfg.model.depth_net.get("scan_unroll", "none"),
+        cfg.datasets.train.batch_size,
+        cfg.datasets.augmentation.image_shape)
+    return SfmModelConfig(
+        name=cfg.model.name,
+        version=cfg.model.depth_net.version,
+        min_depth=cfg.model.params.min_depth or 0.1,
+        max_depth=cfg.model.params.max_depth,
+        mixed_precision=bool(cfg.model.depth_net.get("mixed_precision", False)),
+        warp_impl=cfg.model.depth_net.get("warp_impl", "gather"),
+        sep_conv=cfg.model.depth_net.get("sep_conv", "conv"),
+        remat=remat,
+        scan_unroll=scan_unroll,
+        flip_lr_prob=loss.flip_lr_prob,
+        progressive_scaling=loss.get("progressive_scaling", 0.0))
+
+
+def flip_generator(seed: int, epoch: int) -> torch.Generator:
+    """The generator of an epoch's random flips."""
+    return torch.Generator().manual_seed(seed * 1_000_003 + epoch)
+
+
+def _check_single_process(cfg) -> None:
+    dist = torch.distributed
+    if (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1) \
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(f"training in several processes {_A8}")
+    if int(cfg.arch.get("spatial_shards", 1)) > 1:
+        raise NotImplementedError(f"arch.spatial_shards > 1 {_A8}")
+
+
+class Trainer:
+    """Train and evaluate ``cfg`` on ``device`` (the card unless the caller
+    asks for the CPU), from the config's initialisation or, with
+    ``resume``, from a checkpoint of this package (continuing with the epoch
+    after the saved one)."""
+
+    def __init__(self, cfg, resume: Optional[str] = None, device=None):
+        _check_single_process(cfg)
+        for what, path in (("model.checkpoint_path", cfg.model.checkpoint_path),
+                           ("model.depth_net.pretrained_encoders",
+                            cfg.model.depth_net.get("pretrained_encoders", ""))):
+            if path:
+                raise NotImplementedError(f"{what} {_A4}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model_cfg = model_config_from(cfg)
+        self.metrics_cfg = MetricsConfig(
+            crop=cfg.model.params.crop,
+            min_depth=cfg.model.params.min_depth,
+            max_depth=cfg.model.params.max_depth)
+
+        # Datasets and loaders. Evaluation datasets stay apart: one loader and
+        # metric suffix each. Training data is optional (evaluation runs).
+        aug = cfg.datasets.augmentation
+        self.train_dataset = None
+        self.train_loader = None
+        if cfg.datasets.train.dataset:
+            self.train_dataset = setup_dataset(cfg.datasets.train, aug, "train")
+            self.train_loader = make_loader(
+                self.train_dataset, cfg.datasets.train.batch_size, "train",
+                num_workers=cfg.datasets.train.num_workers, seed=cfg.arch.seed)
+        self.val_datasets = (
+            setup_dataset(cfg.datasets.validation, aug, "validation")
+            if cfg.datasets.validation.dataset else [])
+        self.test_datasets = None
+        if cfg.datasets.test.dataset:
+            self.test_datasets = setup_dataset(cfg.datasets.test, aug, "test")
+        self.val_loaders = [
+            make_loader(ds, cfg.datasets.validation.batch_size, "validation",
+                        num_workers=cfg.datasets.validation.num_workers)
+            for ds in self.val_datasets]
+
+        # Net, optimizer and state.
+        steps_per_epoch = (max(1, len(self.train_loader))
+                           if self.train_loader is not None else 1)
+        self.net = self.model_cfg.build_net(
+            device=self.device, generator=torch.Generator().manual_seed(cfg.arch.seed))
+        self.optimizer = make_optimizer(self.net, cfg.model.optimizer,
+                                        cfg.model.scheduler, steps_per_epoch)
+        self.state = create_train_state(self.net, self.optimizer, device=self.device)
+        # The depth group's schedule, for the rate reported to the logger.
+        self._lr_fn = group_schedule(cfg.model.optimizer.depth, cfg.model.scheduler,
+                                     steps_per_epoch)
+        self.current_epoch = 0
+        if resume:
+            restored = load_checkpoint(resume, self.state)
+            # Checkpoints are written at the end of an epoch: go on with the next.
+            self.current_epoch = int(restored["meta"].get("epoch", -1)) + 1
+
+        self.train_step = make_train_step(self.model_cfg, self.net, self.optimizer,
+                                          device=self.device)
+        # One evaluation step per DeMoN-scaling flag: the scaling applies per
+        # evaluation dataset.
+        self._eval_steps: Dict[bool, object] = {}
+        self.checkpointer = CheckpointManager(
+            cfg.checkpoint.filepath, monitor=cfg.checkpoint.monitor,
+            save_top_k=cfg.checkpoint.save_top_k, mode=cfg.checkpoint.mode,
+            sync_url=cfg.checkpoint.get("s3_url", "") or cfg.checkpoint.get("s3_path", ""),
+            sync_frequency=int(cfg.checkpoint.get("s3_frequency", 1)))
+        self.metric_keys = ALL_METRIC_NAMES
+        self.logger = make_logger(cfg.wandb, cfg.name)
+        self.logger.log_config(cfg)
+        self._preempted = False
+
+    # ------------------------------------------------------------------
+    def _place(self, batch) -> Dict[str, torch.Tensor]:
+        return to_device(batch, self.device, BATCH_KEYS)
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        self.train_loader.set_epoch(epoch)
+        avg = AvgMeter(50)
+        t0 = time.time()
+        n_frames = 0
+        flips = flip_generator(self.cfg.arch.seed, epoch)
+        # Training progress for the progressive loss scaling.
+        progress = float(epoch) / max(self.cfg.arch.max_epochs, 1)
+        # Batch i+1's host-to-device copy overlaps batch i's step.
+        for i, (batch, arrays) in enumerate(
+                device_prefetch(self.train_loader, self._place, depth=2)):
+            if self._preempted:          # fit() saves the emergency checkpoint
+                break
+            self.state, metrics = self.train_step(self.state, arrays, flips, progress)
+            n_frames += batch["rgb"].shape[0]
+            if (i + 1) % 10 == 0 or i == 0:
+                last_loss = float(metrics["loss"])
+                run_avg = avg(last_loss)
+                dt = time.time() - t0
+                print(f"epoch {epoch:03d} step {i + 1:05d}/{len(self.train_loader):05d} "
+                      f"loss {last_loss:.4f} (avg {run_avg:.4f}) "
+                      f"{n_frames / dt:.1f} frames/s", flush=True)
+                self.logger.log_metrics({
+                    "train-loss-step": last_loss,
+                    "learning_rate": float(self._lr_fn(self.state.step)),
+                    "global_step": self.state.step})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.time() - t0
+        return {"avg_train-loss": avg.get(),
+                "train_frames_per_sec": n_frames / max(dt, 1e-9)}
+
+    # ------------------------------------------------------------------
+    def validate_all(self, loaders=None, split: str = "validation",
+                     save_artifacts: bool = False) -> Dict[str, float]:
+        """Evaluate every dataset of a split: the first gives the unsuffixed
+        (monitored) metrics, and each the metrics suffixed -<i>."""
+        loaders = loaders if loaders is not None else self.val_loaders
+        section = self.cfg.datasets[split]
+        results: Dict[str, float] = {}
+        for i, loader in enumerate(loaders):
+            ds_name = section.dataset[i] if i < len(section.dataset) else ""
+            name = f"{ds_name}-{section.split[i]}" if i < len(section.dataset) \
+                else f"{split}-{i}"
+            r = self.validate(loader, dataset_name=name, save_artifacts=save_artifacts,
+                              demon_scaling=(ds_name == "Demon"))
+            if i == 0:
+                results.update(r)
+            results.update({f"{k}-{i}": v for k, v in r.items()})
+        return results
+
+    def eval_step_for(self, demon_scaling: bool = False):
+        """The evaluation step for one dataset's metric mode (cached)."""
+        step = self._eval_steps.get(demon_scaling)
+        if step is None:
+            step = make_eval_step(self.model_cfg, self.net, self.metrics_cfg,
+                                  demon_scaling=demon_scaling, device=self.device)
+            self._eval_steps[demon_scaling] = step
+        return step
+
+    def validate(self, loader=None, dataset_name: str = "validation",
+                 save_artifacts: bool = False,
+                 demon_scaling: bool = False) -> Dict[str, float]:
+        """Mean metrics over one dataset: the depth metrics summed over the
+        valid samples of every batch, the pose metrics (first sample of a
+        batch) averaged over batches."""
+        loader = loader or self.val_loaders[0]
+        eval_step = self.eval_step_for(demon_scaling)
+        sums = {m: np.zeros(9) for m in METRIC_MODES}
+        pose_sum = np.zeros(3)
+        count = 0
+        n_batches = 0
+        num_logs = self.cfg.wandb.get("num_logs", 5)
+        img_interval = max(1, len(loader) // max(num_logs, 1))
+        for batch in loader:
+            if self._preempted:          # the grace time is short; fit() saves now
+                break
+            out = eval_step(self._place(batch))
+            if n_batches % img_interval == 0:
+                self.logger.log_depth_images(dataset_name, batch, out,
+                                             step=self.state.step + n_batches)
+            if save_artifacts:
+                save_depth(batch, out, self.cfg.save)
+            valid = batch["valid"]
+            if out["metrics"] is not None:
+                m = out["metrics"].cpu().numpy()            # [4,B,9]
+                for mi, mode in enumerate(METRIC_MODES):
+                    sums[mode] += m[mi][valid].sum(axis=0)
+            if "pose_context" in batch:
+                pose_sum += compute_pose_metrics(batch["pose_context"],
+                                                 out["pose"].cpu().numpy())
+            count += int(valid.sum())
+            n_batches += 1
+        # Padding duplicates carry valid=False: every sample counts once.
+        if count != len(loader.dataset) and not self._preempted:
+            raise RuntimeError(f"eval saw {count} samples, expected "
+                               f"{len(loader.dataset)}")
+        results: Dict[str, float] = {}
+        table = {}
+        pose_vec = pose_sum / max(n_batches, 1)
+        for mode in METRIC_MODES:
+            full = np.concatenate([sums[mode] / max(count, 1), pose_vec])
+            table[f"depth{mode}"] = full
+            for name, value in zip(self.metric_keys, full):
+                results[f"{name}{mode}"] = float(value)
+        print_metrics_table(table, self.metric_keys,
+                            title=f"{dataset_name} epoch {self.current_epoch}")
+        return results
+
+    # -- preemption: SIGTERM, an emergency checkpoint, resume ----------------
+    def _request_preemption(self, signum=None, frame=None):
+        """SIGTERM handler: finish the current step, then checkpoint and
+        leave the fit loop."""
+        self._preempted = True
+
+    def _install_preempt_handler(self):
+        try:
+            self._prev_sigterm = signal.signal(signal.SIGTERM, self._request_preemption)
+        except ValueError:                   # not the main thread
+            self._prev_sigterm = None
+
+    def _restore_preempt_handler(self):
+        if getattr(self, "_prev_sigterm", None) is not None:
+            signal.signal(signal.SIGTERM, self._prev_sigterm)
+
+    def _save_preempt_checkpoint(self, epoch: int) -> None:
+        """``preempt_epoch=NN.ckpt``, recorded as epoch ``epoch - 1``, so a
+        resume re-runs epoch ``epoch``."""
+        path = os.path.join(self.checkpointer.dirpath, f"preempt_epoch={epoch:02d}.ckpt")
+        save_checkpoint(path, self.state, epoch - 1, config=self.cfg.to_dict())
+        if self.checkpointer.sync_url:
+            sync_checkpoint_dir(self.checkpointer.dirpath, self.checkpointer.sync_url)
+        print(pcolor(f"preempted: state saved to {path}; resume with "
+                     f"python -m dro_sfm_torch.scripts.train {path}", "yellow"),
+              flush=True)
+
+    def fit(self) -> Dict[str, float]:
+        """Train from the current epoch to ``arch.max_epochs``, validating
+        and checkpointing after each epoch. Returns the last epoch's train
+        and validation metrics."""
+        if self.train_loader is None:
+            raise ValueError("fit() requires datasets.train.dataset; this "
+                             "trainer was built for evaluation only")
+        cfg = self.cfg
+        metrics: Dict[str, float] = {}
+        self._preempted = False
+        self._install_preempt_handler()
+        try:
+            for epoch in range(self.current_epoch, cfg.arch.max_epochs):
+                self.current_epoch = epoch
+                train_metrics = self.train_epoch(epoch)
+                if self._preempted:
+                    # Mid-epoch stop: the partial epoch re-runs on resume.
+                    self._save_preempt_checkpoint(epoch)
+                    break
+                val_metrics = self.validate_all()
+                metrics = {**train_metrics, **val_metrics}
+                if self._preempted:
+                    # During validation: save now, skip the top-k save.
+                    self._save_preempt_checkpoint(epoch + 1)
+                    break
+                self.checkpointer.check_and_save(self.state, epoch, val_metrics,
+                                                 config=cfg.to_dict())
+                self.logger.log_metrics({**metrics, "epoch": epoch})
+        finally:
+            self._restore_preempt_handler()
+        return metrics
+
+    def test(self, save_artifacts: bool = False) -> Dict[str, float]:
+        """Evaluate the test datasets; with ``save_artifacts`` also write
+        the depth files that ``save.depth`` asks for."""
+        if self.test_datasets is None:
+            raise ValueError("No test dataset configured")
+        if save_artifacts:
+            check_save_flags(self.cfg.save)
+        loaders = [make_loader(ds, self.cfg.datasets.test.batch_size, "test",
+                               num_workers=self.cfg.datasets.test.num_workers)
+                   for ds in self.test_datasets]
+        return self.validate_all(loaders, split="test", save_artifacts=save_artifacts)

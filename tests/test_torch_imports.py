@@ -2,7 +2,9 @@
 
 Every ``.py`` under ``dro_sfm_torch/`` and ``chip_smoke.py`` is parsed and
 its imports checked; importing the package in a fresh interpreter must leave
-``jax`` out of ``sys.modules``.
+``jax`` out of ``sys.modules``. The card's machine has none of PyYAML,
+OpenCV, Pillow or matplotlib, so no module of the port imports them, and
+``wandb`` is imported only inside ``loggers.py:WandbLogger``.
 """
 import ast
 import subprocess
@@ -13,6 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dro_sfm_tpu")
+ABSENT_ON_THE_CARD = ("yaml", "cv2", "PIL", "matplotlib")
 FILES = sorted((ROOT / "dro_sfm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -42,6 +45,35 @@ def test_package_import_leaves_jax_out():
             "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
             "assert not bad, bad\n" % (FORBIDDEN,))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_imports_absent_on_the_card(path):
+    bad = [m for m in imported_modules(path)
+           if m.split(".")[0] in ABSENT_ON_THE_CARD]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_wandb_only_inside_wandb_logger():
+    users = [p for p in FILES if any(m.split(".")[0] == "wandb" for m in imported_modules(p))]
+    assert users == [ROOT / "dro_sfm_torch" / "loggers.py"]
+    tree = ast.parse(users[0].read_text())
+    (cls,) = [n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == "WandbLogger"]
+    inside = {id(n) for n in ast.walk(cls)}
+    imports = [n for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
+               and any(a.name.split(".")[0] == "wandb" for a in n.names)
+               or isinstance(n, ast.ImportFrom) and (n.module or "").startswith("wandb")]
+    assert imports and all(id(n) in inside for n in imports)
+
+
+def test_trainer_import_leaves_out_jax_yaml_cv2():
+    code = ("import sys, dro_sfm_torch.training.trainer, dro_sfm_torch.scripts.train, "
+            "dro_sfm_torch.scripts.eval\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+            "assert not bad, bad\n" % (FORBIDDEN + ABSENT_ON_THE_CARD + ("wandb",),))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
