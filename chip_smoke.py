@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths, and its trainer, on
-one NVIDIA GPU and check their kernels.
+"""Drive the PyTorch port's serving and training paths (supervised,
+self-supervised, semi-supervised and single-frame), and its trainer, on one
+NVIDIA GPU and check their kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -60,22 +61,48 @@ result line):
    bf16);
 16. profile of one of its train steps, with the device time of the K5 and
    K6 kernels summed by name prefix;
-17. trainer: `Trainer.fit` on ``configs/train_synthetic_192x640.yaml``
+17. self-supervised training: the SelfSupModelMF step (it12-h-out bf16,
+   192x640, N=2, B=8, ``sep_conv="split"``, the photometric loss with the
+   config defaults: SSIM 0.85, ``min`` reduce, automask, smoothness 0.001,
+   gamma 0.85) through `make_train_step` from `start_weights`, on rendered
+   scenes of the `Synthetic` dataset (`make_scene_batch`): one warm-up
+   step and 10 timed ones, counts reset just before and read just after,
+   24 (K1), 24 (K2) and 18 (K3) a step, losses finite, every parameter
+   moved; ms/step, frames/s, peak MiB;
+18. its profile: device time by kernel over one step, the card's busy share;
+19. its gradients through the kernels against the plain path (B=2 rendered
+   scenes, flip off, `tame_weights`, phase 9's bars): with the default
+   loss, fp32 and bf16, ``sep_conv="split"`` K1-K3 against the plain warp
+   and ``sep_conv="pallas"`` K6 against the plain GRU backward after K5;
+   with the mean over views, fp32, K5/K6 against the plain GRU pass,
+   forward and backward; each run's launches checked (K5, K6-input,
+   K6-weight 48 each with "pallas");
+20. the other tasks on rendered scenes, 3 timed steps each at 192x640 B=8:
+   SemiSupModelMFPose
+   (the supervised step's launches), and the single-frame SupModel and
+   SelfSupModel (no kernel); losses finite;
+21. trainer: `Trainer.fit` on ``configs/train_synthetic_192x640.yaml``
    through the port's config reader (2 epochs of 2 B=8 steps on 16
    synthetic scenes, one B=4 validation batch each, checkpoints under
-   ``build/trainer``), from the config's own initialisation: every count
-   reset just before and read just after, K1 24, K2 24, K3 18 a train step
-   and K1 48 an eval batch; losses and metrics finite; the last epoch's
-   checkpoint written; a resume whose net, Adam moments and step equal the
-   file's bits; the eval CLI (``python -m dro_sfm_torch.scripts.eval``) in
-   a subprocess, its ``abs_rel_pp_gt`` within 1e-5 relative of the last
-   validation's; one more epoch with ``sep_conv="pallas"`` (K5, K6-input,
-   K6-weight 48 a step, K5 96 an eval batch). It prints the train frames/s
-   beside phase 8's, the loader's alone and the ms of an eval batch.
+   ``build/trainer_train_synthetic_192x640``), from the config's own
+   initialisation: every count reset just before and read just after, K1
+   24, K2 24, K3 18 a train step and K1 48 an eval batch; losses and
+   metrics finite; the last epoch's checkpoint written; a resume whose net,
+   Adam moments and step equal the file's bits; the eval CLI (``python -m
+   dro_sfm_torch.scripts.eval``) in a subprocess, its ``abs_rel_pp_gt``
+   within 1e-5 relative of the last validation's; one more epoch with
+   ``sep_conv="pallas"`` (K5, K6-input, K6-weight 48 a step, K5 96 an eval
+   batch). It prints the train frames/s beside phase 8's, the loader's
+   alone and the ms of an eval batch;
+22. the same (without the fused epoch) on
+   ``configs/train_synthetic_selfsup.yaml`` (SelfSupModelMF it12-h-out
+   bf16 96x128), checkpoints under ``build/trainer_train_synthetic_selfsup``.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
-(K1-K6; launches from the training paths, K4's from its entry point's path),
+(K1-K6; launches of K1-K3 from the self-supervised training path, of K5
+and K6 from the ``sep_conv="pallas"`` supervised one, K4's from its entry
+point's path),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -583,7 +610,9 @@ def time_k23(features, coords, g, dtype):
 
 def make_train_batch(b, h=SERVE_H, w=SERVE_W, n=VIEWS, seed=0):
     """The synthetic batch of the JAX package's training benchmark: uniform
-    images, depth uniform in [1, 60], identity context poses, on the card."""
+    images, depth uniform in [1, 60], identity context poses, on the card;
+    the un-jittered originals that the photometric term reads are the
+    images themselves."""
     gen = torch.Generator().manual_seed(seed)
     K = torch.tensor([[w * 0.8, 0, (w - 1) / 2], [0, w * 0.8, (h - 1) / 2],
                       [0, 0, 1.0]])
@@ -592,7 +621,23 @@ def make_train_batch(b, h=SERVE_H, w=SERVE_W, n=VIEWS, seed=0):
              "intrinsics": K.expand(b, 3, 3).contiguous(),
              "depth": 1.0 + 59.0 * torch.rand(b, h, w, 1, generator=gen),
              "pose_context": torch.eye(4).expand(b, n, 4, 4).contiguous()}
+    batch["rgb_original"], batch["rgb_context_original"] = batch["rgb"], batch["rgb_context"]
     return {k: v.cuda() for k, v in batch.items()}
+
+
+def make_scene_batch(b, h=SERVE_H, w=SERVE_W, n=VIEWS, seed=0):
+    """A batch of the `Synthetic` dataset that the self-supervised configs
+    train on, rendered at h x w: a smooth textured plane a scene, the
+    context views the same scene from known relative poses (so each is a
+    warp of the target), exact depth, no colour jitter (the originals are
+    the images), on the card."""
+    from dro_sfm_torch.data import SyntheticConfig, SyntheticDataset
+    from dro_sfm_torch.data.loader import collate
+    data = SyntheticDataset(SyntheticConfig(num_scenes=b, height=h, width=w, num_context=n,
+                                            seed=seed), mode="train", image_shape=(h, w))
+    batch = collate([data[i] for i in range(b)])
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+            if k not in ("idx", "filename")}
 
 
 def train_config(**overrides):
@@ -624,25 +669,29 @@ def grad_norm(params):
                           if p.grad is not None)).item()
 
 
-def phase_train(counters, gpu, sep_conv="split", want=TRAIN_LAUNCHES):
-    """The training path: SupModelMF it12-h-out bf16 192x640 N=2 B=8 with
-    ``sep_conv``; ``want`` the launches of each kernel a step (others 0)."""
+def phase_train(counters, gpu, sep_conv="split", want=TRAIN_LAUNCHES, name="SupModelMF",
+                steps=TRAIN_STEPS, make_batch=make_train_batch):
+    """The training path of task ``name`` (it12-h-out bf16 for the
+    multi-frame names, the fp32 single-frame nets for the others) at
+    192x640 N=2 B=8 with ``sep_conv`` on ``make_batch(8)``: one warm-up step
+    and ``steps`` timed ones; ``want`` the launches of each kernel a step
+    (others 0)."""
     from dro_sfm_torch.training.state import create_train_state, make_optimizer
     from dro_sfm_torch.training.step import make_train_step
-    cfg = train_config(sep_conv=sep_conv)
+    cfg = train_config(sep_conv=sep_conv, name=name)
     want = {k: want.get(k, 0) for k in counters}
     net = start_weights(cfg)
     opt = make_optimizer(net, steps_per_epoch=1000)     # config-default Adam, StepLR
     state = create_train_state(net, opt, device="cuda")
     train_step = make_train_step(cfg, net, opt, device="cuda")
-    batch = make_train_batch(TRAIN_B)
+    batch = make_batch(TRAIN_B)
     flips = torch.Generator().manual_seed(1)
     before = {k: v.detach().clone() for k, v in net.state_dict().items()}
     for c in counters.values():              # the training path starts here
         c.reset()
     params = dict(net.named_parameters())
     per_step, times, losses, norms = [], [], [], []
-    for i in range(TRAIN_STEPS + 1):         # one warm-up step, then timed
+    for i in range(steps + 1):               # one warm-up step, then timed
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
         start = {k: c.launches for k, c in counters.items()}
@@ -654,15 +703,15 @@ def phase_train(counters, gpu, sep_conv="split", want=TRAIN_LAUNCHES):
             times.append(1e3 * (time.perf_counter() - t0))
         losses.append(metrics["loss"].item())
         per_step.append({k: c.launches - start[k] for k, c in counters.items()})
-        if i in (0, TRAIN_STEPS):            # outside the timed steps
+        if i in (0, steps):                  # outside the timed steps
             norms.append(grad_norm(params.values()))
     launches = {k: c.launches for k, c in counters.items()}   # the path ends here
     peak = torch.cuda.max_memory_allocated() / 2**20
     for i, got in enumerate(per_step):
         if got != want:
-            fail(f"train step {i}: launches {got}, want {want}")
+            fail(f"{name} train step {i}: launches {got}, want {want}")
     if not all(math.isfinite(v) for v in losses):
-        fail(f"training: non-finite loss {losses}")
+        fail(f"training {name}: non-finite loss {losses}")
     # Every parameter and every BatchNorm statistic moved, and no element of
     # Adam's moments overflowed (an infinite second moment freezes its
     # element: the update m / sqrt(v) is zero).
@@ -670,23 +719,25 @@ def phase_train(counters, gpu, sep_conv="split", want=TRAIN_LAUNCHES):
     stale = [k for k, v in before.items()
              if not k.endswith("num_batches_tracked") and torch.equal(v, after[k])]
     if stale:
-        fail(f"training: parameters or statistics never moved: {stale[:5]}")
+        fail(f"training {name}: parameters or statistics never moved: {stale[:5]}")
     moments = state.optimizer.torch_optimizer.state
     n_bad = sum(int((~torch.isfinite(moments[p][m])).sum())
                 for p in params.values() for m in ("exp_avg", "exp_avg_sq"))
     if n_bad:
-        fail(f"training: {n_bad} elements of Adam's moments are not finite")
-    print(f"training: all {len(params)} parameter tensors and every BatchNorm "
+        fail(f"training {name}: {n_bad} elements of Adam's moments are not finite")
+    print(f"training {name}: all {len(params)} parameter tensors and every BatchNorm "
           f"statistic moved, Adam's moments finite; gradient norm {norms[0]:.3e} "
           f"(first step) -> {norms[-1]:.3e} (last step)", flush=True)
-    if state.step != TRAIN_STEPS + 1:
-        fail(f"training: state.step {state.step}")
+    if state.step != steps + 1:
+        fail(f"training {name}: state.step {state.step}")
     times.sort()
     ms = times[len(times) // 2]
-    print(f"training SupModelMF it12-h-out bf16 192x640 N=2 B={TRAIN_B} remat={cfg.remat} "
-          f"sep_conv={sep_conv}: "
+    net_desc = ("single-frame nets fp32" if cfg.single_frame
+                else f"{cfg.version} bf16 remat={cfg.remat} sep_conv={sep_conv}")
+    print(f"training {name} {net_desc} {SERVE_H}x{SERVE_W} N=2 B={TRAIN_B} "
+          f"{make_batch.__name__}: "
           f"median {ms:.2f} ms/step (min {times[0]:.2f}, max {times[-1]:.2f}, "
-          f"{TRAIN_STEPS} steps) {1e3 * TRAIN_B / ms:.1f} frames/s, peak {peak:.0f} MiB, "
+          f"{steps} steps) {1e3 * TRAIN_B / ms:.1f} frames/s, peak {peak:.0f} MiB, "
           f"launches/step {per_step[-1]}, loss {losses[0]:.4f} -> {losses[-1]:.4f} on {gpu}",
           flush=True)
     return state, train_step, batch, launches, ms
@@ -1570,9 +1621,182 @@ def profile_train_step(state, train_step, batch):
               f"{total / calls:.2f} us a call", flush=True)
 
 
+# --- the self-supervised, semi-supervised and single-frame tasks ---------------
+
+# The photometric loss does not change the net's warps: a SelfSupModelMF or
+# SemiSupModelMFPose step launches the supervised step's kernels
+# (TRAIN_LAUNCHES, TRAIN_LAUNCHES_PALLAS).
+TASK_STEPS = 3
+
+
+def counted_gradients(cfg, state, batch, counters):
+    """`train_gradients` and the launches of each kernel it made."""
+    start = {k: c.launches for k, c in counters.items()}
+    grads, loss = train_gradients(cfg, state, batch)
+    return grads, loss, {k: c.launches - start[k] for k, c in counters.items()}
+
+
+def phase_selfsup_end_to_end(counters):
+    """The self-supervised step's gradients through the kernels against the
+    plain path on the card, B=2 rendered scenes (`make_scene_batch`), flip
+    off, deterministic library algorithms, at `tame_weights`, each leaf
+    against phase 9's bars (`compare_grads`): fp32 (TF32 off) cosine >=
+    0.99999 and relative L2 <= 1e-4; bf16 from bf16's own error.
+
+    With the config-default loss, fp32 and bf16:
+    1. ``sep_conv="split"``: K1-K3 against the plain warp (K1 repeats its
+       plain version bit for bit, so both runs share one forward);
+    2. ``sep_conv="pallas"``: K5 with K6-input and K6-weight against K5
+       with the plain GRU backward (one forward shared).
+    With the mean over views in place of the ``min``, fp32:
+    3. ``sep_conv="pallas"``: K5/K6 against the plain GRU pass, forward and
+       backward, at phase 15's bar for that comparison: relative L2 <=
+       max(1e-4, 4 x the floor), the floor being the widest per-leaf
+       distance between the split path and the plain pass on the same step
+       (fp32 sums in other orders in the forward, carried through 24
+       recurrent steps and the backward).
+
+    Why 2 shares its forward: the default loss's ``min`` over the SSIM
+    residuals of the views and the identity switches at pixels where two
+    forwards that differ by rounding (K5 and the plain pass sum in other
+    orders) rank them apart, and the gradient moves by far more than
+    rounding. That comparison is printed, not held, as is 3 on phase 8's
+    batch of uniform noise (`make_train_batch`), where no context view is a
+    warp of the target: the warp's gradient with respect to a sample's
+    position is the image difference across its cell, and on noise it jumps
+    to an unrelated one whenever the sample crosses into the next cell.
+
+    Each run's launches are checked: K1 24, K2 24, K3 18, and with "pallas"
+    K5 48 and K6-input, K6-weight 48 (0 with the plain pass or backward).
+    Planted faults, in fp32, must put leaves beyond the bars: K3 leaving out
+    one tap (`faulty_backward`) on the split path, K6 leaving out tap 0 of
+    the candidate conv (`without_wq_tap0`) on the pallas path, and K5 doing
+    so in 3."""
+    from dro_sfm_torch.losses.photometric import PhotometricLossConfig
+    from dro_sfm_torch.ops import gru_pass, tent_warp
+    tame = tame_weights(start_weights(train_config()).state_dict())
+    batches = {"scenes": make_scene_batch(2, seed=2), "noise": make_train_batch(2, seed=2)}
+    kernel = (gru_pass.gru_pass_fwd, gru_pass.gru_pass_bwd)
+    plain = (gru_pass.gru_pass_plain, gru_pass.gru_pass_bwd_plain)
+    plain_bwd = (kernel[0], plain[1])
+    k6_fault = (kernel[0], without_wq_tap0(kernel[1]))
+    split, fused = {"warp_impl": "pallas"}, {"sep_conv": "pallas"}
+    mean = {"photometric": PhotometricLossConfig(photometric_reduce_op="mean")}
+    k3_name, k3_fault = faulty_backward("K3")
+    k5_only = {**TRAIN_LAUNCHES, "K5": TRAIN_LAUNCHES_PALLAS["K5"]}
+    runs = {  # name: (config overrides, GRU pass, K3 in place of K3, launches)
+        "split kernel": (split, kernel, None, TRAIN_LAUNCHES),
+        "split plain": ({"warp_impl": "gather"}, kernel, None, {}),
+        "split K3 fault": (split, kernel, k3_fault, TRAIN_LAUNCHES),
+        "pallas kernel": (fused, kernel, None, TRAIN_LAUNCHES_PALLAS),
+        "pallas plain": (fused, plain_bwd, None, k5_only),
+        "pallas K6 fault": (fused, k6_fault, None, TRAIN_LAUNCHES_PALLAS),
+        "pallas plain pass": (fused, plain, None, TRAIN_LAUNCHES),
+        "mean kernel": ({**fused, **mean}, kernel, None, TRAIN_LAUNCHES_PALLAS),
+        "mean plain": ({**fused, **mean}, plain, None, TRAIN_LAUNCHES),
+        "mean split": ({**split, **mean}, kernel, None, TRAIN_LAUNCHES),
+        "mean K5 fault": ({**fused, **mean}, (without_wq_tap0(kernel[0]), kernel[1]), None,
+                          TRAIN_LAUNCHES_PALLAS),
+    }
+    plan = [("scenes", False, name) for name in runs]
+    plan += [("scenes", True, name) for name in ("split kernel", "split plain",
+                                                 "pallas kernel", "pallas plain")]
+    plan += [("noise", False, name) for name in ("mean kernel", "mean plain")]
+    grads, losses, failed = {}, {}, []
+    real_k3 = getattr(tent_warp, k3_name)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for data, mp, name in plan:
+            overrides, gru, k3, want = runs[name]
+            cfg = train_config(name="SelfSupModelMF", mixed_precision=mp, remat=False,
+                               **overrides)
+            setattr(tent_warp, k3_name, k3 or real_k3)
+            try:
+                with swapped_gru(gru_pass, *gru):
+                    grads[data, mp, name], losses[data, mp, name], launches = (
+                        counted_gradients(cfg, tame, batches[data], counters))
+            finally:
+                setattr(tent_warp, k3_name, real_k3)
+            want = {k: want.get(k, 0) for k in counters}
+            if launches != want:
+                failed.append(f"{name} {data} mp={mp}: launches {launches}, want {want}")
+        torch.use_deterministic_algorithms(False)
+    _, _, floor, _ = compare_grads(grads["scenes", False, "mean split"],
+                                   grads["scenes", False, "mean plain"])
+    mean_bar = max(1e-4, GRU_E2E_FLOOR_FACTOR * floor[0])
+    print(f"end to end selfsup fp32 B=2 scenes, mean over views: split vs plain GRU pass "
+          f"(the floor) worst rel L2 {floor[0]:.3e} ({floor[1]}), bar {mean_bar:.3e}",
+          flush=True)
+    for what, path, fault, bar in (("sep_conv=split", "split", "K3 fault", 1e-4),
+                                   ("sep_conv=pallas", "pallas", "K6 fault", 1e-4),
+                                   ("sep_conv=pallas mean over views", "mean", "K5 fault",
+                                    mean_bar)):
+        beyond, _, worst, _ = compare_grads(grads["scenes", False, f"{path} {fault}"],
+                                            grads["scenes", False, f"{path} plain"],
+                                            fp32_bar=bar)
+        print(f"end to end selfsup {what} fp32, planted {fault}: {len(beyond)} leaves "
+              f"beyond their bar, worst rel L2 {worst[0]:.3e} ({worst[1]})", flush=True)
+        if not beyond:
+            failed.append(f"{what}: the bar passes the planted {fault}")
+    comparisons = [  # (what, data, bf16, kernel run, plain run, held)
+        ("sep_conv=split, K1-K3 vs plain warp", "scenes", False, "split kernel",
+         "split plain", True),
+        ("sep_conv=split, K1-K3 vs plain warp", "scenes", True, "split kernel",
+         "split plain", True),
+        ("sep_conv=pallas, K5 + K6 vs K5 + plain GRU backward", "scenes", False,
+         "pallas kernel", "pallas plain", True),
+        ("sep_conv=pallas, K5 + K6 vs K5 + plain GRU backward", "scenes", True,
+         "pallas kernel", "pallas plain", True),
+        ("sep_conv=pallas mean over views, K5 + K6 vs plain GRU pass", "scenes", False,
+         "mean kernel", "mean plain", True),
+        ("sep_conv=pallas, K5 + K6 vs plain GRU pass", "scenes", False, "pallas kernel",
+         "pallas plain pass", False),
+        ("sep_conv=pallas mean over views, K5 + K6 vs plain GRU pass", "noise", False,
+         "mean kernel", "mean plain", False),
+    ]
+    for what, data, mp, run, ref_run, held in comparisons:
+        got, ref = grads[data, mp, run], grads[data, mp, ref_run]
+        own = grads[data, False, ref_run] if mp else None
+        bar = mean_bar if run == "mean kernel" else 1e-4
+        beyond, relaxed, worst, worst_cos = compare_grads(got, ref, own, bar)
+        if held:
+            for k, r, cos, own_err, leaf_bar in beyond:
+                print(f"  beyond its bar: {k} rel L2 {r:.3e} cosine {cos:.7f} own "
+                      f"{own_err} bar {leaf_bar:.3e}")
+        bars = f"{len(relaxed)} on relaxed bf16 bars" if mp else f"bar {bar:.3e}"
+        print(f"end to end selfsup {'bf16' if mp else 'fp32'} B=2 {data} at tame weights"
+              f"{'' if held else ', printed, not held'}, {what}: {len(ref)} leaves, "
+              f"{len(beyond)} beyond their bar ({bars}), "
+              f"worst rel L2 {worst[0]:.3e} ({worst[1]}), worst cosine {worst_cos:.7f}, "
+              f"loss {losses[data, mp, run]:.6f} vs {losses[data, mp, ref_run]:.6f}",
+              flush=True)
+        if held and beyond:
+            failed.append(f"{what} {'bf16' if mp else 'fp32'}: {len(beyond)} leaves beyond "
+                          "their bar")
+    if failed:
+        fail("end to end selfsup: " + "; ".join(failed))
+
+
+def phase_tasks(counters, gpu):
+    """A few steps of the other task models at 192x640 B=8: SemiSupModelMFPose
+    (it12-h-out bf16, the supervised step's launches), and the single-frame
+    SupModel and SelfSupModel (fp32 ResNets, no kernel launched), on
+    rendered scenes. Losses finite, launches as stated. Returns each task's
+    median ms/step."""
+    out = {}
+    for name, want in (("SemiSupModelMFPose", TRAIN_LAUNCHES), ("SupModel", {}),
+                       ("SelfSupModel", {})):
+        out[name] = phase_train(counters, gpu, want=want, name=name, steps=TASK_STEPS,
+                                make_batch=make_scene_batch)[4]
+        torch.cuda.empty_cache()
+    return out
+
+
 # --- the trainer: training and evaluation from a config -----------------------
 
 TRAINER_CONFIG = ROOT / "configs" / "train_synthetic_192x640.yaml"
+SELFSUP_CONFIG = ROOT / "configs" / "train_synthetic_selfsup.yaml"
 TRAINER_EPOCHS = 2
 # Per evaluation batch: the forward and the flipped forward, each 24 K1 (and
 # with sep_conv="pallas" 48 K5) launches.
@@ -1580,15 +1804,15 @@ EVAL_LAUNCHES = {"K1": 48}
 EVAL_LAUNCHES_PALLAS = {"K1": 48, "K5": 96}
 
 
-def trainer_config(sep_conv="split", max_epochs=TRAINER_EPOCHS):
-    """`TRAINER_CONFIG` cut to 2 training steps an epoch (16 scenes, B=8)
-    and one validation batch (4 scenes, B=4; the test split the same, for
-    the eval CLI), checkpoints and depth files under ``build/``."""
+def trainer_config(sep_conv="split", max_epochs=TRAINER_EPOCHS, config=TRAINER_CONFIG):
+    """``config`` cut to 2 training steps an epoch (16 scenes, B=8) and one
+    validation batch (4 scenes, B=4; the test split the same, for the eval
+    CLI), checkpoints and depth files under ``build/``."""
     from dro_sfm_torch.utils.config import load_config
-    build = ROOT / "build" / "trainer"
+    build = trainer_build_dir(config)
     evaluation = {"dataset": ["Synthetic"], "path": ["7"], "split": ["4"],
                   "batch_size": 4, "num_workers": 2}
-    return load_config(str(TRAINER_CONFIG), overrides={
+    return load_config(str(config), overrides={
         "arch": {"max_epochs": max_epochs},
         "checkpoint": {"filepath": str(build / "ckpt")},
         "save": {"folder": str(build / "depth"),
@@ -1596,6 +1820,10 @@ def trainer_config(sep_conv="split", max_epochs=TRAINER_EPOCHS):
         "model": {"depth_net": {"sep_conv": sep_conv}},
         "datasets": {"train": {"split": ["16"], "repeat": [1]},
                      "validation": evaluation, "test": evaluation}})
+
+
+def trainer_build_dir(config):
+    return ROOT / "build" / f"trainer_{config.stem}"
 
 
 class CountedStep:
@@ -1672,15 +1900,17 @@ def check_finite(what, metrics):
         fail(f"trainer: {what}: non-finite metrics {dict(list(bad.items())[:6])}")
 
 
-def phase_trainer(counters, gpu, step_ms):
-    """The port's program around the step: `Trainer.fit` on
-    `TRAINER_CONFIG` (SupModelMF it12-h-out bf16 192x640 B=8, the config's
-    own initialisation from arch.seed, Adam with the global-norm clip),
-    `TRAINER_EPOCHS` epochs of 2 steps, each validated (one B=4 batch) and
-    checkpointed; a resume from the last checkpoint, bit for bit; the eval
-    CLI on it in a subprocess, against the last validation; one more epoch
-    with ``sep_conv="pallas"``. ``step_ms``: phase 8's median ms/step in this
-    run (None when phase 8 did not run)."""
+def phase_trainer(counters, gpu, step_ms, config=TRAINER_CONFIG, fused_epoch=True):
+    """The port's program around the step: `Trainer.fit` on ``config``
+    (`TRAINER_CONFIG`: SupModelMF it12-h-out bf16 192x640 B=8, Adam with the
+    global-norm clip; `SELFSUP_CONFIG`: SelfSupModelMF it12-h-out bf16
+    96x128 B=8, its warm-up), from the config's own initialisation from
+    arch.seed, `TRAINER_EPOCHS` epochs of 2 steps, each validated (one B=4
+    batch) and checkpointed; a resume from the last checkpoint, bit for bit;
+    the eval CLI on it in a subprocess, against the last validation; with
+    ``fused_epoch`` one more epoch with ``sep_conv="pallas"``. ``step_ms``:
+    the bare step's median ms/step in this run at the same task (None when
+    that phase did not run)."""
     import shutil
 
     from dro_sfm_torch.training.trainer import Trainer
@@ -1689,9 +1919,9 @@ def phase_trainer(counters, gpu, step_ms):
     # so that the eval CLI's process computes what this one computes.
     precision = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
-    shutil.rmtree(ROOT / "build" / "trainer", ignore_errors=True)
+    shutil.rmtree(trainer_build_dir(config), ignore_errors=True)
     try:
-        cfg = trainer_config()
+        cfg = trainer_config(config=config)
         trainer = Trainer(cfg, device="cuda")
         t0 = time.perf_counter()
         n = sum(len(b["idx"]) for b in trainer.train_loader)
@@ -1724,9 +1954,12 @@ def phase_trainer(counters, gpu, step_ms):
             fail(f"trainer: no checkpoint of the last epoch in {trainer.checkpointer.saved}")
         ckpt = last[0]
         fps = [e["train_frames_per_sec"] for e in epochs.outputs]
-        vs = (f", phase 8's bare step {1e3 * TRAIN_B / step_ms:.1f} frames/s "
+        vs = (f", the bare step at 192x640 {1e3 * TRAIN_B / step_ms:.1f} frames/s "
               f"({step_ms:.2f} ms/step)" if step_ms else "")
-        print(f"trainer fit {TRAINER_CONFIG.name} it12-h-out bf16 192x640 B={TRAIN_B}: "
+        shape = "x".join(str(v) for v in cfg.datasets.augmentation.image_shape)
+        dtype = "bf16" if cfg.model.depth_net.mixed_precision else "fp32"
+        print(f"trainer fit {config.name} {cfg.model.name} {cfg.model.depth_net.version} "
+              f"{dtype} {shape} B={TRAIN_B}: "
               f"{TRAINER_EPOCHS} epochs x {len(trainer.train_loader)} steps, train "
               f"{' / '.join(f'{v:.1f}' for v in fps)} frames/s by epoch{vs}; loader alone "
               f"{loader_fps:.1f} frames/s ({trainer.train_loader.num_workers} threads); "
@@ -1760,6 +1993,8 @@ def phase_trainer(counters, gpu, step_ms):
         print(f"trainer eval CLI: abs_rel_pp_gt {a!r} against validation's {b!r} "
               f"(relative {abs(a - b) / abs(b):.2e}, bar 1e-5)", flush=True)
 
+        if not fused_epoch:
+            return
         # One more epoch with the fused GRU passes.
         fused = Trainer(trainer_config("pallas", TRAINER_EPOCHS + 1), resume=ckpt,
                         device="cuda")
@@ -1790,7 +2025,8 @@ def phase_trainer(counters, gpu, step_ms):
 
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
-          "train_pallas_profile", "trainer")
+          "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
+          "trainer", "selfsup_trainer")
 
 
 def main() -> int:
@@ -1911,8 +2147,29 @@ def main() -> int:
         phase("train_pallas_profile", profile_train_step, *trained_p[:3])
         del trained_p
 
-    # 17) the trainer: fit, resume, the eval CLI, a sep_conv="pallas" epoch
+    # 17) the self-supervised step (a main path: K1-K3 launches go into the
+    # kernels line); 18) its profile; 19) its gradients, kernels against
+    # plain, either GRU path
+    selfsup = phase("selfsup", phase_train, counters, gpu, "split", TRAIN_LAUNCHES,
+                    "SelfSupModelMF", TRAIN_STEPS, make_scene_batch)
+    selfsup_ms = None
+    if selfsup is not None:
+        launches_s, selfsup_ms = selfsup[3], selfsup[4]
+        for name in TRAIN_LAUNCHES:
+            if launches_s[name] == 0:
+                fail(f"the self-supervised training path never launched {name}")
+        phase("selfsup_profile", profile_train_step, *selfsup[:3])
+        del selfsup
+        torch.cuda.empty_cache()
+    phase("selfsup_e2e", phase_selfsup_end_to_end, counters)
+
+    # 20) the semi-supervised and single-frame task models
+    phase("tasks", phase_tasks, counters, gpu)
+
+    # 21) the trainer: fit, resume, the eval CLI, a sep_conv="pallas" epoch;
+    # 22) the same, without the fused epoch, on the self-supervised config
     phase("trainer", phase_trainer, counters, gpu, step_ms)
+    phase("selfsup_trainer", phase_trainer, counters, gpu, None, SELFSUP_CONFIG, False)
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)
@@ -1926,13 +2183,13 @@ def main() -> int:
     lines = [
         {"name": "tent_warp_fwd_diff (K1)", "route": "cuda",
          "source": src + "tent_warp_fwd.cu", "replaces": warp + "182",
-         "launches": launches["K1"], **k1[(8, "bfloat16")]},
+         "launches": launches_s["K1"], **k1[(8, "bfloat16")]},
         {"name": "tent_warp_bwd_feat (K2)", "route": "cuda",
          "source": src + "tent_warp_bwd.cu", "replaces": warp + "264",
-         "launches": launches["K2"], **timed["K2"]},
+         "launches": launches_s["K2"], **timed["K2"]},
         {"name": "tent_warp_bwd_coords (K3)", "route": "cuda",
          "source": src + "tent_warp_bwd.cu", "replaces": warp + "205",
-         "launches": launches["K3"], **timed["K3"]},
+         "launches": launches_s["K3"], **timed["K3"]},
         {"name": "tent_warp_fwd (K4)", "route": "cuda",
          "source": src + "tent_warp_fwd.cu", "replaces": warp + "125",
          "launches": k4[1]["K4"], **k4[0]},

@@ -1,0 +1,177 @@
+"""Multi-view photometric (self-supervised) loss with the gamma decay.
+
+PyTorch counterpart of `dro_sfm_tpu/losses/photometric.py`: for every
+prediction p and context view n the target image is synthesised by warping
+the context view with (inv_depth_p, pose_{n,p}); the residual is L1 + SSIM,
+reduced over views (joint minimum with the automask, or the mean), weighted
+by ``gamma ** (P - 1 - p)`` over predictions, plus the edge-aware smoothness
+and the optional perceptual term. Plain PyTorch: the warp is
+`ops/resample.py:bilinear_sample`, whose gradient reaches the coordinates
+through the tap weights (the context images take none).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from dro_sfm_torch.geometry.camera import Camera
+from dro_sfm_torch.geometry.pose import Pose
+from dro_sfm_torch.losses.progressive import progressive_scale_mask
+from dro_sfm_torch.ops.depth_ops import inv2depth
+from dro_sfm_torch.ops.image import gradient_x, gradient_y
+from dro_sfm_torch.ops.resample import bilinear_sample
+from dro_sfm_torch.ops.ssim import ssim_loss
+
+
+@dataclasses.dataclass(frozen=True)
+class PhotometricLossConfig:
+    """The loss's settings, with the JAX package's fields and defaults."""
+    ssim_loss_weight: float = 0.85
+    smooth_loss_weight: float = 0.001
+    c1: float = 1e-4
+    c2: float = 9e-4
+    photometric_reduce_op: str = "min"
+    clip_loss: float = 0.0
+    automask_loss: bool = True
+    gamma: float = 0.85
+    # Divide by the summed gamma weights (the single-frame tasks: gamma 1.0
+    # and this average the decoder scales uniformly).
+    normalize_weights: bool = False
+    # VGG16 perceptual distance between the target and the final
+    # prediction's warps (0 = off).
+    percep_loss_weight: float = 0.0
+    # Drop the coarsest remaining prediction after every this fraction of
+    # training (0 = off).
+    progressive_scaling: float = 0.0
+    # The 1/2^p smoothness decay weights the first prediction fully (False:
+    # refinement iterations), or the last (True: decoder scales stacked
+    # coarsest first).
+    smooth_finest_last: bool = False
+
+
+def warp_context(image_ctx: torch.Tensor, inv_depths: torch.Tensor,
+                 pose_vecs: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Warp the context views into the target frame for every prediction.
+
+    image_ctx [B,N,H,W,3]; inv_depths [P,B,H,W,1]; pose_vecs [B,N,P,6];
+    K [B,3,3] -> warped [P,B,N,H,W,3]. Prediction p warps with the pose of
+    the same prediction.
+    """
+    p, b = inv_depths.shape[0], inv_depths.shape[1]
+    n = image_ctx.shape[1]
+    cam = Camera(K[None].expand(p, b, 3, 3))
+    points = cam.reconstruct(inv2depth(inv_depths), frame="w")     # [P,B,H,W,3]
+    ref_pose = Pose.from_vec(pose_vecs.permute(2, 0, 1, 3), "euler")   # [P,B,N]
+    ref_cam = Camera(K[None, :, None].expand(p, b, n, 3, 3), ref_pose)
+    coords = ref_cam.project(points[:, :, None].expand(p, b, n, *points.shape[2:]),
+                             frame="w", normalize=False)          # [P,B,N,H,W,2]
+    return bilinear_sample(image_ctx[None].expand(p, *image_ctx.shape), coords)
+
+
+def _photometric_residual(est: torch.Tensor, ref: torch.Tensor,
+                          cfg: PhotometricLossConfig) -> torch.Tensor:
+    """Per-pixel L1 + SSIM residual of [P,B,N,H,W,3] estimates against a
+    reference that broadcasts to them: channel-averaged [...,1] with SSIM on,
+    the raw 3-channel L1 with ``ssim_loss_weight == 0``."""
+    l1 = (est - ref).abs()
+    if cfg.ssim_loss_weight > 0.0:
+        s = ssim_loss(est, ref, cfg.c1, cfg.c2)
+        res = (cfg.ssim_loss_weight * s.mean(dim=-1, keepdim=True)
+               + (1.0 - cfg.ssim_loss_weight) * l1.mean(dim=-1, keepdim=True))
+    else:
+        res = l1
+    if cfg.clip_loss > 0.0:
+        # Clamp at mean + clip * std, the statistics pooled over everything
+        # but the prediction (0) and view (2) axes; std with ddof 0.
+        dims = (1,) + tuple(range(3, res.ndim))
+        mean = res.mean(dim=dims, keepdim=True)
+        std = res.std(dim=dims, keepdim=True, correction=0)
+        res = torch.minimum(res, mean + cfg.clip_loss * std)
+    return res
+
+
+def smoothness_loss(inv_depths: torch.Tensor, image: torch.Tensor,
+                    cfg: PhotometricLossConfig, mask=None) -> torch.Tensor:
+    """Edge-aware smoothness of the mean-normalised inverse depths
+    [P,B,H,W,1] against ``image`` [B,H,W,3]. Prediction p carries 1/2^p
+    (1/2^(P-1-p) with ``smooth_finest_last``); ``mask`` [P] drops the
+    predictions progressive scaling has dropped, with a matching
+    denominator."""
+    p = inv_depths.shape[0]
+    mean_inv = inv_depths.mean(dim=(-3, -2, -1), keepdim=True)
+    norm = inv_depths / mean_inv.clamp_min(1e-6)
+    dx = gradient_x(norm).abs()
+    dy = gradient_y(norm).abs()
+    wx = torch.exp(-gradient_x(image).abs().mean(dim=-1, keepdim=True))
+    wy = torch.exp(-gradient_y(image).abs().mean(dim=-1, keepdim=True))
+    sx = (dx * wx[None]).mean(dim=tuple(range(1, dx.ndim)))          # [P]
+    sy = (dy * wy[None]).mean(dim=tuple(range(1, dy.ndim)))
+    idx = torch.arange(p, dtype=inv_depths.dtype, device=inv_depths.device)
+    if cfg.smooth_finest_last:
+        idx = (p - 1) - idx
+    per_pred = (sx + sy) / 2.0 ** idx
+    if mask is None:
+        return per_pred.sum() / p
+    return (per_pred * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def multiview_photometric_loss(
+        image: torch.Tensor, context: torch.Tensor, inv_depths: torch.Tensor,
+        K: torch.Tensor, pose_vecs: torch.Tensor,
+        cfg: PhotometricLossConfig = PhotometricLossConfig(),
+        percep_fn=None, progress=0.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The self-supervised loss and its terms.
+
+    image [B,H,W,3] and context [B,N,H,W,3] (the un-jittered originals);
+    inv_depths [P,B,H,W,1]; K [B,3,3]; pose_vecs [B,N,P,6]. With
+    ``cfg.percep_loss_weight > 0``, ``percep_fn(im1, im2) -> [B*,h,w,1]``
+    adds the perceptual term on the final prediction's warps, views folded
+    into the batch.
+    """
+    p = inv_depths.shape[0]
+    warped = warp_context(context, inv_depths, pose_vecs, K)        # [P,B,N,H,W,3]
+    target = image[None, :, None]                                   # [1,B,1,H,W,3]
+    residuals = _photometric_residual(warped, target, cfg)          # [P,B,N,H,W,C]
+
+    if cfg.automask_loss:
+        # The identity (unwarped) residual does not depend on the
+        # prediction: computed once at P=1 and broadcast.
+        ident = _photometric_residual(context[None], target, cfg)
+        residuals = torch.cat([residuals, ident.expand_as(residuals)], dim=2)
+
+    if cfg.photometric_reduce_op == "min":
+        # A joint minimum over views and channels (with SSIM off the
+        # residual keeps its 3 channels, and the minimum spans them).
+        per_pred = residuals.amin(dim=2).amin(dim=-1).mean(dim=(1, 2, 3))
+    elif cfg.photometric_reduce_op == "mean":
+        per_pred = residuals.mean(dim=tuple(range(1, residuals.ndim)))
+    else:
+        raise ValueError(cfg.photometric_reduce_op)
+
+    dtype, device = inv_depths.dtype, inv_depths.device
+    prog_mask = progressive_scale_mask(p, cfg.progressive_scaling, progress,
+                                       dtype, device)
+    gamma_w = cfg.gamma ** torch.arange(p - 1, -1, -1, dtype=dtype,
+                                        device=device) * prog_mask
+    photometric = (per_pred * gamma_w).sum()
+    if cfg.normalize_weights:
+        photometric = photometric / gamma_w.sum()
+
+    metrics = {"photometric_loss": photometric}
+    loss = photometric
+    if cfg.smooth_loss_weight > 0.0:
+        smooth = cfg.smooth_loss_weight * smoothness_loss(inv_depths, image, cfg,
+                                                          mask=prog_mask)
+        metrics["smoothness_loss"] = smooth
+        loss = loss + smooth
+    if cfg.percep_loss_weight > 0.0 and percep_fn is not None:
+        b, n = context.shape[0], context.shape[1]
+        final_warp = warped[-1].reshape(b * n, *warped.shape[3:])
+        tgt = image[:, None].expand_as(context).reshape(b * n, *context.shape[2:])
+        percep = cfg.percep_loss_weight * percep_fn(tgt, final_warp).mean()
+        metrics["percep_loss"] = percep
+        loss = loss + percep
+    return loss, metrics

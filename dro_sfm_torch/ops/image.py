@@ -1,7 +1,6 @@
-"""Image resize and horizontal flip on channel-last tensors.
+"""Image resizes, gradients, flips and the SSIM pool on channel-last tensors.
 
-PyTorch counterpart of `resize_bilinear`, `flip_lr` and `flip_intrinsics` in
-`dro_sfm_tpu/ops/image.py`.
+PyTorch counterpart of `dro_sfm_tpu/ops/image.py`.
 """
 from __future__ import annotations
 
@@ -32,6 +31,51 @@ def resize_bilinear(image: torch.Tensor, shape,
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     grid = torch.stack([gx, gy], dim=-1).expand(*image.shape[:-3], ho, wo, 2)
     return bilinear_sample(image, grid)
+
+
+def resize_nearest(image: torch.Tensor, shape) -> torch.Tensor:
+    """Nearest-neighbour resize of [..., H, W, C] with the index rule of
+    ``F.interpolate(mode="nearest")``: src = floor(dst * size_in / size_out)."""
+    ho, wo = int(shape[0]), int(shape[1])
+    h, w = image.shape[-3], image.shape[-2]
+    if (h, w) == (ho, wo):
+        return image
+    kw = {"dtype": torch.float32, "device": image.device}
+    ys = torch.floor(torch.arange(ho, **kw) * (h / ho)).long()
+    xs = torch.floor(torch.arange(wo, **kw) * (w / wo)).long()
+    return image.index_select(-3, ys).index_select(-2, xs)
+
+
+def gradient_x(image: torch.Tensor) -> torch.Tensor:
+    """Horizontal forward difference [..., H, W-1, C]."""
+    return image[..., :, :-1, :] - image[..., :, 1:, :]
+
+
+def gradient_y(image: torch.Tensor) -> torch.Tensor:
+    """Vertical forward difference [..., H-1, W, C]."""
+    return image[..., :-1, :, :] - image[..., 1:, :, :]
+
+
+def _reflect_pad1(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Pad one element on each side of ``dim`` by reflection (the edge
+    element is not repeated), as ``jnp.pad(mode="reflect")`` does."""
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 1, 1), x, x.narrow(dim, n - 2, 1)], dim=dim)
+
+
+def avg_pool_3x3_reflect(x: torch.Tensor) -> torch.Tensor:
+    """3x3 mean filter with reflection padding, stride 1, on [..., H, W, C]
+    of any rank: the SSIM building block. The nine taps are summed in
+    row-major order, the order of the JAX package's window sum, so the two
+    agree bit for bit in fp32."""
+    h, w = x.shape[-3], x.shape[-2]
+    xp = _reflect_pad1(_reflect_pad1(x, -3), -2)
+    total = None
+    for dy in range(3):
+        for dx in range(3):
+            tap = xp[..., dy:dy + h, dx:dx + w, :]
+            total = tap if total is None else total + tap
+    return total / 9.0
 
 
 def flip_lr(image: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@ flip, the task loss, the backward pass, the optimizer update and the
 BatchNorm running-statistics update (the last made by the net's train-mode
 forward). The evaluation step: the forward and the forward on the flipped
 images, their flip fusion, and the depth metrics in four modes. Both run
-eagerly on the device the net is on: on CUDA tensors the refinement's warp
-cost is kernel K1 forward and K2, K3 backward.
+eagerly on the device the net is on: on CUDA tensors a `DepthPoseNet`'s
+warp cost is kernel K1 forward and K2, K3 backward. Both take the
+`SingleFrameNet` of the single-frame tasks as well.
 """
 from __future__ import annotations
 
@@ -16,8 +17,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from dro_sfm_torch.geometry.pose import Pose
-from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
-from dro_sfm_torch.models.sfm import SfmModelConfig, forward, forward_and_loss
+from dro_sfm_torch.models.sfm import (
+    SfmModelConfig,
+    forward,
+    forward_and_loss,
+    make_percep_fn,
+)
 from dro_sfm_torch.ops.depth_ops import inv2depth
 from dro_sfm_torch.ops.image import flip_intrinsics, flip_lr
 from dro_sfm_torch.training.metrics import MetricsConfig, compute_depth_metrics
@@ -25,34 +30,42 @@ from dro_sfm_torch.training.state import Optimizer, TrainState
 from dro_sfm_torch.utils.depth import post_process_inv_depth
 from dro_sfm_torch.utils.device import resolve_device
 
-BATCH_KEYS = ("rgb", "rgb_context", "intrinsics", "depth", "pose_context")
+# What an evaluation step reads, where the batch has it.
+EVAL_KEYS = ("rgb", "rgb_context", "intrinsics", "depth", "pose_context")
 
 
-def make_train_step(model_cfg: SfmModelConfig, net: DepthPoseNet,
+def make_train_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
                     optimizer: Optimizer, device=None,
                     ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The training step on ``device`` (the card unless the caller asks for
     the CPU; ``net`` must already be there):
 
     ``train_step(state, batch, generator, progress=0.0, do_flip=None)`` ->
-    (state one update later, metrics). ``batch`` holds ``rgb``
-    [B,H,W,3], ``rgb_context`` [B,N,H,W,3], ``intrinsics`` [B,3,3],
-    ``depth`` [B,H,W,1] and ``pose_context`` [B,N,4,4] (arrays or tensors,
-    moved to the device as fp32). The flip is drawn from ``generator`` (a
-    CPU ``torch.Generator``) unless ``do_flip`` forces it. ``metrics`` holds
-    ``loss``, ``depth_loss``, ``pose_loss`` and ``all_loss`` as detached
-    0-d tensors on the device (reading one waits for the step).
+    (state one update later, metrics). ``batch`` holds the entries of
+    ``model_cfg.batch_keys`` (arrays or tensors, moved to the device as
+    fp32): ``rgb`` [B,H,W,3], ``rgb_context`` [B,N,H,W,3], ``intrinsics``
+    [B,3,3]; with ground truth ``depth`` [B,H,W,1] and ``pose_context``
+    [B,N,4,4]; with the photometric term ``rgb_original`` and
+    ``rgb_context_original``. The flip is drawn from ``generator`` (a CPU
+    ``torch.Generator``) unless ``do_flip`` forces it; ``progress`` (the
+    fraction of training done) drives progressive scaling. ``metrics`` holds
+    ``loss`` and the task's terms as detached 0-d tensors on the device
+    (reading one waits for the step). The perceptual net, when the loss has
+    that term, is built here (`make_percep_fn`).
     """
     device = resolve_device(device)
+    keys = model_cfg.batch_keys
+    percep_fn = make_percep_fn(model_cfg, device=device)
 
     def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator],
                    progress: float = 0.0, do_flip: Optional[bool] = None,
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         batch = {k: torch.as_tensor(batch[k]).to(device=device, dtype=torch.float32)
-                 for k in BATCH_KEYS}
+                 for k in keys}
         optimizer.zero_grad()
         loss, (_, metrics) = forward_and_loss(model_cfg, net, batch, generator,
-                                              progress=progress, do_flip=do_flip)
+                                              progress=progress, do_flip=do_flip,
+                                              percep_fn=percep_fn)
         loss.backward()
         optimizer.step(state.step)
         state.step += 1
@@ -63,7 +76,7 @@ def make_train_step(model_cfg: SfmModelConfig, net: DepthPoseNet,
     return train_step
 
 
-def make_eval_step(model_cfg: SfmModelConfig, net: DepthPoseNet,
+def make_eval_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
                    metrics_cfg: MetricsConfig, demon_scaling: bool = False,
                    device=None) -> Callable[[Dict], Dict[str, Optional[torch.Tensor]]]:
     """The evaluation step on ``device`` (the card unless the caller asks
@@ -81,7 +94,7 @@ def make_eval_step(model_cfg: SfmModelConfig, net: DepthPoseNet,
 
     def eval_step(batch: Dict) -> Dict[str, Optional[torch.Tensor]]:
         batch = {k: torch.as_tensor(batch[k]).to(device=device, dtype=torch.float32)
-                 for k in BATCH_KEYS if k in batch}
+                 for k in EVAL_KEYS if k in batch}
         was_training = net.training
         try:
             with torch.inference_mode():

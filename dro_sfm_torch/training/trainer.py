@@ -6,7 +6,7 @@ training step (`make_train_step`) and the flip-fused evaluation step
 (`make_eval_step`), the training state (the net, Adam and the step), the
 top-k checkpoints and the metric sums. On the card the training step runs
 kernels K1, K2 and K3 (and K5, K6 with ``sep_conv: "pallas"``) and every
-evaluation batch runs K1 (and K5).
+evaluation batch runs K1 (and K5); the single-frame tasks run no kernel.
 
 Not ported: several processes and ``arch.spatial_shards`` > 1 (ROADMAP A8),
 warm starts from flax msgpack files (``model.checkpoint_path``,
@@ -25,6 +25,7 @@ import torch
 from dro_sfm_torch.data import make_loader, setup_dataset
 from dro_sfm_torch.data.loader import device_prefetch, to_device
 from dro_sfm_torch.loggers import make_logger
+from dro_sfm_torch.losses.photometric import PhotometricLossConfig
 from dro_sfm_torch.models.sfm import SfmModelConfig, resolve_memory_policy
 from dro_sfm_torch.training.checkpoint import (
     CheckpointManager,
@@ -39,7 +40,7 @@ from dro_sfm_torch.training.metrics import (
     compute_pose_metrics,
 )
 from dro_sfm_torch.training.state import create_train_state, group_schedule, make_optimizer
-from dro_sfm_torch.training.step import BATCH_KEYS, make_eval_step, make_train_step
+from dro_sfm_torch.training.step import EVAL_KEYS, make_eval_step, make_train_step
 from dro_sfm_torch.utils.device import resolve_device
 from dro_sfm_torch.utils.logging import AvgMeter, pcolor, print_metrics_table
 from dro_sfm_torch.utils.save import check_save_flags, save_depth
@@ -68,7 +69,17 @@ def model_config_from(cfg) -> SfmModelConfig:
         remat=remat,
         scan_unroll=scan_unroll,
         flip_lr_prob=loss.flip_lr_prob,
-        progressive_scaling=loss.get("progressive_scaling", 0.0))
+        supervised_loss_weight=loss.supervised_loss_weight,
+        progressive_scaling=loss.get("progressive_scaling", 0.0),
+        percep_pretrained=cfg.model.percep_net.checkpoint_path,
+        photometric=PhotometricLossConfig(
+            percep_loss_weight=loss.get("percep_loss_weight", 0.0),
+            ssim_loss_weight=loss.ssim_loss_weight,
+            smooth_loss_weight=loss.smooth_loss_weight,
+            c1=loss.C1, c2=loss.C2,
+            photometric_reduce_op=loss.photometric_reduce_op,
+            clip_loss=loss.clip_loss,
+            automask_loss=loss.automask_loss))
 
 
 def flip_generator(seed: int, epoch: int) -> torch.Generator:
@@ -135,9 +146,13 @@ class Trainer:
         self.optimizer = make_optimizer(self.net, cfg.model.optimizer,
                                         cfg.model.scheduler, steps_per_epoch)
         self.state = create_train_state(self.net, self.optimizer, device=self.device)
-        # The depth group's schedule, for the rate reported to the logger.
+        # The groups' schedules, for the rates reported to the logger (the
+        # pose group differs only for the single-frame tasks' pose_net).
         self._lr_fn = group_schedule(cfg.model.optimizer.depth, cfg.model.scheduler,
                                      steps_per_epoch)
+        self._pose_lr_fn = (group_schedule(cfg.model.optimizer.pose, cfg.model.scheduler,
+                                           steps_per_epoch, "pose")
+                            if self.model_cfg.single_frame else None)
         self.current_epoch = 0
         if resume:
             restored = load_checkpoint(resume, self.state)
@@ -161,7 +176,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _place(self, batch) -> Dict[str, torch.Tensor]:
-        return to_device(batch, self.device, BATCH_KEYS)
+        return to_device(batch, self.device, EVAL_KEYS)
+
+    def _place_train(self, batch) -> Dict[str, torch.Tensor]:
+        return to_device(batch, self.device, self.model_cfg.batch_keys)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)
@@ -173,7 +191,7 @@ class Trainer:
         progress = float(epoch) / max(self.cfg.arch.max_epochs, 1)
         # Batch i+1's host-to-device copy overlaps batch i's step.
         for i, (batch, arrays) in enumerate(
-                device_prefetch(self.train_loader, self._place, depth=2)):
+                device_prefetch(self.train_loader, self._place_train, depth=2)):
             if self._preempted:          # fit() saves the emergency checkpoint
                 break
             self.state, metrics = self.train_step(self.state, arrays, flips, progress)
@@ -185,10 +203,13 @@ class Trainer:
                 print(f"epoch {epoch:03d} step {i + 1:05d}/{len(self.train_loader):05d} "
                       f"loss {last_loss:.4f} (avg {run_avg:.4f}) "
                       f"{n_frames / dt:.1f} frames/s", flush=True)
-                self.logger.log_metrics({
-                    "train-loss-step": last_loss,
-                    "learning_rate": float(self._lr_fn(self.state.step)),
-                    "global_step": self.state.step})
+                step_metrics = {"train-loss-step": last_loss,
+                                "learning_rate": float(self._lr_fn(self.state.step)),
+                                "global_step": self.state.step}
+                if self._pose_lr_fn is not None:
+                    step_metrics["learning_rate_pose"] = float(
+                        self._pose_lr_fn(self.state.step))
+                self.logger.log_metrics(step_metrics)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.time() - t0

@@ -4,7 +4,9 @@
 trains, validates and writes its top-k checkpoint; a resume into the next
 epoch that ends bit for bit where an uninterrupted run ends; the SIGTERM
 emergency checkpoint; the padded evaluation tail; the train CLI in a
-subprocess and the eval CLI on its checkpoint; what is not ported raises.
+subprocess and the eval CLI on its checkpoint; what is not ported raises
+(several processes, spatial shards, the flax msgpack files of warm starts
+and of the perceptual net).
 """
 import json
 import os
@@ -195,7 +197,8 @@ def test_train_cli_profiles_the_first_steps(tmp_path):
     ({"model": {"depth_net": {"pretrained_encoders": "r18.msgpack"}}},
      NotImplementedError, "A4"),
     ({"model": {"checkpoint_path": "other.ckpt"}}, NotImplementedError, "A4"),
-    ({"model": {"name": "SelfSupModelMF"}}, NotImplementedError, "self-supervised"),
+    ({"model": {"name": "SelfSupModelMF", "loss": {"percep_loss_weight": 0.1},
+                "percep_net": {"checkpoint_path": "vgg16.msgpack"}}}, NotImplementedError, "A4"),
 ])
 def test_not_ported_raises(tmp_path, overrides, error, match):
     with pytest.raises(error, match=match):
