@@ -43,8 +43,12 @@ result line):
 10. profile: device time by kernel over one B=8 train step, and the card's
    busy share of it;
 11. K4 vs plain: the bare warp `tent_warp` and its gradient (K2 and K3 with
-   sign +1) at the warp shapes and the edge cases; the entry point's path
-   (counts reset before, read after) launches K4, K2 and K3 once each;
+   sign +1) at the warp shapes, a ragged last tile, features at an odd
+   element offset and the edge cases, each forward on the variant its shape
+   calls for ("direct" or "unaligned"); the entry point's path (counts reset
+   before, read after) launches K4, K2 and K3 once each; both variants timed
+   warm and cold (L2 flushed) beside `grid_sample` and the bound at B=8 and
+   B=1 bf16 and B=8 fp32, failing if K4 is slower than `grid_sample`;
 12. K5/K6 vs plain: the fused GRU pass and its two backward kernels at the
    path's depth and pose shapes, both axes, bf16 and fp32, B=1, and edge
    cases, each beside its bar; two K5 calls and two K6 calls must give the
@@ -924,39 +928,117 @@ def k4_bound(features, coords):
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def time_cold_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` with a cold L2: before each call a 64 MB
+    buffer (more than the card's 50 MB L2) is written and a second one read,
+    so that neither ``fn``'s data nor dirty lines, whose write-back would
+    fall in ``fn``'s time, stay in L2; each call is timed by its own pair of
+    events. As in `time_ms`, a sleep kernel holds the stream while the host
+    enqueues everything."""
+    flush = torch.empty(16 * 2 ** 20, device="cuda")                 # 64 MB of fp32
+    clean = torch.zeros(16 * 2 ** 20, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
+    for i, (start, end) in enumerate(events):
+        flush.fill_(float(i))
+        clean.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# K4's variants: the wrapper runs "direct" where the rows allow 16-byte
+# accesses and "unaligned" otherwise (C = 6, features at an odd element
+# offset).
+K4_TIMED = (("warp B=8", torch.bfloat16), ("warp B=1", torch.bfloat16),
+            ("warp B=8", torch.float32))
+K4_TARGET = 0.5                    # of its bound, at B=8 bf16 (printed, not a bar)
+
+
+def time_k4(features, coords):
+    """K4's two variants ("unaligned" on a copy of the features one element
+    off an aligned address) warm and cold, beside the plain version,
+    `grid_sample` and the bound, on one input."""
+    from dro_sfm_torch.ops.tent_warp import tent_warp, tent_warp_plain
+    h, w = features.shape[1:3]
+    grid = (torch.stack([coords[..., 0] / (w - 1), coords[..., 1] / (h - 1)], -1)
+            * 2 - 1).to(features.dtype)[:, None]
+    feat_nchw = features.permute(0, 3, 1, 2)
+    odd = misaligned(features)
+    runs = {"direct": lambda: tent_warp(features, coords),
+            "unaligned": lambda: tent_warp(odd, coords),
+            "library": lambda: F.grid_sample(feat_nchw, grid, mode="bilinear",
+                                             padding_mode="zeros", align_corners=True)}
+    r = {}
+    for name, fn in runs.items():
+        r[name] = time_ms(fn)
+        r[name + "_cold"] = time_cold_ms(fn)
+    r["plain"] = time_ms(lambda: tent_warp_plain(features, coords))
+    r["bound"], r["bound_by"] = k4_bound(features, coords)
+    return r
+
+
 def phase_k4(gen, counters):
     """K4 (`tent_warp`) against `tent_warp_plain`, and its gradient (K2 and
     K3 with sign +1, K3 on the fp32 cotangent beside bf16 features) against
     the plain versions, at the warp shapes (16 maps of 24x80x128, bf16 and
-    fp32) and the edge cases. Bars: K1's for the forward (the same taps and
-    fp32 sums: one rounding step of the fp32 output), phase 7's for K2 and
-    K3. The B=8 bf16 case is driven through the entry point with every count
-    reset just before and read just after (the K4 path): K4, K2 and K3 one
-    launch each. Returns (timings, launches of that path)."""
+    fp32, and B=1), a ragged last tile (41x47), features one element off an
+    aligned address (the unaligned variant at full width) and the edge
+    cases. Bars: K1's for the forward (the same taps and fp32 sums: one
+    rounding step of the fp32 output), phase 7's for K2 and K3. Each forward
+    must be planned (`k4_plan`, on its own pointers) on the variant its
+    shape and alignment call for. The B=8 bf16 case is driven through the
+    entry point with every count reset just before and read just after (the
+    K4 path): K4, K2 and K3 one launch each. At B=8 bf16, B=1 bf16 and B=8
+    fp32 both variants are timed (`time_k4`), warm and cold, beside the
+    plain version, `grid_sample` and the bound; the phase fails if K4
+    ("direct", the wrapper's) is slower than `grid_sample` there. Returns
+    (timings, launches of that path)."""
+    from dro_sfm_torch.kernels import sm_count
     from dro_sfm_torch.ops.tent_warp import (
+        k4_plan,
         tent_warp,
         tent_warp_plain,
         warp_diff_bwd_coords_plain,
         warp_diff_bwd_feat_plain,
     )
-    cases = [(f"warp B={b}", b, 24, 80, 128, dt, "serving")
+    cases = [(f"warp B={b}", b, 24, 80, 128, dt, "serving", False)
              for dt in (torch.bfloat16, torch.float32) for b in (1, 8)]
     for dt in (torch.bfloat16, torch.float32):
-        cases += [("6x10", 2, 6, 10, 128, dt, "serving"), ("6x10 C=6", 2, 6, 10, 6, dt, "serving"),
-                  ("integer", 1, 24, 80, 128, dt, "integer"),
-                  ("outside -10", 1, 24, 80, 128, dt, "outside"),
-                  ("far +-1e8", 1, 24, 80, 128, dt, "far")]
+        cases += [("ragged 41x47", 8, 41, 47, 128, dt, "serving", False),
+                  ("odd offset", 8, 24, 80, 128, dt, "serving", True),
+                  ("6x10", 2, 6, 10, 128, dt, "serving", False),
+                  ("6x10 C=6", 2, 6, 10, 6, dt, "serving", False),
+                  ("integer", 1, 24, 80, 128, dt, "integer", False),
+                  ("outside -10", 1, 24, 80, 128, dt, "outside", False),
+                  ("far +-1e8", 1, 24, 80, 128, dt, "far", False)]
     timings, path = {}, None
-    for name, b, h, w, c, dtype, kind in cases:
+    for name, b, h, w, c, dtype, kind, odd in cases:
         _, features, coords = k1_inputs(gen, b, VIEWS, h, w, c, dtype, kind)
         g = torch.randn(b * VIEWS, h * w, c, generator=gen, device="cuda")   # fp32
-        feat = features.clone().requires_grad_()
+        feat = (misaligned(features) if odd else features.clone()).requires_grad_()
         co = coords.clone().requires_grad_()
         main = name == "warp B=8" and dtype == torch.bfloat16
         if main:
             for cnt in counters.values():          # the K4 path starts here
                 cnt.reset()
         out = tent_warp(feat, co)
+        ran = k4_plan(co.shape[0] * co.shape[1], c, feat.element_size(), feat.data_ptr(),
+                      out.data_ptr(), sm_count(0)).variant
         d_feat, d_co = torch.autograd.grad(out, (feat, co), g)
         torch.cuda.synchronize()
         if main:
@@ -971,8 +1053,11 @@ def phase_k4(gen, counters):
         tol = k1_tolerance(torch.float32, ref)
         tol2 = k2_tolerance(coords, g, h, w, dtype, ref_feat)
         tol3 = k3_tolerance(features, coords, g)
-        line = (f"K4 {name:12s} {dt:8s} max_abs_err {err:.3e} tol {tol:.3e} | d_features "
-                f"{err2:.3e} tol {tol2:.3e} | d_coords {err3:.3e} tol {tol3:.3e}")
+        want_variant = "unaligned" if odd or c % 4 else "direct"
+        line = (f"K4 {name:12s} {dt:8s} {ran:9s} max_abs_err {err:.3e} tol {tol:.3e} | "
+                f"d_features {err2:.3e} tol {tol2:.3e} | d_coords {err3:.3e} tol {tol3:.3e}")
+        if ran != want_variant:
+            fail(f"{line}: K4 planned variant {ran!r}, want {want_variant!r}")
         if (out.dtype, d_feat.dtype, d_co.dtype) != (torch.float32, dtype, torch.float32):
             fail(f"{line}: dtypes {out.dtype}, {d_feat.dtype}, {d_co.dtype}")
         if not all(torch.isfinite(t).all() for t in (out, d_feat, d_co)):
@@ -984,21 +1069,26 @@ def phase_k4(gen, counters):
             if (out[outside] != 0).any() or (d_co[outside] != 0).any():
                 fail(f"K4 {name} {dt}: out-of-view pixels sample or get a gradient")
         if main:
-            grid = (torch.stack([coords[..., 0] / (w - 1), coords[..., 1] / (h - 1)], -1)
-                    * 2 - 1).to(dtype)[:, None]
-            feat_nchw = features.permute(0, 3, 1, 2)
-            r = {"max_abs_err": err,
-                 "ms": time_ms(lambda: tent_warp(features, coords)),
-                 "plain_ms": time_ms(lambda: tent_warp_plain(features, coords)),
-                 "library_ms": time_ms(lambda: F.grid_sample(
-                     feat_nchw, grid, mode="bilinear", padding_mode="zeros",
-                     align_corners=True))}
-            r["bound_ms"], r["bound_by"] = k4_bound(features, coords)
-            timings = r
-            line += (f" | kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} library "
-                     f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']})"
-                     f" | path launches {path}")
+            line += f" | path launches {path}"
         print(line, flush=True)
+        if (name, dtype) in K4_TIMED:
+            r = time_k4(features, coords)
+            share = r["bound"] / r["direct"]
+            print(f"K4 timing {name} {dt} (us, warm / cold): "
+                  + " | ".join(f"{v} {1e3 * r[v]:.2f} / {1e3 * r[v + '_cold']:.2f}"
+                               for v in ("direct", "unaligned"))
+                  + f" | grid_sample {1e3 * r['library']:.2f} / "
+                  f"{1e3 * r['library_cold']:.2f} | plain {1e3 * r['plain']:.2f} | bound "
+                  f"{1e3 * r['bound']:.2f} ({r['bound_by']}) | K4 at {100 * share:.1f}% of "
+                  f"its bound, target {100 * K4_TARGET:.0f}% "
+                  f"{'met' if share >= K4_TARGET else 'missed'}", flush=True)
+            if r["direct"] >= r["library"]:
+                fail(f"K4 {name} {dt}: {r['direct']:.4f} ms, slower than grid_sample "
+                     f"({r['library']:.4f} ms)")
+            if main:
+                timings = {"max_abs_err": err, "ms": r["direct"], "plain_ms": r["plain"],
+                           "bound_ms": r["bound"], "bound_by": r["bound_by"],
+                           "library_ms": r["library"]}
     want = {"K4": 1, "K2": 1, "K3": 1}
     if {k: v for k, v in path.items() if v} != want:
         fail(f"the K4 path launched {path}, want {want}")
@@ -1152,7 +1242,7 @@ def k6w_fault(inp, axis, gru_pass, dwq, mid):
     _, rhx, daq, _, _ = mid
     b, hh, ww, d = inp["h"].shape
     plan = gru_pass.k6_weight_plan(b, hh, ww, axis, gru_pass._round16(d),
-                                   gru_pass._round16(inp["x"].shape[-1]), gru_pass._sm_count(0))
+                                   gru_pass._round16(inp["x"].shape[-1]), gru_pass.sm_count(0))
     pixels = gru_pass.k6_split_pixels(b, hh, ww, axis, *plan)[plan[1] // 2]
     mask = torch.zeros(b * hh * ww, dtype=daq.dtype, device=daq.device)
     mask[torch.tensor(pixels, device=daq.device)] = 1

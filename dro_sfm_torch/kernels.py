@@ -12,12 +12,14 @@ flags, so an edited source or header is rebuilt.
 
 Beside the build: `LaunchCounter` (each wrapper counts its launches),
 `entry` (a typed C entry point), `launch` (call one on the current stream
-and raise on a CUDA error) and `on_device` (the device rule of every
-wrapper: the kernel for CUDA tensors, the plain version for CPU tensors).
+and raise on a CUDA error), `on_device` (the device rule of every wrapper:
+the kernel for CUDA tensors, the plain version for CPU tensors) and
+`sm_count` (a card's SMs, for the launch plans).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -142,6 +144,12 @@ def launch(fn, device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def on_device(name: str, device: torch.device, kernel, plain):

@@ -34,7 +34,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from dro_sfm_torch.kernels import LaunchCounter, entry, launch, on_device
+from dro_sfm_torch.kernels import LaunchCounter, entry, launch, on_device, sm_count
 
 K_TAPS = 5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -299,11 +299,6 @@ def k6_split_pixels(b: int, hh: int, ww: int, axis: int, seg: int, n_split: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _check_gru_tiles() -> None:
     fn = entry("gru_pass_bwd", "gru_pass_bwd_tile", [ctypes.c_int])
     want = (GRU_BM, GRU_BN, K6W_CH, K6W_OUT, K6W_PIX)
@@ -355,7 +350,7 @@ def _launch_k6_weight(p: _Prepared, scratch, axis):
     h, x, dk, cxk, rh_s, daq_s, dazr_s, part = scratch
     b, hh, ww, d, cx, dp, cxp = p.sizes
     dev, c1p = p.h.device, dp + cxp
-    seg, n_split, per = k6_weight_plan(b, hh, ww, axis, dp, cxp, _sm_count(dev.index or 0))
+    seg, n_split, per = k6_weight_plan(b, hh, ww, axis, dp, cxp, sm_count(dev.index or 0))
     m = K_TAPS * c1p
     n_w = m * 3 * dp
     partials = torch.empty((n_split, n_w), dtype=torch.float32, device=dev)

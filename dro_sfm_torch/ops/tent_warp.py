@@ -25,10 +25,11 @@ the backward agrees with its plain version to fp32 rounding there.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
-from dro_sfm_torch.kernels import LaunchCounter, entry, launch, on_device
+from dro_sfm_torch.kernels import LaunchCounter, entry, launch, on_device, sm_count
 from dro_sfm_torch.ops.resample import bilinear_sample, bilinear_taps
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -320,18 +321,67 @@ def warp_diff(f1: torch.Tensor, features: torch.Tensor, coords: torch.Tensor,
     return _warp_diff_fwd(f1, features, coords, n_views)
 
 
+K4_THREADS = 256                   # csrc/tent_warp_fwd.cu: k4::kThreads
+K4_BLOCKS_PER_SM = 4
+
+
+@dataclass(frozen=True)
+class K4Plan:
+    """K4's launch: ``grid`` blocks, each gathering ``tiles_per_block``
+    consecutive tiles of ``tile_pix`` pixels (``n_tiles`` tiles, the last
+    one ragged), on the variant "direct" or "unaligned"."""
+    variant: str
+    tile_pix: int
+    n_tiles: int
+    tiles_per_block: int
+    grid: int
+
+
+def k4_quad_aligned(c: int, element_size: int, feat_ptr: int, out_ptr: int) -> bool:
+    """K4's "direct" variant reads 4 channels a lane and writes 16 bytes: C a
+    multiple of 4, the features aligned to 4 elements, the fp32 output to 16
+    bytes (so every row and tile of it)."""
+    return c % 4 == 0 and feat_ptr % (4 * element_size) == 0 and out_ptr % 16 == 0
+
+
+def k4_tile_pix(n_pix: int, sms: int) -> int:
+    """Pixels a tile: enough for one tile a block in one wave of
+    K4_BLOCKS_PER_SM blocks an SM, rounded up to a multiple of the block's
+    8 warps, from 8 to K4_THREADS (beyond that a block walks several)."""
+    per_block = -(-n_pix // (K4_BLOCKS_PER_SM * sms))
+    return min(K4_THREADS, max(8, -(-per_block // 8) * 8))
+
+
+def k4_plan(n_pix: int, c: int, element_size: int, feat_ptr: int, out_ptr: int,
+            sms: int) -> K4Plan:
+    """K4's launch plan for ``n_pix`` output pixels of ``c`` channels on a
+    card with ``sms`` SMs: the variant "direct" where `k4_quad_aligned`
+    allows it and "unaligned" otherwise, tiles of `k4_tile_pix` pixels, and
+    at most K4_BLOCKS_PER_SM blocks an SM, each walking an equal run of
+    tiles."""
+    variant = "direct" if k4_quad_aligned(c, element_size, feat_ptr, out_ptr) else "unaligned"
+    tile_pix = k4_tile_pix(n_pix, sms)
+    n_tiles = -(-n_pix // tile_pix)
+    per = max(1, -(-n_tiles // (K4_BLOCKS_PER_SM * sms)))
+    return K4Plan(variant, tile_pix, n_tiles, per, -(-n_tiles // per))
+
+
 def _launch_k4(features, coords):
     _require_contiguous("tent_warp", features=features, coords=coords)
     if coords.data_ptr() % 8:
         raise ValueError("tent_warp kernel wants 8-byte aligned coords")
-    fn = _kernel("tent_warp_fwd", [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     b, h, w, c = features.shape
     p = coords.shape[1]
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"tent_warp kernel wants fewer than 2^31 feature rows; got {b * h * w}")
     out = torch.empty((b, p, c), dtype=torch.float32, device=features.device)
+    plan = k4_plan(b * p, c, features.element_size(), features.data_ptr(), out.data_ptr(),
+                   sm_count(features.device.index or 0))
+    fn = _kernel("tent_warp_fwd", [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     launch(fn, features.device, features.data_ptr(), coords.data_ptr(), out.data_ptr(),
-           b, p, h, w, c, _DTYPE_CODE[features.dtype],
-           int(_vectorized(c, features) and _vectorized(c, out)))
+           b, p, h, w, c, _DTYPE_CODE[features.dtype], int(plan.variant == "direct"),
+           plan.tile_pix, plan.tiles_per_block)
     K4_COUNTER.launches += 1
     return out
 
