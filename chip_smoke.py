@@ -100,7 +100,20 @@ result line):
    alone and the ms of an eval batch;
 22. the same (without the fused epoch) on
    ``configs/train_synthetic_selfsup.yaml`` (SelfSupModelMF it12-h-out
-   bf16 96x128), checkpoints under ``build/trainer_train_synthetic_selfsup``.
+   bf16 96x128), checkpoints under ``build/trainer_train_synthetic_selfsup``;
+23. apps: a checkpoint in the JAX package's format (flax msgpack written by
+   the port's own writer: it12-h-out weights from `start_weights`, Adam's
+   moments after one step, the sidecar of
+   ``configs/train_synthetic_192x640.yaml``) loaded by `load_model` and
+   by a resumed `Trainer`, both bit-equal to the source, the trainer taking
+   one counted step (K1 24, K2 24, K3 18); 12 rendered 192x640 frames
+   written as PNG and read back bit-equal; the ``infer_video`` CLI in this
+   process (fp32, ``--fusion-views 3``, ``--gt-poses``), counts reset just
+   before and read just after: K1 24 a window and nothing else; its depths
+   and poses against the same windows through the plain warp (fp32, 1e-5
+   relative L2); `geometric_fusion` on the card against the CPU away from
+   its thresholds, on the CLI's depths and on the scene's exact ones; ms per
+   window, PNG decode ms per frame.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -2113,10 +2126,231 @@ def phase_trainer(counters, gpu, step_ms, config=TRAINER_CONFIG, fused_epoch=Tru
         torch.cuda.empty_cache()
 
 
+APPS_FRAMES = 12                   # 10 sliding windows
+APPS_BUILD = ROOT / "build" / "apps"
+FUSION_MARGIN = 1e-4               # JAX-side distance kept from every threshold
+
+
+def render_video(n, h, w):
+    """``n`` frames of a `Synthetic` scene (three planes) seen by a camera
+    that moves forward and sideways: uint8 RGB frames, camera-to-world
+    poses, exact depth maps and the renderer's intrinsics."""
+    import numpy as np
+
+    from dro_sfm_torch.data import SyntheticConfig, SyntheticDataset
+    data = SyntheticDataset(SyntheticConfig(height=h, width=w, num_planes=3, seed=3))
+    planes, _ = data._scene(0)
+    frames, poses, depths = [], [], []
+    for i in range(n):
+        T = np.eye(4)
+        T[:3, 3] = [0.03 * i, 0.004 * i, 0.05 * i]
+        rgb, depth = data._render(planes, T)
+        frames.append((rgb * 255).astype(np.uint8))
+        poses.append(T)
+        depths.append(depth[..., 0])
+    return frames, poses, depths, data.K
+
+
+def write_jax_checkpoint(path, net, optimizer, step, epoch, config):
+    """What the JAX package's ``save_checkpoint`` writes for this state,
+    written by the port (no flax on this machine): flax msgpack of
+    {params, batch_stats, opt_state, step} and the json sidecar."""
+    import numpy as np
+
+    from dro_sfm_torch.convert import optimizer_state_to_jax, to_jax_variables
+    from dro_sfm_torch.utils.msgpack import packb
+    variables = to_jax_variables(net.state_dict())
+    payload = {"params": variables["params"], "batch_stats": variables["batch_stats"],
+               "opt_state": optimizer_state_to_jax(net, optimizer, step),
+               "step": np.asarray(step)}
+    Path(path).write_bytes(packb(payload))
+    Path(path + ".json").write_text(json.dumps({"epoch": epoch, "step": step,
+                                                "config": config}))
+
+
+def fusion_check(depths, poses, K, what):
+    """`geometric_fusion` on the card against the same call on the CPU:
+    equal masks and fused depth (1e-5 relative) at every pixel that lies,
+    on the CPU, more than FUSION_MARGIN from a threshold or a rounding
+    boundary in every view. Returns (compared share, kept share)."""
+    import numpy as np
+
+    from dro_sfm_torch.inference import geometric_fusion, reproject_with_depth
+    cpu = [torch.as_tensor(np.asarray(a, np.float32)) for a in
+           (depths[-1], np.stack(depths[:-1]), poses[-1], np.stack(poses[:-1]), K)]
+    want = geometric_fusion(*cpu, thres_view=len(depths) // 2)
+    got = geometric_fusion(*[t.cuda() for t in cpu], thres_view=len(depths) // 2).cpu()
+    d_re, x2, y2 = reproject_with_depth(*cpu)
+    h, w = depths[-1].shape
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    ref = cpu[0]
+    dist = torch.sqrt((x2 - xs) ** 2 + (y2 - ys) ** 2)
+    rel_diff = (d_re - ref).abs() / ref.clamp_min(1e-10)
+    # where each view samples the source depth (nearest, round half to even)
+    rel = torch.linalg.inv(cpu[3]) @ cpu[2]
+    pts = (torch.stack([xs, ys, torch.ones_like(xs)], -1) @ torch.linalg.inv(cpu[4]).T) \
+        * ref[..., None]
+    proj = (pts[None] @ rel[:, None, :3, :3].transpose(-1, -2) + rel[:, None, None, :3, 3]) \
+        @ cpu[4].T
+    xy = proj[..., :2] / proj[..., 2:].clamp_min(1e-10)
+    half = ((xy - xy.floor()) - 0.5).abs().amin(-1)
+    ok = ((dist - 1).abs() > FUSION_MARGIN) & ((rel_diff - 1e-3).abs() > 1e-3 * FUSION_MARGIN) \
+        & (half > FUSION_MARGIN)
+    ok = ok.all(0)
+    bad = ~torch.isclose(got[ok], want[ok], rtol=1e-5, atol=0)
+    if bad.any() or not torch.isfinite(got).all():
+        fail(f"apps: geometric_fusion on the card differs from the CPU ({what}) at "
+             f"{int(bad.sum())} of {int(ok.sum())} pixels away from the thresholds")
+    return float(ok.float().mean()), float((want > 0).float().mean())
+
+
+def phase_apps(counters, gpu):
+    """A checkpoint of the JAX package's format, served and resumed on the
+    card: it12-h-out weights from seed 0 (heads scaled, `start_weights`) and
+    Adam's moments after one step, written as the JAX package writes them
+    with the sidecar of `TRAINER_CONFIG`; `load_model` bit-equal to the
+    source; a `Trainer` resumed from it, bit for bit, for one counted step;
+    APPS_FRAMES rendered frames written as PNG and read back bit-equal; the
+    ``infer_video`` CLI in this process (fp32, --fusion-views 3,
+    --gt-poses), its K1 launches 24 a window, its depths and poses against
+    the same windows through the plain warp, its fusion on the card against
+    the CPU."""
+    import shutil
+
+    import numpy as np
+
+    from dro_sfm_torch.data.video import dummy_calibration
+    from dro_sfm_torch.inference import filter_depth, load_model, make_infer_fn
+    from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
+    from dro_sfm_torch.scripts import infer_video
+    from dro_sfm_torch.scripts.frames import FrameLoader
+    from dro_sfm_torch.training.state import create_train_state, make_optimizer
+    from dro_sfm_torch.training.step import make_train_step
+    from dro_sfm_torch.training.trainer import Trainer, model_config_from
+    from dro_sfm_torch.utils.image_io import read_image_rgb, write_png
+    t_start = time.perf_counter()
+    shutil.rmtree(APPS_BUILD, ignore_errors=True)
+    (APPS_BUILD / "frames").mkdir(parents=True)
+    (APPS_BUILD / "gt").mkdir()
+    cfg = trainer_config()
+    cfg.checkpoint.filepath = str(APPS_BUILD / "ckpt")
+    cfg.save.folder = str(APPS_BUILD / "depth")
+
+    # The source: seed-0 weights and Adam's moments after one step.
+    tcfg = model_config_from(cfg)
+    net = start_weights(tcfg)
+    opt = make_optimizer(net, cfg.model.optimizer, cfg.model.scheduler, steps_per_epoch=2)
+    state = create_train_state(net, opt, device="cuda")
+    state, _ = make_train_step(tcfg, net, opt, device="cuda")(
+        state, make_scene_batch(2), None, do_flip=False)
+    path = str(APPS_BUILD / "jax.ckpt")
+    write_jax_checkpoint(path, net, opt, state.step, 0, cfg.to_dict())
+    source = (dict(net.state_dict()),
+              {k: opt.torch_optimizer.state[p] for k, p in net.named_parameters()}, state.step)
+    print(f"apps: wrote a JAX-format checkpoint, {Path(path).stat().st_size / 2**20:.1f} MiB "
+          f"(params, batch_stats, Adam behind the clip, step {state.step})", flush=True)
+
+    served = load_model(path, device="cuda")
+    bad = same_state((served.state_dict(), {}, 0), (source[0], {}, 0))
+    if bad or (served.mixed_precision, served.warp_impl) != (False, "pallas"):
+        fail(f"apps: load_model differs from the source in {bad[:6]} or serves "
+             f"mixed_precision={served.mixed_precision} warp_impl={served.warp_impl}")
+    resumed = Trainer(cfg, resume=path, device="cuda")
+    bad = same_state(trainer_state(resumed), source)
+    if bad or resumed.current_epoch != 1:
+        fail(f"apps: the resumed trainer differs in {bad[:6]} (epoch {resumed.current_epoch})")
+    del net, opt, state
+    step = CountedStep(resumed.train_step, counters)
+    batch = next(iter(resumed.train_loader))
+    for c in counters.values():              # the resumed step's path starts here
+        c.reset()
+    resumed.state, metrics = step(resumed.state, resumed._place_train(batch),
+                                  torch.Generator().manual_seed(0))
+    check_launches("resumed step", step.launches, TRAIN_LAUNCHES, counters)
+    if not math.isfinite(metrics["loss"].item()) or resumed.state.step != source[2] + 1:
+        fail(f"apps: resumed step loss {metrics['loss'].item()}, step {resumed.state.step}")
+    print(f"apps: load_model and the resumed Trainer bit-equal to the source; one resumed "
+          f"step (B={len(batch['idx'])}, loss {metrics['loss'].item():.4f}) launched "
+          f"{step.launches[0]}", flush=True)
+    del resumed, step
+
+    # Frames: PNG, written and read back by the port.
+    frames, poses, gt_depths, K_render = render_video(APPS_FRAMES, SERVE_H, SERVE_W)
+    for i, (img, T) in enumerate(zip(frames, poses)):
+        name = APPS_BUILD / "frames" / f"{i:06d}.png"
+        write_png(str(name), img)
+        if not np.array_equal(read_image_rgb(str(name)), img):
+            fail(f"apps: {name.name} does not read back bit-equal")
+        np.savetxt(APPS_BUILD / "gt" / f"{i:06d}.txt", T)
+
+    for c in counters.values():              # the serving application starts here
+        c.reset()
+    t0 = time.perf_counter()
+    result = infer_video.main([
+        "--checkpoint", path, "--input", str(APPS_BUILD / "frames"),
+        "--output", str(APPS_BUILD / "out"), "--fusion-views", "3",
+        "--gt-poses", str(APPS_BUILD / "gt"), "--depth-max", "25", "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}   # and ends here
+    windows = result["windows"]
+    want = {k: (K1_STEPS_PER_REQUEST * windows if k == "K1" else 0) for k in counters}
+    if windows != APPS_FRAMES - 2 or launches != want or launches["K1"] == 0:
+        fail(f"apps: infer_video ran {windows} windows with launches {launches}, want {want}")
+    if result["ate"] is None or not math.isfinite(result["ate"]):
+        fail(f"apps: no finite ATE ({result['ate']})")
+
+    # The same windows through the plain warp.
+    plain = DepthPoseNet(version=served.version, min_depth=served.min_depth,
+                         max_depth=served.max_depth, warp_impl="gather", device="cuda")
+    plain.load_state_dict(served.state_dict(), strict=True)
+    infer = make_infer_fn(plain, device="cuda")
+    load = FrameLoader((SERVE_H, SERVE_W))
+    files = sorted((APPS_BUILD / "frames").glob("*.png"))
+    K = torch.tensor(dummy_calibration(SERVE_W, SERVE_H))
+    depths = np.load(APPS_BUILD / "out" / "depths.npy")
+    ref_d, ref_m = [], []
+    for i in range(1, len(files) - 1):
+        d, m = infer(torch.from_numpy(load(str(files[i])))[None],
+                     torch.from_numpy(np.stack([load(str(files[i - 1])),
+                                                load(str(files[i + 1]))]))[None], K[None])
+        ref_d.append(d[0].cpu().numpy())
+        ref_m.append(m[0].cpu().numpy())
+    for what, got, ref in (("depths", depths, np.stack(ref_d)),
+                           ("poses", np.stack(result["pose_mats"]), np.stack(ref_m))):
+        rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+        line = (f"apps: infer_video {what} against the plain warp over {windows} windows: "
+                f"rel L2 {rel:.3e} (bar 1e-5)")
+        if not (rel <= 1e-5 and np.isfinite(got).all()):
+            fail(line)
+        print(line, flush=True)
+
+    # Fusion on the card against the CPU: the CLI's last three filtered
+    # depths and poses, and the exact depths and poses of the scene.
+    traj = json.loads((APPS_BUILD / "out" / "trajectory.json").read_text())
+    cases = (("predicted", [filter_depth(d) for d in depths[-3:]], traj[-3:],
+              dummy_calibration(SERVE_W, SERVE_H)),
+             ("exact", gt_depths[-3:], poses[-3:], K_render))
+    shares = {what: fusion_check(d, p, k, what) for what, d, p, k in cases}
+    steady = sorted(result["window_ms"][1:])
+    ms = steady[len(steady) // 2]
+    decode = sorted(result["decode_ms"])[len(result["decode_ms"]) // 2]
+    print(f"apps infer_video it12-h-out fp32 {SERVE_H}x{SERVE_W} N=2 B=1: {windows} windows, "
+          f"median {ms:.2f} ms/window (min {steady[0]:.2f}, max {steady[-1]:.2f}, after the "
+          f"first {result['window_ms'][0]:.2f}), PNG decode median {decode:.2f} ms/frame "
+          f"(min {min(result['decode_ms']):.2f}, max {max(result['decode_ms']):.2f}), CLI "
+          f"{cli_s:.1f} s, K1 {launches['K1']} launches ({launches['K1'] // windows}/window), "
+          f"{result['points']} points, ATE {result['ate']:.4f}; fusion card vs CPU compared "
+          f"at {shares['predicted'][0]:.1%} / {shares['exact'][0]:.1%} of pixels (kept "
+          f"{shares['predicted'][1]:.1%} / {shares['exact'][1]:.1%}); phase "
+          f"{time.perf_counter() - t_start:.1f} s on {gpu}", flush=True)
+    return launches
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
           "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
-          "trainer", "selfsup_trainer")
+          "trainer", "selfsup_trainer", "apps")
 
 
 def main() -> int:
@@ -2260,6 +2494,9 @@ def main() -> int:
     # 22) the same, without the fused epoch, on the self-supervised config
     phase("trainer", phase_trainer, counters, gpu, step_ms)
     phase("selfsup_trainer", phase_trainer, counters, gpu, None, SELFSUP_CONFIG, False)
+
+    # 23) a JAX-format checkpoint served (infer_video) and resumed on the card
+    phase("apps", phase_apps, counters, gpu)
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)

@@ -67,9 +67,9 @@ class SfmModelConfig:
     """Task-model configuration with the JAX package's field names.
 
     ``remat`` must be resolved (`resolve_memory_policy`) before `build_net`
-    when it is "auto". ``percep_pretrained`` names a converted VGG16 file for
-    the perceptual term; the port cannot read one yet (ROADMAP A4), so
-    `make_percep_fn` raises when it is set.
+    when it is "auto". ``percep_pretrained`` names a converted VGG16 file (a
+    flax msgpack variables tree) for the perceptual term, which
+    `make_percep_fn` loads.
     """
     name: str = "SupModelMF"
     version: str = "it12-h-out"
@@ -246,16 +246,18 @@ def forward_and_loss(cfg: SfmModelConfig, net: torch.nn.Module,
 def make_percep_fn(cfg: SfmModelConfig, device=None):
     """The frozen perceptual distance ``fn(im1, im2)`` on ``device`` (the
     card unless the caller asks for the CPU), or None when the loss has no
-    perceptual term. Its VGG16 slices are drawn from seed 0: reading the
-    converted ImageNet weights of ``cfg.percep_pretrained`` waits for the
-    flax msgpack reader (ROADMAP A4), and raises."""
+    perceptual term. Its VGG16 slices are the converted weights of
+    ``cfg.percep_pretrained`` (a flax msgpack variables tree, loaded
+    strictly), else drawn from seed 0."""
     if cfg.photometric_cfg.percep_loss_weight <= 0.0 or not cfg.uses_photometric:
         return None
-    if cfg.percep_pretrained:
-        raise NotImplementedError(
-            f"percep_pretrained {cfg.percep_pretrained!r} is a flax msgpack file, "
-            "which the port cannot read yet (ROADMAP A4)")
     from dro_sfm_torch.models.percep import PercepNet
     from dro_sfm_torch.utils.device import resolve_device
-    return PercepNet(device=resolve_device(device),
-                     generator=torch.Generator().manual_seed(0))
+    net = PercepNet(device=resolve_device(device),
+                    generator=torch.Generator().manual_seed(0))
+    if cfg.percep_pretrained:
+        from dro_sfm_torch.convert import from_jax_variables
+        from dro_sfm_torch.training.init_weights import load_msgpack_tree
+        net.load_state_dict(from_jax_variables(load_msgpack_tree(cfg.percep_pretrained)),
+                            strict=True)
+    return net

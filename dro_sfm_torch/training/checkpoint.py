@@ -1,14 +1,18 @@
 """Checkpoints of the whole training state, and top-k management.
 
-PyTorch counterpart of `dro_sfm_tpu/training/checkpoint.py`, in the port's
-own format: a ``torch.save`` file holding the net's state dict (parameters
-and BatchNorm statistics), the optimizer's state dict (Adam's moments) and
-the step, read back with ``torch.load(weights_only=True)``, so a resumed run
-continues bit for bit. Beside it, a ``<path>.json`` sidecar holds the epoch,
-the step, the config and the format marker.
+PyTorch counterpart of `dro_sfm_tpu/training/checkpoint.py`. The port
+writes its own format: a ``torch.save`` file holding the net's state dict
+(parameters and BatchNorm statistics), the optimizer's state dict (Adam's
+moments) and the step, read back with ``torch.load(weights_only=True)``, so
+a resumed run continues bit for bit. Beside it, a ``<path>.json`` sidecar
+holds the epoch, the step, the config and the format marker.
 
-The JAX package's flax msgpack ``.ckpt`` files are not read here yet
-(ROADMAP A4): a file without the marker raises.
+It also reads the JAX package's checkpoints: flax msgpack of ``{params,
+batch_stats, opt_state, step}`` (`dro_sfm_torch.utils.msgpack`), with the
+legacy mask-head layout migrated, the weights carried over by
+`convert.from_jax_variables` and the optax state by
+`convert.optimizer_state_from_jax`. The format is decided by the content: a
+zip file is the port's, anything else is msgpack.
 
 `CheckpointManager` keeps the best ``save_top_k`` checkpoints of a
 monitored metric (the direction inferred from its name) and can mirror the
@@ -25,9 +29,16 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from dro_sfm_torch.convert import LayoutMismatch, from_jax_variables, optimizer_state_from_jax
+from dro_sfm_torch.utils.msgpack import unpackb
+
 FORMAT = "dro_sfm_torch"
-_FOREIGN = ("is not a checkpoint of dro_sfm_torch; reading the JAX package's "
-            "flax msgpack checkpoints is not ported yet (ROADMAP A4)")
+_FOREIGN = ("is a zip file but not a checkpoint of dro_sfm_torch (the JAX "
+            "package's checkpoints are flax msgpack)")
+# The JAX package's note when the optimizer's layout does not match
+# (dro_sfm_tpu/training/checkpoint.py:load_checkpoint).
+LAYOUT_NOTE = ("checkpoint: optimizer state layout mismatch — restored "
+               "weights/step only, optimizer reinitialized")
 
 
 def save_checkpoint(path: str, state, epoch: int,
@@ -48,16 +59,70 @@ def save_checkpoint(path: str, state, epoch: int,
         json.dump(meta, f)
 
 
+def _migrate_legacy_layout(tree) -> None:
+    """Rewrite pre-mask-hoist trees in place: the convex-upsample mask convs
+    moved from ``refinement/update_block_depth/cell/mask{1,2}`` to
+    ``refinement/mask_head/mask{1,2}``, wherever the pattern occurs (params
+    and every param-shaped optimizer moment). A copy of the JAX package's
+    function of the same name."""
+    if not isinstance(tree, dict):
+        return
+    ref = tree.get("refinement")
+    if isinstance(ref, dict):
+        cell = ref.get("update_block_depth", {}).get("cell", {})
+        if isinstance(cell, dict) and ("mask1" in cell or "mask2" in cell):
+            head = ref.setdefault("mask_head", {})
+            for k in ("mask1", "mask2"):
+                if k in cell:
+                    head[k] = cell.pop(k)
+    for v in tree.values():
+        _migrate_legacy_layout(v)
+
+
+def read_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """The tree of a JAX package checkpoint (or of any flax msgpack file),
+    legacy layout migrated. Raises ValueError on bytes that are not msgpack
+    of flax's subset or hold no map."""
+    with open(path, "rb") as f:
+        raw = unpackb(f.read())
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path}: a flax msgpack file holds a map, this one a "
+                         f"{type(raw).__name__}")
+    _migrate_legacy_layout(raw)
+    return raw
+
+
+def _restore_jax(path: str, raw: Dict[str, Any], state) -> None:
+    """Restore the net strictly and the step; Adam's moments where the
+    optimizer's layout matches, else the JAX package's note."""
+    missing = [k for k in ("params", "step") if k not in raw]
+    if missing:
+        raise ValueError(f"{path}: no {missing} in this JAX checkpoint")
+    state.net.load_state_dict(from_jax_variables(
+        {"params": raw["params"], "batch_stats": raw.get("batch_stats", {})}), strict=True)
+    state.step = int(raw["step"])
+    try:
+        optimizer_state_from_jax(raw.get("opt_state", {}), state.net, state.optimizer)
+    except LayoutMismatch as e:
+        print(f"{LAYOUT_NOTE} ({e})", flush=True)
+
+
 def load_checkpoint(path: str, state=None) -> Dict[str, Any]:
-    """Read a checkpoint: {"payload": ..., "meta": sidecar}. With ``state``
-    given, restore the net, the optimizer and the step into it (strictly)."""
+    """Read a checkpoint of the port or of the JAX package: {"payload": ...,
+    "meta": sidecar}. The payload is the port's dict (``format``, ``net``,
+    ``optimizer``, ``step``) or the JAX package's tree (``params``,
+    ``batch_stats``, ``opt_state``, ``step``). With ``state`` given, restore
+    the net (strictly), the optimizer and the step into it."""
     meta: Dict[str, Any] = {}
     if os.path.exists(path + ".json"):
         with open(path + ".json") as f:
             meta = json.load(f)
-        if meta.get("format") != FORMAT:
-            raise ValueError(f"{path} {_FOREIGN}")
     if not zipfile.is_zipfile(path):
+        raw = read_jax_checkpoint(path)
+        if state is not None:
+            _restore_jax(path, raw, state)
+        return {"payload": raw, "meta": meta}
+    if meta and meta.get("format") != FORMAT:
         raise ValueError(f"{path} {_FOREIGN}")
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(payload, dict) or payload.get("format") != FORMAT:

@@ -100,10 +100,16 @@ def group_schedule(group_cfg, scheduler_cfg, steps_per_epoch: int,
 @dataclasses.dataclass
 class Optimizer:
     """A torch optimizer with one param group per non-empty schedule group,
-    the schedules, and the global-norm clip (0 = off)."""
+    the schedules, and the global-norm clip (0 = off). ``groups`` names the
+    torch param groups ("depth", "pose") in order; ``decays`` holds the
+    weight decay of both groups of the JAX package's optimizer, the empty one
+    too, which its optax state's layout depends on."""
     torch_optimizer: torch.optim.Optimizer
     schedules: List[Callable[[int], float]]
     clip_grad_norm: float = 0.0
+    groups: List[str] = dataclasses.field(default_factory=lambda: ["depth"])
+    decays: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {g: 0.0 for g in GROUPS})
 
     def step(self, update_count: int) -> None:
         """Clip, set each group's rate for update ``update_count`` (the
@@ -143,23 +149,24 @@ def make_optimizer(net: torch.nn.Module, optimizer_cfg=None, scheduler_cfg=None,
     by_group: Dict[str, list] = {g: [] for g in GROUPS}
     for pname, p in net.named_parameters():
         by_group["pose" if pname.split(".")[0] == "pose_net" else "depth"].append(p)
-    groups, schedules, decays = [], [], []
+    groups, schedules, decays, names = [], [], {}, []
     for g in GROUPS:
-        if not by_group[g]:
-            continue
         gcfg = _field(optimizer_cfg, g, o)
         if isinstance(gcfg, dict):
             gcfg = SimpleNamespace(**gcfg)
-        wd = _field(gcfg, "weight_decay", o[g])
+        wd = decays[g] = _field(gcfg, "weight_decay", o[g])
+        if not by_group[g]:
+            continue
+        names.append(g)
         schedule = group_schedule(gcfg, scheduler_cfg, steps_per_epoch, g)
         groups.append({"params": by_group[g], "lr": schedule(0),
                        "weight_decay": wd})
         schedules.append(schedule)
-        decays.append(wd)
     if name == "Adam":
         # optax.adam / adamw defaults: b1 0.9, b2 0.999, eps 1e-8. AdamW on
         # a group without decay is Adam.
-        cls = torch.optim.AdamW if any(wd > 0 for wd in decays) else torch.optim.Adam
+        cls = (torch.optim.AdamW if any(g["weight_decay"] > 0 for g in groups)
+               else torch.optim.Adam)
         opt = cls(groups, betas=(0.9, 0.999), eps=1e-8)
     elif name == "SGD":
         for grp in groups:
@@ -169,7 +176,8 @@ def make_optimizer(net: torch.nn.Module, optimizer_cfg=None, scheduler_cfg=None,
     else:
         raise ValueError(f"Unknown optimizer {name}")
     clip = _field(optimizer_cfg, "clip_grad_norm", o) or 0.0
-    return Optimizer(opt, schedules, float(clip))
+    return Optimizer(opt, schedules, float(clip), names,
+                     decays if name == "Adam" else {g: 0.0 for g in GROUPS})
 
 
 @dataclasses.dataclass

@@ -7,10 +7,11 @@ training step (`make_train_step`) and the flip-fused evaluation step
 top-k checkpoints and the metric sums. On the card the training step runs
 kernels K1, K2 and K3 (and K5, K6 with ``sep_conv: "pallas"``) and every
 evaluation batch runs K1 (and K5); the single-frame tasks run no kernel.
+Warm starts (``model.depth_net.pretrained_encoders``, then
+``model.checkpoint_path``) and resumes read the JAX package's flax msgpack
+files as well as the port's checkpoints.
 
-Not ported: several processes and ``arch.spatial_shards`` > 1 (ROADMAP A8),
-warm starts from flax msgpack files (``model.checkpoint_path``,
-``model.depth_net.pretrained_encoders``; ROADMAP A4).
+Not ported: several processes and ``arch.spatial_shards`` > 1 (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from dro_sfm_torch.training.checkpoint import (
     save_checkpoint,
     sync_checkpoint_dir,
 )
+from dro_sfm_torch.training.init_weights import warm_start
 from dro_sfm_torch.training.metrics import (
     ALL_METRIC_NAMES,
     METRIC_MODES,
@@ -46,7 +48,6 @@ from dro_sfm_torch.utils.logging import AvgMeter, pcolor, print_metrics_table
 from dro_sfm_torch.utils.save import check_save_flags, save_depth
 
 _A8 = "is not ported yet: one process on one device (ROADMAP A8)"
-_A4 = "reads a flax msgpack file, which the port cannot read yet (ROADMAP A4)"
 
 
 def model_config_from(cfg) -> SfmModelConfig:
@@ -98,17 +99,12 @@ def _check_single_process(cfg) -> None:
 
 class Trainer:
     """Train and evaluate ``cfg`` on ``device`` (the card unless the caller
-    asks for the CPU), from the config's initialisation or, with
-    ``resume``, from a checkpoint of this package (continuing with the epoch
-    after the saved one)."""
+    asks for the CPU), from the config's initialisation (warm-started as the
+    config says) or, with ``resume``, from a checkpoint of this package or
+    of the JAX package (continuing with the epoch after the saved one)."""
 
     def __init__(self, cfg, resume: Optional[str] = None, device=None):
         _check_single_process(cfg)
-        for what, path in (("model.checkpoint_path", cfg.model.checkpoint_path),
-                           ("model.depth_net.pretrained_encoders",
-                            cfg.model.depth_net.get("pretrained_encoders", ""))):
-            if path:
-                raise NotImplementedError(f"{what} {_A4}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model_cfg = model_config_from(cfg)
@@ -143,6 +139,8 @@ class Trainer:
                            if self.train_loader is not None else 1)
         self.net = self.model_cfg.build_net(
             device=self.device, generator=torch.Generator().manual_seed(cfg.arch.seed))
+        warm_start(self.net, cfg.model.depth_net.get("pretrained_encoders", ""),
+                   cfg.model.checkpoint_path)
         self.optimizer = make_optimizer(self.net, cfg.model.optimizer,
                                         cfg.model.scheduler, steps_per_epoch)
         self.state = create_train_state(self.net, self.optimizer, device=self.device)

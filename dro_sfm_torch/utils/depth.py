@@ -1,13 +1,20 @@
-"""Flip-fusion post-processing of inverse depth maps.
+"""Flip-fusion post-processing of inverse depth maps, and depth files.
 
-PyTorch counterpart of `fuse_inv_depth` and `post_process_inv_depth` in
-`dro_sfm_tpu/utils/depth.py`.
+PyTorch counterpart of `fuse_inv_depth`, `post_process_inv_depth`,
+`load_depth` and `write_depth` in `dro_sfm_tpu/utils/depth.py`: depth files
+are ``.npz`` (``depth``, ``intrinsics``) or uint16 ``.png`` holding
+``depth * 256`` (`dro_sfm_torch.utils.image_io`). The colormap
+(``viz_inv_depth``) needs matplotlib and is ROADMAP A9.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from dro_sfm_torch.ops.image import flip_lr
+from dro_sfm_torch.utils.image_io import read_png, write_png
 
 
 def fuse_inv_depth(inv_depth: torch.Tensor, inv_depth_hat: torch.Tensor,
@@ -38,3 +45,30 @@ def post_process_inv_depth(inv_depth: torch.Tensor,
     mask_hat = torch.flip(mask, dims=(1,))
     return (mask_hat * inv_depth + mask * inv_depth_hat
             + (1.0 - mask - mask_hat) * fused)
+
+
+def load_depth(path: str) -> np.ndarray:
+    """A depth map from ``.npz`` or a uint16 ``.png`` (``depth * 256``)."""
+    if path.endswith("npz"):
+        return np.load(path)["depth"]
+    if path.endswith("png"):
+        depth_png = read_png(path)
+        if depth_png.shape[-1] != 1:
+            raise ValueError(f"{path}: a depth png has one channel, not {depth_png.shape[-1]}")
+        depth_png = depth_png[..., 0].astype(np.float64)
+        if not depth_png.max() > 255:
+            raise ValueError(f"Wrong .png depth file {path}: no value above 255")
+        return (depth_png / 256.0).astype(np.float32)
+    raise NotImplementedError(f"Depth extension not supported: {path}")
+
+
+def write_depth(path: str, depth: np.ndarray,
+                intrinsics: Optional[np.ndarray] = None) -> None:
+    """Save a depth map to ``.npz`` or uint16 ``.png`` (``depth * 256``)."""
+    depth = np.asarray(depth).squeeze()
+    if path.endswith(".npz"):
+        np.savez_compressed(path, depth=depth, intrinsics=intrinsics)
+    elif path.endswith(".png"):
+        write_png(path, (depth * 256.0).astype(np.uint16))
+    else:
+        raise NotImplementedError(f"Depth filename not valid: {path}")

@@ -92,16 +92,22 @@ def test_resume_is_bit_exact(tmp_path):
 
 
 def test_foreign_files_raise(tmp_path):
+    """A file that is not a zip is read as the JAX package's flax msgpack
+    (`test_torch_jax_checkpoint.py`); one that is neither raises, as does a
+    zip file that is not the port's checkpoint."""
     flax = tmp_path / "jax.ckpt"
-    flax.write_bytes(b"\x84\xa6params\x80")               # a msgpack map
-    with pytest.raises(ValueError, match="A4"):
+    flax.write_bytes(b"\x84\xa6params\x80")               # a truncated msgpack map
+    with pytest.raises(ValueError, match="truncated msgpack"):
         load_checkpoint(str(flax))
     (tmp_path / "jax.ckpt.json").write_text(json.dumps({"epoch": 0, "step": 1}))
-    with pytest.raises(ValueError, match="A4"):
+    with pytest.raises(ValueError, match="truncated msgpack"):
+        load_checkpoint(str(flax))
+    flax.write_bytes(b"\x92\x01\x02")                    # msgpack, but a list
+    with pytest.raises(ValueError, match="holds a map"):
         load_checkpoint(str(flax))
     other = tmp_path / "other.pt"
     torch.save({"state_dict": {}}, other)
-    with pytest.raises(ValueError, match="A4"):
+    with pytest.raises(ValueError, match="not a checkpoint of dro_sfm_torch"):
         load_checkpoint(str(other))
 
 

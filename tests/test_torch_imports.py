@@ -3,8 +3,10 @@
 Every ``.py`` under ``dro_sfm_torch/`` and ``chip_smoke.py`` is parsed and
 its imports checked; importing the package in a fresh interpreter must leave
 ``jax`` out of ``sys.modules``. The card's machine has none of PyYAML,
-OpenCV, Pillow or matplotlib, so no module of the port imports them, and
-``wandb`` is imported only inside ``loggers.py:WandbLogger``.
+OpenCV, Pillow, matplotlib or msgpack, so no module of the port imports
+them (it reads flax's msgpack and PNG files itself), and ``wandb`` is
+imported only inside ``loggers.py:WandbLogger``. The trainer, the CLIs and
+the inference applications import none of them.
 """
 import ast
 import subprocess
@@ -15,7 +17,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dro_sfm_tpu")
-ABSENT_ON_THE_CARD = ("yaml", "cv2", "PIL", "matplotlib")
+ABSENT_ON_THE_CARD = ("yaml", "cv2", "PIL", "matplotlib", "msgpack")
 FILES = sorted((ROOT / "dro_sfm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -71,7 +73,11 @@ def test_wandb_only_inside_wandb_logger():
 
 def test_trainer_import_leaves_out_jax_yaml_cv2():
     code = ("import sys, dro_sfm_torch.training.trainer, dro_sfm_torch.scripts.train, "
-            "dro_sfm_torch.scripts.eval\n"
+            "dro_sfm_torch.scripts.eval, dro_sfm_torch.scripts.infer, "
+            "dro_sfm_torch.scripts.infer_pose, dro_sfm_torch.scripts.infer_video, "
+            "dro_sfm_torch.scripts.frames, dro_sfm_torch.inference, "
+            "dro_sfm_torch.training.init_weights, dro_sfm_torch.utils.image_io, "
+            "dro_sfm_torch.visualization.demo_video\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
             "assert not bad, bad\n" % (FORBIDDEN + ABSENT_ON_THE_CARD + ("wandb",),))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,0 +1,206 @@
+"""The port's inference CLIs on a checkpoint of the JAX package (CPU).
+
+The JAX package writes a tiny ``it4-h-out-seq2`` net (48x64) with its own
+``save_checkpoint``, as `tests/test_infer_video_cli.py` does; five PNG
+frames of a rendered scene (the camera moving) and their ground-truth
+poses lie in a folder. The port's ``infer_video``, ``infer`` and
+``infer_pose`` run on them with ``--device cpu``, and their numeric outputs
+are held to the JAX package's ``load_model``, ``make_infer_fn``,
+``TrajectoryAccumulator`` and ``filter_depth`` run here on the same frames
+(read by OpenCV): depth maps and trajectories within 1e-4 (relative L2 per
+map, absolute on the poses); the point cloud's size within the pixels that
+lie within 1e-4 of ``filter_depth``'s thresholds in the JAX depth. What the
+port does not write raises or is named, with its ROADMAP item.
+"""
+import json
+import os
+
+import cv2
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dro_sfm_tpu.data.video import dummy_calibration
+from dro_sfm_tpu.inference import TrajectoryAccumulator, filter_depth
+from dro_sfm_tpu.inference import load_model as jax_load_model
+from dro_sfm_tpu.inference import make_infer_fn as jax_make_infer_fn
+from dro_sfm_tpu.models import DepthPoseNet
+from dro_sfm_tpu.training.checkpoint import save_checkpoint
+from dro_sfm_tpu.utils.config import load_config
+from dro_sfm_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+from dro_sfm_torch.scripts import infer, infer_pose, infer_video
+from dro_sfm_torch.utils.depth import load_depth
+from dro_sfm_torch.utils.image_io import write_png
+from tests.test_torch_modules import fill_variables
+
+torch.set_num_threads(4)
+H, W, FRAMES = 48, 64, 5
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("infer_cli")
+    cfg = load_config(overrides={
+        "model": {"depth_net": {"version": "it4-h-out-seq2"},
+                  "params": {"min_depth": 0.2, "max_depth": 20.0}},
+        "datasets": {"augmentation": {"image_shape": (H, W)}}})
+    net = DepthPoseNet(version="it4-h-out-seq2", min_depth=0.2, max_depth=20.0)
+    variables = fill_variables(lambda k: net.init(
+        k, jnp.zeros((1, H, W, 3)), jnp.zeros((1, 2, H, W, 3)), jnp.eye(3)[None],
+        train=False))
+
+    class State:
+        params = variables["params"]
+        batch_stats = variables["batch_stats"]
+        opt_state = ()
+        step = 0
+
+    ckpt = str(tmp / "tiny.ckpt")
+    save_checkpoint(ckpt, State(), epoch=0, config=cfg.to_dict())
+    frames, gt = tmp / "frames", tmp / "gt"
+    frames.mkdir()
+    gt.mkdir()
+    data = SyntheticDataset(SyntheticConfig(height=H, width=W, num_planes=3))
+    planes, _ = data._scene(2)
+    for i in range(FRAMES):
+        T = np.eye(4)
+        T[:3, 3] = [0.04 * i, 0.0, 0.03 * i]
+        rgb, _ = data._render(planes, T)
+        write_png(str(frames / f"f{i:04d}.png"), (rgb * 255).astype(np.uint8))
+        np.savetxt(gt / f"f{i:04d}.txt", T)
+    return {"ckpt": ckpt, "frames": str(frames), "gt": str(gt), "tmp": tmp}
+
+
+@pytest.fixture(scope="module")
+def reference(scene):
+    """The JAX package's windows over the same frames."""
+    jnet, variables, cfg = jax_load_model(scene["ckpt"])
+    fn = jax_make_infer_fn(jnet)
+    K = dummy_calibration(W, H)
+    files = sorted(os.listdir(scene["frames"]))
+
+    def load(f):
+        img = cv2.imread(os.path.join(scene["frames"], f), cv2.IMREAD_COLOR)[..., ::-1]
+        return cv2.resize(img, (W, H)).astype(np.float32) / 255.0
+
+    accum = TrajectoryAccumulator()
+    depths, filtered = [], []
+    for i in range(1, FRAMES - 1):
+        depth, poses = fn(variables, jnp.asarray(load(files[i])[None]),
+                          jnp.asarray(np.stack([load(files[i - 1]), load(files[i + 1])])[None]),
+                          jnp.asarray(K[None]))
+        depths.append(np.asarray(depth))
+        accum.add(np.asarray(poses)[0], np.asarray(poses)[1])
+        filtered.append(filter_depth(np.asarray(depth)))
+    return {"depths": np.stack(depths), "trajectory": np.stack(accum.trajectory),
+            "filtered": filtered, "fn": fn, "variables": variables, "load": load, "K": K,
+            "files": files}
+
+
+def rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def ply_count(path):
+    with open(path) as f:
+        for line in f:
+            if line.startswith("element vertex"):
+                return int(line.split()[-1])
+
+
+def test_infer_video_matches_the_jax_package(scene, reference, capsys):
+    out = str(scene["tmp"] / "video")
+    result = infer_video.main(["--checkpoint", scene["ckpt"], "--input", scene["frames"],
+                               "--output", out, "--gt-poses", scene["gt"], "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert "ATE-RMSE" in printed and "A9" in printed
+    assert result["windows"] == FRAMES - 2 and result["ate"] is not None
+    depths = np.load(os.path.join(out, "depths.npy"))
+    assert depths.shape == (FRAMES - 2, H, W)
+    for got, want in zip(depths, reference["depths"]):
+        assert rel_l2(got, want) <= 1e-4
+    traj = np.asarray(json.load(open(os.path.join(out, "trajectory.json"))))
+    np.testing.assert_allclose(traj, reference["trajectory"], atol=1e-4, rtol=0)
+    # the point cloud: filter_depth on the JAX depths, but for pixels within
+    # 1e-4 of its thresholds, where a last-bit difference may flip one
+    s, uncertain, want = 4, 0, 0
+    for depth, filt in zip(reference["depths"], reference["filtered"]):
+        pad = np.pad(depth, [(0, 1), (0, 1)])
+        grad = (pad[1:, :-1] - pad[:-1, :-1]) ** 2 + (pad[:-1, 1:] - pad[:-1, :-1]) ** 2
+        near = (np.abs(grad - 0.05) < 1e-4) | (np.abs(depth - 10.0) < 1e-4)
+        uncertain += int(near[::s, ::s].sum())
+        want += int((filt[::s, ::s] > 0).sum())
+    assert abs(ply_count(os.path.join(out, "pointcloud.ply")) - want) <= uncertain
+    assert result["points"] == ply_count(os.path.join(out, "pointcloud.ply"))
+    obj = open(os.path.join(out, "trajectory_pose.obj")).read().splitlines()
+    assert sum(line.startswith("v ") for line in obj) == FRAMES - 2
+
+
+def test_infer_video_fusion_runs(scene):
+    out = str(scene["tmp"] / "fused")
+    result = infer_video.main(["--checkpoint", scene["ckpt"], "--input", scene["frames"],
+                               "--output", out, "--fusion-views", "2", "--device", "cpu"])
+    assert result["windows"] == FRAMES - 2 and result["points"] >= 0
+    assert len(result["decode_ms"]) == FRAMES                 # each frame decoded once
+
+
+def test_infer_and_infer_pose_match_the_jax_package(scene, reference):
+    out = scene["tmp"] / "single"
+    written = infer.main(["--checkpoint", scene["ckpt"], "--input", scene["frames"],
+                          "--output", str(out), "--ply", "--device", "cpu"])
+    assert len(written) == FRAMES and len(list(out.glob("*.ply"))) == FRAMES
+    load, fn, K = reference["load"], reference["fn"], reference["K"]
+    files = reference["files"]
+    for i, path in enumerate(written):
+        prev_f, next_f = files[max(i - 1, 0)], files[min(i + 1, FRAMES - 1)]
+        depth, _ = fn(reference["variables"], jnp.asarray(load(files[i])[None]),
+                      jnp.asarray(np.stack([load(prev_f), load(next_f)])[None]),
+                      jnp.asarray(K[None]))
+        assert rel_l2(load_depth(path), np.asarray(depth)) <= 1e-4
+        assert np.array_equal(np.load(path)["intrinsics"], K)
+    # a single frame is its own context; a png holds depth * 256 as uint16
+    png = infer.main(["--checkpoint", scene["ckpt"], "--input", os.path.join(
+        scene["frames"], files[1]), "--output", str(out / "png"), "--save", "png",
+        "--device", "cpu"])
+    one = load(files[1])
+    depth, _ = fn(reference["variables"], jnp.asarray(one[None]),
+                  jnp.asarray(np.stack([one, one])[None]), jnp.asarray(K[None]))
+    got = cv2.imread(png[0], cv2.IMREAD_ANYDEPTH).astype(int)
+    want = (np.asarray(depth) * 256.0).astype(np.uint16).astype(int)
+    assert got.shape == (H, W) and np.abs(got - want).max() <= 1
+
+    traj_path = str(scene["tmp"] / "pose.json")
+    infer_pose.main(["--checkpoint", scene["ckpt"], "--input", scene["frames"],
+                     "--output", traj_path, "--device", "cpu"])
+    np.testing.assert_allclose(np.asarray(json.load(open(traj_path))),
+                               reference["trajectory"], atol=1e-4, rtol=0)
+
+
+def test_what_is_not_ported_raises(scene, tmp_path):
+    common = ["--checkpoint", scene["ckpt"], "--device", "cpu"]
+    jpg_dir = tmp_path / "jpg"
+    jpg_dir.mkdir()
+    for i in range(3):
+        cv2.imwrite(str(jpg_dir / f"{i}.jpg"), np.zeros((H, W, 3), np.uint8))
+    video = tmp_path / "clip.mp4"
+    video.write_bytes(b"")
+    cases = [
+        (infer.main, ["--input", scene["frames"], "--output", str(tmp_path), "--save", "viz"],
+         "A9"),
+        (infer_pose.main, ["--input", scene["frames"], "--output", str(tmp_path / "t.json"),
+                           "--plot", str(tmp_path / "t.png")], "A9"),
+        (infer_video.main, ["--input", scene["frames"], "--output", str(tmp_path), "--ba"],
+         "A10"),
+        (infer_video.main, ["--input", scene["frames"], "--output", str(tmp_path),
+                            "--gt-depth", str(tmp_path)], "A9"),
+        (infer_video.main, ["--input", str(video), "--output", str(tmp_path)], "A9"),
+        (infer_video.main, ["--input", str(jpg_dir), "--output", str(tmp_path)], "A9"),
+    ]
+    for main, args, item in cases:
+        with pytest.raises(NotImplementedError, match=item):
+            main(common + args)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            infer_pose.main(["--checkpoint", scene["ckpt"], "--input", scene["frames"],
+                             "--output", str(tmp_path / "t.json")])

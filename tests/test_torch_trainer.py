@@ -4,9 +4,10 @@
 trains, validates and writes its top-k checkpoint; a resume into the next
 epoch that ends bit for bit where an uninterrupted run ends; the SIGTERM
 emergency checkpoint; the padded evaluation tail; the train CLI in a
-subprocess and the eval CLI on its checkpoint; what is not ported raises
-(several processes, spatial shards, the flax msgpack files of warm starts
-and of the perceptual net).
+subprocess and the eval CLI on its checkpoint; depth files as ``save.depth``
+asks; what is not ported raises (spatial shards, the file datasets, the rgb
+and viz images). Warm starts from the JAX package's files are held in
+`test_torch_init_weights.py`.
 """
 import json
 import os
@@ -194,11 +195,7 @@ def test_train_cli_profiles_the_first_steps(tmp_path):
 
 @pytest.mark.parametrize("overrides, error, match", [
     ({"arch": {"spatial_shards": 2}}, NotImplementedError, "A8"),
-    ({"model": {"depth_net": {"pretrained_encoders": "r18.msgpack"}}},
-     NotImplementedError, "A4"),
-    ({"model": {"checkpoint_path": "other.ckpt"}}, NotImplementedError, "A4"),
-    ({"model": {"name": "SelfSupModelMF", "loss": {"percep_loss_weight": 0.1},
-                "percep_net": {"checkpoint_path": "vgg16.msgpack"}}}, NotImplementedError, "A4"),
+    ({"datasets": {"train": {"dataset": ["KITTI"]}}}, KeyError, "A5"),
 ])
 def test_not_ported_raises(tmp_path, overrides, error, match):
     with pytest.raises(error, match=match):
@@ -206,9 +203,20 @@ def test_not_ported_raises(tmp_path, overrides, error, match):
 
 
 def test_png_artifacts_and_missing_card_raise(tmp_path):
+    """``save.depth.png`` writes uint16 depth pngs (depth * 256) beside the
+    npz files; the rgb and viz images raise (ROADMAP A9)."""
+    from dro_sfm_torch.utils.image_io import read_png
     trainer = Trainer(tiny_config(tmp_path, save={"depth": {"png": True}}), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        trainer.test(save_artifacts=True)
+    trainer.test(save_artifacts=True)
+    pngs = sorted((tmp_path / "save").glob("*_depth.png"))
+    assert len(pngs) == 3
+    for png in pngs:
+        depth = np.load(str(png)[:-len(".png")] + ".npz")["depth"]
+        assert np.array_equal(read_png(str(png))[..., 0], (depth * 256.0).astype(np.uint16))
+    for flag in ("rgb", "viz"):
+        trainer = Trainer(tiny_config(tmp_path, save={"depth": {flag: True}}), device="cpu")
+        with pytest.raises(NotImplementedError, match="A9"):
+            trainer.test(save_artifacts=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train_cli.main([str(tiny_yaml(tmp_path))])
