@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (supervised,
-self-supervised, semi-supervised and single-frame), and its trainer, on one
-NVIDIA GPU and check their kernels.
+self-supervised, semi-supervised and single-frame), its trainer and its
+dataset readers, on one NVIDIA GPU and check their kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -113,7 +113,26 @@ result line):
    and poses against the same windows through the plain warp (fp32, 1e-5
    relative L2); `geometric_fusion` on the card against the CPU away from
    its thresholds, on the CLI's depths and on the scene's exact ones; ms per
-   window, PNG decode ms per frame.
+   window, PNG decode ms per frame;
+24. datasets: training from dataset files. The host image codec
+   (``csrc/image_codec.cpp``) built with the C++ compiler; the committed
+   JPEG fixtures (``dro_sfm_torch/testdata/jpeg``) decoded to OpenCV's
+   sha256; JPEG, PNG, row-filter and uint8 resize times on this host. A
+   ScanNet tree (the 480x640 JPEG views, millimetre depth and poses of the
+   renderer that drew them) trains ``configs/train_scannet_mf_gt_view3.yaml``
+   through `Trainer` (SupModelMF it12-h-out, B=8, 240x320, 2 epochs of 3
+   steps, each validated on one B=4 ScannetTest batch with ground truth at
+   480x640) and a KITTI drive of 375x1242 PNG frames with 16-bit ground
+   truth trains ``configs/train_kitti_mf_gt.yaml`` (it12-h, B=2, 320x960, 2
+   epochs of 2 steps), each
+   from `tame_weights`: counts reset just before fit() and read just after,
+   K1 24, K2 24, K3 18 a step and K1 48 an eval batch, or it fails; losses
+   and metrics finite. It prints the loader's frames/s alone, the trainer's
+   and the bare step's. Then one B=2 batch of every other reader
+   (ScannetTest, ScannetTestMF, ScannetBA, Demon, DemonMF, Matterport,
+   MatterportTest, Video, Video_Random, Image, DGP) through `make_loader`
+   and `device_prefetch` onto the card, its schema checked. The trees live
+   under ``build/datasets`` and are removed at the end.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -2347,10 +2366,450 @@ def phase_apps(counters, gpu):
     return launches
 
 
+DATASETS_BUILD = ROOT / "build" / "datasets"
+FIXTURES = ROOT / "dro_sfm_torch" / "testdata" / "jpeg"
+SCANNET_CONFIG = ROOT / "configs" / "train_scannet_mf_gt_view3.yaml"
+KITTI_CONFIG = ROOT / "configs" / "train_kitti_mf_gt.yaml"
+SCANNET_STEPS, KITTI_STEPS = 3, 2          # a training epoch
+DATASET_EPOCHS = 2                          # the first is the start-up
+# Read through make_loader and device_prefetch; "train" resizes and jitters.
+OTHER_READERS = {"ScannetTest": "validation", "ScannetTestMF": "validation",
+                 "ScannetBA": "train", "Demon": "train", "DemonMF": "train",
+                 "Matterport": "train", "MatterportTest": "validation", "Video": "train",
+                 "Video_Random": "train", "Image": "train", "DGP": "validation"}
+
+
+def host_ms(fn, reps=20):
+    """Median host milliseconds of ``fn`` over ``reps`` calls after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def check_fixtures():
+    """Decode every committed JPEG fixture with the port's codec and hold it
+    to OpenCV's sha256; returns the fixtures' table and the decoded views."""
+    import hashlib
+
+    from dro_sfm_torch.utils.image_io import read_image_rgb
+    meta = json.loads((FIXTURES / "fixtures.json").read_text())
+    for name, entry in meta["files"].items():
+        img = read_image_rgb(str(FIXTURES / name))
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != entry["shape"] or digest != entry["sha256"]:
+            fail(f"datasets: {name} decodes to {img.shape} sha256 {digest[:16]}, OpenCV's "
+                 f"{entry['shape']} {entry['sha256'][:16]}")
+    return meta
+
+
+def depth_png_bytes(path, depth, scale):
+    """A uint16 depth PNG (``depth * scale``, 0 where invalid) at ``path``."""
+    import numpy as np
+
+    from dro_sfm_torch.utils.image_io import write_png
+    d = np.where(np.isfinite(depth) & (depth > 0), depth * scale, 0)
+    write_png(str(path), np.clip(d, 0, 65535).astype(np.uint16))
+    return Path(path).read_bytes()
+
+
+def write_scene_trees(root, meta):
+    """ScanNet, BA-Net, DeMoN, Matterport, video and DGP trees under
+    ``root`` from the fixtures: the 4:2:0 views copied as colour frames,
+    each view's depth and camera-to-world pose from the renderer that drew
+    it. Returns the ScanNet data root."""
+    import numpy as np
+
+    from dro_sfm_torch.data import SyntheticConfig, SyntheticDataset
+    data = SyntheticDataset(SyntheticConfig(**meta["render"]))
+    planes, poses = data._scene(meta["scene"])
+    depths = [data._render(planes, p)[1][..., 0] for p in poses]
+    jpgs = [(FIXTURES / f"view{i}.jpg").read_bytes() for i in range(len(poses))]
+    root.mkdir(parents=True)
+    mm = [depth_png_bytes(root / f"mm{i}.png", d, 1000.0) for i, d in enumerate(depths)]
+    K = data.K.astype(np.float64)
+
+    def frame(color_dir, name, i):
+        """View ``i % 4`` as frame ``name``: the JPEG in ``color_dir``, the
+        millimetre depth in ``../depth`` and the pose in ``../pose``."""
+        v, stem = i % len(jpgs), name[:-4]
+        for path, blob in ((color_dir / name, jpgs[v]),
+                           (color_dir.parent / "depth" / f"{stem}.png", mm[v])):
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_bytes(blob)
+        (color_dir.parent / "pose").mkdir(exist_ok=True)
+        np.savetxt(color_dir.parent / "pose" / f"{stem}.txt", poses[v])
+
+    # ScanNet: every 5th of the listed frames is read, so only those exist.
+    scans, scene = root / "scans", "scene0000_00"
+    kept = [f"{i:06d}.jpg" for i in range(0, 5 * (8 * SCANNET_STEPS + 2), 5)]
+    for i, name in enumerate(kept):
+        frame(scans / scene / "color", name, i)
+    (scans / scene / "intrinsic").mkdir()
+    K4 = np.eye(4)
+    K4[:3, :3] = K
+    np.savetxt(scans / scene / "intrinsic" / "intrinsic_color.txt", K4)
+    (root / "train_split.txt").write_text("".join(
+        f"{scene}/color {i:06d}.jpg\n" for i in range(5 * len(kept))))
+    (root / "avail.txt").write_text("".join(f"{scene}/color {n}\n" for n in kept))
+    (root / "test_split_view3.txt").write_text("".join(
+        f"{scene}/color {kept[t]} {kept[t - 1]} {kept[t + 1]}\n" for t in range(1, 5)))
+    (root / "splits").mkdir()
+    groups = [(20, 25), (40, 35), (60, 65), (80, 75)]
+    (root / "splits" / "banet_train.txt").write_text("".join(
+        f"data/scannet/scans/{scene}/frame-{t:06d}.color.jpg\n"
+        f"data/scannet/scans/{scene}/frame-{p:06d}.color.jpg\n"
+        + "".join(f"data/scannet/scans/{scene}/x{k}.txt\n" for k in range(5))
+        for t, p in groups))
+
+    # DeMoN: two three-view folders and a two-view one (poses world->camera).
+    demon = root / "demon"
+    for k, views in enumerate((3, 3, 2)):
+        d = demon / f"sun3d_{k}"
+        d.mkdir(parents=True)
+        for v in range(views):
+            (d / f"{v:04d}.jpg").write_bytes(jpgs[(k + v) % len(jpgs)])
+            np.save(d / f"{v:04d}.npy", depths[(k + v) % len(jpgs)])
+        np.savetxt(d / "poses.txt", np.stack([np.linalg.inv(poses[(k + v) % len(jpgs)])[:3]
+                                              .reshape(-1) for v in range(views)]))
+        np.savetxt(d / "cam.txt", K)
+    (demon / "train.txt").write_text("sun3d_0\nsun3d_1\nsun3d_2\n")
+
+    # Matterport: 30 frames, so that both downsamplings keep samples.
+    mp = root / "matterport"
+    names = [f"{i:013d}.jpg" for i in range(30)]
+    for i, name in enumerate(names):
+        frame(mp / "sceneA" / "cam_left", name, i)
+    (mp / "split.txt").write_text("".join(f"sceneA/cam_left {n}\n" for n in names))
+
+    # Video and image folders.
+    for i in range(8):
+        path = root / "video" / "seq0" / f"{i:06d}.jpg"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(jpgs[i % len(jpgs)])
+
+    # DGP: one scene of four samples, lidar points on a plane 4 m ahead.
+    sd = root / "ddad" / "scene_000"
+    (sd / "point_cloud" / "lidar").mkdir(parents=True)
+    (sd / "rgb" / "camera_01").mkdir(parents=True)
+    (sd / "calibration").mkdir()
+    ys, xs = np.mgrid[-2.0:2.0:60j, -3.0:3.0:80j]
+    points = np.stack([xs.ravel(), ys.ravel(), np.full(xs.size, 4.0)], -1)
+    datums, samples = [], []
+    for t in range(4):
+        ts = f"{t:016d}"
+        (sd / "rgb" / "camera_01" / f"{ts}.jpg").write_bytes(jpgs[t])
+        np.savez(sd / "point_cloud" / "lidar" / f"{ts}.npz", data=points)
+        tx = {"translation": {"x": float(poses[t][0, 3]), "y": float(poses[t][1, 3]),
+                              "z": float(poses[t][2, 3])}, "rotation": {"qw": 1.0}}
+        datums += [{"key": f"img{t}", "id": {"name": "camera_01", "timestamp": ts},
+                    "datum": {"image": {"filename": f"rgb/camera_01/{ts}.jpg", "pose": tx}}},
+                   {"key": f"pc{t}", "id": {"name": "lidar", "timestamp": ts},
+                    "datum": {"point_cloud": {"filename": f"point_cloud/lidar/{ts}.npz",
+                                              "pose": {}}}}]
+        samples.append({"datum_keys": [f"img{t}", f"pc{t}"], "calibration_key": "c0"})
+    (sd / "calibration" / "c0.json").write_text(json.dumps({
+        "names": ["camera_01", "lidar"],
+        "intrinsics": [{"fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2]}, {}]}))
+    (sd / "scene.json").write_text(json.dumps({"name": "scene_000", "samples": samples,
+                                               "data": datums}))
+    (root / "ddad" / "scene_dataset_v1.0.json").write_text(json.dumps(
+        {"scene_splits": {"1": {"filenames": ["scene_000/scene.json"]}}}))
+    return scans
+
+
+def write_kitti_tree(root, n=2 * KITTI_STEPS + 2):
+    """A KITTI raw drive of ``n`` rendered 375x1242 PNG frames, OXTS
+    packets, calibration and 16-bit ground-truth depth (every third row
+    empty, as projected lidar is sparse). Returns the frames' render time."""
+    import numpy as np
+
+    from dro_sfm_torch.data import SyntheticConfig, SyntheticDataset
+    from dro_sfm_torch.utils.image_io import write_png
+    t0 = time.perf_counter()
+    data = SyntheticDataset(SyntheticConfig(height=375, width=1242, num_planes=3,
+                                            num_context=n - 1, seed=1))
+    planes, poses = data._scene(0)
+    date = "2011_09_26"
+    drive = root / date / f"{date}_drive_0001_sync"
+    for i, pose in enumerate(poses):
+        rgb, depth = data._render(planes, pose)
+        name = f"{i:010d}"
+        for sub in ("image_02/data", "oxts/data", "proj_depth/groundtruth/image_02"):
+            (drive / sub).mkdir(parents=True, exist_ok=True)
+        write_png(str(drive / "image_02" / "data" / f"{name}.png"),
+                  (rgb * 255).astype(np.uint8))
+        gt = depth[..., 0].copy()
+        gt[::3] = 0
+        depth_png_bytes(drive / "proj_depth" / "groundtruth" / "image_02" / f"{name}.png",
+                        gt, 256.0)
+        vals = [49.0 + 1e-5 * i, 8.43 + 2e-5 * i, 110.0, 0.002 * i, 0.0, 0.01 * i] + [0.0] * 24
+        np.savetxt(drive / "oxts" / "data" / f"{name}.txt", np.array(vals)[None], fmt="%.9f")
+    K = data.K
+    (root / date / "calib_cam_to_cam.txt").write_text(
+        f"P_rect_02: {K[0, 0]} 0 {K[0, 2]} 45.0 0 {K[1, 1]} {K[1, 2]} 0.2 0 0 1 0.003\n"
+        "R_rect_00: 0.9999 0.0093 -0.0073 -0.0093 0.9999 -0.0043 0.0074 0.0042 0.9999\n")
+    (root / date / "calib_velo_to_cam.txt").write_text(
+        "R: 0.0075 -0.9999 -0.0006 0.0148 0.0007 -0.9999 0.9999 0.0075 0.0148\n"
+        "T: -0.0041 -0.0763 -0.2717\n")
+    (root / date / "calib_imu_to_velo.txt").write_text(
+        "R: 1 0.0008 -0.002 -0.0008 0.9999 0.0148 0.002 -0.0148 0.9999\n"
+        "T: -0.8087 0.3196 -0.7997\n")
+    rel = f"{date}/{date}_drive_0001_sync/image_02/data"
+    (root / "train_split.txt").write_text("".join(f"{rel}/{i:010d}.png\n"
+                                                  for i in range(1, n - 1)))
+    (root / "val_split.txt").write_text("".join(f"{rel}/{i:010d}.png\n" for i in (1, 2)))
+    return time.perf_counter() - t0
+
+
+def dataset_trainer(config, counters, steps, eval_shapes, gpu, **overrides):
+    """`Trainer.fit` for `DATASET_EPOCHS` epochs of ``config`` with ``overrides``, from
+    `tame_weights`: every count reset just before fit() and read just after;
+    K1 24, K2 24, K3 18 a step and K1 48 an eval batch; finite losses and
+    metrics; the first train and eval batches of the shapes asked for.
+    Prints the loader's frames/s alone, the trainer's and the bare step's,
+    the first two with every frame decoded (decode cache off)."""
+    from dro_sfm_torch.data import kitti as frame_reader
+    from dro_sfm_torch.training.trainer import Trainer
+    from dro_sfm_torch.utils.config import load_config
+    cfg = load_config(str(config), overrides={"arch": {"max_epochs": DATASET_EPOCHS},
+                                              **overrides})
+    trainer = Trainer(cfg, device="cuda")
+    b = cfg.datasets.train.batch_size
+    h, w = cfg.datasets.augmentation.image_shape
+    tb = next(iter(trainer.train_loader))
+    vb = next(iter(trainer.val_loaders[0]))
+    got = (tb["rgb"].shape, tb["depth"].shape, vb["rgb"].shape, vb["depth"].shape)
+    want = ((b, h, w, 3), (b, h, w, 1), *eval_shapes)
+    if got != want:
+        fail(f"datasets: {config.name} batches {got}, want {want}")
+    with torch.no_grad():
+        trainer.net.load_state_dict(tame_weights(trainer.net.state_dict()))
+    bare = trainer.train_step
+    train, evaluate, epochs = counted_trainer(trainer, counters)
+    # The loader and the trainer are timed with the readers' decode cache
+    # off: these trees fit in it, a dataset does not, so every frame a
+    # sample names is decoded.
+    cache_size = frame_reader._DECODE_CACHE_SIZE
+    frame_reader._DECODE_CACHE_SIZE = 0
+    frame_reader._decode_cache.clear()
+    try:
+        t0 = time.perf_counter()
+        frames = sum(len(batch["idx"]) for batch in trainer.train_loader)
+        loader_fps = frames / (time.perf_counter() - t0)
+        for c in counters.values():          # this slice's path starts here
+            c.reset()
+        metrics = trainer.fit()
+        launches = {k: c.launches for k, c in counters.items()}   # and ends here
+    finally:
+        frame_reader._DECODE_CACHE_SIZE = cache_size
+    if len(train.launches) != DATASET_EPOCHS * steps or not evaluate.launches:
+        fail(f"datasets: {config.name}: {len(train.launches)} steps, "
+             f"{len(evaluate.launches)} eval batches")
+    check_launches(f"{config.name} train step", train.launches, TRAIN_LAUNCHES, counters)
+    check_launches(f"{config.name} eval batch", evaluate.launches, EVAL_LAUNCHES, counters)
+    losses = [m["loss"].item() for _, m in train.outputs]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"datasets: {config.name}: non-finite losses {losses}")
+    check_finite(config.name, metrics)
+    placed = trainer._place_train(tb)
+    flips = torch.Generator().manual_seed(0)
+    step_ms = host_ms(lambda: (bare(trainer.state, placed, flips),
+                               torch.cuda.synchronize()), reps=3)
+    fps = " / ".join(f"{e['train_frames_per_sec']:.1f}" for e in epochs.outputs)
+    print(f"datasets trainer {config.name} {cfg.model.depth_net.version} {h}x{w} B={b}: "
+          f"{DATASET_EPOCHS} epochs x {steps} steps, losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}, abs_rel_pp_gt "
+          f"{metrics['abs_rel_pp_gt']:.4f}; train {fps} frames/s by epoch against the bare "
+          f"step's "
+          f"{1e3 * b / step_ms:.1f} ({step_ms:.1f} ms/step, batch on the card); loader "
+          f"alone {loader_fps:.1f} frames/s ({trainer.train_loader.num_workers} threads); "
+          f"decode cache off for both; "
+          f"eval batch {' / '.join(f'{v:.1f}' for v in evaluate.ms)} ms; launches per step "
+          f"{train.launches[-1]}, per eval batch {evaluate.launches[-1]}; eval images "
+          f"{vb['rgb'].shape[1:3]}, ground truth {vb['depth'].shape[1:3]}; on {gpu}",
+          flush=True)
+    del trainer, placed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_batch(name, batch, placed, shape):
+    """The sample schema on a collated batch and its copy on the card."""
+    import numpy as np
+
+    b = len(batch["idx"])
+    rgb, ctx = batch["rgb"], batch["rgb_context"]
+    bad = []
+    if rgb.shape != (b, *shape, 3) or rgb.dtype != np.float32 or not 0 <= rgb.min() \
+            or rgb.max() > 1:
+        bad.append(f"rgb {rgb.shape} {rgb.dtype}")
+    if ctx.ndim != 5 or ctx.shape[0] != b or ctx.shape[2:] != rgb.shape[1:]:
+        bad.append(f"rgb_context {ctx.shape}")
+    if batch["intrinsics"].shape != (b, 3, 3):
+        bad.append(f"intrinsics {batch['intrinsics'].shape}")
+    if "depth" in batch and (batch["depth"].ndim != 4 or batch["depth"].shape[-1] != 1):
+        bad.append(f"depth {batch['depth'].shape}")
+    if "pose_context" in batch and batch["pose_context"].shape != (b, ctx.shape[1], 4, 4):
+        bad.append(f"pose_context {batch['pose_context'].shape}")
+    for k, t in placed.items():
+        if t.device.type != "cuda" or not torch.equal(
+                t.cpu(), torch.from_numpy(np.ascontiguousarray(batch[k], np.float32))):
+            bad.append(f"{k} on the card")
+        if not bool(torch.isfinite(t).all()):
+            bad.append(f"{k} not finite")
+    if bad:
+        fail(f"datasets: {name}: {', '.join(bad)}")
+
+
+def phase_datasets(counters, gpu):
+    """Training from dataset files: the host codec built and held to
+    OpenCV's bytes on the committed JPEG fixtures; decode and resize times;
+    ScanNet (JPEG) and KITTI (PNG) trees trained through `Trainer` from
+    their configs (this slice's path: launches checked per step and eval
+    batch); one batch of every other reader through `make_loader` and
+    `device_prefetch` onto the card."""
+    import shutil
+    import zlib
+
+    import numpy as np
+
+    from dro_sfm_torch import hostlib
+    from dro_sfm_torch.data import make_loader, setup_dataset
+    from dro_sfm_torch.data.loader import device_prefetch, to_device
+    from dro_sfm_torch.utils.config import load_config
+    from dro_sfm_torch.utils.image_io import (
+        _chunks,
+        _unfilter,
+        decode_jpeg,
+        png_unfilter,
+        read_png,
+        resize_bilinear_u8,
+        write_png,
+    )
+    t_start = time.perf_counter()
+    precision = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    shutil.rmtree(DATASETS_BUILD, ignore_errors=True)
+    try:
+        fresh = not hostlib.library_path("image_codec").is_file()
+        t0 = time.perf_counter()
+        library = hostlib.build("image_codec")
+        built = (f"built {library.name} in {time.perf_counter() - t0:.1f} s" if fresh else
+                 f"{library.name} found built (by phase apps, which reads PNG, or before "
+                 f"this run)")
+        meta = check_fixtures()
+
+        # Decode and resize times on this host.
+        jpg = (FIXTURES / "view0.jpg").read_bytes()
+        jpg444 = (FIXTURES / "view0_444.jpg").read_bytes()
+        view = decode_jpeg(jpg)
+        DATASETS_BUILD.mkdir(parents=True)
+        write_png(str(DATASETS_BUILD / "view0.png"), view)
+        kitti = DATASETS_BUILD / "kitti"
+        render_s = write_kitti_tree(kitti)
+        frame = next((kitti / "2011_09_26").rglob("image_02/data/0000000001.png"))
+        idat = b"".join(body for kind, body in _chunks(frame.read_bytes(), str(frame))
+                        if kind == b"IDAT")
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(375, 1242 * 3 + 1)
+        kframe = read_png(str(frame))
+        times = {
+            "jpeg 480x640 4:2:0": host_ms(lambda: decode_jpeg(jpg)),
+            "jpeg 480x640 4:4:4": host_ms(lambda: decode_jpeg(jpg444)),
+            "png 480x640": host_ms(lambda: read_png(str(DATASETS_BUILD / "view0.png"))),
+            "png 375x1242": host_ms(lambda: read_png(str(frame))),
+            "unfilter 375x1242 C++": host_ms(lambda: png_unfilter(rows, 3)),
+            "unfilter 375x1242 numpy": host_ms(
+                lambda: _unfilter(rows[:, 1:].reshape(375, 1242, 3), rows[:, 0]), reps=5),
+            "resize 480x640->240x320": host_ms(lambda: resize_bilinear_u8(view, (240, 320))),
+            "resize 375x1242->320x960": host_ms(
+                lambda: resize_bilinear_u8(kframe, (320, 960))),
+        }
+        print(f"datasets codec: {built}; {len(meta['files'])} JPEG "
+              f"fixtures equal OpenCV {meta['opencv']}'s sha256; host ms (median): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+              + f"; KITTI frames rendered and written in {render_s:.1f} s; on {gpu}",
+              flush=True)
+
+        scans = write_scene_trees(DATASETS_BUILD / "scenes", meta)
+        build = DATASETS_BUILD / "runs"
+        quiet = {"depth": {"png": False, "rgb": False, "viz": False}}
+        scannet_eval = {"path": [str(scans)], "split": ["test_split_view3.txt"],
+                        "batch_size": 4, "num_workers": 4}
+        launches = dataset_trainer(
+            SCANNET_CONFIG, counters, SCANNET_STEPS, ((4, 240, 320, 3), (4, 480, 640, 1)), gpu,
+            checkpoint={"filepath": str(build / "scannet")},
+            save={"folder": str(build / "scannet_depth"), **quiet},
+            datasets={"train": {"path": [str(scans)], "split": ["train_split.txt"],
+                                "num_workers": 8},
+                      "validation": scannet_eval, "test": scannet_eval})
+        kitti_eval = {"path": [str(kitti)], "split": ["val_split.txt"], "batch_size": 2,
+                      "num_workers": 4}
+        dataset_trainer(
+            KITTI_CONFIG, counters, KITTI_STEPS, ((2, 320, 960, 3), (2, 375, 1242, 1)), gpu,
+            checkpoint={"filepath": str(build / "kitti")},
+            save={"folder": str(build / "kitti_depth"), **quiet},
+            datasets={"train": {"path": [str(kitti)], "split": ["train_split.txt"],
+                                "repeat": [1], "num_workers": 8},
+                      "validation": kitti_eval, "test": kitti_eval})
+
+        # Every other reader: one batch onto the card.
+        scenes = DATASETS_BUILD / "scenes"
+        sources = {"ScannetTest": (scans, "test_split_view3.txt", {}),
+                   "ScannetTestMF": (scans, "test_split_view3.txt", {}),
+                   "ScannetBA": (scans, "avail.txt", {}),
+                   "Demon": (scenes / "demon", "train.txt", {}),
+                   "DemonMF": (scenes / "demon", "train.txt", {}),
+                   "Matterport": (scenes / "matterport", "split.txt", {}),
+                   "MatterportTest": (scenes / "matterport", "split.txt", {}),
+                   "Video": (scenes / "video", "", {"depth_type": [""]}),
+                   "Video_Random": (scenes / "video", "", {"depth_type": [""]}),
+                   "Image": (scenes / "video", "", {"depth_type": [""]}),
+                   "DGP": (scenes / "ddad", "val", {"depth_type": ["lidar"],
+                                                     "cameras": [["camera_01"]]})}
+        shape = (240, 320)
+        report = []
+        for name, mode in OTHER_READERS.items():
+            path, split, extra = sources[name]
+            key = "train" if mode == "train" else "validation"
+            section = {"dataset": [name], "path": [str(path)], "split": [split],
+                       "depth_type": ["groundtruth"], "back_context": 1,
+                       "forward_context": 1, **extra}
+            cfg = load_config(overrides={"datasets": {
+                "augmentation": {"image_shape": list(shape),
+                                 "jittering": [0.2, 0.2, 0.2, 0.05]}, key: section}})
+            ds = setup_dataset(cfg.datasets[key], cfg.datasets.augmentation, mode)
+            ds = ds if mode == "train" else ds[0]
+            t0 = time.perf_counter()
+            loader = make_loader(ds, 2, mode, num_workers=2)
+            keys = ("rgb", "rgb_context", "intrinsics", "depth", "pose_context")
+            batch, placed = next(device_prefetch(
+                loader, lambda b: to_device(b, torch.device("cuda"), keys), depth=1))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            check_batch(name, batch, placed, shape)
+            extras = [f"depth {batch['depth'].shape[1]}x{batch['depth'].shape[2]}"] \
+                if "depth" in batch else []
+            extras += ["poses"] if "pose_context" in batch else []
+            report.append(f"{name} ({mode}, {len(ds)} samples, {batch['rgb_context'].shape[1]} "
+                          f"context, {', '.join(extras) or 'no ground truth'}) {ms:.0f} ms")
+        print(f"datasets readers: one B=2 batch each through make_loader and "
+              f"device_prefetch at {shape[0]}x{shape[1]}: " + "; ".join(report), flush=True)
+        print(f"datasets: phase {time.perf_counter() - t_start:.1f} s on {gpu}", flush=True)
+        return launches
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = precision
+        shutil.rmtree(DATASETS_BUILD, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
           "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
-          "trainer", "selfsup_trainer", "apps")
+          "trainer", "selfsup_trainer", "apps", "datasets")
 
 
 def main() -> int:
@@ -2497,6 +2956,14 @@ def main() -> int:
 
     # 23) a JAX-format checkpoint served (infer_video) and resumed on the card
     phase("apps", phase_apps, counters, gpu)
+
+    # 24) training from dataset files (this slice's path: its launches are
+    # checked per step and per eval batch)
+    launches_d = phase("datasets", phase_datasets, counters, gpu)
+    if launches_d is not None:
+        for name in TRAIN_LAUNCHES:
+            if launches_d[name] == 0:
+                fail(f"the dataset training path never launched {name}")
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)

@@ -1,0 +1,752 @@
+// Host image codec of the port: a baseline JPEG decoder and the PNG row
+// filters, in plain C++ with a C interface (loaded with ctypes, which
+// releases the interpreter lock around each call).
+//
+// jpeg_info / jpeg_decode decode what cv2.imread(path, IMREAD_COLOR) gives
+// (in RGB order) for baseline and extended sequential Huffman JPEG files
+// with 8-bit samples and 1 or 3 components, as libjpeg-turbo decodes them
+// with its defaults:
+//   * the integer "islow" inverse DCT (jidctint.c), with its range limit;
+//   * fancy (triangle) upsampling for h2v1, h1v2 and h2v2 chroma
+//     (jdsample.c), box replication for other integral factors (4:1:1);
+//   * the fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16);
+//   * grayscale repeated to three channels.
+// Progressive, arithmetic-coded, lossless and 12-bit files, 4-component
+// files, and truncated or corrupt streams are refused with a message (where
+// libjpeg would warn and fill in, this decoder fails). The EXIF orientation
+// tag is reported by jpeg_info; the caller applies it.
+//
+// png_unfilter undoes the five PNG row filters (None, Sub, Up, Average,
+// Paeth) of inflated, non-interlaced image data.
+//
+// Every entry point returns 0 on success, else -1 (a broken stream) or -2 (a
+// valid one that is not supported) with a message in err.
+
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct CodecError {
+  std::string msg;
+  bool unsupported;
+};
+
+// A stream that is broken, and a valid one that this decoder does not take.
+[[noreturn]] void fail(const std::string& msg) { throw CodecError{msg, false}; }
+[[noreturn]] void unsupported(const std::string& msg) { throw CodecError{msg, true}; }
+
+const int kZigzag[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+constexpr int kLookBits = 9;
+
+struct Huffman {
+  bool defined = false;
+  int maxcode[18];
+  int valoffset[18];
+  uint8_t vals[256];
+  uint16_t look[1 << kLookBits];  // (length << 8) | value; length 0: longer code
+
+  void build(const uint8_t* counts, const uint8_t* symbols, int nsym) {
+    std::memcpy(vals, symbols, nsym);
+    std::memset(look, 0, sizeof(look));
+    int code = 0, k = 0;
+    for (int len = 1; len <= 16; ++len) {
+      valoffset[len] = k - code;
+      for (int i = 0; i < counts[len - 1]; ++i, ++k, ++code) {
+        // Too many codes of this length: refused before the lookup table
+        // is written at an index past its end.
+        if (code >= (1 << len)) fail("corrupt JPEG: bad Huffman table");
+        if (len <= kLookBits) {
+          int shift = kLookBits - len;
+          for (int j = 0; j < (1 << shift); ++j)
+            look[(code << shift) | j] = uint16_t((len << 8) | symbols[k]);
+        }
+      }
+      maxcode[len] = counts[len - 1] ? code - 1 : -1;
+      if (counts[len - 1] && code >= (1 << len)) fail("corrupt JPEG: bad Huffman table");
+      code <<= 1;
+    }
+    maxcode[17] = 0x7fffffff;
+    defined = true;
+  }
+};
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
+  int bw = 0, bh = 0;      // blocks allocated (whole MCUs)
+  int dw = 0, dh = 0;      // downsampled width and height in samples
+  int pred = 0;
+  std::vector<int16_t> coef;  // [bh][bw][64], natural order
+};
+
+// Bit reader over entropy-coded data: byte stuffing removed, stops at a
+// marker and then supplies zero bits, which it counts: consuming one of
+// them means the segment ended early.
+struct BitReader {
+  const uint8_t* data;
+  size_t size;
+  size_t pos;
+  uint64_t buf = 0;
+  int bits = 0;
+  int pad = 0;
+  bool hit_marker = false;
+
+  void fill() {
+    while (bits <= 56) {
+      uint32_t c = 0;
+      if (!hit_marker && pos < size) {
+        c = data[pos];
+        if (c == 0xFF) {
+          size_t q = pos + 1;
+          while (q < size && data[q] == 0xFF) ++q;
+          if (q < size && data[q] == 0x00) {
+            pos = q + 1;
+          } else {
+            hit_marker = true;  // pos stays on the marker's first 0xFF
+            c = 0;
+            pad += 8;
+          }
+        } else {
+          ++pos;
+        }
+      } else {
+        hit_marker = true;
+        pad += 8;
+      }
+      buf |= uint64_t(c) << (56 - bits);
+      bits += 8;
+    }
+  }
+  void consume(int n) {
+    buf <<= n;
+    bits -= n;
+    if (bits < pad) fail("truncated or corrupt JPEG data");
+  }
+  int get(int n) {  // n in 1..16
+    if (bits < n) fill();
+    int v = int(buf >> (64 - n));
+    consume(n);
+    return v;
+  }
+  int decode(const Huffman& h) {
+    if (bits < 16) fill();
+    int e = h.look[buf >> (64 - kLookBits)];
+    if (e >> 8) {
+      consume(e >> 8);
+      return e & 0xFF;
+    }
+    for (int len = kLookBits + 1; len <= 16; ++len) {
+      int code = int(buf >> (64 - len));
+      if (code <= h.maxcode[len]) {
+        consume(len);
+        return h.vals[h.valoffset[len] + code];
+      }
+    }
+    fail("corrupt JPEG data: bad Huffman code");
+  }
+  void reset() {
+    buf = 0;
+    bits = 0;
+    pad = 0;
+    hit_marker = false;
+  }
+};
+
+inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+struct Jpeg {
+  const uint8_t* data;
+  size_t size;
+  size_t pos = 0;
+  uint16_t qt[4][64];  // natural order
+  bool qt_defined[4] = {false, false, false, false};
+  Huffman dc[4], ac[4];
+  int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  Component comp[4];
+  int restart_interval = 0;
+  bool frame = false, jfif = false, adobe = false;
+  int adobe_transform = -1;
+  int orientation = 1;
+
+  Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {}
+
+  int byte() {
+    if (pos >= size) fail("truncated JPEG file");
+    return data[pos++];
+  }
+  int word() {
+    int hi = byte();
+    return (hi << 8) | byte();
+  }
+  int next_marker() {
+    // Skip to the next 0xFF <code> (fill bytes allowed).
+    while (pos < size && data[pos] != 0xFF) ++pos;
+    while (pos < size && data[pos] == 0xFF) ++pos;
+    if (pos >= size) fail("truncated JPEG file: no end-of-image marker");
+    return data[pos++];
+  }
+
+  void read_exif(size_t start, size_t len) {
+    if (len < 14 || std::memcmp(data + start, "Exif\0\0", 6) != 0) return;
+    const uint8_t* t = data + start + 6;
+    size_t n = len - 6;
+    bool le;
+    if (t[0] == 'I' && t[1] == 'I') le = true;
+    else if (t[0] == 'M' && t[1] == 'M') le = false;
+    else return;
+    auto u16 = [&](size_t o) -> unsigned {
+      return le ? t[o] | (t[o + 1] << 8) : (t[o] << 8) | t[o + 1];
+    };
+    auto u32 = [&](size_t o) -> size_t {
+      return le ? size_t(t[o]) | (size_t(t[o + 1]) << 8) | (size_t(t[o + 2]) << 16) |
+                      (size_t(t[o + 3]) << 24)
+                : (size_t(t[o]) << 24) | (size_t(t[o + 1]) << 16) | (size_t(t[o + 2]) << 8) |
+                      size_t(t[o + 3]);
+    };
+    size_t ifd = u32(4);
+    if (ifd + 2 > n) return;
+    unsigned count = u16(ifd);
+    for (unsigned i = 0; i < count; ++i) {
+      size_t e = ifd + 2 + 12 * size_t(i);
+      if (e + 12 > n) return;
+      if (u16(e) == 0x0112) {
+        unsigned type = u16(e + 2);
+        unsigned value = type == 3 ? u16(e + 8) : type == 4 ? unsigned(u32(e + 8)) : 1;
+        orientation = (value >= 1 && value <= 8) ? int(value) : 1;
+        return;
+      }
+    }
+  }
+
+  void read_dqt(size_t end) {
+    while (pos < end) {
+      int pq_tq = byte();
+      int pq = pq_tq >> 4, tq = pq_tq & 15;
+      if (tq > 3 || pq > 1) fail("corrupt JPEG: bad quantization table");
+      for (int i = 0; i < 64; ++i) qt[tq][kZigzag[i]] = uint16_t(pq ? word() : byte());
+      qt_defined[tq] = true;
+    }
+  }
+
+  void read_dht(size_t end) {
+    while (pos < end) {
+      int tc_th = byte();
+      int tc = tc_th >> 4, th = tc_th & 15;
+      if (tc > 1 || th > 3) fail("corrupt JPEG: bad Huffman table");
+      uint8_t counts[16];
+      int total = 0;
+      for (int i = 0; i < 16; ++i) total += counts[i] = uint8_t(byte());
+      if (total > 256 || pos + total > end) fail("corrupt JPEG: bad Huffman table");
+      uint8_t symbols[256];
+      for (int i = 0; i < total; ++i) symbols[i] = uint8_t(byte());
+      if (tc == 0)
+        for (int i = 0; i < total; ++i)
+          if (symbols[i] > 15) fail("corrupt JPEG: bad DC Huffman table");
+      (tc ? ac[th] : dc[th]).build(counts, symbols, total);
+    }
+  }
+
+  void read_sof(int marker) {
+    if (frame) fail("corrupt JPEG: two frame headers");
+    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA || marker == 0xCE)
+      unsupported("progressive JPEG is not supported (baseline and extended sequential only)");
+    if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
+      unsupported("lossless JPEG is not supported");
+    if (marker >= 0xC9) unsupported("arithmetic-coded JPEG is not supported");
+    int precision = byte();
+    if (precision != 8) unsupported("JPEG with " + std::to_string(precision) + "-bit samples is not supported");
+    height = word();
+    width = word();
+    ncomp = byte();
+    if (height <= 0 || width <= 0) fail("corrupt JPEG: empty image (or height set by DNL)");
+    if (ncomp != 1 && ncomp != 3)
+      unsupported("JPEG with " + std::to_string(ncomp) + " components is not supported");
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.id = byte();
+      int hv = byte();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = byte();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+        fail("corrupt JPEG: bad component sampling factors");
+      if (c.h > hmax) hmax = c.h;
+      if (c.v > vmax) vmax = c.v;
+    }
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.bw = mcux * c.h;
+      c.bh = mcuy * c.v;
+      c.dw = int((int64_t(width) * c.h + hmax - 1) / hmax);
+      c.dh = int((int64_t(height) * c.v + vmax - 1) / vmax);
+    }
+    frame = true;
+  }
+
+  // Headers up to the frame header (for jpeg_info), or everything (decode).
+  void parse(bool decode) {
+    if (size < 4 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG file");
+    pos = 2;
+    for (;;) {
+      int m = next_marker();
+      if (m == 0xD9) {
+        if (!frame) fail("corrupt JPEG: no frame header");
+        if (decode && !scanned) fail("corrupt JPEG: no scan");
+        return;
+      }
+      if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      size_t len = size_t(word());
+      if (len < 2 || pos + len - 2 > size) fail("truncated JPEG file");
+      size_t start = pos, end = pos + len - 2;
+      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+        read_sof(m);
+        if (!decode) return;
+      } else if (m == 0xC4) {
+        read_dht(end);
+      } else if (m == 0xCC) {
+        unsupported("arithmetic-coded JPEG is not supported");
+      } else if (m == 0xDB) {
+        read_dqt(end);
+      } else if (m == 0xDD) {
+        restart_interval = word();
+      } else if (m == 0xDA) {
+        if (!frame) fail("corrupt JPEG: scan before the frame header");
+        read_scan(end);
+        continue;  // pos is after the scan's entropy-coded data
+      } else if (m == 0xE0) {
+        if (len >= 7 && std::memcmp(data + start, "JFIF\0", 5) == 0) jfif = true;
+      } else if (m == 0xE1) {
+        read_exif(start, len - 2);
+      } else if (m == 0xEE) {
+        if (len >= 14 && std::memcmp(data + start, "Adobe", 5) == 0) {
+          adobe = true;
+          adobe_transform = data[start + 11];
+        }
+      } else if (m == 0xDC) {
+        unsupported("JPEG with a DNL marker is not supported");
+      }
+      pos = end;
+    }
+  }
+
+  bool scanned = false;
+
+  void decode_block(BitReader& br, Component& c, int16_t* blk) {
+    std::memset(blk, 0, 64 * sizeof(int16_t));
+    const Huffman& hd = dc[c.td];
+    const Huffman& ha = ac[c.ta];
+    int s = br.decode(hd);
+    int diff = s ? extend(br.get(s), s) : 0;
+    c.pred += diff;
+    blk[0] = int16_t(c.pred);
+    for (int k = 1; k < 64;) {
+      int rs = br.decode(ha);
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) fail("corrupt JPEG data: coefficient index out of range");
+        blk[kZigzag[k]] = int16_t(extend(br.get(s), s));
+        ++k;
+      } else {
+        if (r != 15) break;
+        k += 16;
+      }
+    }
+  }
+
+  void read_scan(size_t header_end) {
+    int ns = byte();
+    if (ns < 1 || ns > ncomp) fail("corrupt JPEG: bad scan header");
+    Component* sc[4];
+    for (int i = 0; i < ns; ++i) {
+      int id = byte();
+      int t = byte();
+      Component* found = nullptr;
+      for (int j = 0; j < ncomp; ++j)
+        if (comp[j].id == id) found = &comp[j];
+      if (!found) fail("corrupt JPEG: scan names an unknown component");
+      found->td = t >> 4;
+      found->ta = t & 15;
+      if (found->td > 3 || found->ta > 3 || !dc[found->td].defined || !ac[found->ta].defined)
+        fail("corrupt JPEG: scan uses an undefined Huffman table");
+      if (!qt_defined[found->tq]) fail("corrupt JPEG: undefined quantization table");
+      sc[i] = found;
+    }
+    int ss = byte(), se = byte(), ahl = byte();
+    if (ss != 0 || se != 63 || ahl != 0)
+      unsupported("progressive JPEG is not supported (baseline and extended sequential only)");
+    pos = header_end;
+    for (int i = 0; i < ncomp; ++i)
+      if (comp[i].coef.empty()) comp[i].coef.assign(size_t(comp[i].bw) * comp[i].bh * 64, 0);
+    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+
+    BitReader br{data, size, pos};
+    long units_x, units_y;
+    if (ns == 1) {  // non-interleaved: one block per unit
+      units_x = (sc[0]->dw + 7) / 8;
+      units_y = (sc[0]->dh + 7) / 8;
+    } else {
+      units_x = mcux;
+      units_y = mcuy;
+    }
+    long total = units_x * units_y, todo_restart = restart_interval;
+    int next_rst = 0;
+    for (long u = 0; u < total; ++u) {
+      if (restart_interval && todo_restart == 0) {
+        // The segment ends; a RSTn marker follows.
+        br.reset();
+        pos = br.pos;
+        if (pos + 1 >= size || data[pos] != 0xFF || data[pos + 1] != 0xD0 + next_rst)
+          fail("corrupt JPEG data: missing restart marker");
+        pos += 2;
+        br.pos = pos;
+        next_rst = (next_rst + 1) & 7;
+        todo_restart = restart_interval;
+        for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+      }
+      long uy = u / units_x, ux = u % units_x;
+      if (ns == 1) {
+        Component& c = *sc[0];
+        decode_block(br, c, &c.coef[(size_t(uy) * c.bw + ux) * 64]);
+      } else {
+        for (int i = 0; i < ns; ++i) {
+          Component& c = *sc[i];
+          for (int by = 0; by < c.v; ++by)
+            for (int bx = 0; bx < c.h; ++bx) {
+              size_t row = size_t(uy) * c.v + by, col = size_t(ux) * c.h + bx;
+              decode_block(br, c, &c.coef[(row * c.bw + col) * 64]);
+            }
+        }
+      }
+      --todo_restart;
+    }
+    pos = br.pos;
+    scanned = true;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Inverse DCT: libjpeg's jpeg_idct_islow (jidctint.c), 8-bit samples.
+
+constexpr int kConstBits = 13, kPass1Bits = 2;
+constexpr int32_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
+                  FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
+                  FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
+                  FIX_2_053119869 = 16819, FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
+
+inline int32_t descale(int64_t x, int n) { return int32_t((x + (int64_t(1) << (n - 1))) >> n); }
+
+// The post-IDCT range limit: the low 10 bits of the centred value, as a
+// signed number, shifted by 128 and clamped to [0, 255].
+inline uint8_t range_limit(int32_t x) {
+  int v = x & 1023;
+  if (v >= 512) v -= 1024;
+  v += 128;
+  return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
+}
+
+void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+  int32_t ws[64];
+  for (int col = 0; col < 8; ++col) {
+    const int16_t* ip = in + col;
+    const uint16_t* qp = q + col;
+    int32_t* wp = ws + col;
+    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
+      int32_t dc = int32_t(ip[0]) * qp[0] * (1 << kPass1Bits);
+      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      continue;
+    }
+    int64_t z2 = int32_t(ip[16]) * qp[16], z3 = int32_t(ip[48]) * qp[48];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = int32_t(ip[0]) * qp[0];
+    z3 = int32_t(ip[32]) * qp[32];
+    int64_t tmp0 = (z2 + z3) * (1 << kConstBits);
+    int64_t tmp1 = (z2 - z3) * (1 << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = int32_t(ip[56]) * qp[56];
+    tmp1 = int32_t(ip[40]) * qp[40];
+    tmp2 = int32_t(ip[24]) * qp[24];
+    tmp3 = int32_t(ip[8]) * qp[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = kConstBits - kPass1Bits;
+    wp[0] = descale(tmp10 + tmp3, sh);
+    wp[56] = descale(tmp10 - tmp3, sh);
+    wp[8] = descale(tmp11 + tmp2, sh);
+    wp[48] = descale(tmp11 - tmp2, sh);
+    wp[16] = descale(tmp12 + tmp1, sh);
+    wp[40] = descale(tmp12 - tmp1, sh);
+    wp[24] = descale(tmp13 + tmp0, sh);
+    wp[32] = descale(tmp13 - tmp0, sh);
+  }
+  for (int row = 0; row < 8; ++row) {
+    const int32_t* wp = ws + 8 * row;
+    uint8_t* op = out + size_t(row) * stride;
+    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
+      uint8_t v = range_limit(descale(wp[0], kPass1Bits + 3));
+      for (int i = 0; i < 8; ++i) op[i] = v;
+      continue;
+    }
+    int64_t z2 = wp[2], z3 = wp[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << kConstBits);
+    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = wp[7];
+    tmp1 = wp[5];
+    tmp2 = wp[3];
+    tmp3 = wp[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = kConstBits + kPass1Bits + 3;
+    op[0] = range_limit(descale(tmp10 + tmp3, sh));
+    op[7] = range_limit(descale(tmp10 - tmp3, sh));
+    op[1] = range_limit(descale(tmp11 + tmp2, sh));
+    op[6] = range_limit(descale(tmp11 - tmp2, sh));
+    op[2] = range_limit(descale(tmp12 + tmp1, sh));
+    op[5] = range_limit(descale(tmp12 - tmp1, sh));
+    op[3] = range_limit(descale(tmp13 + tmp0, sh));
+    op[4] = range_limit(descale(tmp13 - tmp0, sh));
+  }
+}
+
+// A component's samples, [dh][dw] (the blocks' padding cut off).
+std::vector<uint8_t> component_plane(const Jpeg& j, const Component& c) {
+  int pw = c.bw * 8;
+  std::vector<uint8_t> full(size_t(pw) * c.bh * 8);
+  const uint16_t* q = j.qt[c.tq];
+  for (int by = 0; by < c.bh; ++by)
+    for (int bx = 0; bx < c.bw; ++bx)
+      idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], q, &full[size_t(by) * 8 * pw + bx * 8], pw);
+  std::vector<uint8_t> out(size_t(c.dw) * c.dh);
+  for (int y = 0; y < c.dh; ++y) std::memcpy(&out[size_t(y) * c.dw], &full[size_t(y) * pw], c.dw);
+  return out;
+}
+
+// Upsampled to [height][width] as jdsample.c does with fancy upsampling on.
+std::vector<uint8_t> upsample(const Jpeg& j, const Component& c, std::vector<uint8_t> in) {
+  int W = j.width, H = j.height, dw = c.dw, dh = c.dh;
+  int fx = j.hmax / c.h, fy = j.vmax / c.v;
+  if (j.hmax % c.h || j.vmax % c.v) unsupported("JPEG with fractional sampling factors is not supported");
+  if (fx == 1 && fy == 1) return in;
+  std::vector<uint8_t> out(size_t(W) * H);
+  auto at = [&](int y, int x) -> int {  // edges replicated
+    y = y < 0 ? 0 : y >= dh ? dh - 1 : y;
+    x = x < 0 ? 0 : x >= dw ? dw - 1 : x;
+    return in[size_t(y) * dw + x];
+  };
+  if (fx == 2 && fy == 1 && dw > 2) {
+    for (int y = 0; y < H; ++y)
+      for (int x = 0; x < W; ++x) {
+        int i = x >> 1, s3 = 3 * at(y, i);
+        out[size_t(y) * W + x] =
+            uint8_t((x & 1) ? (s3 + at(y, i + 1) + 2) >> 2 : (s3 + at(y, i - 1) + 1) >> 2);
+      }
+  } else if (fx == 1 && fy == 2) {
+    for (int y = 0; y < H; ++y) {
+      int i = y >> 1, far = (y & 1) ? i + 1 : i - 1, bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < W; ++x)
+        out[size_t(y) * W + x] = uint8_t((3 * at(i, x) + at(far, x) + bias) >> 2);
+    }
+  } else if (fx == 2 && fy == 2 && dw > 2) {
+    std::vector<int> cs(size_t(dw) + 2);
+    for (int y = 0; y < H; ++y) {
+      int i = y >> 1, far = (y & 1) ? i + 1 : i - 1;
+      for (int x = 0; x < dw; ++x) cs[x + 1] = 3 * at(i, x) + at(far, x);
+      cs[0] = cs[1];
+      cs[dw + 1] = cs[dw];
+      for (int x = 0; x < W; ++x) {
+        int k = (x >> 1) + 1, t3 = 3 * cs[k];
+        out[size_t(y) * W + x] =
+            uint8_t((x & 1) ? (t3 + cs[k + 1] + 7) >> 4 : (t3 + cs[k - 1] + 8) >> 4);
+      }
+    }
+  } else {  // box replication (int_upsample, and h2v1/h2v2 at width <= 2)
+    for (int y = 0; y < H; ++y)
+      for (int x = 0; x < W; ++x) out[size_t(y) * W + x] = uint8_t(at(y / fy, x / fx));
+  }
+  return out;
+}
+
+constexpr int kScaleBits = 16;
+constexpr int32_t kOneHalf = int32_t(1) << (kScaleBits - 1);
+inline int32_t fix(double x) { return int32_t(x * (1 << kScaleBits) + 0.5); }
+inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, size_t n, uint8_t* out) {
+  int cr_r[256], cb_b[256];
+  int32_t cr_g[256], cb_g[256];
+  for (int i = 0, x = -128; i < 256; ++i, ++x) {
+    cr_r[i] = int((int64_t(fix(1.40200)) * x + kOneHalf) >> kScaleBits);
+    cb_b[i] = int((int64_t(fix(1.77200)) * x + kOneHalf) >> kScaleBits);
+    cr_g[i] = -fix(0.71414) * x;
+    cb_g[i] = -fix(0.34414) * x + kOneHalf;
+  }
+  for (size_t i = 0; i < n; ++i) {
+    int Y = y[i], b = cb[i], r = cr[i];
+    out[3 * i] = clamp255(Y + cr_r[r]);
+    out[3 * i + 1] = clamp255(Y + int((cb_g[b] + cr_g[r]) >> kScaleBits));
+    out[3 * i + 2] = clamp255(Y + cb_b[b]);
+  }
+}
+
+int report(const CodecError& e, char* err, size_t errlen) {
+  if (err && errlen) std::snprintf(err, errlen, "%s", e.msg.c_str());
+  return e.unsupported ? -2 : -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Frame size and EXIF orientation (1-8; 1 without the tag) of a JPEG stream.
+int jpeg_info(const uint8_t* data, size_t size, int* height, int* width, int* orientation,
+              char* err, size_t errlen) {
+  try {
+    Jpeg j(data, size);
+    j.parse(false);
+    *height = j.height;
+    *width = j.width;
+    *orientation = j.orientation;
+    return 0;
+  } catch (const CodecError& e) {
+    return report(e, err, errlen);
+  } catch (const std::bad_alloc&) {
+    return report(CodecError{"out of memory decoding JPEG", false}, err, errlen);
+  }
+}
+
+// Decode into out[height][width][3] (RGB), as stored (orientation not applied).
+int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, char* err,
+                size_t errlen) {
+  try {
+    Jpeg j(data, size);
+    j.parse(true);
+    size_t n = size_t(j.width) * j.height;
+    if (out_size != 3 * n) fail("output buffer of the wrong size");
+    for (int i = 0; i < j.ncomp; ++i)
+      if (j.comp[i].coef.empty()) fail("corrupt JPEG: a component has no scan");
+    if (j.ncomp == 1) {
+      std::vector<uint8_t> g = component_plane(j, j.comp[0]);
+      const int dw = j.comp[0].dw;
+      for (int y = 0; y < j.height; ++y)
+        for (int x = 0; x < j.width; ++x) {
+          uint8_t v = g[size_t(y) * dw + x];
+          uint8_t* o = out + 3 * (size_t(y) * j.width + x);
+          o[0] = o[1] = o[2] = v;
+        }
+      return 0;
+    }
+    std::vector<uint8_t> p[3];
+    for (int i = 0; i < 3; ++i) p[i] = upsample(j, j.comp[i], component_plane(j, j.comp[i]));
+    bool rgb = (j.adobe && j.adobe_transform == 0) ||
+               (!j.jfif && !j.adobe && j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
+                j.comp[2].id == 'B');
+    if (rgb) {
+      for (size_t i = 0; i < n; ++i)
+        for (int k = 0; k < 3; ++k) out[3 * i + k] = p[k][i];
+    } else {
+      ycc_to_rgb(p[0].data(), p[1].data(), p[2].data(), n, out);
+    }
+    return 0;
+  } catch (const CodecError& e) {
+    return report(e, err, errlen);
+  } catch (const std::bad_alloc&) {
+    return report(CodecError{"out of memory decoding JPEG", false}, err, errlen);
+  }
+}
+
+// Undo the PNG row filters: rows is [height][1 + rowbytes] (filter byte
+// first), out is [height][rowbytes]; bpp is the bytes of one pixel.
+int png_unfilter(const uint8_t* rows, int height, int rowbytes, int bpp, uint8_t* out,
+                 char* err, size_t errlen) {
+  for (int y = 0; y < height; ++y) {
+    const uint8_t* src = rows + size_t(y) * (rowbytes + 1);
+    uint8_t* cur = out + size_t(y) * rowbytes;
+    const uint8_t* up = y ? cur - rowbytes : nullptr;
+    int kind = src[0];
+    ++src;
+    switch (kind) {
+      case 0:
+        std::memcpy(cur, src, rowbytes);
+        break;
+      case 1:
+        for (int i = 0; i < rowbytes; ++i) cur[i] = uint8_t(src[i] + (i >= bpp ? cur[i - bpp] : 0));
+        break;
+      case 2:
+        for (int i = 0; i < rowbytes; ++i) cur[i] = uint8_t(src[i] + (up ? up[i] : 0));
+        break;
+      case 3:
+        for (int i = 0; i < rowbytes; ++i) {
+          int a = i >= bpp ? cur[i - bpp] : 0, b = up ? up[i] : 0;
+          cur[i] = uint8_t(src[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (int i = 0; i < rowbytes; ++i) {
+          int a = i >= bpp ? cur[i - bpp] : 0, b = up ? up[i] : 0;
+          int c = (up && i >= bpp) ? up[i - bpp] : 0;
+          int pa = std::abs(b - c), pb = std::abs(a - c), pc = std::abs(a + b - 2 * c);
+          int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          cur[i] = uint8_t(src[i] + pred);
+        }
+        break;
+      default:
+        if (err && errlen) std::snprintf(err, errlen, "PNG row filter %d does not exist", kind);
+        return -1;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -3,14 +3,17 @@
 The port's copy of `dro_sfm_tpu/data/__init__.py`: `setup_dataset` maps the
 dataset names of a config section to reader classes; each (path, split) pair
 of a section is one dataset, concatenated (with repeats) for training and
-kept apart for evaluation. The port knows the synthetic scenes; the file
-readers (KITTI, ScanNet, ...) are ROADMAP A5.
+kept apart for evaluation. The names are the synthetic scenes and the file
+readers of the JAX package (KITTI, ScanNet and its paired splits, BA-Net,
+DeMoN, Matterport, video and image folders, DGP), which decode with the
+port's codec. NYU's HDF5 reader is not ported (ROADMAP A5a).
 """
 from __future__ import annotations
 
 from functools import partial
 from typing import Callable, Dict
 
+from dro_sfm_torch.data import banet, demon, dgp, kitti, matterport, scannet, video
 from dro_sfm_torch.data.base import Dataset, Sample, relative_pose, validate_sample
 from dro_sfm_torch.data.loader import (
     ConcatDataset,
@@ -22,6 +25,7 @@ from dro_sfm_torch.data.loader import (
 from dro_sfm_torch.data.synthetic import SyntheticConfig, SyntheticDataset
 
 _REGISTRY: Dict[str, Callable] = {}
+_NOT_PORTED = {"NYU": "ROADMAP A5a", "NYUtest": "ROADMAP A5a"}
 
 
 def _synthetic_factory(path, split, mode, image_shape, jittering, section,
@@ -43,6 +47,8 @@ def _synthetic_factory(path, split, mode, image_shape, jittering, section,
 
 _REGISTRY["Synthetic"] = _synthetic_factory
 _REGISTRY["SyntheticMulti"] = partial(_synthetic_factory, num_planes=3)
+for _readers in (kitti, scannet, banet, demon, matterport, video, dgp):
+    _REGISTRY.update(_readers.DATASETS)
 
 
 def setup_dataset(section, augmentation, mode: str):
@@ -56,8 +62,8 @@ def setup_dataset(section, augmentation, mode: str):
     datasets = []
     for i, name in enumerate(names):
         if name not in _REGISTRY:
-            raise KeyError(f"Unknown dataset {name!r}; known: {sorted(_REGISTRY)} "
-                           "(the file readers are ROADMAP A5)")
+            later = f" ({name}'s reader is {_NOT_PORTED[name]})" if name in _NOT_PORTED else ""
+            raise KeyError(f"Unknown dataset {name!r}{later}; known: {sorted(_REGISTRY)}")
         ds = _REGISTRY[name](
             path=section.path[i], split=section.split[i], mode=mode,
             image_shape=image_shape, jittering=jittering, section=section)

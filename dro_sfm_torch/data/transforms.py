@@ -1,20 +1,33 @@
-"""Sample transforms: originals kept, colour jitter, float images (numpy).
+"""Sample transforms: resize, originals kept, colour jitter, float images (numpy).
 
-The port's copy of the float path of `dro_sfm_tpu/data/transforms.py`:
+The port's copy of `dro_sfm_tpu/data/transforms.py`:
 
-* train: keep pre-jitter originals -> colour jitter -> float arrays;
-* validation/test: float arrays.
+* train: resize (images, depth and intrinsics) -> keep pre-jitter originals
+  -> colour jitter -> float arrays;
+* validation/test: resize (images and intrinsics; ground-truth depth stays
+  at full resolution) -> float arrays.
+
+The intrinsics rescale is the plain ``K[0] *= out_w / w; K[1] *= out_h / h``.
+Images resize bilinearly and depth by nearest neighbour, bit for bit as
+``cv2.resize`` with ``INTER_LINEAR`` on uint8 and ``INTER_NEAREST``
+(`dro_sfm_torch.utils.image_io`). The file readers decode uint8 and convert
+to float after the resize; the synthetic scenes render float images at the
+configured shape, and a float image of another shape raises.
 
 The colour jitter follows torchvision's ColorJitter (factors uniform in
 [max(0, 1-x), 1+x], hue in [-h, h]) in fixed brightness, contrast,
-saturation, hue order. The JAX package computes the grey image and the
-RGB <-> HSV round trip of the hue step with OpenCV; here they are numpy with
-OpenCV's float conventions: grey = 0.299 R + 0.587 G + 0.114 B; H in degrees
-[0, 360), S and V in [0, 1].
+saturation, hue order. The JAX package computes it with OpenCV; here it is
+numpy with OpenCV's arithmetic:
 
-Resizing and uint8 images are not ported (ROADMAP A5, with the dataset file
-readers): the synthetic scenes render at the configured image shape, and a
-sample of another shape or a uint8 image raises.
+* float images: grey = 0.299 R + 0.587 G + 0.114 B; H in degrees [0, 360),
+  S and V in [0, 1];
+* uint8 images (`_jitter_once_u8`): look-up tables for brightness and
+  contrast, ``cv2.mean``, grey ``(9798 R + 19235 G + 3735 B + 2^14) >> 15``,
+  ``cv2.addWeighted`` (``fma(a, alpha, b * beta)`` in float32, rounded half to
+  even and saturated), RGB -> HSV with H in [0, 180) and OpenCV's 12-bit
+  division tables, the hue table, and HSV -> RGB in float32 with OpenCV's
+  fused multiply-adds, truncated to uint8 in OpenCV's vector loop (whole
+  blocks of 32 pixels of a row) and rounded in the rest of the row.
 """
 from __future__ import annotations
 
@@ -23,14 +36,27 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from dro_sfm_torch.data.base import Sample
+from dro_sfm_torch.utils.image_io import resize_bilinear_u8, resize_nearest
 
 FLT_EPSILON = np.float32(np.finfo(np.float32).eps)
-_NOT_PORTED = ("are not ported yet: they come with the dataset file readers "
-               "(ROADMAP A5)")
 # cv2's HSV2RGB: for each hue sector, which of (v, v(1-s), v(1-sf), v(1-s(1-f)))
 # is blue, green and red.
 _SECTOR_BGR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3],
                         [2, 1, 0]])
+# The OpenCV build whose uint8 arithmetic `rgb_to_gray_u8` and
+# `hsv_to_rgb_u8` copy: 5.0.0 on x86-64 (baseline SSE3, dispatch up to
+# AVX512_SKX). Its RGB2GRAY has 15-bit weights, where OpenCV 4 has
+# ``(4899 R + 9617 G + 1868 B + 2^13) >> 14``, and its vector uint8 HSV2RGB
+# takes `_HSV2RGB_BLOCK` pixels of a row a pass. Another build may round
+# other pixels.
+OPENCV_COPIED = "5.0.0"
+# Pixels of a row in one pass of that build's vector uint8 HSV2RGB.
+_HSV2RGB_BLOCK = 32
+# cv2's uint8 RGB2HSV division tables (hsv_shift = 12).
+_HSV_SHIFT = 12
+_I = np.arange(1, 256, dtype=np.float64)
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / _I)]).astype(np.int32)
+_HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * _I))]).astype(np.int32)
 
 
 def rgb_to_gray(img: np.ndarray) -> np.ndarray:
@@ -69,31 +95,116 @@ def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
     return bgr[..., ::-1].astype(np.float32)
 
 
-def _check_float(img: np.ndarray) -> None:
-    if img.dtype == np.uint8:
-        raise NotImplementedError(f"uint8 images and their jitter {_NOT_PORTED}")
+def _fma32(a: np.ndarray, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product of two float32 is exact in float64, and the sum rounds to
+    float32."""
+    return (np.asarray(a, np.float32).astype(np.float64) * np.asarray(b, np.float32)
+            + np.asarray(c, np.float32)).astype(np.float32)
 
 
-def check_shape(sample: Sample, shape: Tuple[int, int]) -> Sample:
-    """``sample`` unchanged when its images have ``shape``; else raise."""
-    if shape and sample["rgb"].shape[:2] != tuple(shape):
+def rgb_to_gray_u8(img: np.ndarray) -> np.ndarray:
+    """uint8 [..., 3] RGB -> uint8 [...] grey, as cv2's uint8 RGB2GRAY."""
+    x = img.astype(np.int32)
+    return ((9798 * x[..., 0] + 19235 * x[..., 1] + 3735 * x[..., 2] + (1 << 14))
+            >> 15).astype(np.uint8)
+
+
+def add_weighted_u8(a: np.ndarray, alpha: float, b: np.ndarray, beta: float) -> np.ndarray:
+    """``cv2.addWeighted(a, alpha, b, beta, 0.0)`` on uint8."""
+    prod = b.astype(np.float32) * np.float32(beta)
+    t = _fma32(a.astype(np.float32), np.float32(alpha), prod)
+    return np.clip(np.rint(t), 0, 255).astype(np.uint8)
+
+
+def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """uint8 RGB -> uint8 HSV as cv2's RGB2HSV: H in [0, 180)."""
+    x = img.astype(np.int32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    s = (diff * _SDIV[v] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], axis=-1).astype(np.uint8)
+
+
+def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """uint8 HSV [H,W,3] (H in [0, 180)) -> uint8 RGB as cv2's HSV2RGB: the
+    float result is truncated in whole blocks of `_HSV2RGB_BLOCK` pixels of
+    a row (OpenCV's vector loop) and rounded in the rest of the row."""
+    f32, one = np.float32, np.float32(1.0)
+    h = hsv[..., 0].astype(f32) * f32(6.0 / 180.0)
+    s = hsv[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = hsv[..., 2].astype(f32) * f32(1.0 / 255.0)
+    sector = np.trunc(h)
+    h = (h - sector).astype(f32)
+    sector = sector.astype(np.int64) % 6
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, h, one),
+                    v * _fma32(-s, (one - h).astype(f32), one)], axis=-1)
+    bgr = np.take_along_axis(tab, _SECTOR_BGR[sector], axis=-1)
+    out = (bgr[..., ::-1] * f32(255.0)).astype(f32)
+    tail = np.arange(out.shape[-2]) >= out.shape[-2] // _HSV2RGB_BLOCK * _HSV2RGB_BLOCK
+    out = np.where(tail[:, None], np.rint(out), np.trunc(out))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _resize_rgb(img: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
+    if img.shape[:2] == tuple(shape):
+        return img
+    if img.dtype != np.uint8:
         raise NotImplementedError(
-            f"a {sample['rgb'].shape[:2]} sample for image_shape {tuple(shape)}: "
-            f"resizes {_NOT_PORTED}")
+            f"a float {img.shape[:2]} image for image_shape {tuple(shape)}: float images "
+            "are not resized (the synthetic scenes render at the image shape; the file "
+            "readers give uint8)")
+    return resize_bilinear_u8(img, shape)
+
+
+def _resize_depth(depth: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
+    if depth.shape[:2] == tuple(shape):
+        return depth
+    return resize_nearest(depth[..., 0], shape)[..., None]
+
+
+def resize_sample(sample: Sample, shape: Tuple[int, int],
+                  with_depth: bool = True) -> Sample:
+    """Resize the images (and depth for training) and rescale the
+    intrinsics."""
+    h, w = sample["rgb"].shape[:2]
+    out_h, out_w = shape
+    if (h, w) != (out_h, out_w):
+        K = sample["intrinsics"].copy()
+        K[0] *= out_w / w
+        K[1] *= out_h / h
+        sample["intrinsics"] = K
+        sample["rgb"] = _resize_rgb(sample["rgb"], shape)
+        sample["rgb_context"] = np.stack(
+            [_resize_rgb(im, shape) for im in sample["rgb_context"]])
+        if with_depth and "depth" in sample:
+            sample["depth"] = _resize_depth(sample["depth"], shape)
     return sample
 
 
+def _to_float_rgb(img: np.ndarray) -> np.ndarray:
+    """uint8 [0,255] -> float32 [0,1]; float input passes through."""
+    if img.dtype == np.uint8:
+        return img.astype(np.float32) / 255.0
+    return np.asarray(img, np.float32)
+
+
 def duplicate_sample(sample: Sample) -> Sample:
-    """Keep pre-jitter copies of the images."""
-    sample["rgb_original"] = sample["rgb"].copy()
-    sample["rgb_context_original"] = sample["rgb_context"].copy()
+    """Keep pre-jitter copies of the images, as float."""
+    for key in ("rgb", "rgb_context"):
+        img = sample[key]
+        sample[key + "_original"] = (_to_float_rgb(img) if img.dtype == np.uint8
+                                     else img.copy())
     return sample
 
 
 def float_sample(sample: Sample) -> Sample:
     for key in ("rgb", "rgb_context"):
-        _check_float(sample[key])
-        sample[key] = np.asarray(sample[key], np.float32)
+        sample[key] = _to_float_rgb(sample[key])
     return sample
 
 
@@ -112,6 +223,25 @@ def _jitter_once(img: np.ndarray, b: float, c: float, s: float,
     return np.clip(out, 0.0, 1.0)
 
 
+def _jitter_once_u8(img: np.ndarray, b: float, c: float, s: float,
+                    h: float) -> np.ndarray:
+    """The same factors on uint8 [H,W,3], in uint8 steps."""
+    lut = np.arange(256, dtype=np.float32)
+    out = np.clip(lut * b, 0, 255).astype(np.uint8)[img]
+    sums = out.reshape(-1, 3).sum(axis=0, dtype=np.int64)
+    scale = 1.0 / (out.shape[0] * out.shape[1])             # cv2.mean
+    mean = float(sum(float(v) * scale for v in sums) / 3.0)
+    out = np.clip(lut * c + mean * (1.0 - c), 0, 255).astype(np.uint8)[out]
+    gray = rgb_to_gray_u8(out)
+    out = add_weighted_u8(out, s, np.repeat(gray[..., None], 3, axis=-1), 1.0 - s)
+    if h != 0.0:
+        hsv = rgb_to_hsv_u8(out)
+        shift = int(round(h * 180.0)) % 180
+        hsv[..., 0] = ((np.arange(256) + shift) % 180).astype(np.uint8)[hsv[..., 0]]
+        out = hsv_to_rgb_u8(hsv)
+    return out
+
+
 def colorjitter_sample(sample: Sample, jitter: Sequence[float],
                        rng: np.random.Generator) -> Sample:
     """One random colour jitter shared by target and context (not the
@@ -121,10 +251,10 @@ def colorjitter_sample(sample: Sample, jitter: Sequence[float],
     c = rng.uniform(max(0.0, 1 - contrast), 1 + contrast)
     s = rng.uniform(max(0.0, 1 - saturation), 1 + saturation)
     h = rng.uniform(-hue, hue)
-    _check_float(sample["rgb"])
-    sample["rgb"] = _jitter_once(sample["rgb"], b, c, s, h)
+    fn = _jitter_once_u8 if sample["rgb"].dtype == np.uint8 else _jitter_once
+    sample["rgb"] = fn(sample["rgb"], b, c, s, h)
     sample["rgb_context"] = np.stack(
-        [_jitter_once(im, b, c, s, h) for im in sample["rgb_context"]])
+        [fn(im, b, c, s, h) for im in sample["rgb_context"]])
     return sample
 
 
@@ -132,12 +262,17 @@ def train_transform(sample: Sample, image_shape: Tuple[int, int],
                     jittering: Sequence[float],
                     rng: Optional[np.random.Generator] = None) -> Sample:
     """The training pipeline."""
-    sample = duplicate_sample(check_shape(sample, image_shape))
+    if image_shape:
+        sample = resize_sample(sample, image_shape, with_depth=True)
+    sample = duplicate_sample(sample)
     if jittering and rng is not None:
         sample = colorjitter_sample(sample, jittering, rng)
     return float_sample(sample)
 
 
 def eval_transform(sample: Sample, image_shape: Tuple[int, int]) -> Sample:
-    """The validation and test pipeline."""
-    return float_sample(check_shape(sample, image_shape))
+    """The validation and test pipeline: ground-truth depth stays at full
+    resolution for the metrics."""
+    if image_shape:
+        sample = resize_sample(sample, image_shape, with_depth=False)
+    return float_sample(sample)

@@ -1,10 +1,10 @@
 """What the inference CLIs share: frame folders, frame loading and the
 served model.
 
-Frames are PNG files (`dro_sfm_torch.utils.image_io`), loaded as the JAX
-CLIs load them (RGB, resized bilinearly to the model's shape when they are
-not at it, float32 in [0, 1]); JPEG, BMP and video raise, naming ROADMAP
-A9.
+Frames are PNG, JPEG or BMP files (`dro_sfm_torch.utils.image_io`), loaded
+as the JAX CLIs load them (RGB, resized as ``cv2.resize(INTER_LINEAR)`` to
+the model's shape when they are not at it, float32 in [0, 1]); video raises,
+naming ROADMAP A9.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Depth inference CLI of the port for a PNG frame or a folder of them.
+"""Depth inference CLI of the port for a frame or a folder of them (PNG, JPEG, BMP).
 
     python -m dro_sfm_torch.scripts.infer --checkpoint x.ckpt --input frames/ --output out/
     python -m dro_sfm_torch.scripts.infer ... --save png --ply --device cpu
@@ -9,7 +9,7 @@ target of a window with its neighbours in the folder as context (itself at
 the ends); its depth is written as ``<name>.npz`` (depth, intrinsics) or a
 uint16 ``<name>.png`` (``depth * 256``), and with ``--ply`` its point
 cloud. Runs on the card unless ``--device cpu``. ``--save viz`` (a
-colormapped panel) and JPEG or BMP frames are ROADMAP A9 and raise.
+colormapped panel) is ROADMAP A9 and raises.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import os
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="dro_sfm_torch depth inference")
     p.add_argument("--checkpoint", required=True)
-    p.add_argument("--input", required=True, help="PNG frame or folder")
+    p.add_argument("--input", required=True, help="frame (PNG, JPEG, BMP) or folder")
     p.add_argument("--output", required=True, help="output folder")
     p.add_argument("--save", default="npz", choices=["npz", "png", "viz"])
     p.add_argument("--ply", action="store_true",

@@ -4,7 +4,7 @@
         --output trajectory.json [--device cpu]
 
 The port's counterpart of `scripts/infer_pose.py`: 3-frame windows over a
-folder of PNG frames, the relative poses chained into a global trajectory
+folder of frames (PNG, JPEG, BMP), the relative poses chained into a global trajectory
 with monocular scale propagation (`inference.TrajectoryAccumulator`),
 written as json. Runs on the card unless ``--device cpu``. ``--plot`` needs
 matplotlib (ROADMAP A9) and raises.

@@ -4,7 +4,7 @@
         --output out/ [--fusion-views 3] [--gt-poses poses/] [--device cpu]
 
 The port's counterpart of `scripts/infer_video.py`: 3-frame windows ``i-1,
-i, i+1`` for ``i = 1 ... n-2`` over a folder of PNG frames, the poses
+i, i+1`` for ``i = 1 ... n-2`` over a folder of frames (PNG, JPEG, BMP), the poses
 chained with monocular scale propagation, each depth filtered (gradient,
 range) and, with ``--fusion-views`` > 1, fused with the previous views by
 geometric consistency on the device, and a global coloured point cloud
@@ -15,7 +15,7 @@ unless ``--device cpu``.
 
 Not ported: the annotated video ``depth_vis.mp4``, its panels and
 ``trajectory.png`` (OpenCV and matplotlib, ROADMAP A9: a note is printed,
-``--fps`` only sets that video's rate), video and JPEG input and
+``--fps`` only sets that video's rate), video input and
 ``--gt-depth`` (ROADMAP A9) and ``--ba`` (bundle adjustment, ROADMAP A10),
 which raise.
 """
@@ -66,7 +66,7 @@ def main(argv=None) -> dict:
         raise NotImplementedError(f"--gt-depth feeds the colormapped GT panel ({A9})")
     if not os.path.isdir(args.input):
         raise NotImplementedError(f"{args.input}: decoding a video is {A9}; pass a "
-                                  "folder of PNG frames")
+                                  "folder of frames")
     import numpy as np
     import torch
 

@@ -1,28 +1,47 @@
-"""PNG files and the bilinear resize of the inference CLIs, on zlib and numpy.
+"""Image files and the uint8 resizes, on zlib, numpy and the host codec.
 
-The card's machine has neither OpenCV nor Pillow, so the port reads and
-writes PNG itself:
+The card's machine has no OpenCV, Pillow or imageio, so the port reads and
+writes images itself:
 
-* `read_png`: non-interlaced 8-bit gray, gray+alpha, RGB and RGBA, and
-  16-bit gray (big-endian in the file), with all five row filters. The rows
-  are reconstructed along anti-diagonals: a pixel depends on its left,
-  upper and upper-left neighbours, which all lie on the two diagonals
-  before its own, so each diagonal is one numpy step over every row at
-  once (``H + W - 1`` steps) whatever mix of filters the rows use.
+* `read_png` (`decode_png` of the bytes): non-interlaced 8-bit gray,
+  gray+alpha, RGB and RGBA, and 16-bit gray (big-endian in the file). zlib
+  inflates; the five row filters
+  are undone by ``png_unfilter`` of the host codec
+  (``csrc/image_codec.cpp``, `dro_sfm_torch.hostlib`). `_unfilter` is its
+  plain numpy version: it reconstructs the rows along anti-diagonals (a
+  pixel depends on its left, upper and upper-left neighbours, which all lie
+  on the two diagonals before its own), one numpy step a diagonal.
 * `write_png`: the same colour types, each row filtered with the filter
   whose output has the least sum of absolute values (libpng's heuristic).
-* `read_image_rgb`: a frame as uint8 RGB [H,W,3], as ``cv2.imread(...,
-  IMREAD_COLOR)[..., ::-1]`` gives it for those PNGs.
-* `resize_bilinear_u8`: ``cv2.resize(..., INTER_LINEAR)`` on uint8
-  (half-pixel centres, clamped borders, no antialiasing), in float and
-  rounded; OpenCV's fixed-point weights put its result within one level of
-  this one.
+* `decode_jpeg`: baseline and extended sequential JPEG through the host
+  codec, bit-equal to ``cv2.imread(..., IMREAD_COLOR)`` (libjpeg-turbo's
+  islow IDCT, fancy upsampling and colour tables), with the EXIF
+  orientation applied as OpenCV applies it. Progressive, arithmetic-coded,
+  12-bit and CMYK files raise `NotImplementedError`; truncated or corrupt
+  ones raise `ValueError` (libjpeg would warn and fill in).
+* `decode_bmp`: uncompressed 24- and 32-bit and palette (8-bit) BMP, bottom-up
+  and top-down, in numpy.
+* `read_image_rgb`: a frame as uint8 RGB [H,W,3], as ``cv2.imread(path,
+  IMREAD_COLOR)[..., ::-1]`` gives it; the format is chosen by the file's
+  first bytes, as OpenCV chooses it, not by its name.
+* `resize_bilinear_u8`: ``cv2.resize(..., INTER_LINEAR)`` on uint8, bit for
+  bit: 11-bit fixed-point weights from float32 source coordinates (half-pixel
+  centres), an exact integer horizontal pass, and OpenCV's vector vertical
+  pass (each row's value shifted right by 4, multiplied by its weight,
+  shifted right by 16, the two summed and rounded by 2 bits); a row above
+  or below the image takes the edge row with its own weight. An exact 2x
+  reduction, which OpenCV sends to ``INTER_AREA``, gives the same numbers
+  on this path.
+* `resize_nearest`: ``cv2.resize(..., INTER_NEAREST)``: source index
+  ``min(floor(dst * (1 / (out / in))), in - 1)`` in double.
 
-Interlaced and palette PNGs, 16-bit colour, JPEG, BMP and video need a
-decoder that the port does not have yet (ROADMAP A9) and raise.
+Interlaced and palette PNGs, 16-bit colour and video raise, naming ROADMAP
+A9.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import struct
 import zlib
@@ -33,6 +52,29 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _NOT_PORTED = "ROADMAP A9: the port decodes non-interlaced 8-bit and 16-bit gray PNG only"
+_ERR_LEN = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _codec() -> ctypes.CDLL:
+    """The host codec, built at first use, its entry points typed."""
+    from dro_sfm_torch import hostlib
+    lib = ctypes.CDLL(str(hostlib.build("image_codec")))
+    buf, size, err = ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p
+    out, i32p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+    lib.jpeg_info.argtypes = [buf, size, i32p, i32p, i32p, err, size]
+    lib.jpeg_decode.argtypes = [buf, size, out, size, err, size]
+    lib.png_unfilter.argtypes = [out, ctypes.c_int, ctypes.c_int, ctypes.c_int, out, err, size]
+    for fn in (lib.jpeg_info, lib.jpeg_decode, lib.png_unfilter):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(code: int, err, what: str) -> None:
+    if code == 0:
+        return
+    msg = f"{what}: {err.value.decode(errors='replace')}"
+    raise NotImplementedError(msg) if code == -2 else ValueError(msg)
 
 
 def _chunks(data: bytes, path: str):
@@ -49,9 +91,23 @@ def _chunks(data: bytes, path: str):
         pos += 12 + length
 
 
+def png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the row filters of ``rows`` [H, 1 + W*bpp] (uint8, each row's
+    filter byte first) in the host codec: [H, W*bpp]."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    h, n = rows.shape
+    if not 1 <= bpp <= 8:
+        raise ValueError(f"PNG pixels of {bpp} bytes")
+    out = np.empty((h, n - 1), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _check(_codec().png_unfilter(rows.ctypes.data, h, n - 1, bpp, out.ctypes.data, err,
+                                 _ERR_LEN), err, "PNG")
+    return out
+
+
 def _unfilter(raw: np.ndarray, filters: np.ndarray) -> np.ndarray:
-    """Undo the row filters of ``raw`` [H, W, bpp] (uint8) along the
-    anti-diagonals of a zero-padded copy."""
+    """Plain version of `png_unfilter`: undo the row filters of ``raw``
+    [H, W, bpp] (uint8) along the anti-diagonals of a zero-padded copy."""
     if filters.max(initial=0) > 4:
         raise ValueError(f"PNG row filter {int(filters.max())} does not exist")
     h, w, bpp = raw.shape
@@ -81,7 +137,11 @@ def read_png(path: str) -> np.ndarray:
     """The samples of a PNG file: uint8 [H,W,C] (C = 1, 2, 3 or 4 for gray,
     gray+alpha, RGB, RGBA) or, for 16-bit gray, uint16 [H,W,1]."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "PNG") -> np.ndarray:
+    """`read_png` of the file's bytes."""
     if not data.startswith(PNG_SIGNATURE):
         raise NotImplementedError(f"{path} is not a PNG file; other image and video "
                                   f"formats are {_NOT_PORTED}")
@@ -106,8 +166,7 @@ def read_png(path: str) -> np.ndarray:
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if rows.size != h * (w * bpp + 1):
         raise ValueError(f"{path}: {rows.size} bytes of image data, want {h * (w * bpp + 1)}")
-    rows = rows.reshape(h, w * bpp + 1)
-    pixels = _unfilter(rows[:, 1:].reshape(h, w, bpp), rows[:, 0])
+    pixels = png_unfilter(rows.reshape(h, w * bpp + 1), bpp).reshape(h, w, bpp)
     if depth == 16:
         return pixels.view(">u2").astype(np.uint16)
     return pixels
@@ -165,39 +224,134 @@ def write_png(path: str, image: np.ndarray) -> None:
     os.replace(tmp, path)
 
 
+# cv2's EXIF orientations: 2-4 flip, 5-8 transpose and then flip
+# (horizontally 1, both -1, vertically 0).
+_FLIP = {2: 1, 3: -1, 4: 0, 6: 1, 7: -1, 8: 0}
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    if orientation >= 5:
+        img = img.swapaxes(0, 1)
+    flip = _FLIP.get(orientation)
+    if flip is not None:
+        img = img[::-1] if flip == 0 else img[:, ::-1] if flip == 1 else img[::-1, ::-1]
+    return np.ascontiguousarray(img)
+
+
+def decode_jpeg(data: bytes, what: str = "JPEG") -> np.ndarray:
+    """uint8 RGB [H,W,3] of a JPEG stream, its EXIF orientation applied."""
+    lib = _codec()
+    h, w, orientation = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _check(lib.jpeg_info(data, len(data), ctypes.byref(h), ctypes.byref(w),
+                         ctypes.byref(orientation), err, _ERR_LEN), err, what)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    _check(lib.jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, err, _ERR_LEN),
+           err, what)
+    return _orient(out, orientation.value)
+
+
+def decode_bmp(data: bytes, what: str = "BMP") -> np.ndarray:
+    """uint8 RGB [H,W,3] of an uncompressed 24-bit, 32-bit (alpha dropped)
+    or 8-bit palette BMP with a Windows info header (40 bytes or longer);
+    palette indices past the palette read black, as in OpenCV."""
+    if len(data) < 54 or data[:2] != b"BM":
+        raise ValueError(f"{what}: not a BMP file")
+    offset, hsize = struct.unpack_from("<II", data, 10)
+    if hsize < 40:
+        raise NotImplementedError(f"{what}: BMP with a {hsize}-byte header (OS/2)")
+    w, h, _, bpp, compression, _, _, _, ncolors = struct.unpack_from("<iiHHIIiiI", data, 18)
+    if compression == 3 and bpp == 32:       # BI_BITFIELDS: the standard masks only
+        masks = struct.unpack_from("<III", data, 54)      # after the 40-byte core
+        if masks != (0xFF0000, 0xFF00, 0xFF):
+            raise NotImplementedError(f"{what}: BMP with bit-field masks {masks}")
+    elif compression != 0:
+        raise NotImplementedError(f"{what}: compressed BMP (compression {compression})")
+    if bpp not in (8, 24, 32):
+        raise NotImplementedError(f"{what}: {bpp}-bit BMP")
+    top_down, h = h < 0, abs(h)
+    if w <= 0 or h == 0:
+        raise ValueError(f"{what}: BMP of size {w}x{h}")
+    stride = (w * bpp + 31) // 32 * 4
+    if offset + stride * h > len(data):
+        raise ValueError(f"{what}: truncated BMP")
+    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bpp == 8:
+        n = ncolors or 256
+        if n > 256 or 14 + hsize + 4 * n > offset:
+            raise ValueError(f"{what}: BMP palette of {n} colours")
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:n] = np.frombuffer(data, np.uint8, 4 * n, 14 + hsize).reshape(n, 4)[:, 2::-1]
+        return palette[rows[:, :w]]
+    ch = bpp // 8
+    return np.ascontiguousarray(rows[:, :w * ch].reshape(h, w, ch)[..., 2::-1])
+
+
 def read_image_rgb(path: str) -> np.ndarray:
-    """A frame as uint8 RGB [H,W,3]: gray repeated, alpha dropped, as
-    ``cv2.imread(path, IMREAD_COLOR)[..., ::-1]`` reads an 8-bit PNG."""
-    img = read_png(path)
-    if img.dtype != np.uint8:
-        raise NotImplementedError(f"{path}: a 16-bit PNG is not a colour frame")
-    if img.shape[-1] in (1, 2):
-        return np.repeat(img[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
+    """A frame as uint8 RGB [H,W,3], as ``cv2.imread(path, IMREAD_COLOR)
+    [..., ::-1]`` reads it: PNG (gray repeated, alpha dropped), JPEG or BMP,
+    told apart by the file's first bytes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(PNG_SIGNATURE):
+        img = decode_png(data, path)
+        if img.dtype != np.uint8:
+            raise NotImplementedError(f"{path}: a 16-bit PNG is not a colour frame")
+        if img.shape[-1] in (1, 2):
+            return np.repeat(img[..., :1], 3, axis=-1)
+        return np.ascontiguousarray(img[..., :3])
+    if data.startswith(b"\xff\xd8"):
+        return decode_jpeg(data, path)
+    if data.startswith(b"BM"):
+        return decode_bmp(data, path)
+    raise NotImplementedError(f"{path}: not a PNG, JPEG or BMP file (first bytes "
+                              f"{data[:8]!r}); other formats and video are ROADMAP A9")
 
 
-def _axis_taps(n_in: int, n_out: int):
-    """Source index pairs and weights of one axis, half-pixel centres,
-    clamped at the borders."""
-    scale = n_in / n_out
-    src = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
-    i0 = np.floor(src).astype(np.int64)
-    frac = src - i0
-    frac = np.where(i0 < 0, 0.0, frac)
-    i0 = np.clip(i0, 0, n_in - 1)
-    i1 = np.minimum(i0 + 1, n_in - 1)
-    return i0, i1, frac.astype(np.float32)
+def _linear_taps(n_in: int, n_out: int):
+    """OpenCV's INTER_LINEAR taps of one axis: the two source indices
+    (clipped to the image) and their 11-bit weights."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int32)
+    return np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1), w0, w1
 
 
 def resize_bilinear_u8(image: np.ndarray, shape) -> np.ndarray:
-    """uint8 [H,W,C] -> uint8 [h,w,C] (``shape`` = (h, w)) by bilinear
-    interpolation with half-pixel centres, rounded half up."""
+    """uint8 [H,W] or [H,W,C] -> uint8 [h,w(,C)] (``shape`` = (h, w)), as
+    ``cv2.resize(image, (w, h), interpolation=INTER_LINEAR)``."""
     h, w = int(shape[0]), int(shape[1])
     if image.shape[:2] == (h, w):
         return image
-    y0, y1, fy = _axis_taps(image.shape[0], h)
-    x0, x1, fx = _axis_taps(image.shape[1], w)
-    img = image.astype(np.float32)
-    top = img[y0] * (1 - fy)[:, None, None] + img[y1] * fy[:, None, None]
-    out = top[:, x0] * (1 - fx)[None, :, None] + top[:, x1] * fx[None, :, None]
-    return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+    if image.dtype != np.uint8:
+        raise ValueError(f"resize_bilinear_u8 takes uint8, not {image.dtype}")
+    y0, y1, b0, b1 = _linear_taps(image.shape[0], h)
+    x0, x1, a0, a1 = _linear_taps(image.shape[1], w)
+    img = image.astype(np.int32)
+    if image.ndim == 3:
+        a0, a1 = a0[:, None], a1[:, None]
+    rows = (img[:, x0] * a0 + img[:, x1] * a1) >> 4          # [H, w(, C)]
+    b0 = b0.reshape(-1, *([1] * (image.ndim - 1)))
+    b1 = b1.reshape(-1, *([1] * (image.ndim - 1)))
+    out = (((rows[y0] * b0) >> 16) + ((rows[y1] * b1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_nearest(image: np.ndarray, shape) -> np.ndarray:
+    """[H,W(,C)] of any dtype -> [h,w(,C)], as ``cv2.resize(...,
+    INTER_NEAREST)``."""
+    h, w = int(shape[0]), int(shape[1])
+    if image.shape[:2] == (h, w):
+        return image
+
+    def index(n_in, n_out):
+        step = 1.0 / (n_out / n_in)
+        return np.minimum(np.floor(np.arange(n_out) * step).astype(np.int64), n_in - 1)
+
+    return image[index(image.shape[0], h)[:, None], index(image.shape[1], w)]

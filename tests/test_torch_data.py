@@ -124,15 +124,15 @@ def test_jitter_changes_with_epoch():
 
 def test_not_ported_inputs_raise():
     sample = {"rgb": np.zeros((16, 24, 3), np.float32),
-              "rgb_context": np.zeros((1, 16, 24, 3), np.float32)}
-    with pytest.raises(NotImplementedError, match="A5"):
+              "rgb_context": np.zeros((1, 16, 24, 3), np.float32),
+              "intrinsics": np.eye(3, dtype=np.float32)}
+    with pytest.raises(NotImplementedError, match="float images are not resized"):
         eval_transform(dict(sample), SHAPE)
     u8 = {"rgb": np.zeros((*SHAPE, 3), np.uint8),
           "rgb_context": np.zeros((1, *SHAPE, 3), np.uint8)}
-    with pytest.raises(NotImplementedError, match="A5"):
-        eval_transform(u8, SHAPE)
-    cfg = load_config(overrides={"datasets": {"train": {"dataset": ["KITTI"]}}})
-    with pytest.raises(KeyError, match="Synthetic.*SyntheticMulti"):
+    assert eval_transform(u8, SHAPE)["rgb"].dtype == np.float32
+    cfg = load_config(overrides={"datasets": {"train": {"dataset": ["NYU"]}}})
+    with pytest.raises(KeyError, match="A5a.*Synthetic.*SyntheticMulti"):
         tdata.setup_dataset(cfg.datasets.train, cfg.datasets.augmentation, "train")
 
 

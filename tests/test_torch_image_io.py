@@ -4,10 +4,10 @@
 compression level and what Pillow writes (RGB, RGBA, gray, gray+alpha; all
 five row filters occur), bit-equal to ``cv2.imread``; OpenCV reads the
 port's files back bit-equal; 16-bit depth files round-trip through both
-packages' ``load_depth``/``write_depth``. The bilinear resize stays within
-one level (1/255 after scaling) of ``cv2.resize(INTER_LINEAR)``, whose
-fixed-point weights it does not copy; a frame already at the shape is
-returned as it is. What the port does not decode raises, naming ROADMAP A9.
+packages' ``load_depth``/``write_depth``. The bilinear resize equals
+``cv2.resize(INTER_LINEAR)`` (its fixed-point weights and rounding); a frame
+already at the shape is returned as it is. What the port does not decode
+raises, naming ROADMAP A9.
 """
 import struct
 import zlib
@@ -123,7 +123,7 @@ def test_resize_within_one_level_of_opencv(images, src, dst):
     got = resize_bilinear_u8(img, dst)
     want = cv2.resize(img, (dst[1], dst[0]), interpolation=cv2.INTER_LINEAR)
     assert got.shape == want.shape and got.dtype == np.uint8
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert np.array_equal(got, want)
     if src == dst:
         assert got is img
 

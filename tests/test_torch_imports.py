@@ -3,10 +3,11 @@
 Every ``.py`` under ``dro_sfm_torch/`` and ``chip_smoke.py`` is parsed and
 its imports checked; importing the package in a fresh interpreter must leave
 ``jax`` out of ``sys.modules``. The card's machine has none of PyYAML,
-OpenCV, Pillow, matplotlib or msgpack, so no module of the port imports
-them (it reads flax's msgpack and PNG files itself), and ``wandb`` is
-imported only inside ``loggers.py:WandbLogger``. The trainer, the CLIs and
-the inference applications import none of them.
+OpenCV, Pillow, matplotlib, msgpack, h5py or imageio, so no module of the
+port imports them (it reads flax's msgpack and PNG, JPEG and BMP files
+itself), and ``wandb`` is imported only inside ``loggers.py:WandbLogger``.
+The trainer, the CLIs, the dataset readers and the inference applications
+import none of them.
 """
 import ast
 import subprocess
@@ -17,7 +18,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dro_sfm_tpu")
-ABSENT_ON_THE_CARD = ("yaml", "cv2", "PIL", "matplotlib", "msgpack")
+ABSENT_ON_THE_CARD = ("yaml", "cv2", "PIL", "matplotlib", "msgpack", "h5py", "imageio")
 FILES = sorted((ROOT / "dro_sfm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -77,6 +78,7 @@ def test_trainer_import_leaves_out_jax_yaml_cv2():
             "dro_sfm_torch.scripts.infer_pose, dro_sfm_torch.scripts.infer_video, "
             "dro_sfm_torch.scripts.frames, dro_sfm_torch.inference, "
             "dro_sfm_torch.training.init_weights, dro_sfm_torch.utils.image_io, "
+            "dro_sfm_torch.data.kitti, dro_sfm_torch.data.dgp, "
             "dro_sfm_torch.visualization.demo_video\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
             "assert not bad, bad\n" % (FORBIDDEN + ABSENT_ON_THE_CARD + ("wandb",),))

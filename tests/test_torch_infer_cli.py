@@ -9,8 +9,9 @@ are held to the JAX package's ``load_model``, ``make_infer_fn``,
 ``TrajectoryAccumulator`` and ``filter_depth`` run here on the same frames
 (read by OpenCV): depth maps and trajectories within 1e-4 (relative L2 per
 map, absolute on the poses); the point cloud's size within the pixels that
-lie within 1e-4 of ``filter_depth``'s thresholds in the JAX depth. What the
-port does not write raises or is named, with its ROADMAP item.
+lie within 1e-4 of ``filter_depth``'s thresholds in the JAX depth. The same
+frames as JPEG and BMP files go through ``infer_video`` to the same bar. What
+the port does not read or write raises or is named, with its ROADMAP item.
 """
 import json
 import os
@@ -177,12 +178,40 @@ def test_infer_and_infer_pose_match_the_jax_package(scene, reference):
                                reference["trajectory"], atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("ext", [".jpg", ".bmp"])
+def test_jpeg_and_bmp_frames_match_the_jax_package(scene, reference, tmp_path, ext):
+    """The same frames as JPEG (4:2:0, quality 95) or BMP files, read by the
+    port's codec and, for the JAX package, by OpenCV."""
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    for f in reference["files"]:
+        img = cv2.imread(os.path.join(scene["frames"], f))
+        cv2.imwrite(str(frames / f.replace(".png", ext)), img, [cv2.IMWRITE_JPEG_QUALITY, 95])
+    result = infer_video.main(["--checkpoint", scene["ckpt"], "--input", str(frames),
+                               "--output", str(tmp_path / "out"), "--device", "cpu"])
+    assert result["windows"] == FRAMES - 2
+    files = sorted(os.listdir(frames))
+
+    def load(f):
+        img = cv2.imread(str(frames / f), cv2.IMREAD_COLOR)[..., ::-1]
+        return img.astype(np.float32) / 255.0
+
+    depths = np.load(str(tmp_path / "out" / "depths.npy"))
+    for i in range(1, FRAMES - 1):
+        depth, _ = reference["fn"](
+            reference["variables"], jnp.asarray(load(files[i])[None]),
+            jnp.asarray(np.stack([load(files[i - 1]), load(files[i + 1])])[None]),
+            jnp.asarray(reference["K"][None]))
+        assert rel_l2(depths[i - 1], np.asarray(depth)) <= 1e-4
+
+
 def test_what_is_not_ported_raises(scene, tmp_path):
     common = ["--checkpoint", scene["ckpt"], "--device", "cpu"]
     jpg_dir = tmp_path / "jpg"
     jpg_dir.mkdir()
     for i in range(3):
-        cv2.imwrite(str(jpg_dir / f"{i}.jpg"), np.zeros((H, W, 3), np.uint8))
+        cv2.imwrite(str(jpg_dir / f"{i}.jpg"), np.zeros((H, W, 3), np.uint8),
+                    [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     video = tmp_path / "clip.mp4"
     video.write_bytes(b"")
     cases = [
@@ -195,7 +224,8 @@ def test_what_is_not_ported_raises(scene, tmp_path):
         (infer_video.main, ["--input", scene["frames"], "--output", str(tmp_path),
                             "--gt-depth", str(tmp_path)], "A9"),
         (infer_video.main, ["--input", str(video), "--output", str(tmp_path)], "A9"),
-        (infer_video.main, ["--input", str(jpg_dir), "--output", str(tmp_path)], "A9"),
+        (infer_video.main, ["--input", str(jpg_dir), "--output", str(tmp_path)],
+         "progressive"),
     ]
     for main, args, item in cases:
         with pytest.raises(NotImplementedError, match=item):
