@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (supervised,
-self-supervised, semi-supervised and single-frame), its trainer and its
-dataset readers, on one NVIDIA GPU and check their kernels.
+self-supervised, semi-supervised and single-frame), its trainer, its
+dataset readers and its training in several processes, on one NVIDIA GPU
+and check their kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -132,7 +133,30 @@ result line):
    (ScannetTest, ScannetTestMF, ScannetBA, Demon, DemonMF, Matterport,
    MatterportTest, Video, Video_Random, Image, DGP) through `make_loader`
    and `device_prefetch` onto the card, its schema checked. The trees live
-   under ``build/datasets`` and are removed at the end.
+   under ``build/datasets`` and are removed at the end;
+25. dist_trainer: training in several processes. (a) `Trainer.fit` on
+   ``configs/train_synthetic_192x640.yaml`` (SupModelMF it12-h-out bf16
+   192x640 B=8, one epoch of 2 steps, one B=4 validation batch) in a
+   process group of world size 1 on NCCL, counts reset just before fit()
+   and read just after (K1 24, K2 24, K3 18 a step, K1 48 an eval batch),
+   its losses, net, Adam moments and step equal bit for bit to the same fit
+   without a process group (deterministic library algorithms in both);
+   (b) two spawned ranks on this one card over gloo (NCCL refuses two ranks
+   on one device), B=4 each from `tame_weights` on a batch whose second
+   half (rank 1's) is dimmed: the step's launches on every rank, the ranks'
+   gradients equal bit for bit, and against the one-process B=8 step the
+   loss and every gradient leaf in bf16 (bar max(BF16_BAR, the leaf's bf16
+   own error)) and in fp32 (1e-5 on the loss, 1e-2 and cosine 0.9999 on a
+   leaf; the same fp32 step with the halves swapped is printed as the order
+   of the sums' own reach), BatchNorm statistics within 1e-3; ms a step,
+   the collectives' share of a profiled step (host time in the
+   ``collective:`` spans); the sharded validation of (a)'s checkpoint, its 36
+   depth metrics within 1e-5 of (a)'s; (c) planted faults that must fail:
+   rank 1's BatchNorm skipping the reduction, and a validation shard that
+   drops a sample (both ranks must raise). A rank that raises or outlives
+   120 s fails the phase. ``python3 tools/torch_dist_nccl.py`` runs the
+   step and `Trainer.fit` on every card of a host with several, NCCL
+   between them.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -2806,10 +2830,433 @@ def phase_datasets(counters, gpu):
         torch.cuda.empty_cache()
 
 
+# --- training in several processes ---------------------------------------------
+
+DIST_BUILD = ROOT / "build" / "dist_trainer"
+DIST_WORLD = 2
+DIST_TIMEOUT = 120                 # seconds the ranks of a run may take
+DIST_TIMED_STEPS = 3
+
+
+def counter_map():
+    from dro_sfm_torch.ops.gru_pass import K5_COUNTER, K6I_COUNTER, K6W_COUNTER
+    from dro_sfm_torch.ops.tent_warp import K1_COUNTER, K2_COUNTER, K3_COUNTER, K4_COUNTER
+    return {"K1": K1_COUNTER, "K2": K2_COUNTER, "K3": K3_COUNTER, "K4": K4_COUNTER,
+            "K5": K5_COUNTER, "K6-input": K6I_COUNTER, "K6-weight": K6W_COUNTER}
+
+
+def dist_config(tag, train=True):
+    """`trainer_config` cut to one epoch (2 steps of B=8, one B=4 validation
+    batch), checkpoints under ``build/dist_trainer/<tag>``; without
+    ``train`` an evaluation-only config."""
+    cfg = trainer_config(max_epochs=1)
+    cfg.checkpoint.filepath = str(DIST_BUILD / tag / "ckpt")
+    cfg.save.folder = str(DIST_BUILD / tag / "depth")
+    if not train:
+        cfg.datasets.train.dataset = []
+    return cfg
+
+
+def dist_fit(tag, counters):
+    """`Trainer.fit` of `dist_config` with deterministic library algorithms:
+    (losses, validation metrics, launches a step, a batch and over fit(),
+    ms a step, the state after, the checkpoint)."""
+    from dro_sfm_torch.training.trainer import Trainer
+    trainer = Trainer(dist_config(tag), device="cuda")
+    train = trainer.train_step = CountedStep(trainer.train_step, counters, timed=True)
+    evaluate = CountedStep(trainer.eval_step_for(False), counters)
+    trainer._eval_steps[False] = evaluate
+    for c in counters.values():              # the trainer's path starts here
+        c.reset()
+    metrics = trainer.fit()
+    launches = {k: c.launches for k, c in counters.items()}   # and ends here
+    losses = [m["loss"].item() for _, m in train.outputs]
+    (ckpt,) = [p for _, p in trainer.checkpointer.saved]
+    state = trainer_state(trainer)
+    return losses, metrics, train.launches, evaluate.launches, launches, train.ms, state, ckpt
+
+
+def flip_generator_for(flip):
+    """A generator whose first flip draw (probability 0.5) is ``flip``."""
+    from dro_sfm_torch.models.sfm import draw_flip
+    seed = next(s for s in range(100)
+                if draw_flip(torch.Generator().manual_seed(s), 0.5) == flip)
+    return torch.Generator().manual_seed(seed)
+
+
+def dist_batch():
+    """The global B=8 batch of the two-rank step: `make_train_batch` with
+    the last 4 images (rank 1's shard) at half brightness, so that a shard's
+    BatchNorm statistics differ from the global batch's."""
+    batch = make_train_batch(TRAIN_B, seed=4)
+    for k in ("rgb", "rgb_context", "rgb_original", "rgb_context_original"):
+        batch[k] = batch[k].clone()
+        batch[k][TRAIN_B // 2:] *= 0.5
+    return batch
+
+
+def dist_step(cfg, state, batch, generator, do_flip=None):
+    """One `make_train_step` step from ``state`` on ``batch``: (net,
+    optimizer, step, TrainState, metrics, gradients before the update in
+    fp64, the state after)."""
+    from dro_sfm_torch.training.state import create_train_state, make_optimizer
+    from dro_sfm_torch.training.step import make_train_step
+    net = cfg.build_net(device="cuda")
+    net.load_state_dict(state, strict=True)
+    opt = make_optimizer(net, steps_per_epoch=1000)
+    train_state = create_train_state(net, opt, device="cuda")
+    grads, update = {}, opt.step
+
+    def step_keeping_grads(count):
+        grads.update({k: p.grad.detach().double() for k, p in net.named_parameters()})
+        update(count)
+
+    opt.step = step_keeping_grads
+    step = make_train_step(cfg, net, opt, device="cuda")
+    train_state, metrics = step(train_state, batch, generator, do_flip=do_flip)
+    opt.step = update
+    after = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    return net, step, train_state, {k: v.item() for k, v in metrics.items()}, grads, after
+
+
+def skipped_reduction(layers):
+    """`layers._global_moments` on a rank whose BatchNorm skips the
+    reduction: the sums still go round (so the ranks stay in step, forward
+    and backward), but the rank normalises with its shard's statistics."""
+    real = layers._global_moments
+
+    def local(xf):
+        gmean, gvar = real(xf)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        return mean + 0.0 * gmean, var + 0.0 * gvar
+    return local
+
+
+def dist_rank(rank, world, store, job_path, out_dir):
+    """One rank of the two-rank run on the card (gloo, the same card for
+    both): the step on this rank's shard of the job's batch and its
+    launches; the step again with rank 1's BatchNorm skipping the
+    reduction; timed steps and a profiled one; validation of the job's
+    checkpoint, and again with a shard that drops a sample. Writes
+    ``out_dir/rank<R>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    marks = [("entered", time.time())]
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=90))
+    try:
+        from dro_sfm_torch.models import layers
+        from dro_sfm_torch.parallel.collectives import SPAN
+        from dro_sfm_torch.training.trainer import Trainer
+        counters = counter_map()
+        job = torch.load(job_path, map_location="cuda", weights_only=False)
+        per = TRAIN_B // world
+        shard = {k: v[rank * per:(rank + 1) * per] for k, v in job["batch"].items()}
+        cfg = train_config()
+        out = {}
+        # The step: rank 0 draws no flip, rank 1 a flip; rank 0's holds.
+        for c in counters.values():
+            c.reset()
+        net, step, state, metrics, grads, after = dist_step(
+            cfg, job["state"], shard, flip_generator_for(rank != 0))
+        out["launches"] = {k: c.launches for k, c in counters.items()}
+        out["step"] = (metrics, grads, after)
+        marks.append(("bf16 step", time.time()))
+        out["step_fp32"] = dist_step(train_config(mixed_precision=False), job["state"], shard,
+                                     flip_generator_for(rank != 0))[3:]
+        marks.append(("fp32 step", time.time()))
+        # Timed steps and one profiled step, continuing from there.
+        flips = torch.Generator().manual_seed(5)
+        times = []
+        for _ in range(DIST_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, shard, flips)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            step(state, shard, flips)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        # The host's time inside each collective's span (gloo copies CUDA
+        # tensors through the host, so it includes waiting for the kernels
+        # queued before the collective).
+        spans = {e.key[len(SPAN):]: (e.count, e.cpu_time_total / 1e3)
+                 for e in prof.key_averages()
+                 if e.key.startswith(SPAN) and e.device_type == torch.autograd.DeviceType.CPU}
+        out["ms"] = times
+        out["profile"] = (wall, spans)
+        del net, step, state
+        marks.append(("timed steps", time.time()))
+        # Rank 1's BatchNorm skips the reduction.
+        real = layers._global_moments
+        if rank == 1:
+            layers._global_moments = skipped_reduction(layers)
+        try:
+            _, _, _, metrics, grads, after = dist_step(
+                cfg, job["state"], shard, flip_generator_for(rank != 0))
+        finally:
+            layers._global_moments = real
+        out["fault_bn"] = (metrics, grads, after)
+        marks.append(("fault step", time.time()))
+        # Validation of the one-process trainer's checkpoint, sharded, with
+        # the library algorithms that trainer ran.
+        trainer = Trainer(dist_config(f"eval_rank{rank}", train=False), resume=job["ckpt"],
+                          device="cuda")
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        warnings.simplefilter("ignore", UserWarning)
+        for c in counters.values():
+            c.reset()
+        out["validate"] = trainer.validate()
+        out["eval_launches"] = {k: c.launches for k, c in counters.items()}
+        loader = trainer.val_loaders[0]
+
+        class DropsASample:
+            """The validation loader, rank 1's first genuine sample dropped."""
+            dataset = loader.dataset
+
+            def __len__(self):
+                return len(loader)
+
+            def __iter__(self):
+                for i, batch in enumerate(loader):
+                    if rank == 1 and i == 0:
+                        batch["valid"] = batch["valid"].copy()
+                        batch["valid"][0] = False
+                    yield batch
+
+        try:
+            trainer.validate(DropsASample())
+            out["drop"] = None
+        except RuntimeError as e:
+            out["drop"] = str(e)
+        marks.append(("validation", time.time()))
+        out["marks"] = marks
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dist_ranks(job_path):
+    """Spawn the `DIST_WORLD` ranks of `dist_rank`: (processes, deadline)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    store = DIST_BUILD / "gloo_store"
+    procs = [ctx.Process(target=dist_rank, args=(r, DIST_WORLD, str(store), str(job_path),
+                                                 str(DIST_BUILD)))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    return procs, time.monotonic() + DIST_TIMEOUT
+
+
+def join_dist_ranks(procs, deadline):
+    """Each rank's results; fails on a rank that raises or outlives
+    `DIST_TIMEOUT`."""
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if hung:
+        fail(f"dist_trainer: ranks {hung} still ran after {DIST_TIMEOUT} s")
+    if codes != [0] * DIST_WORLD:
+        fail(f"dist_trainer: ranks' exit codes {codes}")
+    return [torch.load(DIST_BUILD / f"rank{r}.pt", map_location="cuda", weights_only=False)
+            for r in range(DIST_WORLD)]
+
+
+def stats_beyond(after, ref_after, bar=1e-3):
+    """BatchNorm statistics of ``after`` farther than ``bar`` from
+    ``ref_after`` (relative to the largest element)."""
+    return [k for k, v in ref_after.items() if k.endswith(("running_mean", "running_var"))
+            and (after[k] - v).abs().max().item() > bar * v.abs().max().item()]
+
+
+def dist_verdict(result, ref, own=None):
+    """(failures, (worst rel L2, its leaf), the loss's relative error) of a
+    rank's step against the one-process step on the whole batch. In bf16
+    (``own``: each leaf's bf16 own error, the one-process bf16 gradient
+    against the fp32 one) the loss within BF16_BAR relative and each leaf
+    within max(BF16_BAR, own) relative L2: two bf16 steps that round at
+    other points (another batch size runs other cuDNN algorithms) part by
+    up to bf16's own error. In fp32 the loss within 1e-5 relative and each
+    leaf at cosine >= 0.9999 and relative L2 <= 1e-2, the reach of the
+    order of the sums (`tests/test_torch_dist_train.py`). Both: the
+    BatchNorm statistics within 1e-3 of the largest element."""
+    (metrics, grads, after), (ref_metrics, ref_grads, ref_after) = result, ref
+    failures, worst = [], (0.0, "")
+    rel = abs(metrics["loss"] - ref_metrics["loss"]) / abs(ref_metrics["loss"])
+    if not rel <= (BF16_BAR if own else 1e-5):
+        failures.append(f"loss {metrics['loss']!r} vs {ref_metrics['loss']!r}")
+    for k, want in ref_grads.items():
+        got = grads[k]
+        if want.norm().item() == 0:
+            if got.norm().item() != 0:
+                failures.append(f"{k} nonzero where one process has zero")
+            continue
+        r, cos = rel_l2(got, want), cosine(got, want)
+        bar = max(BF16_BAR, own.get(k, 0.0)) if own else 1e-2
+        if not (r <= bar and (own or cos >= 0.9999)):
+            failures.append(f"{k} rel L2 {r:.3e} cosine {cos:.6f} bar {bar:.3e}")
+        worst = max(worst, (r, k))
+    failures += [f"{k} beyond 1e-3" for k in stats_beyond(after, ref_after)]
+    return failures, worst, rel
+
+
+def leaf_errors(grads, ref_grads):
+    """Each leaf's relative L2 from ``ref_grads`` (nonzero leaves)."""
+    return {k: rel_l2(grads[k], g) for k, g in ref_grads.items() if g.norm().item() > 0}
+
+
+def phase_dist_trainer(counters, gpu):
+    """Training in several processes (see the module docstring, phase 25)."""
+    import shutil
+
+    import torch.distributed as dist
+    shutil.rmtree(DIST_BUILD, ignore_errors=True)
+    DIST_BUILD.mkdir(parents=True)
+    deterministic = torch.backends.cudnn.deterministic
+    t_phase = time.perf_counter()
+    try:
+        # (a) World size 1 on NCCL against the same trainer without a group.
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)   # ops with no deterministic twin
+            alone = dist_fit("alone", counters)
+            dist.init_process_group("nccl", store=dist.FileStore(str(DIST_BUILD / "nccl_store"), 1),
+                                    rank=0, world_size=1, device_id=torch.device("cuda", 0))
+            try:
+                nccl = dist_fit("nccl", counters)
+            finally:
+                dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+        losses, metrics, step_launches, eval_launches, launches, ms, state, ckpt = nccl
+        check_launches("world-size-1 train step", step_launches, TRAIN_LAUNCHES, counters)
+        check_launches("world-size-1 eval batch", eval_launches, EVAL_LAUNCHES, counters)
+        if len(step_launches) != 2 or len(eval_launches) != 1:
+            fail(f"dist_trainer: {len(step_launches)} steps, {len(eval_launches)} eval batches")
+        want = {k: 2 * TRAIN_LAUNCHES.get(k, 0) + EVAL_LAUNCHES.get(k, 0) for k in counters}
+        if launches != want:
+            fail(f"dist_trainer: launches over fit() {launches}, want {want}")
+        if losses != alone[0] or not all(math.isfinite(v) for v in losses):
+            fail(f"dist_trainer: world size 1 on NCCL losses {losses}, without a "
+                 f"process group {alone[0]}")
+        check_finite("world-size-1 fit()", metrics)
+        same = not same_state(state, alone[6])
+        print(f"dist_trainer (a) world size 1 on NCCL, train_synthetic_192x640 it12-h-out "
+              f"bf16 192x640 B=8: losses {losses} bit-equal to the run without a process "
+              f"group; net, Adam and step {'bit-equal' if same else 'NOT bit-equal'}; "
+              f"ms a step {' / '.join(f'{v:.2f}' for v in ms)} (without a group "
+              f"{' / '.join(f'{v:.2f}' for v in alone[5])}); launches per step "
+              f"{step_launches[-1]}, per eval batch {eval_launches[-1]}; both fits "
+              f"{time.perf_counter() - t_phase:.1f} s; on {gpu}", flush=True)
+
+        # (b) Two ranks on this card over gloo against one process on B=8.
+        start = tame_weights(start_weights(train_config()).state_dict())
+        batch = dist_batch()
+        job = DIST_BUILD / "job.pt"
+        torch.save({"state": {k: v.cpu() for k, v in start.items()},
+                    "batch": {k: v.cpu() for k, v in batch.items()}, "ckpt": ckpt}, job)
+        t0, spawned = time.perf_counter(), time.time()
+        procs = start_dist_ranks(job)        # the references meanwhile, as they start up
+        fp32 = train_config(mixed_precision=False)
+        ref = dist_step(train_config(), start, batch, None, do_flip=False)[3:]
+        ref32 = dist_step(fp32, start, batch, None, do_flip=False)[3:]
+        own = leaf_errors(ref[1], ref32[1])
+        # The order of the sums' own reach: one process, the halves swapped.
+        swapped = {k: torch.cat([v[TRAIN_B // 2:], v[:TRAIN_B // 2]]) for k, v in batch.items()}
+        floor = sorted(leaf_errors(dist_step(fp32, start, swapped, None, do_flip=False)[4],
+                                   ref32[1]).values())
+        torch.cuda.empty_cache()
+        print(f"dist_trainer (b) one process B=8 from tame_weights: bf16 own error (against "
+              f"fp32) by leaf median {sorted(own.values())[len(own) // 2]:.3e}, largest "
+              f"{max(own.values()):.3e}; fp32 with the halves swapped against fp32: median "
+              f"{floor[len(floor) // 2]:.3e}, largest {floor[-1]:.3e}", flush=True)
+        ranks = join_dist_ranks(*procs)
+        spawn_s = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            got = {k: v for k, v in res["launches"].items()}
+            want = {k: TRAIN_LAUNCHES.get(k, 0) for k in counters}
+            if got != want:
+                fail(f"dist_trainer: rank {r} step launches {got}, want {want}")
+            failures, worst, rel = dist_verdict(res["step"], ref, own)
+            failures32, worst32, rel32 = dist_verdict(res["step_fp32"], ref32)
+            for what, bad in (("bf16", failures), ("fp32", failures32)):
+                if bad:
+                    fail(f"dist_trainer: rank {r} {what} against one process: {bad[:6]}")
+            wall, spans = res["profile"]
+            in_spans = sum(t for _, t in spans.values())
+            print(f"dist_trainer (b) rank {r} of 2 on one card (gloo), B=4 a rank, against "
+                  f"one process on B=8: bf16 loss {res['step'][0]['loss']:.6f} vs "
+                  f"{ref[0]['loss']:.6f} (relative {rel:.2e}, bar {BF16_BAR:g}), worst "
+                  f"leaf rel L2 {worst[0]:.3e} ({worst[1]}, own error {own.get(worst[1], 0.0):.3e}); "
+                  f"fp32 loss relative {rel32:.2e} (bar 1e-5), worst leaf {worst32[0]:.3e} "
+                  f"({worst32[1]}, bar 1e-2); BatchNorm statistics within 1e-3; "
+                  f"launches {got}; ms a step {' / '.join(f'{v:.2f}' for v in res['ms'])}; "
+                  f"collectives' share of the profiled step (host time in the "
+                  f"collective spans) {in_spans:.2f} of {wall:.2f} ms "
+                  f"({100 * in_spans / wall:.1f}%): " + ", ".join(
+                      f"{k} {n}x {t:.2f} ms" for k, (n, t) in sorted(spans.items())),
+                  flush=True)
+            print(f"  rank {r} seconds after the spawn: " + ", ".join(
+                f"{what} {t - spawned:.1f}" for what, t in res["marks"]), flush=True)
+        if not all(torch.equal(ranks[0]["step"][1][k], ranks[1]["step"][1][k])
+                   for k in ref[1]):
+            fail("dist_trainer: the two ranks hold different gradients")
+        # Validation, sharded, of (a)'s checkpoint against (a)'s last validation.
+        for r, res in enumerate(ranks):
+            if res["eval_launches"] != {k: EVAL_LAUNCHES.get(k, 0) for k in counters}:
+                fail(f"dist_trainer: rank {r} eval launches {res['eval_launches']}")
+            for mode in ("", "_pp", "_gt", "_pp_gt"):
+                for m in ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3",
+                          "SILog", "l1_inv"):
+                    a, b = res["validate"][m + mode], metrics[m + mode]
+                    if not abs(a - b) <= 1e-5 * abs(b) + 1e-7:
+                        fail(f"dist_trainer: rank {r} validation {m + mode} {a!r}, one "
+                             f"process {b!r}")
+        print(f"dist_trainer (b) validation on 2 ranks: the 36 depth metrics within 1e-5 "
+              f"of (a)'s, abs_rel_pp_gt {ranks[0]['validate']['abs_rel_pp_gt']!r} vs "
+              f"{metrics['abs_rel_pp_gt']!r}; the ranks' run {spawn_s:.1f} s", flush=True)
+
+        # (c) Planted faults.
+        caught = [dist_verdict(res["fault_bn"], ref, own)[0] for res in ranks]
+        if not any(caught):
+            fail("dist_trainer: the bars pass a rank whose BatchNorm skips the reduction")
+        print(f"dist_trainer (c) rank 1's BatchNorm skipping the reduction: "
+              f"{[len(c) for c in caught]} failures by rank, e.g. {(caught[1] or caught[0])[:2]}",
+              flush=True)
+        drops = [res["drop"] for res in ranks]
+        if not all(d and "saw 3 samples, expected 4" in d for d in drops):
+            fail(f"dist_trainer: a shard that drops a sample passed: {drops}")
+        print(f"dist_trainer (c) a validation shard that drops a sample: both ranks raise "
+              f"({drops[0]!r})", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(DIST_BUILD, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
           "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
-          "trainer", "selfsup_trainer", "apps", "datasets")
+          "trainer", "selfsup_trainer", "apps", "datasets", "dist_trainer")
 
 
 def main() -> int:
@@ -2828,17 +3275,8 @@ def main() -> int:
     from dro_sfm_torch import kernels
     from dro_sfm_torch.inference import make_infer_fn
     from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
-    from dro_sfm_torch.ops.gru_pass import K5_COUNTER, K6I_COUNTER, K6W_COUNTER
-    from dro_sfm_torch.ops.tent_warp import (
-        K1_COUNTER,
-        K2_COUNTER,
-        K3_COUNTER,
-        K4_COUNTER,
-        warp_diff,
-        warp_diff_plain,
-    )
-    counters = {"K1": K1_COUNTER, "K2": K2_COUNTER, "K3": K3_COUNTER, "K4": K4_COUNTER,
-                "K5": K5_COUNTER, "K6-input": K6I_COUNTER, "K6-weight": K6W_COUNTER}
+    from dro_sfm_torch.ops.tent_warp import warp_diff, warp_diff_plain
+    counters = counter_map()
     clock = {"start": time.perf_counter()}
 
     def phase(name, fn, *args):
@@ -2964,6 +3402,10 @@ def main() -> int:
         for name in TRAIN_LAUNCHES:
             if launches_d[name] == 0:
                 fail(f"the dataset training path never launched {name}")
+
+    # 25) training in several processes (this slice's path: world size 1 on
+    # NCCL and two ranks over gloo, their launches checked a step)
+    phase("dist_trainer", phase_dist_trainer, counters, gpu)
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)

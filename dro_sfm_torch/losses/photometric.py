@@ -12,6 +12,7 @@ through the tap weights (the context images take none).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -23,6 +24,8 @@ from dro_sfm_torch.ops.depth_ops import inv2depth
 from dro_sfm_torch.ops.image import gradient_x, gradient_y
 from dro_sfm_torch.ops.resample import bilinear_sample
 from dro_sfm_torch.ops.ssim import ssim_loss
+from dro_sfm_torch.parallel.collectives import all_reduce_sum
+from dro_sfm_torch.parallel.mesh import process_count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,12 +87,27 @@ def _photometric_residual(est: torch.Tensor, ref: torch.Tensor,
         res = l1
     if cfg.clip_loss > 0.0:
         # Clamp at mean + clip * std, the statistics pooled over everything
-        # but the prediction (0) and view (2) axes; std with ddof 0.
+        # but the prediction (0) and view (2) axes, the batch included (the
+        # global batch with several processes); std with ddof 0.
         dims = (1,) + tuple(range(3, res.ndim))
-        mean = res.mean(dim=dims, keepdim=True)
-        std = res.std(dim=dims, keepdim=True, correction=0)
+        if process_count() > 1:
+            mean, std = _global_mean_std(res, dims)
+        else:
+            mean = res.mean(dim=dims, keepdim=True)
+            std = res.std(dim=dims, keepdim=True, correction=0)
         res = torch.minimum(res, mean + cfg.clip_loss * std)
     return res
+
+
+def _global_mean_std(res: torch.Tensor, dims):
+    """The mean and the ddof-0 std of ``res`` over ``dims`` and the
+    processes, in two passes as ``std`` takes them (differentiable sums)."""
+    keep = [1 if d in dims else size for d, size in enumerate(res.shape)]
+    n = res.new_full((1,), res.numel() // math.prod(keep))
+    first = all_reduce_sum(torch.cat([res.sum(dim=dims).reshape(-1), n]))
+    mean = (first[:-1] / first[-1]).reshape(keep)
+    second = all_reduce_sum(((res - mean) ** 2).sum(dim=dims, keepdim=True))
+    return mean, torch.sqrt(second / first[-1])
 
 
 def smoothness_loss(inv_depths: torch.Tensor, image: torch.Tensor,

@@ -4,7 +4,9 @@ A flax ``nn.Conv(dtype=...)`` keeps fp32 parameters and casts its input,
 kernel and bias to the compute dtype on every call; `Conv2d` does the same.
 `BatchNorm2d` follows flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``:
 it normalises in fp32 and returns the input's dtype, with the running
-statistics in eval mode and the batch's in train mode. Weights are drawn
+statistics in eval mode and the batch's in train mode; with several
+processes, the global batch's, as the JAX package's step over the globally
+sharded batch takes them. Weights are drawn
 from a ``torch.Generator``: He-normal (truncated at two standard deviations,
 flax's ``he_normal``) for convolutions, zeros for biases.
 """
@@ -15,6 +17,9 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from dro_sfm_torch.parallel.collectives import all_reduce_sum
+from dro_sfm_torch.parallel.mesh import process_count
 
 # flax's truncated normal scales by 1/std of a unit normal cut at +-2.
 _TRUNC_STD = 0.87962566103423978
@@ -55,6 +60,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     with them, and updates ``running = 0.9 * running + 0.1 * batch``. Torch's
     own ``F.batch_norm(training=True)`` would put the unbiased variance into
     ``running_var``, so the update is written out here.
+
+    With several processes the statistics are the global batch's: each
+    channel's ``[sum x, sum x^2, n]`` in fp32, summed over the processes by
+    one differentiable ``all_reduce``, give the same rule. With one process
+    no collective runs. (``torch.nn.SyncBatchNorm`` refuses CPU tensors, and
+    BatchNorm on each process's shard alone takes other statistics.)
     """
 
     def __init__(self, channels: int):
@@ -66,8 +77,11 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(x.dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if process_count() > 1:
+            mean, var = _global_moments(xf)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum               # flax's momentum 0.9
             self.running_mean.copy_(keep * self.running_mean
@@ -76,3 +90,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+def _global_moments(xf: torch.Tensor):
+    """Each channel's mean and biased variance over the global batch of
+    ``xf`` [B,C,H,W] (fp32): ``E[x^2] - E[x]^2`` clipped at 0."""
+    c = xf.shape[1]
+    n = xf.new_full((1,), xf.numel() // c)
+    sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                     (xf * xf).sum(dim=(0, 2, 3)), n]))
+    mean = sums[:c] / sums[2 * c]
+    var = (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
+    return mean, var

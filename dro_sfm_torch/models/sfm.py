@@ -155,6 +155,12 @@ class SfmModelConfig:
             unroll=self.scan_unroll, device=device, generator=generator)
 
 
+def draw_flip(generator: torch.Generator, flip_lr_prob: float) -> bool:
+    """One flip decision: a uniform draw from ``generator`` below
+    ``flip_lr_prob``."""
+    return bool(torch.rand((), generator=generator) < flip_lr_prob)
+
+
 def forward(net: torch.nn.Module, batch: Dict[str, torch.Tensor],
             train: bool = False, generator: Optional[torch.Generator] = None,
             flip_lr_prob: float = 0.0, last_only: bool = False,
@@ -173,7 +179,7 @@ def forward(net: torch.nn.Module, batch: Dict[str, torch.Tensor],
     flip = False
     if train and flip_lr_prob > 0.0:
         if do_flip is None and generator is not None:
-            do_flip = bool(torch.rand((), generator=generator) < flip_lr_prob)
+            do_flip = draw_flip(generator, flip_lr_prob)
         flip = bool(do_flip)
     if flip:
         width = target.shape[2]

@@ -7,6 +7,14 @@
 Runs on the card unless ``--device cpu``. ``--profile LOGDIR`` writes a
 ``torch.profiler`` trace of the first training steps to
 ``LOGDIR/trace.json``. The final metrics are printed as JSON.
+
+Under `dro_sfm_torch.scripts.launch_multihost` or ``torchrun`` each process
+trains on its own card (``LOCAL_RANK``), NCCL between them, or on the CPU
+with ``--device cpu`` (gloo); process 0 prints the metrics, and each
+process's trace is ``LOGDIR/trace_rank<R>.json``:
+
+    python -m dro_sfm_torch.scripts.launch_multihost --nprocs 2 -- \
+        -m dro_sfm_torch.scripts.train configs/train_synthetic_192x640.yaml
 """
 from __future__ import annotations
 
@@ -16,6 +24,14 @@ import json
 import os
 
 import torch
+
+from dro_sfm_torch.parallel.mesh import (
+    is_rank0,
+    local_device,
+    maybe_init_distributed,
+    process_count,
+    process_index,
+)
 
 PROFILE_WARMUP, PROFILE_STEPS = 1, 3
 
@@ -52,8 +68,10 @@ def profile_first_steps(trainer, logdir: str):
                                        active=PROFILE_STEPS, repeat=1)
     step = trainer.train_step
 
+    name = "trace.json" if process_count() == 1 else f"trace_rank{process_index()}.json"
+
     def export(prof):
-        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        prof.export_chrome_trace(os.path.join(logdir, name))
 
     with torch.profiler.profile(activities=activities, schedule=schedule,
                                 on_trace_ready=export) as prof:
@@ -75,15 +93,23 @@ def main(argv=None) -> dict:
     cfg = config_of(args.file)
     if args.seed is not None:
         cfg.arch.seed = args.seed
-    trainer = Trainer(cfg, resume=args.file if args.file.endswith(".ckpt") else None,
-                      device=args.device)
-    if args.profile:
-        with profile_first_steps(trainer, args.profile):
+    device = local_device(args.device)
+    joined = maybe_init_distributed(device)
+    rank0 = is_rank0()
+    try:
+        trainer = Trainer(cfg, resume=args.file if args.file.endswith(".ckpt") else None,
+                          device=device)
+        if args.profile:
+            with profile_first_steps(trainer, args.profile):
+                metrics = trainer.fit()
+        else:
             metrics = trainer.fit()
-    else:
-        metrics = trainer.fit()
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
     metrics = {k: float(v) for k, v in metrics.items()}
-    print(json.dumps(metrics, indent=2))
+    if rank0:
+        print(json.dumps(metrics, indent=2))
     return metrics
 
 

@@ -9,6 +9,12 @@ images, their flip fusion, and the depth metrics in four modes. Both run
 eagerly on the device the net is on: on CUDA tensors a `DepthPoseNet`'s
 warp cost is kernel K1 forward and K2, K3 backward. Both take the
 `SingleFrameNet` of the single-frame tasks as well.
+
+With several processes (one device each), the training step computes the
+JAX step over the global batch, of which each process holds a shard:
+train-mode BatchNorm takes the global batch's statistics, the flip is
+process 0's decision, the gradients are averaged before the clip and the
+update, and the returned metrics are the means over the processes.
 """
 from __future__ import annotations
 
@@ -19,12 +25,19 @@ import torch
 from dro_sfm_torch.geometry.pose import Pose
 from dro_sfm_torch.models.sfm import (
     SfmModelConfig,
+    draw_flip,
     forward,
     forward_and_loss,
     make_percep_fn,
 )
 from dro_sfm_torch.ops.depth_ops import inv2depth
 from dro_sfm_torch.ops.image import flip_intrinsics, flip_lr
+from dro_sfm_torch.parallel.collectives import (
+    average_gradients,
+    average_metrics,
+    broadcast_flag,
+)
+from dro_sfm_torch.parallel.mesh import process_count
 from dro_sfm_torch.training.metrics import MetricsConfig, compute_depth_metrics
 from dro_sfm_torch.training.state import Optimizer, TrainState
 from dro_sfm_torch.utils.depth import post_process_inv_depth
@@ -52,6 +65,10 @@ def make_train_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
     ``loss`` and the task's terms as detached 0-d tensors on the device
     (reading one waits for the step). The perceptual net, when the loss has
     that term, is built here (`make_percep_fn`).
+
+    With several processes every process calls it on its equal shard of the
+    global batch, with the same ``generator`` state; the flip drawn by
+    process 0 holds for all.
     """
     device = resolve_device(device)
     keys = model_cfg.batch_keys
@@ -62,15 +79,22 @@ def make_train_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         batch = {k: torch.as_tensor(batch[k]).to(device=device, dtype=torch.float32)
                  for k in keys}
+        several = process_count() > 1
+        if several and do_flip is None and generator is not None \
+                and model_cfg.flip_lr_prob > 0.0:
+            do_flip = broadcast_flag(draw_flip(generator, model_cfg.flip_lr_prob))
         optimizer.zero_grad()
         loss, (_, metrics) = forward_and_loss(model_cfg, net, batch, generator,
                                               progress=progress, do_flip=do_flip,
                                               percep_fn=percep_fn)
         loss.backward()
-        optimizer.step(state.step)
-        state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
+        if several:
+            average_gradients(net.parameters())
+            metrics = average_metrics(metrics)
+        optimizer.step(state.step)
+        state.step += 1
         return state, metrics
 
     return train_step

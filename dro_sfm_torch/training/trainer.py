@@ -1,17 +1,26 @@
 """The trainer: datasets, steps, state, checkpoints and the epoch loops.
 
-PyTorch counterpart of `dro_sfm_tpu/training/trainer.py`, on one device in
-one process. The Trainer owns the config, the datasets and loaders, the
-training step (`make_train_step`) and the flip-fused evaluation step
-(`make_eval_step`), the training state (the net, Adam and the step), the
-top-k checkpoints and the metric sums. On the card the training step runs
-kernels K1, K2 and K3 (and K5, K6 with ``sep_conv: "pallas"``) and every
-evaluation batch runs K1 (and K5); the single-frame tasks run no kernel.
-Warm starts (``model.depth_net.pretrained_encoders``, then
-``model.checkpoint_path``) and resumes read the JAX package's flax msgpack
-files as well as the port's checkpoints.
+PyTorch counterpart of `dro_sfm_tpu/training/trainer.py`, in one process
+or in several, one device each (`parallel/`). The Trainer owns the config,
+the datasets and loaders, the training step (`make_train_step`) and the
+flip-fused evaluation step (`make_eval_step`), the training state (the
+net, Adam and the step), the top-k checkpoints and the metric sums. On the
+card the training step runs kernels K1, K2 and K3 (and K5, K6 with
+``sep_conv: "pallas"``) and every evaluation batch runs K1 (and K5); the
+single-frame tasks run no kernel. Warm starts
+(``model.depth_net.pretrained_encoders``, then ``model.checkpoint_path``)
+and resumes read the JAX package's flax msgpack files as well as the
+port's checkpoints.
 
-Not ported: several processes and ``arch.spatial_shards`` > 1 (ROADMAP A8).
+In several processes (`scripts/launch_multihost.py` or ``torchrun``) each
+process reads its shard of every epoch (``datasets.*.batch_size`` is per
+process, as in the JAX package) and the training step computes the step
+over the global batch (`training/step.py`). The weights start as process
+0's. Validation sums its metrics over the processes and checks that every
+sample was seen once; the preemption stop is agreed by all processes at
+shared points; process 0 alone prints, logs, saves depth files and writes
+checkpoints. Not ported: ``arch.spatial_shards`` > 1, the JAX package's
+height split of every layer over several devices (ROADMAP A8, queue C).
 """
 from __future__ import annotations
 
@@ -25,9 +34,20 @@ import torch
 
 from dro_sfm_torch.data import make_loader, setup_dataset
 from dro_sfm_torch.data.loader import device_prefetch, to_device
-from dro_sfm_torch.loggers import make_logger
+from dro_sfm_torch.loggers import NoOpLogger, make_logger
 from dro_sfm_torch.losses.photometric import PhotometricLossConfig
 from dro_sfm_torch.models.sfm import SfmModelConfig, resolve_memory_policy
+from dro_sfm_torch.parallel.collectives import (
+    all_reduce_metric_sums,
+    any_process_flag,
+    broadcast_tensors,
+)
+from dro_sfm_torch.parallel.mesh import (
+    is_rank0,
+    local_device,
+    maybe_init_distributed,
+    process_count,
+)
 from dro_sfm_torch.training.checkpoint import (
     CheckpointManager,
     load_checkpoint,
@@ -43,11 +63,8 @@ from dro_sfm_torch.training.metrics import (
 )
 from dro_sfm_torch.training.state import create_train_state, group_schedule, make_optimizer
 from dro_sfm_torch.training.step import EVAL_KEYS, make_eval_step, make_train_step
-from dro_sfm_torch.utils.device import resolve_device
 from dro_sfm_torch.utils.logging import AvgMeter, pcolor, print_metrics_table
 from dro_sfm_torch.utils.save import check_save_flags, save_depth
-
-_A8 = "is not ported yet: one process on one device (ROADMAP A8)"
 
 
 def model_config_from(cfg) -> SfmModelConfig:
@@ -88,25 +105,26 @@ def flip_generator(seed: int, epoch: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed * 1_000_003 + epoch)
 
 
-def _check_single_process(cfg) -> None:
-    dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1) \
-            or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"training in several processes {_A8}")
+def _check_spatial_shards(cfg) -> None:
     if int(cfg.arch.get("spatial_shards", 1)) > 1:
-        raise NotImplementedError(f"arch.spatial_shards > 1 {_A8}")
+        raise NotImplementedError(
+            "arch.spatial_shards > 1 is not ported: the port shards the batch "
+            "only, one process a device (ROADMAP A8, queue C)")
 
 
 class Trainer:
     """Train and evaluate ``cfg`` on ``device`` (the card unless the caller
-    asks for the CPU), from the config's initialisation (warm-started as the
-    config says) or, with ``resume``, from a checkpoint of this package or
-    of the JAX package (continuing with the epoch after the saved one)."""
+    asks for the CPU; in several processes this process's card), from the
+    config's initialisation (warm-started as the config says) or, with
+    ``resume``, from a checkpoint of this package or of the JAX package
+    (continuing with the epoch after the saved one). It joins the process
+    group that the environment describes, unless the caller made one."""
 
     def __init__(self, cfg, resume: Optional[str] = None, device=None):
-        _check_single_process(cfg)
+        _check_spatial_shards(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = local_device(device)
+        maybe_init_distributed(self.device)       # before the loaders shard
         self.model_cfg = model_config_from(cfg)
         self.metrics_cfg = MetricsConfig(
             crop=cfg.model.params.crop,
@@ -156,6 +174,8 @@ class Trainer:
             restored = load_checkpoint(resume, self.state)
             # Checkpoints are written at the end of an epoch: go on with the next.
             self.current_epoch = int(restored["meta"].get("epoch", -1)) + 1
+        # Every process starts from process 0's weights.
+        broadcast_tensors(list(self.net.parameters()) + list(self.net.buffers()))
 
         self.train_step = make_train_step(self.model_cfg, self.net, self.optimizer,
                                           device=self.device)
@@ -168,7 +188,7 @@ class Trainer:
             sync_url=cfg.checkpoint.get("s3_url", "") or cfg.checkpoint.get("s3_path", ""),
             sync_frequency=int(cfg.checkpoint.get("s3_frequency", 1)))
         self.metric_keys = ALL_METRIC_NAMES
-        self.logger = make_logger(cfg.wandb, cfg.name)
+        self.logger = make_logger(cfg.wandb, cfg.name) if is_rank0() else NoOpLogger()
         self.logger.log_config(cfg)
         self._preempted = False
 
@@ -187,16 +207,26 @@ class Trainer:
         flips = flip_generator(self.cfg.arch.seed, epoch)
         # Training progress for the progressive loss scaling.
         progress = float(epoch) / max(self.cfg.arch.max_epochs, 1)
+        several = process_count() > 1
         # Batch i+1's host-to-device copy overlaps batch i's step.
         for i, (batch, arrays) in enumerate(
                 device_prefetch(self.train_loader, self._place_train, depth=2)):
-            if self._preempted:          # fit() saves the emergency checkpoint
+            # Stop on preemption (fit() saves the emergency checkpoint); in
+            # several processes only at the shared 10-step cadence and by
+            # consensus, since a process that stops alone leaves the others
+            # waiting in the next sum.
+            if several:
+                if i % 10 == 0 and self._preempt_consensus():
+                    break
+            elif self._preempted:
                 break
             self.state, metrics = self.train_step(self.state, arrays, flips, progress)
             n_frames += batch["rgb"].shape[0]
             if (i + 1) % 10 == 0 or i == 0:
                 last_loss = float(metrics["loss"])
                 run_avg = avg(last_loss)
+                if not is_rank0():
+                    continue                 # the other processes print nothing
                 dt = time.time() - t0
                 print(f"epoch {epoch:03d} step {i + 1:05d}/{len(self.train_loader):05d} "
                       f"loss {last_loss:.4f} (avg {run_avg:.4f}) "
@@ -256,14 +286,15 @@ class Trainer:
         n_batches = 0
         num_logs = self.cfg.wandb.get("num_logs", 5)
         img_interval = max(1, len(loader) // max(num_logs, 1))
+        single = process_count() == 1
         for batch in loader:
-            if self._preempted:          # the grace time is short; fit() saves now
+            if single and self._preempted:   # the grace time is short; fit() saves now
                 break
             out = eval_step(self._place(batch))
             if n_batches % img_interval == 0:
                 self.logger.log_depth_images(dataset_name, batch, out,
                                              step=self.state.step + n_batches)
-            if save_artifacts:
+            if save_artifacts and is_rank0():
                 save_depth(batch, out, self.cfg.save)
             valid = batch["valid"]
             if out["metrics"] is not None:
@@ -275,10 +306,14 @@ class Trainer:
                                                  out["pose"].cpu().numpy())
             count += int(valid.sum())
             n_batches += 1
-        # Padding duplicates carry valid=False: every sample counts once.
-        if count != len(loader.dataset) and not self._preempted:
-            raise RuntimeError(f"eval saw {count} samples, expected "
-                               f"{len(loader.dataset)}")
+        # The sums over the processes. Padding duplicates carry valid=False:
+        # every sample of the dataset counts once, or this raises.
+        stacked, count = all_reduce_metric_sums(
+            np.concatenate([sums[m] for m in METRIC_MODES] + [pose_sum, [n_batches]]),
+            count, expected_total=None if single and self._preempted else len(loader.dataset))
+        for i, m in enumerate(METRIC_MODES):
+            sums[m] = stacked[i * 9:(i + 1) * 9]
+        pose_sum, n_batches = stacked[len(METRIC_MODES) * 9:-1], int(round(stacked[-1]))
         results: Dict[str, float] = {}
         table = {}
         pose_vec = pose_sum / max(n_batches, 1)
@@ -287,8 +322,9 @@ class Trainer:
             table[f"depth{mode}"] = full
             for name, value in zip(self.metric_keys, full):
                 results[f"{name}{mode}"] = float(value)
-        print_metrics_table(table, self.metric_keys,
-                            title=f"{dataset_name} epoch {self.current_epoch}")
+        if is_rank0():
+            print_metrics_table(table, self.metric_keys,
+                                title=f"{dataset_name} epoch {self.current_epoch}")
         return results
 
     # -- preemption: SIGTERM, an emergency checkpoint, resume ----------------
@@ -306,6 +342,13 @@ class Trainer:
     def _restore_preempt_handler(self):
         if getattr(self, "_prev_sigterm", None) is not None:
             signal.signal(signal.SIGTERM, self._prev_sigterm)
+
+    def _preempt_consensus(self) -> bool:
+        """Whether any process got SIGTERM (each process's own flag with one
+        process). SIGTERM may reach some processes only, or at other steps:
+        all call this at the same points and stop together."""
+        self._preempted = any_process_flag(self._preempted)
+        return self._preempted
 
     def _save_preempt_checkpoint(self, epoch: int) -> None:
         """``preempt_epoch=NN.ckpt``, recorded as epoch ``epoch - 1``, so a
@@ -333,18 +376,21 @@ class Trainer:
             for epoch in range(self.current_epoch, cfg.arch.max_epochs):
                 self.current_epoch = epoch
                 train_metrics = self.train_epoch(epoch)
-                if self._preempted:
+                if self._preempt_consensus():
                     # Mid-epoch stop: the partial epoch re-runs on resume.
-                    self._save_preempt_checkpoint(epoch)
+                    if is_rank0():
+                        self._save_preempt_checkpoint(epoch)
                     break
                 val_metrics = self.validate_all()
                 metrics = {**train_metrics, **val_metrics}
-                if self._preempted:
+                if self._preempt_consensus():
                     # During validation: save now, skip the top-k save.
-                    self._save_preempt_checkpoint(epoch + 1)
+                    if is_rank0():
+                        self._save_preempt_checkpoint(epoch + 1)
                     break
-                self.checkpointer.check_and_save(self.state, epoch, val_metrics,
-                                                 config=cfg.to_dict())
+                if is_rank0():
+                    self.checkpointer.check_and_save(self.state, epoch, val_metrics,
+                                                     config=cfg.to_dict())
                 self.logger.log_metrics({**metrics, "epoch": epoch})
         finally:
             self._restore_preempt_handler()

@@ -6,8 +6,9 @@ its imports checked; importing the package in a fresh interpreter must leave
 OpenCV, Pillow, matplotlib, msgpack, h5py or imageio, so no module of the
 port imports them (it reads flax's msgpack and PNG, JPEG and BMP files
 itself), and ``wandb`` is imported only inside ``loggers.py:WandbLogger``.
-The trainer, the CLIs, the dataset readers and the inference applications
-import none of them.
+The trainer, the CLIs (the launcher and the depth-map metrics among them),
+the process group and collectives (`parallel/`), the dataset readers and the
+inference applications import none of them.
 """
 import ast
 import subprocess
@@ -72,6 +73,14 @@ def test_wandb_only_inside_wandb_logger():
     assert imports and all(id(n) in inside for n in imports)
 
 
+def test_parallel_and_new_scripts_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"dro_sfm_torch/parallel/__init__.py", "dro_sfm_torch/parallel/mesh.py",
+            "dro_sfm_torch/parallel/collectives.py",
+            "dro_sfm_torch/scripts/launch_multihost.py",
+            "dro_sfm_torch/scripts/evaluate_depth_maps.py"} <= names
+
+
 def test_trainer_import_leaves_out_jax_yaml_cv2():
     code = ("import sys, dro_sfm_torch.training.trainer, dro_sfm_torch.scripts.train, "
             "dro_sfm_torch.scripts.eval, dro_sfm_torch.scripts.infer, "
@@ -79,7 +88,9 @@ def test_trainer_import_leaves_out_jax_yaml_cv2():
             "dro_sfm_torch.scripts.frames, dro_sfm_torch.inference, "
             "dro_sfm_torch.training.init_weights, dro_sfm_torch.utils.image_io, "
             "dro_sfm_torch.data.kitti, dro_sfm_torch.data.dgp, "
-            "dro_sfm_torch.visualization.demo_video\n"
+            "dro_sfm_torch.visualization.demo_video, dro_sfm_torch.parallel.mesh, "
+            "dro_sfm_torch.parallel.collectives, dro_sfm_torch.scripts.launch_multihost, "
+            "dro_sfm_torch.scripts.evaluate_depth_maps\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
             "assert not bad, bad\n" % (FORBIDDEN + ABSENT_ON_THE_CARD + ("wandb",),))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
