@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (supervised,
 self-supervised, semi-supervised and single-frame), its trainer, its
-dataset readers and its training in several processes, on one NVIDIA GPU
-and check their kernels.
+dataset readers (NYU's HDF5 dumps among them), its training in several
+processes and its serving export, on one NVIDIA GPU and check their
+kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -156,7 +157,31 @@ result line):
    drops a sample (both ranks must raise). A rank that raises or outlives
    120 s fails the phase. ``python3 tools/torch_dist_nccl.py`` runs the
    step and `Trainer.fit` on every card of a host with several, NCCL
-   between them.
+   between them;
+26. nyu: NYU from its HDF5 dumps without h5py. Every committed fixture
+   (``dro_sfm_torch/testdata/hdf5``: each layout and filter, and a 480x640
+   session with a contiguous and gzip-chunked frames) read by
+   ``utils/hdf5.py`` to h5py's sha256; the reader's host ms a frame by
+   layout; ``configs/train_nyu_mf_gt.yaml`` at 480x640 B=4 on the committed
+   session (its sample repeated through `RepeatedDataset`), 3 bf16 steps
+   from `tame_weights` through `Trainer.fit` and one NYUtest eval batch,
+   counts reset just before fit() and read just after: K1 24, K2 24, K3 18
+   a step and K1 48 the eval batch. The recipe's SupModelMF reads
+   ground-truth poses, which NYU's dumps lack (the JAX step raises as the
+   port's does), so the steps are SelfSupModelMF's with the recipe's
+   photometric settings;
+27. export: the serving export. Phase 4's it12-h-out weights at 192x640,
+   N=2, exported for "cuda" (`export_serving_artifact`) as a static B=1
+   bf16 program, a dynamic-batch fp32 program and a static B=1 bf16
+   program with ``sep_conv="pallas"``, each loaded back
+   (`load_serving_artifact`); every request through a loaded program,
+   counts reset just before and read just after, launches K1 24 (and K5 48
+   with "pallas") and nothing else, and matches the live `make_infer_fn`
+   within 1e-4 (max |depth delta| and |pose delta|, fp32 and bf16) at B=1,
+   and at B=8 for the dynamic program; a gather-warp program (no
+   ``dro_sfm::warp_diff`` node) must fail the same launch check. Prints the
+   seconds to export and load, the bytes, and the ms of a request through
+   the program and through the live function (CUDA events, in turns).
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -3253,10 +3278,242 @@ def phase_dist_trainer(counters, gpu):
         torch.cuda.empty_cache()
 
 
+HDF5_FIXTURES = ROOT / "dro_sfm_torch" / "testdata" / "hdf5"
+NYU_CONFIG = ROOT / "configs" / "train_nyu_mf_gt.yaml"
+NYU_BUILD = ROOT / "build" / "nyu"
+NYU_STEPS = 3
+
+
+def check_hdf5_fixtures():
+    """Read every committed HDF5 fixture with the port's reader and hold
+    each dataset to h5py's sha256; returns the fixtures' table."""
+    import hashlib
+
+    from dro_sfm_torch.utils.hdf5 import open_h5
+    meta = json.loads((HDF5_FIXTURES / "fixtures.json").read_text())
+    for name, entries in meta["files"].items():
+        f = open_h5(HDF5_FIXTURES / name)
+        if sorted(f) != sorted(entries):
+            fail(f"nyu: {name} holds {sorted(f)}, h5py wrote {sorted(entries)}")
+        for key, e in entries.items():
+            a = f[key]
+            digest = hashlib.sha256(a.tobytes()).hexdigest()
+            if (a.dtype.str, list(a.shape), digest) != (e["dtype"], e["shape"], e["sha256"]):
+                fail(f"nyu: {name}:{key} reads as {a.dtype.str} {a.shape} sha256 "
+                     f"{digest[:16]}, h5py's {e['dtype']} {e['shape']} {e['sha256'][:16]}")
+    return meta
+
+
+def phase_nyu(counters, gpu):
+    """NYU from its HDF5 dumps without h5py: every committed fixture read by
+    `utils/hdf5.py` to h5py's sha256; the reader's ms a 480x640 frame by
+    layout; then ``configs/train_nyu_mf_gt.yaml`` (it12-h-out bf16,
+    480x640, B=4, one context frame each side) on the committed session, its
+    one sample repeated to `NYU_STEPS` steps of B=4 in one epoch and
+    validated on one NYUtest batch, from `tame_weights`. The recipe's
+    SupModelMF reads ground-truth poses, which NYU's dumps do not hold (the
+    JAX step raises on them as the port's does), so the steps are
+    SelfSupModelMF's, with the recipe's photometric settings (automask,
+    ``min`` over views): every
+    count reset just before fit() and read just after, K1 24, K2 24, K3 18 a
+    step and K1 48 an eval batch, or it fails; losses and metrics finite.
+    Checkpoints under ``build/nyu``, removed at the end."""
+    import shutil
+
+    from dro_sfm_torch.data.nyu import read_h5_sample
+    from dro_sfm_torch.training.trainer import Trainer
+    from dro_sfm_torch.utils.config import load_config
+    meta = check_hdf5_fixtures()
+    root = HDF5_FIXTURES / meta["nyu_session"]
+    reads = []
+    for path in sorted(root.glob("*.h5")):
+        entries = meta["files"][str(path.relative_to(HDF5_FIXTURES))]
+        kind = ", ".join(f"{k} {meta['layouts'][str(e['layout'])]}"
+                         + "".join(f"+{f}" for f in e["filters"])
+                         for k, e in sorted(entries.items(), reverse=True))
+        reads.append(f"{path.name} ({kind}) {host_ms(lambda: read_h5_sample(str(path)), 10):.2f}")
+    print(f"nyu reader: {len(meta['files'])} HDF5 fixtures equal h5py {meta['h5py']}'s "
+          f"sha256; host ms a 480x640 frame (rgb and depth, median of 10): "
+          f"{'; '.join(reads)}; on {gpu}", flush=True)
+    nyu = str(root.parent)
+    evaluation = {"path": [nyu], "num_workers": 1}
+    cfg = load_config(str(NYU_CONFIG), overrides={
+        "arch": {"max_epochs": 1},
+        "checkpoint": {"filepath": str(NYU_BUILD / "ckpt")},
+        "save": {"folder": str(NYU_BUILD / "depth"),
+                 "depth": {"png": False, "rgb": False, "viz": False}},
+        "model": {"name": "SelfSupModelMF"},
+        "datasets": {"train": {"path": [nyu], "repeat": [4 * NYU_STEPS], "num_workers": 4},
+                     "validation": evaluation, "test": evaluation}})
+    try:
+        trainer = Trainer(cfg, device="cuda")
+        b = cfg.datasets.train.batch_size
+        h, w = cfg.datasets.augmentation.image_shape
+        tb, vb = next(iter(trainer.train_loader)), next(iter(trainer.val_loaders[0]))
+        got = (tb["rgb"].shape, tb["rgb_context"].shape, tb["depth"].shape, vb["rgb"].shape)
+        want = ((b, h, w, 3), (b, 2, h, w, 3), (b, h, w, 1), (1, h, w, 3))
+        if got != want or (b, h, w) != (4, 480, 640):
+            fail(f"nyu: batches {got}, want {want} at B=4 480x640")
+        with torch.no_grad():
+            trainer.net.load_state_dict(tame_weights(trainer.net.state_dict()))
+        train = trainer.train_step = CountedStep(trainer.train_step, counters, timed=True)
+        evaluate = CountedStep(trainer.eval_step_for(False), counters, timed=True)
+        trainer._eval_steps[False] = evaluate
+        for c in counters.values():          # this slice's NYU path starts here
+            c.reset()
+        metrics = trainer.fit()
+        launches = {k: c.launches for k, c in counters.items()}   # and ends here
+    finally:
+        shutil.rmtree(NYU_BUILD, ignore_errors=True)
+    if len(train.launches) != NYU_STEPS or len(evaluate.launches) != 1:
+        fail(f"nyu: {len(train.launches)} steps, {len(evaluate.launches)} eval batches")
+    check_launches("nyu train step", train.launches, TRAIN_LAUNCHES, counters)
+    check_launches("nyu eval batch", evaluate.launches, EVAL_LAUNCHES, counters)
+    losses = [m["loss"].item() for _, m in train.outputs]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"nyu: non-finite losses {losses}")
+    check_finite("nyu", metrics)
+    print(f"nyu trainer train_nyu_mf_gt.yaml {cfg.model.name} "
+          f"{cfg.model.depth_net.version} bf16 {h}x{w} B={b}: {NYU_STEPS} steps "
+          f"{' / '.join(f'{v:.1f}' for v in train.ms)} ms (the first with start-up), "
+          f"losses {' '.join(f'{v:.4f}' for v in losses)}, eval batch (B=1) "
+          f"{evaluate.ms[0]:.1f} ms, abs_rel_pp_gt {metrics['abs_rel_pp_gt']:.4f}; launches "
+          f"per step {train.launches[-1]}, per eval batch {evaluate.launches[-1]}; on {gpu}",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+EXPORT_BUILD = ROOT / "build" / "export"
+EXPORT_REQUESTS = 10
+# Artifact against the live network on the same card, max |delta| of depth
+# and of the pose matrices, fp32 and bf16: the JAX round-trip check's atol
+# (both run the same kernels on the same inputs in the same order; every
+# program met it at 0 on an H100).
+EXPORT_BAR = 1e-4
+
+
+def artifact_problems(what, call, req, counters, spec, sep_conv):
+    """Run one request through ``call`` with every count reset just before
+    and read just after; the launches a serving program of ``spec`` must
+    make: K1 one a refinement step, and with ``sep_conv="pallas"`` K5 two,
+    nothing else. Returns (the launches, what differs: empty if nothing)."""
+    steps = 2 * spec.total_iters
+    want = {"K1": steps, **({"K5": 2 * steps} if sep_conv == "pallas" else {})}
+    for c in counters.values():
+        c.reset()
+    call(*req)
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items() if c.launches}
+    return got, ([] if got == want else [f"{what}: launches {got}, want {want}"])
+
+
+def alternated_ms(fns, req, reps=EXPORT_REQUESTS):
+    """Median ms of a request through each of ``fns`` (CUDA events around
+    each, synchronised), the functions taking turns."""
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*req)
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def phase_export(DepthPoseNet, make_infer_fn, counters, state, gpu):
+    """The serving export on the card: phase 4's it12-h-out weights at
+    192x640, N=2, exported by `export_serving_artifact` for "cuda" as a
+    static B=1 bf16 program, a dynamic-batch fp32 program and a static B=1
+    bf16 program with ``sep_conv="pallas"``, each loaded back by
+    `load_serving_artifact` (the ops' registrations only). Each request
+    through a loaded program, counts reset just before and read just after,
+    launches K1 24 (and K5 48 with "pallas") and nothing else, and matches
+    the live `make_infer_fn` of the same net (max |depth delta| and max
+    |pose delta| within `EXPORT_BAR`) at B=1, and B=8 for the dynamic
+    program. Planted fault: a program of a gather-warp net (it2-h-out-seq2)
+    must fail the same launch check. Prints the seconds to export and load,
+    the bytes, and the ms of a request through the program and through the
+    live function at B=1 and B=8 (CUDA events, in turns)."""
+    import shutil
+
+    from dro_sfm_torch import export_serving as es
+    from dro_sfm_torch.models.depth_pose_net import VersionSpec
+    gen = torch.Generator().manual_seed(1)
+    requests = {b: make_request(gen, b) for b in (1, 8)}
+    spec = VersionSpec.parse("it12-h-out")
+    cases = (("static B=1 bf16", True, "split", False, (1,)),
+             ("dynamic-batch fp32", False, "split", True, (1, 8)),
+             ("static B=1 bf16 sep_conv=pallas", True, "pallas", False, (1,)))
+    launches = {k: 0 for k in counters}
+    try:
+        for name, mp, sep, dynamic, batches in cases:
+            net = DepthPoseNet(version="it12-h-out", mixed_precision=mp, sep_conv=sep,
+                               device="cuda")
+            net.load_state_dict(state, strict=True)
+            out = EXPORT_BUILD / name.replace(" ", "_").replace("=", "")
+            t0 = time.perf_counter()
+            es.export_serving_artifact(net, str(out), 1, VIEWS, (SERVE_H, SERVE_W),
+                                       platforms=("cuda",), dynamic_batch=dynamic)
+            export_s = time.perf_counter() - t0
+            meta = json.loads((out / es.META).read_text())
+            t0 = time.perf_counter()
+            art = es.load_serving_artifact(str(out), "cuda")
+            load_s = time.perf_counter() - t0
+            if meta["kernel_nodes"]["cuda"] != {"K1": 24, "K5": 48 if sep == "pallas" else 0}:
+                fail(f"export {name}: kernel nodes {meta['kernel_nodes']}")
+            live = make_infer_fn(net, device="cuda")
+            for b in batches:
+                req = requests[b]
+                got, bad = artifact_problems(f"export {name} B={b}", art.call, req,
+                                             counters, spec, sep)
+                if bad:
+                    fail("; ".join(bad))
+                for k, v in got.items():
+                    launches[k] += v
+                frozen, ref = art.call(*req), live(*req)
+                d_depth = float((frozen[0] - ref[0]).abs().max())
+                d_pose = float((frozen[1] - ref[1]).abs().max())
+                if frozen[0].shape != (b, SERVE_H, SERVE_W) or not (
+                        d_depth <= EXPORT_BAR and d_pose <= EXPORT_BAR):
+                    fail(f"export {name} B={b}: shape {tuple(frozen[0].shape)}, max |depth "
+                         f"delta| {d_depth:.3e}, max |pose delta| {d_pose:.3e}, bar "
+                         f"{EXPORT_BAR:g}")
+                ms = alternated_ms({"artifact": art.call, "live": live}, req)
+                print(f"export {name} it12-h-out 192x640 N=2 B={b}: export {export_s:.1f} s, "
+                      f"load {load_s:.1f} s, {meta['bytes']} bytes; against live "
+                      f"make_infer_fn max |depth delta| {d_depth:.3e}, max |pose delta| "
+                      f"{d_pose:.3e} (bar {EXPORT_BAR:g}); launches a request {got}; "
+                      f"ms a request (median of {EXPORT_REQUESTS}, in turns) artifact "
+                      f"{ms['artifact']:.2f}, live {ms['live']:.2f}; on {gpu}", flush=True)
+            del net, art, live
+            shutil.rmtree(out, ignore_errors=True)
+        # planted fault: a program without dro_sfm::warp_diff fails the check
+        small = VersionSpec.parse("it2-h-out-seq2")
+        net = DepthPoseNet(version="it2-h-out-seq2", warp_impl="gather", device="cuda")
+        out = EXPORT_BUILD / "gather"
+        es.export_serving_artifact(net, str(out), 1, VIEWS, (SERVE_H, SERVE_W),
+                                   platforms=("cuda",))
+        art = es.load_serving_artifact(str(out), "cuda")
+        _, bad = artifact_problems("export gather-warp it2-h-out-seq2", art.call,
+                                   requests[1], counters, small, "split")
+        if not bad:
+            fail("export: a program with no dro_sfm::warp_diff node passed the launch check")
+        print(f"export planted fault: the gather-warp program fails the launch check "
+              f"({bad[0]})", flush=True)
+    finally:
+        shutil.rmtree(EXPORT_BUILD, ignore_errors=True)
+    return launches
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
           "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
-          "trainer", "selfsup_trainer", "apps", "datasets", "dist_trainer")
+          "trainer", "selfsup_trainer", "apps", "datasets", "dist_trainer", "nyu", "export")
 
 
 def main() -> int:
@@ -3406,6 +3663,24 @@ def main() -> int:
     # 25) training in several processes (this slice's path: world size 1 on
     # NCCL and two ranks over gloo, their launches checked a step)
     phase("dist_trainer", phase_dist_trainer, counters, gpu)
+
+    # 26) NYU from its HDF5 dumps (this slice's path: the reader against
+    # h5py's bytes, the 480x640 recipe's steps and eval batch counted)
+    launches_n = phase("nyu", phase_nyu, counters, gpu)
+    if launches_n is not None:
+        for name in TRAIN_LAUNCHES:
+            if launches_n[name] == 0:
+                fail(f"the NYU training path never launched {name}")
+
+    # 27) the serving export (this slice's path: K1, and K5 with "pallas",
+    # launched from loaded programs)
+    if "export" in only:
+        if served is None:
+            fail("phase export needs phase serving's weights")
+        launches_e = phase("export", phase_export, DepthPoseNet, make_infer_fn, counters,
+                           state, gpu)
+        if launches_e["K1"] == 0 or launches_e["K5"] == 0:
+            fail(f"the export path never launched K1 and K5: {launches_e}")
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)

@@ -6,14 +6,14 @@ of a section is one dataset, concatenated (with repeats) for training and
 kept apart for evaluation. The names are the synthetic scenes and the file
 readers of the JAX package (KITTI, ScanNet and its paired splits, BA-Net,
 DeMoN, Matterport, video and image folders, DGP), which decode with the
-port's codec. NYU's HDF5 reader is not ported (ROADMAP A5a).
+port's codec, and NYU's HDF5 dumps, read by the port's own HDF5 reader.
 """
 from __future__ import annotations
 
 from functools import partial
 from typing import Callable, Dict
 
-from dro_sfm_torch.data import banet, demon, dgp, kitti, matterport, scannet, video
+from dro_sfm_torch.data import banet, demon, dgp, kitti, matterport, nyu, scannet, video
 from dro_sfm_torch.data.base import Dataset, Sample, relative_pose, validate_sample
 from dro_sfm_torch.data.loader import (
     ConcatDataset,
@@ -25,7 +25,6 @@ from dro_sfm_torch.data.loader import (
 from dro_sfm_torch.data.synthetic import SyntheticConfig, SyntheticDataset
 
 _REGISTRY: Dict[str, Callable] = {}
-_NOT_PORTED = {"NYU": "ROADMAP A5a", "NYUtest": "ROADMAP A5a"}
 
 
 def _synthetic_factory(path, split, mode, image_shape, jittering, section,
@@ -47,7 +46,7 @@ def _synthetic_factory(path, split, mode, image_shape, jittering, section,
 
 _REGISTRY["Synthetic"] = _synthetic_factory
 _REGISTRY["SyntheticMulti"] = partial(_synthetic_factory, num_planes=3)
-for _readers in (kitti, scannet, banet, demon, matterport, video, dgp):
+for _readers in (kitti, scannet, banet, demon, matterport, video, dgp, nyu):
     _REGISTRY.update(_readers.DATASETS)
 
 
@@ -62,8 +61,7 @@ def setup_dataset(section, augmentation, mode: str):
     datasets = []
     for i, name in enumerate(names):
         if name not in _REGISTRY:
-            later = f" ({name}'s reader is {_NOT_PORTED[name]})" if name in _NOT_PORTED else ""
-            raise KeyError(f"Unknown dataset {name!r}{later}; known: {sorted(_REGISTRY)}")
+            raise KeyError(f"Unknown dataset {name!r}; known: {sorted(_REGISTRY)}")
         ds = _REGISTRY[name](
             path=section.path[i], split=section.split[i], mode=mode,
             image_shape=image_shape, jittering=jittering, section=section)

@@ -12,7 +12,8 @@ Images resize bilinearly and depth by nearest neighbour, bit for bit as
 ``cv2.resize`` with ``INTER_LINEAR`` on uint8 and ``INTER_NEAREST``
 (`dro_sfm_torch.utils.image_io`). The file readers decode uint8 and convert
 to float after the resize; the synthetic scenes render float images at the
-configured shape, and a float image of another shape raises.
+configured shape, NYU's HDF5 reader gives float images at the files' shape,
+and a float image of another shape raises.
 
 The colour jitter follows torchvision's ColorJitter (factors uniform in
 [max(0, 1-x), 1+x], hue in [-h, h]) in fixed brightness, contrast,
@@ -20,7 +21,10 @@ saturation, hue order. The JAX package computes it with OpenCV; here it is
 numpy with OpenCV's arithmetic:
 
 * float images: grey = 0.299 R + 0.587 G + 0.114 B; H in degrees [0, 360),
-  S and V in [0, 1];
+  S and V in [0, 1]; each with the fused multiply-adds of OpenCV's float
+  vector loop (16 pixels a pass), so bit for bit where a row is a multiple
+  of 16 pixels wide (every recipe's width); its scalar and IPP paths, which
+  take the other pixels, round elsewhere, by an ulp;
 * uint8 images (`_jitter_once_u8`): look-up tables for brightness and
   contrast, ``cv2.mean``, grey ``(9798 R + 19235 G + 3735 B + 2^14) >> 15``,
   ``cv2.addWeighted`` (``fma(a, alpha, b * beta)`` in float32, rounded half to
@@ -59,48 +63,54 @@ _SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / _I)]).astype(np.int32
 _HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * _I))]).astype(np.int32)
 
 
-def rgb_to_gray(img: np.ndarray) -> np.ndarray:
-    """[..., 3] float32 RGB -> [...] grey, cv2's RGB2GRAY weights."""
-    f = np.float32
-    return (img[..., 0] * f(0.299) + img[..., 1] * f(0.587)
-            + img[..., 2] * f(0.114))
-
-
-def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
-    """[..., 3] float32 RGB -> HSV as cv2's float RGB2HSV: H in degrees
-    [0, 360), S = (V - min) / (V + eps), V = max."""
-    r, g, b = img[..., 0], img[..., 1], img[..., 2]
-    v = np.maximum(np.maximum(r, g), b)
-    diff = v - np.minimum(np.minimum(r, g), b)
-    s = diff / (np.abs(v) + FLT_EPSILON)
-    diff = np.float32(60.0) / (diff + FLT_EPSILON)
-    h = np.where(v == r, (g - b) * diff,
-                 np.where(v == g, (b - r) * diff + np.float32(120.0),
-                          (r - g) * diff + np.float32(240.0)))
-    h = np.where(h < 0, h + np.float32(360.0), h)
-    return np.stack([h, s, v], axis=-1).astype(np.float32, copy=False)
-
-
-def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
-    """Inverse of `rgb_to_hsv`, as cv2's float HSV2RGB."""
-    h = hsv[..., 0] * np.float32(6.0 / 360.0)
-    s, v = hsv[..., 1], hsv[..., 2]
-    sector = np.floor(h)
-    h = h - sector
-    sector = sector.astype(np.int64) % 6
-    one = np.float32(1.0)
-    tab = np.stack([v, v * (one - s), v * (one - s * h), v * (one - s * (one - h))],
-                   axis=-1)
-    bgr = np.take_along_axis(tab, _SECTOR_BGR[sector], axis=-1)
-    return bgr[..., ::-1].astype(np.float32)
-
-
 def _fma32(a: np.ndarray, b, c) -> np.ndarray:
     """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
     product of two float32 is exact in float64, and the sum rounds to
     float32."""
     return (np.asarray(a, np.float32).astype(np.float64) * np.asarray(b, np.float32)
             + np.asarray(c, np.float32)).astype(np.float32)
+
+
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    """[..., 3] float32 RGB -> [...] grey as cv2's float RGB2GRAY's vector
+    loop: ``fma(B, 0.114, fma(R, 0.299, G * 0.587))``."""
+    f = np.float32
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    return _fma32(b, f(0.114), _fma32(r, f(0.299), g * f(0.587)))
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """[..., 3] float32 RGB -> HSV as cv2's float RGB2HSV's vector loop: H
+    in degrees [0, 360) as one fused ``(x - y) * (60 / (diff + eps)) +
+    offset`` (offset 360 where H would be negative), S = (V - min) / (V +
+    eps), V = max."""
+    f = np.float32
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    s = diff / (np.abs(v) + FLT_EPSILON)
+    r_max, g_max = v == r, v == g
+    x = np.where(r_max, g - b, np.where(g_max, b - r, r - g))
+    offset = np.where(r_max, np.where(g < b, f(360.0), f(0.0)),
+                      np.where(g_max, f(120.0), f(240.0)))
+    h = _fma32(x, f(60.0) / (diff + FLT_EPSILON), offset)
+    return np.stack([h, s, v], axis=-1).astype(f, copy=False)
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """Inverse of `rgb_to_hsv`, as cv2's float HSV2RGB's vector loop: the
+    sector from the truncated ``H * 6/360`` and the table ``v, v(1-s),
+    v fma(-s, f, 1), v fma(-s, 1-f, 1)``."""
+    f, one = np.float32, np.float32(1.0)
+    h = hsv[..., 0] * f(6.0 / 360.0)
+    s, v = hsv[..., 1], hsv[..., 2]
+    pre = np.trunc(h)
+    sector = (pre - np.trunc(pre * f(1.0 / 6.0)) * f(6.0)).astype(np.int64) % 6
+    frac = (h - pre).astype(f)
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, frac, one),
+                    v * _fma32(-s, (one - frac).astype(f), one)], axis=-1)
+    bgr = np.take_along_axis(tab, _SECTOR_BGR[sector], axis=-1)
+    return bgr[..., ::-1].astype(f)
 
 
 def rgb_to_gray_u8(img: np.ndarray) -> np.ndarray:
@@ -156,8 +166,8 @@ def _resize_rgb(img: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
     if img.dtype != np.uint8:
         raise NotImplementedError(
             f"a float {img.shape[:2]} image for image_shape {tuple(shape)}: float images "
-            "are not resized (the synthetic scenes render at the image shape; the file "
-            "readers give uint8)")
+            "are not resized (the synthetic scenes render at the image shape, NYU's HDF5 "
+            "frames run at their own; the other file readers give uint8)")
     return resize_bilinear_u8(img, shape)
 
 

@@ -1,13 +1,13 @@
 """Serving: checkpoint loading, the batched inference function, and the
 applications behind the inference CLIs.
 
-PyTorch counterpart of `dro_sfm_tpu/inference.py` and of `build_serving_fn`
-in `dro_sfm_tpu/export_serving.py`: the network runs in eval mode with
-``last_only=True`` and returns metric depth and the pose matrices of the
-context views. `load_model` reads the port's serving file, the port's
-training checkpoints and the JAX package's (flax msgpack), and serves the
-latter two as the JAX `load_model` does: fp32, the net of the sidecar
-config's ``version``, ``min_depth or 0.1`` and ``max_depth``.
+PyTorch counterpart of `dro_sfm_tpu/inference.py`: the network runs in eval
+mode with ``last_only=True`` (`export_serving.build_serving_fn`) and returns
+metric depth and the pose matrices of the context views. `load_model` reads
+the port's serving file, the port's training checkpoints and the JAX
+package's (flax msgpack), and serves the latter two as the JAX `load_model`
+does: fp32, the net of the sidecar config's ``version``, ``min_depth or
+0.1`` and ``max_depth``.
 
 The applications: multi-view geometric-consistency fusion of depth maps
 (`reproject_with_depth`, `check_geometric_consistency`, `geometric_fusion`;
@@ -24,9 +24,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dro_sfm_torch.geometry.pose import Pose
+from dro_sfm_torch.export_serving import build_serving_fn
 from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
-from dro_sfm_torch.ops.depth_ops import inv2depth
 from dro_sfm_torch.utils.device import resolve_device
 
 _META = ("version", "min_depth", "max_depth", "mixed_precision", "warp_impl",
@@ -92,16 +91,13 @@ def make_infer_fn(net: DepthPoseNet, device=None) -> Callable[..., Tuple[torch.T
     Inputs may be arrays or tensors; they are moved to ``device`` as fp32.
     """
     device = resolve_device(device)
-    net = net.to(device).eval()
+    serve = build_serving_fn(net.to(device))
 
     def fn(target, refs, K):
         args = [torch.as_tensor(x).to(device=device, dtype=torch.float32)
                 for x in (target, refs, K)]
         with torch.inference_mode():
-            out = net(*args, last_only=True)
-            inv_depth = out["inv_depths"][-1, ..., 0]              # [B,H,W]
-            pose_vecs = out["pose_vecs"][:, :, -1]                 # [B,N,6]
-            return inv2depth(inv_depth), Pose.from_vec(pose_vecs, "euler").mat
+            return serve(*args)
 
     return fn
 

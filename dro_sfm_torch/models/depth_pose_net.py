@@ -91,7 +91,10 @@ def _proj_affine(K_scaled, pose_mats):
     (K R Kinv) p * d + K t. K_scaled [B,3,3]; pose_mats [B,N,4,4] ->
     A [B,N,3,3], b [B,N,3]."""
     Kinv = invert_intrinsics(K_scaled)
-    A = torch.einsum("bij,bnjk,bkl->bnil", K_scaled, pose_mats[..., :3, :3], Kinv)
+    # two products, left first: opt_einsum's order for three operands, spelled
+    # out so that a trace with a symbolic batch does not specialise it
+    A = torch.einsum("bnik,bkl->bnil",
+                     torch.einsum("bij,bnjk->bnik", K_scaled, pose_mats[..., :3, :3]), Kinv)
     b = torch.einsum("bij,bnj->bni", K_scaled, pose_mats[..., :3, 3])
     return A, b
 

@@ -10,7 +10,9 @@ for the (1,5) pass along W and 1 for the (5,1) pass along H::
     q  = tanh(conv5([r*h, x], wq) + bq)
     h' = (1 - z) * h + z * q
 
-On CUDA tensors `gru_sep1d_pass` launches the hand-written Hopper kernels
+`gru_sep1d_pass` runs the `torch.library` operator
+``dro_sfm::gru_sep1d_pass``, so that a trace (`torch.export`) keeps it. On
+CUDA tensors it launches the hand-written Hopper kernels
 (`csrc/gru_pass_fwd.cu`, `csrc/gru_pass_bwd.cu`) or raises; on CPU tensors it
 runs `gru_pass_plain` and `gru_pass_bwd_plain`. Both follow the Pallas
 kernel's rounding points (`_recompute`, `_grad_intermediates`): the compute
@@ -26,8 +28,6 @@ sigmoid in bf16.
 Weights enter in fp32 (the parameters) and are cast inside, as `_run_fwd` and
 `_run_bwd` cast them, so their gradients reach the fp32 parameters unrounded.
 """
-from __future__ import annotations
-
 import ctypes
 import functools
 
@@ -376,11 +376,13 @@ def _launch_k6(p: _Prepared, g, axis):
 
 
 def gru_pass_fwd(h, x, wzr, bzr, wq, bq, axis: int) -> torch.Tensor:
-    """The pass: kernel K5 for CUDA tensors, `gru_pass_plain` for CPU
-    tensors."""
-    return on_device("gru_sep1d_pass", h.device,
-                     lambda: _launch_k5(_Prepared(h, x, wzr, bzr, wq, bq), axis),
-                     lambda: gru_pass_plain(h, x, wzr, bzr, wq, bq, axis))
+    """Kernel K5 on CUDA tensors: the CUDA implementation of the operator
+    ``dro_sfm::gru_sep1d_pass``, which looks it up here at every call. Its
+    host-side plan (the padded weights of `_Prepared`, the row tiles) is
+    made here, at run time, for the card the tensors are on."""
+    if h.device.type != "cuda":
+        raise ValueError(f"kernel K5 wants CUDA tensors; got {h.device}")
+    return _launch_k5(_Prepared(h, x, wzr, bzr, wq, bq), axis)
 
 
 def gru_pass_bwd(h, x, wzr, bzr, wq, bq, g, axis: int):
@@ -391,23 +393,44 @@ def gru_pass_bwd(h, x, wzr, bzr, wq, bq, g, axis: int):
                      lambda: gru_pass_bwd_plain(h, x, wzr, bzr, wq, bq, g, axis))
 
 
-class _GruPass(torch.autograd.Function):
-    """`gru_sep1d_pass` with the backward of `_pass_bwd`: K6 recomputes the
-    pass from the saved inputs (no gate activation is kept); the weight and
-    bias gradients come back in fp32."""
+# K5 as the operator dro_sfm::gru_sep1d_pass: the dispatcher picks the kernel
+# for CUDA tensors and the plain version for CPU tensors, and a trace
+# (torch.export) records the operator itself. The backward, registered with
+# it, recomputes the pass from the saved inputs in K6 (no gate activation is
+# kept); the weight and bias gradients come back in fp32 and are cast to the
+# parameters' dtypes.
+@torch.library.custom_op("dro_sfm::gru_sep1d_pass", mutates_args=())
+def _gru_pass_op(h: torch.Tensor, x: torch.Tensor, wzr: torch.Tensor, bzr: torch.Tensor,
+                 wq: torch.Tensor, bq: torch.Tensor, axis: int) -> torch.Tensor:
+    raise ValueError(f"gru_sep1d_pass has no path for device {h.device}")
 
-    @staticmethod
-    def forward(ctx, h, x, wzr, bzr, wq, bq, axis):
-        ctx.axis = axis
-        ctx.save_for_backward(h, x, wzr, bzr, wq, bq)
-        return gru_pass_fwd(h, x, wzr, bzr, wq, bq, axis)
 
-    @staticmethod
-    def backward(ctx, g):
-        h, x, wzr, bzr, wq, bq = ctx.saved_tensors
-        dh, dx, dwzr, dbzr, dwq, dbq = gru_pass_bwd(h, x, wzr, bzr, wq, bq, g, ctx.axis)
-        return (dh, dx, dwzr.to(wzr.dtype), dbzr.to(bzr.dtype), dwq.to(wq.dtype),
-                dbq.to(bq.dtype), None)
+@_gru_pass_op.register_kernel("cuda")
+def _gru_pass_cuda(h, x, wzr, bzr, wq, bq, axis):
+    return gru_pass_fwd(h, x, wzr, bzr, wq, bq, axis)
+
+
+_gru_pass_op.register_kernel("cpu")(gru_pass_plain)
+
+
+@_gru_pass_op.register_fake
+def _gru_pass_fake(h, x, wzr, bzr, wq, bq, axis):
+    return h.new_empty(h.shape)
+
+
+def _gru_pass_setup(ctx, inputs, output):
+    *tensors, ctx.axis = inputs
+    ctx.save_for_backward(*tensors)
+
+
+def _gru_pass_backward(ctx, g):
+    h, x, wzr, bzr, wq, bq = ctx.saved_tensors
+    dh, dx, dwzr, dbzr, dwq, dbq = gru_pass_bwd(h, x, wzr, bzr, wq, bq, g, ctx.axis)
+    return (dh, dx, dwzr.to(wzr.dtype), dbzr.to(bzr.dtype), dwq.to(wq.dtype),
+            dbq.to(bq.dtype), None)
+
+
+_gru_pass_op.register_autograd(_gru_pass_backward, setup_context=_gru_pass_setup)
 
 
 def _check(h, x, wzr, bzr, wq, bq, axis):
@@ -437,11 +460,9 @@ def gru_sep1d_pass(h: torch.Tensor, x: torch.Tensor, wzr: torch.Tensor,
     h [B,H,W,D] hidden state; x [B,H,W,Cx] input features; wzr [5,D+Cx,2D]
     (z first) and wq [5,D+Cx,D], fp32 (cast inside); bzr [2D], bq [D];
     ``axis`` 2 for the (1,5) pass, 1 for the (5,1) pass. Returns h' [B,H,W,D]
-    contiguous in h's dtype. CUDA tensors go to kernel K5 (backward K6-input
-    and K6-weight), CPU tensors to the plain versions.
+    contiguous in h's dtype. Runs the operator ``dro_sfm::gru_sep1d_pass``:
+    CUDA tensors go to kernel K5 (backward K6-input and K6-weight), CPU
+    tensors to the plain versions, any other device raises.
     """
     _check(h, x, wzr, bzr, wq, bq, axis)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (h, x, wzr, bzr, wq, bq)):
-        return _GruPass.apply(h, x, wzr, bzr, wq, bq, axis)
-    return gru_pass_fwd(h, x, wzr, bzr, wq, bq, axis)
+    return _gru_pass_op(h, x, wzr, bzr, wq, bq, axis)

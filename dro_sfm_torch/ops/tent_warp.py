@@ -3,10 +3,11 @@ fused warp-subtract cost), K4 (the bare warp, f32 out), K2 (feature
 gradient) and K3 (coordinate gradient), each with its plain version.
 
 PyTorch counterpart of `dro_sfm_tpu/ops/pallas/tent_warp.py`:
-`warp_diff` ↔ `tent_warp_diff` (a `torch.autograd.Function` whose backward
-follows `_tent_warp_diff_bwd`), `tent_warp` ↔ `tent_warp` (backward
-`_tent_warp_bwd`: K2 and K3 with sign +1) and `warp_cost` ↔
-`pallas_warp_cost`.
+`warp_diff` ↔ `tent_warp_diff` (the `torch.library` operator
+``dro_sfm::warp_diff``, whose registered backward follows
+`_tent_warp_diff_bwd`), `tent_warp` ↔ `tent_warp` (a
+`torch.autograd.Function`, backward `_tent_warp_bwd`: K2 and K3 with sign +1)
+and `warp_cost` ↔ `pallas_warp_cost`.
 
 On CUDA tensors the entry points launch the hand-written Hopper kernels —
 `dro_sfm_torch/csrc/tent_warp_fwd.cu` forward (K1, K4),
@@ -22,8 +23,6 @@ card the plain version's
 `index_add_` sums with atomics and K3 reduces channels in another order, so
 the backward agrees with its plain version to fp32 rounding there.
 """
-from __future__ import annotations
-
 import ctypes
 from dataclasses import dataclass
 
@@ -265,41 +264,53 @@ def warp_diff_bwd_coords(features: torch.Tensor, coords: torch.Tensor,
                      lambda: warp_diff_bwd_coords_plain(features, coords, g, sign))
 
 
-def _warp_diff_fwd(f1, features, coords, n_views):
-    return on_device("warp_diff", f1.device,
-                     lambda: _launch_k1(f1, features, coords, n_views),
-                     lambda: warp_diff_plain(f1, features, coords, n_views))
+# K1 as the operator dro_sfm::warp_diff: the dispatcher picks the kernel for
+# CUDA tensors and the plain version for CPU tensors, and a trace
+# (torch.export) records the operator itself, so an exported program launches
+# K1 when it runs on the card. The launch count and the launch's host-side
+# checks live in the CUDA implementation, outside any trace.
+@torch.library.custom_op("dro_sfm::warp_diff", mutates_args=())
+def _warp_diff_op(f1: torch.Tensor, features: torch.Tensor, coords: torch.Tensor,
+                  n_views: int) -> torch.Tensor:
+    raise ValueError(f"warp_diff has no path for device {f1.device}")
 
 
-class _WarpDiff(torch.autograd.Function):
-    """`warp_diff` with the backward of `_tent_warp_diff_bwd`: saves
-    (features, coords); d_f1 is the fp32 sum of g over the views in g's
-    dtype, d_features is K2 (sign -1), d_coords is K3 (sign -1). Only the
-    gradients autograd asks for are computed."""
+_warp_diff_op.register_kernel("cuda")(_launch_k1)
+_warp_diff_op.register_kernel("cpu")(warp_diff_plain)
 
-    @staticmethod
-    def forward(ctx, f1, features, coords, n_views):
-        ctx.n_views = n_views
-        ctx.save_for_backward(features, coords)
-        return _warp_diff_fwd(f1, features, coords, n_views)
 
-    @staticmethod
-    def backward(ctx, g):
-        features, coords = ctx.saved_tensors
-        # g arrives from diff * diff and the view mean: not always contiguous.
-        g = g.contiguous()
-        need_f1, need_feat, need_coords = ctx.needs_input_grad[:3]
-        d_f1 = d_feat = d_coords = None
-        if need_f1:
-            bn, p, c = g.shape
-            d_f1 = g.float().reshape(bn // ctx.n_views, ctx.n_views, p, c).sum(1)
-            d_f1 = d_f1.to(g.dtype)
-        if need_feat:
-            d_feat = warp_diff_bwd_feat(coords, g, features.shape[1],
-                                        features.shape[2], features.dtype)
-        if need_coords:
-            d_coords = warp_diff_bwd_coords(features, coords, g)
-        return d_f1, d_feat, d_coords, None
+@_warp_diff_op.register_fake
+def _warp_diff_fake(f1, features, coords, n_views):
+    return f1.new_empty((coords.shape[0], coords.shape[1], f1.shape[2]))
+
+
+def _warp_diff_setup(ctx, inputs, output):
+    _, features, coords, n_views = inputs
+    ctx.n_views = n_views
+    ctx.save_for_backward(features, coords)
+
+
+def _warp_diff_backward(ctx, g):
+    """The backward of `_tent_warp_diff_bwd`: d_f1 is the fp32 sum of g over
+    the views in g's dtype, d_features is K2 (sign -1), d_coords is K3 (sign
+    -1). Only the gradients autograd asks for are computed."""
+    features, coords = ctx.saved_tensors
+    # g arrives from diff * diff and the view mean: not always contiguous.
+    g = g.contiguous()
+    need_f1, need_feat, need_coords = ctx.needs_input_grad[:3]
+    d_f1 = d_feat = d_coords = None
+    if need_f1:
+        bn, p, c = g.shape
+        d_f1 = g.float().reshape(bn // ctx.n_views, ctx.n_views, p, c).sum(1).to(g.dtype)
+    if need_feat:
+        d_feat = warp_diff_bwd_feat(coords, g, features.shape[1], features.shape[2],
+                                    features.dtype)
+    if need_coords:
+        d_coords = warp_diff_bwd_coords(features, coords, g)
+    return d_f1, d_feat, d_coords, None
+
+
+_warp_diff_op.register_autograd(_warp_diff_backward, setup_context=_warp_diff_setup)
 
 
 def warp_diff(f1: torch.Tensor, features: torch.Tensor, coords: torch.Tensor,
@@ -311,14 +322,12 @@ def warp_diff(f1: torch.Tensor, features: torch.Tensor, coords: torch.Tensor,
     features [B*n_views, h, w, C]; coords [B*n_views, P, 2] fp32 pixel
     coordinates -> [B*n_views, P, C] in f1's dtype (fp32 or bf16, the same as
     features'). Sampling is grid_sample with zeros padding and
-    align_corners=True. CUDA tensors go to kernel K1 (backward K2, K3), CPU
-    tensors to the plain versions.
+    align_corners=True. Runs the operator ``dro_sfm::warp_diff``: CUDA
+    tensors go to kernel K1 (backward K2, K3), CPU tensors to the plain
+    versions, any other device raises.
     """
     _check(f1, features, coords, n_views)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (f1, features, coords)):
-        return _WarpDiff.apply(f1, features, coords, n_views)
-    return _warp_diff_fwd(f1, features, coords, n_views)
+    return _warp_diff_op(f1, features, coords, n_views)
 
 
 K4_THREADS = 256                   # csrc/tent_warp_fwd.cu: k4::kThreads

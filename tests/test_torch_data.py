@@ -131,8 +131,8 @@ def test_not_ported_inputs_raise():
     u8 = {"rgb": np.zeros((*SHAPE, 3), np.uint8),
           "rgb_context": np.zeros((1, *SHAPE, 3), np.uint8)}
     assert eval_transform(u8, SHAPE)["rgb"].dtype == np.float32
-    cfg = load_config(overrides={"datasets": {"train": {"dataset": ["NYU"]}}})
-    with pytest.raises(KeyError, match="A5a.*Synthetic.*SyntheticMulti"):
+    cfg = load_config(overrides={"datasets": {"train": {"dataset": ["NoSuchSet"]}}})
+    with pytest.raises(KeyError, match="NoSuchSet.*NYU.*Synthetic.*SyntheticMulti"):
         tdata.setup_dataset(cfg.datasets.train, cfg.datasets.augmentation, "train")
 
 

@@ -263,8 +263,12 @@ def test_reader_matches_jax(trees, name, mode):
 
 
 def test_unported_names_raise():
+    cfg = load_config(overrides={"datasets": {"train": {"dataset": ["NoSuchSet"]}}})
+    with pytest.raises(KeyError, match="NoSuchSet"):
+        setup_dataset(cfg.datasets.train, cfg.datasets.augmentation, "train")
+    # NYU is read now: its missing default folder raises, no empty dataset
     cfg = load_config(overrides={"datasets": {"train": {"dataset": ["NYU"]}}})
-    with pytest.raises(KeyError, match="A5a"):
+    with pytest.raises(FileNotFoundError):
         setup_dataset(cfg.datasets.train, cfg.datasets.augmentation, "train")
 
 

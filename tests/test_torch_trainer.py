@@ -195,7 +195,7 @@ def test_train_cli_profiles_the_first_steps(tmp_path):
 
 @pytest.mark.parametrize("overrides, error, match", [
     ({"arch": {"spatial_shards": 2}}, NotImplementedError, "A8"),
-    ({"datasets": {"train": {"dataset": ["NYU"]}}}, KeyError, "A5"),
+    ({"datasets": {"train": {"dataset": ["NoSuchSet"]}}}, KeyError, "NoSuchSet"),
 ])
 def test_not_ported_raises(tmp_path, overrides, error, match):
     with pytest.raises(error, match=match):
