@@ -22,13 +22,17 @@ def pixel_grid(h: int, w: int, dtype=torch.float32,
     return torch.stack([xs, ys, torch.ones_like(xs)], dim=-1)
 
 
-def scale_intrinsics(K: torch.Tensor, scale: float) -> torch.Tensor:
-    """Rescale [..., 3, 3] intrinsics for an image resized by ``scale``, with
-    the pixel-centre rule c' = (c + 0.5) * s - 0.5."""
+def scale_intrinsics(K: torch.Tensor, x_scale, y_scale=None) -> torch.Tensor:
+    """Rescale [..., 3, 3] intrinsics for an image resized by ``x_scale``
+    across and ``y_scale`` (default ``x_scale``) down, with the pixel-centre
+    rule c' = (c + 0.5) * s - 0.5."""
+    if y_scale is None:
+        y_scale = x_scale
     K = K.clone()
-    K[..., 0, 0] = K[..., 0, 0] * scale
-    K[..., 1, 1] = K[..., 1, 1] * scale
-    K[..., :2, 2] = (K[..., :2, 2] + 0.5) * scale - 0.5
+    K[..., 0, 0] = K[..., 0, 0] * x_scale
+    K[..., 1, 1] = K[..., 1, 1] * y_scale
+    K[..., 0, 2] = (K[..., 0, 2] + 0.5) * x_scale - 0.5
+    K[..., 1, 2] = (K[..., 1, 2] + 0.5) * y_scale - 0.5
     return K
 
 
@@ -52,6 +56,15 @@ class Camera:
         self.K = K
         self.Tcw = (Pose.identity(K.shape[:-2], dtype=K.dtype, device=K.device)
                     if Tcw is None else Tcw)
+
+    def scaled(self, x_scale, y_scale=None) -> "Camera":
+        """The camera of the image resized by ``x_scale`` across and
+        ``y_scale`` (default ``x_scale``) down; itself at scale 1."""
+        if y_scale is None:
+            y_scale = x_scale
+        if x_scale == 1.0 and y_scale == 1.0:
+            return self
+        return Camera(scale_intrinsics(self.K, x_scale, y_scale), self.Tcw)
 
     def reconstruct(self, depth: torch.Tensor, frame: str = "w") -> torch.Tensor:
         """Lift a depth map [..., H, W, 1] to 3D points [..., H, W, 3]: rays

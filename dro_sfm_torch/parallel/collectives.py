@@ -125,25 +125,27 @@ class _AllReduceSum(torch.autograd.Function):
     gradients, since every process's output depends on every input."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.contiguous().clone()
         with _span("all_reduce_sum"):
-            dist.all_reduce(out)
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
         with _span("all_reduce_sum_backward"):
-            dist.all_reduce(grad)
-        return grad
+            dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the processes, differentiable."""
-    if process_count() == 1:
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the processes of ``group`` (None: the default
+    group), differentiable."""
+    if process_count() == 1 or dist.get_world_size(group) == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
 def _flat_by_dtype(tensors: Iterable[torch.Tensor], collective) -> None:

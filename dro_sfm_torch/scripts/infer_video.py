@@ -1,23 +1,27 @@
 """Video SfM CLI of the port: a frame folder -> depth maps, trajectory, point cloud.
 
     python -m dro_sfm_torch.scripts.infer_video --checkpoint x.ckpt --input frames/ \
-        --output out/ [--fusion-views 3] [--gt-poses poses/] [--device cpu]
+        --output out/ [--fusion-views 3] [--ba] [--gt-poses poses/] [--device cpu]
 
 The port's counterpart of `scripts/infer_video.py`: 3-frame windows ``i-1,
 i, i+1`` for ``i = 1 ... n-2`` over a folder of frames (PNG, JPEG, BMP), the poses
 chained with monocular scale propagation, each depth filtered (gradient,
 range) and, with ``--fusion-views`` > 1, fused with the previous views by
 geometric consistency on the device, and a global coloured point cloud
-accumulated. Writes ``depths.npy`` (memmapped, one map per window),
+accumulated. With ``--ba`` the keyframes (every ``--ba-stride``-th window)
+are refined by dense bundle adjustment on their depth maps downsampled by 4,
+each covisible with the two keyframes on either side
+(`dro_sfm_torch.ba.optimize_dense_ba`, stride 1, 6 iterations), their poses
+replace the chained ones in the trajectory and ``ba_scales.npy`` holds their
+depth scales. Writes ``depths.npy`` (memmapped, one map per window),
 ``trajectory.json``, ``trajectory_pose.obj`` and ``pointcloud.ply``; with
-``--gt-poses`` it prints the ATE after sim3 alignment. Runs on the card
-unless ``--device cpu``.
+``--gt-poses`` it prints the ATE after sim3 alignment (after BA). Runs on
+the card unless ``--device cpu``.
 
 Not ported: the annotated video ``depth_vis.mp4``, its panels and
 ``trajectory.png`` (OpenCV and matplotlib, ROADMAP A9: a note is printed,
-``--fps`` only sets that video's rate), video input and
-``--gt-depth`` (ROADMAP A9) and ``--ba`` (bundle adjustment, ROADMAP A10),
-which raise.
+``--fps`` only sets that video's rate), video input and ``--gt-depth``
+(ROADMAP A9), which raise.
 """
 from __future__ import annotations
 
@@ -40,8 +44,10 @@ def parse_args(argv=None):
     p.add_argument("--grad-max", type=float, default=0.05)
     p.add_argument("--ply-stride", type=int, default=4,
                    help="subsample factor for point-cloud accumulation")
-    p.add_argument("--ba", action="store_true", help="bundle adjustment (ROADMAP A10: raises)")
-    p.add_argument("--ba-stride", type=int, default=2)
+    p.add_argument("--ba", action="store_true",
+                   help="refine the keyframe trajectory with dense bundle adjustment "
+                        "(Schur-reduced Gauss-Newton)")
+    p.add_argument("--ba-stride", type=int, default=2, help="keyframe subsampling for BA")
     p.add_argument("--gt-poses", default=None,
                    help="directory of per-frame GT pose txts ([4,4], matched by frame "
                         "base name): prints the ATE after sim3 alignment")
@@ -55,13 +61,12 @@ def main(argv=None) -> dict:
     """Run the CLI. Returns what it measured: the number of windows, each
     window's pose matrices ([2,4,4]: to the
     previous and the next frame) and milliseconds (host clock, the result on
-    the host), each frame's decode milliseconds, the point count and the
-    ATE (None without ground truth)."""
+    the host), each frame's decode milliseconds, the point count, the ATE
+    (None without ground truth) and, with ``--ba``, the keyframes' window
+    indices and the BA's milliseconds (host clock, the result on the host)."""
     args = parse_args(argv)
     from dro_sfm_torch.scripts.frames import A9, FrameLoader, list_frames, open_model
     from dro_sfm_torch.visualization.demo_video import VIDEO_NOT_PORTED
-    if args.ba:
-        raise NotImplementedError("--ba: bundle adjustment is not ported yet (ROADMAP A10)")
     if args.gt_depth:
         raise NotImplementedError(f"--gt-depth feeds the colormapped GT panel ({A9})")
     if not os.path.isdir(args.input):
@@ -125,6 +130,11 @@ def main(argv=None) -> dict:
             print(f"[{i}/{len(files) - 2}] frames processed")
     depths_out.flush()
 
+    ba = None
+    if args.ba and len(pose_list) >= 3:
+        ba = bundle_adjust(args.ba_stride, depths_out, pose_list, K, device, args.output)
+        accum.trajectory = pose_list
+
     gt_poses = load_gt_poses(args.gt_poses, files[1:-1]) if args.gt_poses else None
     ate = None
     if gt_poses is not None and len(gt_poses) == len(pose_list):
@@ -144,7 +154,55 @@ def main(argv=None) -> dict:
           f"{np.median(load.decode_ms):.2f} ms per frame decode on {device}")
     print(f"not written: {VIDEO_NOT_PORTED}")
     return {"windows": n_out, "pose_mats": pose_mats, "window_ms": window_ms,
-            "decode_ms": load.decode_ms, "points": int(pts.shape[0]), "ate": ate}
+            "decode_ms": load.decode_ms, "points": int(pts.shape[0]), "ate": ate, "ba": ba}
+
+
+BA_DOWNSAMPLE = 4                  # the keyframes' depth maps, as the JAX CLI
+BA_COVISIBLE = 2                   # keyframes on either side that share an edge
+
+
+def bundle_adjust(stride, depths, pose_list, K, device, output) -> dict:
+    """Dense BA of the keyframes ``0, stride, 2 stride, ...`` of
+    ``pose_list``, in place, as the JAX CLI runs it: depths [n,H,W] taken
+    every 4th pixel, intrinsics with their first two rows divided by 4 (the
+    JAX CLI's rule, not `scale_intrinsics`' pixel-centre one), an edge
+    between each pair of keyframes at most 2 apart, `optimize_dense_ba`
+    with stride 1 and 6 iterations. Writes ``ba_scales.npy`` (the
+    keyframes' depth scales)."""
+    import numpy as np
+    import torch
+
+    from dro_sfm_torch.ba import BAProblem, optimize_dense_ba
+    kf = list(range(0, len(pose_list), stride))
+    s = BA_DOWNSAMPLE
+    K_ba = K.copy()
+    K_ba[0] /= s
+    K_ba[1] /= s
+    ei, ej = covisibility_edges(len(kf))
+    problem = BAProblem(
+        torch.from_numpy(np.stack([pose_list[i] for i in kf]).astype(np.float32)),
+        torch.from_numpy(np.stack([depths[i][::s, ::s] for i in kf])),
+        torch.from_numpy(K_ba), ei, ej)
+    t0 = time.perf_counter()
+    refined, sigmas = optimize_dense_ba(BAProblem(*(t.to(device) for t in problem)),
+                                        stride=1, iters=6)
+    refined, scales = refined.cpu().numpy(), torch.exp(sigmas).cpu().numpy()
+    ms = 1e3 * (time.perf_counter() - t0)
+    for a, i in enumerate(kf):
+        pose_list[i] = refined[a]
+    np.save(os.path.join(output, "ba_scales.npy"), scales)
+    print(f"dense BA refined {len(kf)} keyframes over {len(ei)} edges in {ms:.1f} ms "
+          f"(scales {scales.round(3)})")
+    return {"keyframes": kf, "ms": ms, "edges": len(ei)}
+
+
+def covisibility_edges(k: int):
+    """(edges_i, edges_j) [E]: every ordered pair of ``k`` keyframes at most
+    BA_COVISIBLE apart."""
+    import torch
+    pairs = [(a, b) for a in range(k)
+             for b in range(max(0, a - BA_COVISIBLE), min(k, a + BA_COVISIBLE + 1)) if a != b]
+    return torch.tensor([a for a, _ in pairs]), torch.tensor([b for _, b in pairs])
 
 
 if __name__ == "__main__":

@@ -254,3 +254,27 @@ def trainer_rank(rank, world, cfg_path, overrides, out_dir, preempt_rank):
     except RuntimeError as e:
         out["missing_sample"] = str(e)
     save(out_dir, rank, out)
+
+
+# -- bundle adjustment ---------------------------------------------------------------
+
+def ba_rank(rank, world, arrays, out_dir):
+    """The edge-split dense BA on this rank: the normal equations, the
+    LM-guarded optimizer and a two-stage schedule over the default group,
+    and the refusal of an edge count that does not split."""
+    from dro_sfm_torch.ba import dense_ba
+    problem = dense_ba.BAProblem(*(torch.from_numpy(a) for a in arrays))
+    H, b = dense_ba.make_sharded_accumulate(None, stride=2, robust_c=0.25)(problem)
+    cost = dense_ba.make_sharded_cost(None, stride=2, robust_c=0.25)(problem)
+    poses, sigmas = dense_ba.make_sharded_optimizer(None, stride=2, iters=6)(problem)
+    sched = dense_ba.optimize_dense_ba_scheduled(problem, stages=((2, 0.5, 2, 0.15),
+                                                                  (1, 0.25, 3, 0.1)),
+                                                 stride=2, group=dist.group.WORLD)
+    odd = problem._replace(edges_i=problem.edges_i[:-1], edges_j=problem.edges_j[:-1])
+    try:
+        dense_ba.make_sharded_optimizer(None, stride=2, iters=1)(odd)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    save(out_dir, rank, {"H": H, "b": b, "cost": cost, "poses": poses, "sigmas": sigmas,
+                         "sched": sched, "refused": refused})

@@ -7,8 +7,9 @@ OpenCV, Pillow, matplotlib, msgpack, h5py or imageio, so no module of the
 port imports them (it reads flax's msgpack and PNG, JPEG and BMP files
 itself), and ``wandb`` is imported only inside ``loggers.py:WandbLogger``.
 The trainer, the CLIs (the launcher and the depth-map metrics among them),
-the process group and collectives (`parallel/`), the dataset readers and the
-inference applications import none of them.
+the process group and collectives (`parallel/`), the dataset readers, the
+inference applications, bundle adjustment (`ba/`) and its benchmark
+``tools/torch_bench_ba.py`` import none of them.
 """
 import ast
 import subprocess
@@ -20,7 +21,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dro_sfm_tpu")
 ABSENT_ON_THE_CARD = ("yaml", "cv2", "PIL", "matplotlib", "msgpack", "h5py", "imageio")
-FILES = sorted((ROOT / "dro_sfm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "dro_sfm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                         ROOT / "tools" / "torch_bench_ba.py"]
 
 
 def imported_modules(path: Path):
@@ -81,6 +83,15 @@ def test_parallel_and_new_scripts_are_checked():
             "dro_sfm_torch/scripts/evaluate_depth_maps.py"} <= names
 
 
+def test_ba_modules_and_their_benchmark_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"dro_sfm_torch/ba/__init__.py", "dro_sfm_torch/ba/lie.py",
+            "dro_sfm_torch/ba/pose_graph.py", "dro_sfm_torch/ba/dense_ba.py",
+            "dro_sfm_torch/ba/precision.py", "dro_sfm_torch/geometry/rotations.py",
+            "dro_sfm_torch/geometry/pose.py", "dro_sfm_torch/geometry/camera.py",
+            "tools/torch_bench_ba.py"} <= names
+
+
 def test_trainer_import_leaves_out_jax_yaml_cv2():
     code = ("import sys, dro_sfm_torch.training.trainer, dro_sfm_torch.scripts.train, "
             "dro_sfm_torch.scripts.eval, dro_sfm_torch.scripts.infer, "
@@ -90,7 +101,9 @@ def test_trainer_import_leaves_out_jax_yaml_cv2():
             "dro_sfm_torch.data.kitti, dro_sfm_torch.data.dgp, "
             "dro_sfm_torch.visualization.demo_video, dro_sfm_torch.parallel.mesh, "
             "dro_sfm_torch.parallel.collectives, dro_sfm_torch.scripts.launch_multihost, "
-            "dro_sfm_torch.scripts.evaluate_depth_maps\n"
+            "dro_sfm_torch.scripts.evaluate_depth_maps, dro_sfm_torch.ba, "
+            "dro_sfm_torch.ba.dense_ba, dro_sfm_torch.geometry.rotations, "
+            "tools.torch_bench_ba\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
             "assert not bad, bad\n" % (FORBIDDEN + ABSENT_ON_THE_CARD + ("wandb",),))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
