@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving and training paths (supervised,
 self-supervised, semi-supervised and single-frame), its trainer, its
 dataset readers (NYU's HDF5 dumps among them), its training in several
-processes, its serving export and its bundle adjustment, on one NVIDIA GPU
-and check their kernels.
+processes, its serving export, its bundle adjustment and its demo video, on
+one NVIDIA GPU and check their kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -200,6 +200,22 @@ result line):
    poses not, K1 24 launches a window); the edge split on two spawned gloo
    ranks on this card against one process (fp64 1e-9, fp32 as above, the
    ranks bit-equal).
+
+29. demo: the slice's demo path on the card at 192x640, fp32, seed-0
+   it12-h-out weights with the heads scaled (`start_weights`, the port's
+   checkpoint format): 12 rendered frames (PNG), their poses and their
+   exact depths (uint16 millimetre PNG); ``infer_video`` with
+   ``--gt-poses`` and ``--gt-depth`` in this process, counts reset just
+   before and read just after: K1 24 a window and nothing else; the
+   MJPEG ``depth_vis.avi`` read back by the port (``read_avi_mjpeg``):
+   ``windows`` frames of the composer's frame size, each within DEMO_PSNR
+   dB of the canvas `compose` returned; the ``depth`` panels equal to the
+   host `viz_inv_depth` of ``depths.npy`` resized as OpenCV resizes, bit
+   for bit; ``infer --save viz`` on 2 frames (K1 24 a frame; the panel's
+   top half the frame); ``vis`` renders the run's ``pointcloud.ply`` on
+   the card bit-equal to the CPU, and a turntable is timed. Prints ms a
+   window, compose and encode ms a video frame, MB a frame and ``vis``
+   ms a frame on the card.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -3819,11 +3835,160 @@ def phase_ba(counters, gpu):
     return launches
 
 
+DEMO_BUILD = ROOT / "build" / "demo"
+DEMO_FRAMES = 12                           # 10 sliding windows
+DEMO_PSNR = 30.0                           # dB, a video frame against its canvas
+VIS_FRAMES = 12                            # vis: turntable frames
+
+
+def demo_inputs():
+    """Phase `demo`'s checkpoint (`start_weights` served in fp32, the port's
+    own format) and its DEMO_FRAMES rendered frames (PNG), poses (txt) and
+    exact depths (uint16 millimetre PNG) under DEMO_BUILD."""
+    import numpy as np
+
+    from dro_sfm_torch.inference import save_model
+    from dro_sfm_torch.training.trainer import model_config_from
+    from dro_sfm_torch.utils.image_io import write_png
+    for d in ("frames", "gt", "gt_depth", "two"):
+        (DEMO_BUILD / d).mkdir(parents=True, exist_ok=True)
+    net = start_weights(model_config_from(trainer_config())).eval()
+    net.mixed_precision = False
+    path = str(DEMO_BUILD / "net.pt")
+    save_model(net, path)
+    frames, poses, depths, _ = render_video(DEMO_FRAMES, SERVE_H, SERVE_W)
+    for i, (img, T, depth) in enumerate(zip(frames, poses, depths)):
+        write_png(str(DEMO_BUILD / "frames" / f"{i:06d}.png"), img)
+        if i < 2:
+            write_png(str(DEMO_BUILD / "two" / f"{i:06d}.png"), img)
+        np.savetxt(DEMO_BUILD / "gt" / f"{i:06d}.txt", T)
+        write_png(str(DEMO_BUILD / "gt_depth" / f"{i:06d}.png"),
+                  np.clip(depth * 1000, 0, 65535).astype(np.uint16))
+    return path, frames
+
+
+def psnr_db(a, b) -> float:
+    import numpy as np
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return math.inf if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def phase_demo(counters, gpu):
+    """The slice's demo path on the card (phase 29 of the docstring)."""
+    import shutil
+
+    import numpy as np
+
+    from dro_sfm_torch.scripts import infer, infer_video, vis
+    from dro_sfm_torch.utils.depth import viz_inv_depth
+    from dro_sfm_torch.utils.image_io import read_png, resize_bilinear_u8
+    from dro_sfm_torch.utils.video_io import read_avi_mjpeg
+    from dro_sfm_torch.visualization.splat import View, render_points
+    t_start = time.perf_counter()
+    shutil.rmtree(DEMO_BUILD, ignore_errors=True)
+    ckpt, frames = demo_inputs()
+    out = DEMO_BUILD / "out"
+
+    # 1) infer_video with both ground truths, its launches counted
+    canvases = []
+    for c in counters.values():              # the demo path starts here
+        c.reset()
+    t0 = time.perf_counter()
+    result = infer_video.main([
+        "--checkpoint", ckpt, "--input", str(DEMO_BUILD / "frames"), "--output", str(out),
+        "--gt-poses", str(DEMO_BUILD / "gt"), "--gt-depth", str(DEMO_BUILD / "gt_depth"),
+        "--image-shape", str(SERVE_H), str(SERVE_W), "--device", "cuda"], canvases=canvases)
+    cli_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}   # and ends here
+    windows = result["windows"]
+    want = {k: (K1_STEPS_PER_REQUEST * windows if k == "K1" else 0) for k in counters}
+    if windows != DEMO_FRAMES - 2 or launches != want:
+        fail(f"demo: infer_video ran {windows} windows with launches {launches}, want {want}")
+
+    # 2) the video read back by the port, against the composed canvases
+    video, fps = read_avi_mjpeg(result["video"])
+    sizes = {f.shape for f in video}
+    psnrs = [psnr_db(f, c) for f, c in zip(video, canvases)]
+    line = (f"demo depth_vis.avi: {len(video)} frames of {sorted(sizes)} at {fps} fps, want "
+            f"{windows} of {result['frame_size']}; PSNR against the canvases min "
+            f"{min(psnrs):.2f} dB, max {max(psnrs):.2f} dB (bar {DEMO_PSNR})")
+    if not (len(video) == len(canvases) == windows
+            and sizes == {(*result["frame_size"], 3)} and min(psnrs) >= DEMO_PSNR):
+        fail(line)
+    print(line, flush=True)
+
+    # 3) the depth panels against the host colormap of depths.npy
+    depths = np.load(out / "depths.npy")
+    bad = []
+    for m, depth in enumerate(depths):
+        inv = np.where(depth > 0, 1.0 / np.maximum(depth, 1e-6), 0.0)
+        want_panel = resize_bilinear_u8((viz_inv_depth(inv) * 255).astype(np.uint8),
+                                        (SERVE_H // 2, SERVE_W // 2))
+        if not np.array_equal(read_png(str(out / "panels" / f"depth_{m:06d}.png")), want_panel):
+            bad.append(m)
+    gtd = sorted((out / "panels").glob("gtd_*.png"))
+    if bad or len(gtd) != windows or not np.isfinite(depths).all():
+        fail(f"demo: depth panels {bad} differ from viz_inv_depth of depths.npy, or "
+             f"{len(gtd)} ground-truth panels for {windows} windows")
+    print(f"demo panels: {windows} depth panels bit-equal to the host viz_inv_depth of "
+          f"depths.npy, {len(gtd)} ground-truth depth panels, trajectory.png "
+          f"{(out / 'trajectory.png').stat().st_size} bytes", flush=True)
+
+    # 4) infer --save viz on two frames
+    for c in counters.values():
+        c.reset()
+    written = infer.main(["--checkpoint", ckpt, "--input", str(DEMO_BUILD / "two"),
+                          "--output", str(DEMO_BUILD / "viz"), "--save", "viz",
+                          "--image-shape", str(SERVE_H), str(SERVE_W), "--device", "cuda"])
+    viz_launches = counters["K1"].launches
+    tops = [np.array_equal(read_png(p)[:SERVE_H],
+                           ((frames[i].astype(np.float32) / 255.0) * 255).astype(np.uint8))
+            for i, p in enumerate(written)]
+    if len(written) != 2 or not all(tops) or viz_launches != 2 * K1_STEPS_PER_REQUEST:
+        fail(f"demo: infer --save viz wrote {written}, top halves equal {tops}, K1 "
+             f"{viz_launches} launches (want {2 * K1_STEPS_PER_REQUEST})")
+
+    # 5) vis: the run's cloud on the card against the CPU, and a timed turntable
+    pts, cols = vis.read_ply(str(out / "pointcloud.ply"))
+    view = View(pts.min(0), pts.max(0), (vis.SIZE, vis.SIZE), 20.0, 30.0)
+    on_card = render_points(torch.tensor(pts, device="cuda"), torch.tensor(cols, device="cuda"),
+                            view).cpu()
+    on_cpu = render_points(torch.tensor(pts), torch.tensor(cols), view)
+    turn = vis.main(["--ply", str(out / "pointcloud.ply"), "--trajectory",
+                     str(out / "trajectory.json"), "--output", str(DEMO_BUILD / "turn.avi"),
+                     "--frames", str(VIS_FRAMES), "--device", "cuda"])
+    vis_ms = sorted(turn["render_ms"][1:])
+    line = (f"demo vis: {len(pts)} points at {vis.SIZE}x{vis.SIZE}, card and CPU "
+            f"bit-equal {torch.equal(on_card, on_cpu)} ({int((on_card != 255).any(-1).sum())} "
+            f"pixels drawn); turntable of {VIS_FRAMES} frames: median {vis_ms[len(vis_ms) // 2]:.2f} "
+            f"ms a frame on the card (host clock around the render and its copy to the host)")
+    if not torch.equal(on_card, on_cpu) or len(turn["frames"]) != VIS_FRAMES:
+        fail(line)
+    print(line, flush=True)
+
+    steady = sorted(result["window_ms"][1:])
+    compose = sorted(result["compose_ms"])
+    encode = sorted(result["encode_ms"])
+    mb = result["avi_bytes"] / windows / 2 ** 20
+    print(f"demo infer_video it12-h-out fp32 {SERVE_H}x{SERVE_W} N=2 B=1 --gt-poses --gt-depth: "
+          f"{windows} windows, median {steady[len(steady) // 2]:.2f} ms/window (min "
+          f"{steady[0]:.2f}, max {steady[-1]:.2f}); video {result['frame_size'][1]}x"
+          f"{result['frame_size'][0]}: compose median {compose[len(compose) // 2]:.2f} ms/frame "
+          f"(min {compose[0]:.2f}, max {compose[-1]:.2f}), encode median "
+          f"{encode[len(encode) // 2]:.2f} ms/frame (min {encode[0]:.2f}, max {encode[-1]:.2f}), "
+          f"{mb:.4f} MB/frame ({result['avi_bytes']} bytes); CLI {cli_s:.1f} s; K1 "
+          f"{launches['K1']} launches ({launches['K1'] // windows}/window), infer --save viz K1 "
+          f"{viz_launches} on 2 frames; ATE {result['ate']:.4f}; phase "
+          f"{time.perf_counter() - t_start:.1f} s on {gpu}", flush=True)
+    shutil.rmtree(DEMO_BUILD, ignore_errors=True)
+    return launches
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
           "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
           "trainer", "selfsup_trainer", "apps", "datasets", "dist_trainer", "nyu", "export",
-          "ba")
+          "ba", "demo")
 
 
 def main() -> int:
@@ -3995,6 +4160,12 @@ def main() -> int:
     # 28) bundle adjustment (this slice's path: PyTorch operators, no kernel
     # of its own; infer_video --ba launches K1 24 a window)
     phase("ba", phase_ba, counters, gpu)
+
+    # 29) the demo video (this slice's path: infer_video launches K1 24 a
+    # window; the drawing, the colormap and the encoders run on the host)
+    launches_v = phase("demo", phase_demo, counters, gpu)
+    if launches_v is not None and launches_v["K1"] == 0:
+        fail("the demo path never launched K1")
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)

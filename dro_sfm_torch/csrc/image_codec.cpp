@@ -16,12 +16,32 @@
 // libjpeg would warn and fill in, this decoder fails). The EXIF orientation
 // tag is reported by jpeg_info; the caller applies it.
 //
+// gif_lzw packs palette indices as the LZW data of a GIF image (the
+// variable-length codes, a clear code first and whenever the table fills,
+// the end code last), in sub-blocks of at most 255 bytes.
+//
 // png_unfilter undoes the five PNG row filters (None, Sub, Up, Average,
-// Paeth) of inflated, non-interlaced image data.
+// Paeth) of inflated image data (one interlace pass at a time).
+//
+// jpeg_encode writes baseline JPEG as cv2.imencode(".jpg", img,
+// [IMWRITE_JPEG_QUALITY, q]) writes it through libjpeg-turbo's defaults:
+//   * a JFIF 1.01 APP0 (no density unit, 1:1), the quality-scaled Annex K
+//     quantization tables (jcparam.c, baseline-limited), SOF0, the standard
+//     Huffman tables, one interleaved scan;
+//   * RGB -> YCbCr with the fixed-point tables of jccolor.c, 4:2:0 (Y 2x2)
+//     with h2v2 downsampling and its alternating 1, 2 bias (jcsample.c);
+//   * edges as jcprepct.c and jccoefct.c pad them: the right edge and an odd
+//     last row replicated, the downsampled planes' last rows replicated to
+//     a whole iMCU, and blocks past a component's size filled as dummy
+//     blocks (zero AC, the DC of the block before);
+//   * the islow forward DCT (jfdctint.c) and the reciprocal quantization
+//     of jcdctmgr.c with 16-bit DCT elements (the SIMD build's);
+//   * byte stuffing and the last byte padded with 1 bits (jchuff.c).
 //
 // Every entry point returns 0 on success, else -1 (a broken stream) or -2 (a
 // valid one that is not supported) with a message in err.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -640,6 +660,384 @@ void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, size_t n
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Baseline JPEG encoder (libjpeg-turbo's compression path, see the header).
+
+const uint8_t kStdLumaQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromaQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// The Annex K Huffman tables: 16 code counts, then the symbols.
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+struct HuffCode {
+  uint16_t code[256] = {};
+  uint8_t size[256] = {};
+  HuffCode(const uint8_t* bits, const uint8_t* vals) {
+    int code_ = 0, k = 0;
+    for (int len = 1; len <= 16; ++len) {
+      for (int i = 0; i < bits[len - 1]; ++i, ++k, ++code_) {
+        code[vals[k]] = uint16_t(code_);
+        size[vals[k]] = uint8_t(len);
+      }
+      code_ <<= 1;
+    }
+  }
+};
+
+// jpeg_quality_scaling and jpeg_add_quant_table (force_baseline).
+void quant_table(const uint8_t* basic, int quality, uint16_t* out) {
+  quality = quality <= 0 ? 1 : quality > 100 ? 100 : quality;
+  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; ++i) {
+    long t = (long(basic[i]) * scale + 50L) / 100L;
+    out[i] = uint16_t(t <= 0 ? 1 : t > 255 ? 255 : t);
+  }
+}
+
+// compute_reciprocal of jcdctmgr.c for 16-bit DCT elements: the
+// reciprocal, the rounding correction and the shift of one divisor.
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor reciprocal(uint16_t divisor) {
+  if (divisor == 1) return {1, 0, -16};
+  int b = 0;
+  while ((1u << (b + 1)) <= divisor) ++b;    // flss(divisor) - 1
+  int r = 16 + b;
+  uint32_t fq = (uint32_t(1) << r) / divisor, fr = (uint32_t(1) << r) % divisor;
+  uint32_t c = divisor / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    --r;
+  } else if (fr <= divisor / 2u) {
+    ++c;
+  } else {
+    ++fq;
+  }
+  return {fq & 0xFFFF, c & 0xFFFF, r - 16};
+}
+
+inline int32_t fdescale(int64_t x, int n) { return int32_t((x + (int64_t(1) << (n - 1))) >> n); }
+
+// jpeg_fdct_islow: in place on centred samples; the output is scaled by 8.
+void fdct_islow(int16_t* data) {
+  int16_t* p = data;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass ? 8 : 1, stride = pass ? 1 : 8;
+    for (int ctr = 0; ctr < 8; ++ctr, p += stride) {
+      int64_t d[8];
+      for (int i = 0; i < 8; ++i) d[i] = p[i * step];
+      int64_t tmp0 = d[0] + d[7], tmp7 = d[0] - d[7], tmp1 = d[1] + d[6], tmp6 = d[1] - d[6];
+      int64_t tmp2 = d[2] + d[5], tmp5 = d[2] - d[5], tmp3 = d[3] + d[4], tmp4 = d[3] - d[4];
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      const int n = pass ? kConstBits + kPass1Bits : kConstBits - kPass1Bits;
+      if (pass) {
+        p[0] = int16_t(fdescale(tmp10 + tmp11, kPass1Bits));
+        p[4 * step] = int16_t(fdescale(tmp10 - tmp11, kPass1Bits));
+      } else {
+        p[0] = int16_t((tmp10 + tmp11) * (1 << kPass1Bits));
+        p[4] = int16_t((tmp10 - tmp11) * (1 << kPass1Bits));
+      }
+      int64_t z1 = (tmp12 + tmp13) * 4433;
+      p[2 * step] = int16_t(fdescale(z1 + tmp13 * 6270, n));
+      p[6 * step] = int16_t(fdescale(z1 - tmp12 * 15137, n));
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int64_t z5 = (z3 + z4) * 9633;
+      tmp4 *= 2446;
+      tmp5 *= 16819;
+      tmp6 *= 25172;
+      tmp7 *= 12299;
+      z1 *= -7373;
+      z2 *= -20995;
+      z3 = z3 * -16069 + z5;
+      z4 = z4 * -3196 + z5;
+      p[7 * step] = int16_t(fdescale(tmp4 + z1 + z3, n));
+      p[5 * step] = int16_t(fdescale(tmp5 + z2 + z4, n));
+      p[3 * step] = int16_t(fdescale(tmp6 + z2 + z3, n));
+      p[1 * step] = int16_t(fdescale(tmp7 + z1 + z4, n));
+    }
+    p = data;
+  }
+}
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint32_t buf = 0;
+  int nbits = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void put(uint32_t code, int size) {
+    buf = (buf << size) | (code & ((1u << size) - 1));
+    nbits += size;
+    while (nbits >= 8) {
+      uint8_t byte = uint8_t(buf >> (nbits - 8));
+      out.push_back(byte);
+      if (byte == 0xFF) out.push_back(0);
+      nbits -= 8;
+    }
+    buf &= (1u << nbits) - 1;
+  }
+  void flush() {
+    if (nbits) put(0x7F, 8 - nbits);
+  }
+};
+
+struct EncComponent {
+  int h, v, tq;
+  int bw, bh;                  // blocks with data (width_in_blocks, height_in_blocks)
+  int pw, ph;                  // samples in the padded plane
+  std::vector<uint8_t> plane;  // [ph][pw]
+  std::vector<int16_t> coef;   // [MCU rows * v][MCU cols * h][64] quantized, natural order
+  int pred = 0;
+};
+
+void put_marker(std::vector<uint8_t>& o, uint8_t m, const std::vector<uint8_t>& body) {
+  o.push_back(0xFF);
+  o.push_back(m);
+  size_t n = body.size() + 2;
+  o.push_back(uint8_t(n >> 8));
+  o.push_back(uint8_t(n & 0xFF));
+  o.insert(o.end(), body.begin(), body.end());
+}
+
+void put_dht(std::vector<uint8_t>& o, int cls_id, const uint8_t* bits, const uint8_t* vals) {
+  std::vector<uint8_t> b{uint8_t(cls_id)};
+  int n = 0;
+  for (int i = 0; i < 16; ++i) n += bits[i];
+  b.insert(b.end(), bits, bits + 16);
+  b.insert(b.end(), vals, vals + n);
+  put_marker(o, 0xC4, b);
+}
+
+std::vector<uint8_t> encode(const uint8_t* img, int height, int width, int quality) {
+  if (height <= 0 || width <= 0 || height > 65535 || width > 65535)
+    unsupported("JPEG of size " + std::to_string(height) + "x" + std::to_string(width));
+  const int ncomp = 3, maxs = 2;
+  const int mcu_cols = (width + 8 * maxs - 1) / (8 * maxs);
+  const int mcu_rows = (height + 8 * maxs - 1) / (8 * maxs);
+  uint16_t q[2][64];
+  quant_table(kStdLumaQuant, quality, q[0]);
+  quant_table(kStdChromaQuant, quality, q[1]);
+
+  // Colour conversion at full size, rows padded to an even count (the
+  // row group of jcprepct.c) by the last row.
+  const int rows = (height + 1) / 2 * 2;
+  std::vector<uint8_t> full[3];
+  for (int c = 0; c < ncomp; ++c) full[c].resize(size_t(rows) * width);
+  {
+    constexpr int kSB = 16;
+    const int32_t half = int32_t(1) << (kSB - 1), offset = int32_t(128) << kSB;
+    auto fix = [](double x) { return int32_t(x * (1 << kSB) + 0.5); };
+    const int32_t ry = fix(0.29900), gy = fix(0.58700), by = fix(0.11400);
+    const int32_t rcb = -fix(0.16874), gcb = -fix(0.33126), bcb = fix(0.50000);
+    const int32_t gcr = -fix(0.41869), bcr = -fix(0.08131);
+    for (size_t i = 0, n = size_t(height) * width; i < n; ++i) {
+      int32_t r = img[3 * i], g = img[3 * i + 1], b = img[3 * i + 2];
+      full[0][i] = uint8_t((ry * r + gy * g + by * b + half) >> kSB);
+      full[1][i] = uint8_t((rcb * r + gcb * g + bcb * b + offset + half - 1) >> kSB);
+      full[2][i] = uint8_t((bcb * r + gcr * g + bcr * b + offset + half - 1) >> kSB);
+    }
+  }
+  for (int c = 0; c < ncomp; ++c)
+    for (int y = height; y < rows; ++y)
+      std::memcpy(&full[c][size_t(y) * width], &full[c][size_t(height - 1) * width], width);
+
+  EncComponent comp[3];
+  for (int c = 0; c < ncomp; ++c) {
+    EncComponent& k = comp[c];
+    k.h = k.v = c == 0 ? maxs : 1;
+    k.tq = c == 0 ? 0 : 1;
+    const int f = maxs / k.h;          // downsampling factor
+    k.bw = (width * k.h + 8 * maxs - 1) / (8 * maxs);
+    k.bh = (height * k.v + 8 * maxs - 1) / (8 * maxs);
+    k.pw = mcu_cols * k.h * 8;
+    k.ph = mcu_rows * k.v * 8;
+    k.plane.assign(size_t(k.pw) * k.ph, 0);
+    const int out_cols = k.bw * 8, down_rows = rows / f;
+    std::vector<uint8_t> row(size_t(out_cols) * f);
+    for (int y = 0; y < down_rows; ++y) {
+      uint8_t* o = &k.plane[size_t(y) * k.pw];
+      if (f == 1) {
+        std::memcpy(row.data(), &full[c][size_t(y) * width], width);
+        for (int x = width; x < out_cols; ++x) row[x] = row[width - 1];
+        std::memcpy(o, row.data(), out_cols);
+      } else {
+        std::vector<uint8_t> r1(row.size());
+        std::memcpy(row.data(), &full[c][size_t(2 * y) * width], width);
+        std::memcpy(r1.data(), &full[c][size_t(2 * y + 1) * width], width);
+        for (size_t x = width; x < row.size(); ++x) {
+          row[x] = row[width - 1];
+          r1[x] = r1[width - 1];
+        }
+        int bias = 1;
+        for (int x = 0; x < out_cols; ++x) {
+          o[x] = uint8_t((row[2 * x] + row[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + bias) >> 2);
+          bias ^= 3;
+        }
+      }
+    }
+    // the downsampled plane's last row repeated to the iMCU's height
+    const int imcu_rows = (down_rows + 8 * k.v - 1) / (8 * k.v) * 8 * k.v;
+    for (int y = down_rows; y < imcu_rows && y < k.ph; ++y)
+      std::memcpy(&k.plane[size_t(y) * k.pw], &k.plane[size_t(down_rows - 1) * k.pw], out_cols);
+
+    // DCT and quantization of the blocks with data; dummy blocks after.
+    Divisor div[64];
+    for (int i = 0; i < 64; ++i) div[i] = reciprocal(uint16_t(q[k.tq][i] << 3));
+    const int cols = mcu_cols * k.h, brows = mcu_rows * k.v;
+    k.coef.assign(size_t(cols) * brows * 64, 0);
+    for (int by = 0; by < brows; ++by) {
+      for (int bx = 0; bx < cols; ++bx) {
+        int16_t* blk = &k.coef[(size_t(by) * cols + bx) * 64];
+        if (by >= k.bh) {
+          // A dummy row (never an MCU's first): the DC of the block coded
+          // just before the row, the last of the MCU's row above.
+          blk[0] = k.coef[(size_t(by - 1) * cols + (bx / k.h) * k.h + k.h - 1) * 64];
+          continue;
+        }
+        if (bx >= k.bw) {          // a dummy column: the DC of the block to its left
+          blk[0] = blk[-64];
+          continue;
+        }
+        int16_t ws[64];
+        for (int y = 0; y < 8; ++y)
+          for (int x = 0; x < 8; ++x)
+            ws[y * 8 + x] = int16_t(int(k.plane[size_t(by * 8 + y) * k.pw + bx * 8 + x]) - 128);
+        fdct_islow(ws);
+        for (int i = 0; i < 64; ++i) {
+          int t = ws[i];
+          const bool neg = t < 0;
+          uint32_t a = uint32_t(neg ? -t : t);
+          uint32_t prod = ((a + div[i].corr) & 0xFFFF) * div[i].recip;
+          int v = int(uint16_t(prod >> (div[i].shift + 16)));
+          blk[i] = int16_t(neg ? -v : v);
+        }
+      }
+    }
+  }
+
+  std::vector<uint8_t> out{0xFF, 0xD8};
+  out.reserve(size_t(height) * width * 3 / 4 + 1024);
+  put_marker(out, 0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
+  for (int t = 0; t < 2; ++t) {
+    std::vector<uint8_t> b{uint8_t(t)};
+    for (int i = 0; i < 64; ++i) b.push_back(uint8_t(q[t][kZigzag[i]]));
+    put_marker(out, 0xDB, b);
+  }
+  std::vector<uint8_t> sof{8, uint8_t(height >> 8), uint8_t(height), uint8_t(width >> 8),
+                           uint8_t(width), uint8_t(ncomp)};
+  for (int c = 0; c < ncomp; ++c) {
+    sof.push_back(uint8_t(c + 1));
+    sof.push_back(uint8_t((comp[c].h << 4) | comp[c].v));
+    sof.push_back(uint8_t(comp[c].tq));
+  }
+  put_marker(out, 0xC0, sof);
+  put_dht(out, 0x00, kDcLumaBits, kDcVals);
+  put_dht(out, 0x10, kAcLumaBits, kAcLumaVals);
+  put_dht(out, 0x01, kDcChromaBits, kDcVals);
+  put_dht(out, 0x11, kAcChromaBits, kAcChromaVals);
+  std::vector<uint8_t> sos{uint8_t(ncomp)};
+  for (int c = 0; c < ncomp; ++c) {
+    sos.push_back(uint8_t(c + 1));
+    sos.push_back(uint8_t(c == 0 ? 0x00 : 0x11));
+  }
+  sos.insert(sos.end(), {0, 63, 0});
+  put_marker(out, 0xDA, sos);
+
+  static const HuffCode dc[2] = {HuffCode(kDcLumaBits, kDcVals), HuffCode(kDcChromaBits, kDcVals)};
+  static const HuffCode ac[2] = {HuffCode(kAcLumaBits, kAcLumaVals),
+                                 HuffCode(kAcChromaBits, kAcChromaVals)};
+  BitWriter bw(out);
+  auto nbits_of = [](int v) {
+    int n = 0;
+    while (v) {
+      ++n;
+      v >>= 1;
+    }
+    return n;
+  };
+  for (int my = 0; my < mcu_rows; ++my)
+    for (int mx = 0; mx < mcu_cols; ++mx)
+      for (int c = 0; c < ncomp; ++c) {
+        EncComponent& k = comp[c];
+        const HuffCode &d = dc[k.tq], &a = ac[k.tq];
+        const int cols = mcu_cols * k.h;
+        for (int yi = 0; yi < k.v; ++yi)
+          for (int xi = 0; xi < k.h; ++xi) {
+            const int16_t* blk = &k.coef[(size_t(my * k.v + yi) * cols + mx * k.h + xi) * 64];
+            int diff = blk[0] - k.pred;
+            k.pred = blk[0];
+            int t = diff < 0 ? -diff : diff, t2 = diff < 0 ? diff - 1 : diff;
+            int nb = nbits_of(t);
+            bw.put(d.code[nb], d.size[nb]);
+            if (nb) bw.put(uint32_t(t2), nb);
+            int run = 0;
+            for (int i = 1; i < 64; ++i) {
+              int v = blk[kZigzag[i]];
+              if (v == 0) {
+                ++run;
+                continue;
+              }
+              while (run > 15) {
+                bw.put(a.code[0xF0], a.size[0xF0]);
+                run -= 16;
+              }
+              int av = v < 0 ? -v : v, v2 = v < 0 ? v - 1 : v;
+              nb = nbits_of(av);
+              bw.put(a.code[(run << 4) + nb], a.size[(run << 4) + nb]);
+              bw.put(uint32_t(v2), nb);
+              run = 0;
+            }
+            if (run > 0) bw.put(a.code[0], a.size[0]);
+          }
+      }
+  bw.flush();
+  out.push_back(0xFF);
+  out.push_back(0xD9);
+  return out;
+}
+
 int report(const CodecError& e, char* err, size_t errlen) {
   if (err && errlen) std::snprintf(err, errlen, "%s", e.msg.c_str());
   return e.unsupported ? -2 : -1;
@@ -746,6 +1144,100 @@ int png_unfilter(const uint8_t* rows, int height, int rowbytes, int bpp, uint8_t
         return -1;
     }
   }
+  return 0;
+}
+
+// Encode img[height][width][3] (RGB) at quality 1-100 into out (capacity
+// out_size); *written is the stream's length. Returns -3 when out is too
+// small (*written: the length needed).
+int jpeg_encode(const uint8_t* img, int height, int width, int quality, uint8_t* out,
+                size_t out_size, size_t* written, char* err, size_t errlen) {
+  try {
+    std::vector<uint8_t> s = encode(img, height, width, quality);
+    *written = s.size();
+    if (s.size() > out_size) return -3;
+    std::memcpy(out, s.data(), s.size());
+    return 0;
+  } catch (const CodecError& e) {
+    return report(e, err, errlen);
+  } catch (const std::bad_alloc&) {
+    return report(CodecError{"out of memory encoding JPEG", false}, err, errlen);
+  }
+}
+
+// The LZW image data of a GIF frame: indices[n] (each below 1 << min_bits,
+// min_bits 2-8) -> out: the sub-blocks of at most 255 bytes and the zero
+// block that ends them. Returns -3 when out is too small.
+int gif_lzw(const uint8_t* indices, size_t n, int min_bits, uint8_t* out, size_t out_size,
+            size_t* written, char* err, size_t errlen) {
+  if (min_bits < 2 || min_bits > 8) {
+    if (err && errlen) std::snprintf(err, errlen, "GIF LZW code size %d", min_bits);
+    return -1;
+  }
+  const int clear = 1 << min_bits, end = clear + 1;
+  // table[(prefix << 8) | byte] -> code, 0 where absent
+  std::vector<uint16_t> table(size_t(4096) << 8, 0);
+  std::vector<uint8_t> data;
+  data.reserve(n / 2 + 16);
+  uint32_t buf = 0;
+  int nbits = 0, width = min_bits + 1, next = end + 1;
+  auto emit = [&](int code) {
+    buf |= uint32_t(code) << nbits;
+    nbits += width;
+    while (nbits >= 8) {
+      data.push_back(uint8_t(buf & 0xFF));
+      buf >>= 8;
+      nbits -= 8;
+    }
+  };
+  std::vector<int> used;
+  emit(clear);
+  if (n) {
+    int prefix = indices[0];
+    for (size_t i = 1; i < n; ++i) {
+      const uint8_t c = indices[i];
+      if (c >= clear) {
+        if (err && errlen) std::snprintf(err, errlen, "GIF index %d past %d colours", c, clear);
+        return -1;
+      }
+      const size_t key = (size_t(prefix) << 8) | c;
+      if (table[key]) {
+        prefix = table[key];
+        continue;
+      }
+      emit(prefix);
+      // as giflib: the table holds codes below 4095, and the decoder, one
+      // entry behind, reads the code after the one that adds entry
+      // 1 << width with a bit more
+      if (next < 4095) {
+        table[key] = uint16_t(next);
+        used.push_back(int(key));
+        if (next == (1 << width) && width < 12) ++width;
+        ++next;
+      } else {
+        emit(clear);
+        for (int k : used) table[k] = 0;
+        used.clear();
+        width = min_bits + 1;
+        next = end + 1;
+      }
+      prefix = c;
+    }
+    emit(prefix);
+  }
+  emit(end);
+  if (nbits) data.push_back(uint8_t(buf & 0xFF));
+  const size_t blocks = (data.size() + 254) / 255;
+  *written = data.size() + blocks + 1;
+  if (*written > out_size) return -3;
+  uint8_t* o = out;
+  for (size_t i = 0; i < data.size(); i += 255) {
+    const size_t k = std::min<size_t>(255, data.size() - i);
+    *o++ = uint8_t(k);
+    std::memcpy(o, &data[i], k);
+    o += k;
+  }
+  *o = 0;
   return 0;
 }
 

@@ -2,8 +2,8 @@
 
 The port's copy of `dro_sfm_tpu/loggers.py`. ``wandb`` is imported only
 inside `WandbLogger`; without it, or with ``dry_run``, logging is a no-op.
-The depth-image panels (`log_depth_images`) need a colormap from matplotlib
-and are not ported yet (ROADMAP A9): they log nothing.
+`WandbLogger.log_depth_images` logs the first sample's image and its
+colormapped inverse depth (`viz_inv_depth`), taken off the card.
 """
 from __future__ import annotations
 
@@ -44,6 +44,17 @@ class WandbLogger(NoOpLogger):
 
     def log_metrics(self, metrics: Dict) -> None:
         self._wandb.log({k: float(v) for k, v in metrics.items()})
+
+    def log_depth_images(self, prefix, batch, output, step: int = 0) -> None:
+        """The rgb and inverse-depth panels of the batch's first sample."""
+        from dro_sfm_torch.utils.depth import viz_inv_depth
+        from dro_sfm_torch.utils.save import to_host
+        rgb = to_host(batch["rgb"][0])
+        inv = to_host(output["inv_depth_pp"][0])
+        self._wandb.log({
+            f"{prefix}-rgb": self._wandb.Image(rgb),
+            f"{prefix}-inv_depth": self._wandb.Image(viz_inv_depth(inv)),
+        }, step=step)
 
     def finish(self) -> None:
         self.run.finish()

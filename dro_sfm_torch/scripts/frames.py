@@ -3,8 +3,8 @@ served model.
 
 Frames are PNG, JPEG or BMP files (`dro_sfm_torch.utils.image_io`), loaded
 as the JAX CLIs load them (RGB, resized as ``cv2.resize(INTER_LINEAR)`` to
-the model's shape when they are not at it, float32 in [0, 1]); video raises,
-naming ROADMAP A9.
+the model's shape when they are not at it, float32 in [0, 1]); a video file
+is not read (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -16,7 +16,6 @@ import numpy as np
 
 IMG_EXT = (".png", ".jpg", ".jpeg", ".bmp")
 VIDEO_EXT = (".mp4", ".avi", ".mov", ".mpeg", ".flv", ".wmv")
-A9 = "ROADMAP A9"
 
 
 def list_frames(folder: str, sample_rate: int = 1) -> List[str]:

@@ -7,9 +7,10 @@ The port's counterpart of `scripts/infer.py`. The checkpoint is the port's
 or the JAX package's (`inference.load_model_and_config`). Each frame is the
 target of a window with its neighbours in the folder as context (itself at
 the ends); its depth is written as ``<name>.npz`` (depth, intrinsics) or a
-uint16 ``<name>.png`` (``depth * 256``), and with ``--ply`` its point
-cloud. Runs on the card unless ``--device cpu``. ``--save viz`` (a
-colormapped panel) is ROADMAP A9 and raises.
+uint16 ``<name>.png`` (``depth * 256``) or, with ``--save viz``,
+``<name>_viz.png``: the frame stacked over its colormapped inverse depth
+(`viz_inv_depth`); with ``--ply`` its point cloud. Runs on the card unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -31,15 +32,13 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> list:
-    """Run the CLI; returns the depth files written."""
+    """Run the CLI; returns the files written (depth files or panels)."""
     args = parse_args(argv)
-    if args.save == "viz":
-        raise NotImplementedError("--save viz needs a colormap and a colour image "
-                                  "writer (ROADMAP A9); use --save npz or png")
     import numpy as np
 
     from dro_sfm_torch.scripts.frames import FrameLoader, list_frames, open_model
-    from dro_sfm_torch.utils.depth import write_depth
+    from dro_sfm_torch.utils.depth import viz_inv_depth, write_depth
+    from dro_sfm_torch.utils.image_io import write_png
     from dro_sfm_torch.visualization.pointcloud import export_pointcloud
 
     files = (list_frames(args.input) if os.path.isdir(args.input) else [args.input])
@@ -55,11 +54,18 @@ def main(argv=None) -> list:
         next_f = files[i + 1] if i + 1 < len(files) else f
         depth, _ = infer(target, np.stack([load(prev_f), load(next_f)]))
         base = os.path.join(args.output, os.path.splitext(os.path.basename(f))[0])
-        write_depth(f"{base}.{args.save}", depth, intrinsics=K)
-        written.append(f"{base}.{args.save}")
+        if args.save == "viz":
+            inv = np.where(depth > 0, 1.0 / np.maximum(depth, 1e-6), 0.0)
+            viz = (viz_inv_depth(inv) * 255).astype(np.uint8)
+            write_png(f"{base}_viz.png",
+                      np.concatenate([(target * 255).astype(np.uint8), viz], axis=0))
+            written.append(f"{base}_viz.png")
+        else:
+            write_depth(f"{base}.{args.save}", depth, intrinsics=K)
+            written.append(f"{base}.{args.save}")
         if args.ply:
             export_pointcloud(f"{base}.ply", depth, K, rgb=target)
-        print(f"[{i + 1}/{len(files)}] {f} -> {base}.{args.save}")
+        print(f"[{i + 1}/{len(files)}] {f} -> {written[-1]}")
     return written
 
 

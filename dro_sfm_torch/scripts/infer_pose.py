@@ -6,8 +6,8 @@
 The port's counterpart of `scripts/infer_pose.py`: 3-frame windows over a
 folder of frames (PNG, JPEG, BMP), the relative poses chained into a global trajectory
 with monocular scale propagation (`inference.TrajectoryAccumulator`),
-written as json. Runs on the card unless ``--device cpu``. ``--plot`` needs
-matplotlib (ROADMAP A9) and raises.
+written as json, and with ``--plot`` as a top-down figure
+(`plot_trajectory`). Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--input", required=True, help="frame folder")
     p.add_argument("--output", required=True, help="output json path")
-    p.add_argument("--plot", default=None, help="trajectory png (ROADMAP A9: raises)")
+    p.add_argument("--plot", default=None, help="optional trajectory png")
     p.add_argument("--image-shape", type=int, nargs=2, default=None)
     p.add_argument("--sample-rate", type=int, default=1)
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
@@ -30,9 +30,6 @@ def parse_args(argv=None):
 def main(argv=None) -> list:
     """Run the CLI; returns the trajectory (camera-to-world [4,4] poses)."""
     args = parse_args(argv)
-    if args.plot:
-        from dro_sfm_torch.visualization.trajectory import PLOT_NOT_PORTED
-        raise NotImplementedError(f"--plot: {PLOT_NOT_PORTED}")
     import numpy as np
 
     from dro_sfm_torch.inference import TrajectoryAccumulator
@@ -50,6 +47,10 @@ def main(argv=None) -> list:
         print(f"[{i}/{len(files) - 2}] {os.path.basename(files[i])}")
     accum.save_json(args.output)
     print(f"trajectory ({len(accum.trajectory)} poses) -> {args.output}")
+    if args.plot:
+        from dro_sfm_torch.visualization.trajectory import plot_trajectory
+        plot_trajectory(args.plot, accum.trajectory)
+        print(f"plot -> {args.plot}")
     return accum.trajectory
 
 

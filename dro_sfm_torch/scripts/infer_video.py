@@ -1,27 +1,32 @@
-"""Video SfM CLI of the port: a frame folder -> depth maps, trajectory, point cloud.
+"""Video SfM CLI of the port: a frame folder -> depth maps, trajectory, point
+cloud and the annotated demo video.
 
     python -m dro_sfm_torch.scripts.infer_video --checkpoint x.ckpt --input frames/ \
-        --output out/ [--fusion-views 3] [--ba] [--gt-poses poses/] [--device cpu]
+        --output out/ [--fusion-views 3] [--ba] [--gt-poses poses/] [--gt-depth depth/] \
+        [--device cpu]
 
 The port's counterpart of `scripts/infer_video.py`: 3-frame windows ``i-1,
-i, i+1`` for ``i = 1 ... n-2`` over a folder of frames (PNG, JPEG, BMP), the poses
-chained with monocular scale propagation, each depth filtered (gradient,
-range) and, with ``--fusion-views`` > 1, fused with the previous views by
-geometric consistency on the device, and a global coloured point cloud
-accumulated. With ``--ba`` the keyframes (every ``--ba-stride``-th window)
-are refined by dense bundle adjustment on their depth maps downsampled by 4,
-each covisible with the two keyframes on either side
-(`dro_sfm_torch.ba.optimize_dense_ba`, stride 1, 6 iterations), their poses
-replace the chained ones in the trajectory and ``ba_scales.npy`` holds their
-depth scales. Writes ``depths.npy`` (memmapped, one map per window),
-``trajectory.json``, ``trajectory_pose.obj`` and ``pointcloud.ply``; with
-``--gt-poses`` it prints the ATE after sim3 alignment (after BA). Runs on
-the card unless ``--device cpu``.
-
-Not ported: the annotated video ``depth_vis.mp4``, its panels and
-``trajectory.png`` (OpenCV and matplotlib, ROADMAP A9: a note is printed,
-``--fps`` only sets that video's rate), video input and ``--gt-depth``
-(ROADMAP A9), which raise.
+i, i+1`` for ``i = 1 ... n-2`` over a folder of frames (PNG, JPEG, BMP), the
+poses chained with monocular scale propagation, each depth filtered
+(gradient, range) and, with ``--fusion-views`` > 1, fused with the previous
+views by geometric consistency on the device, and a global coloured point
+cloud accumulated. Each window's half-size panels (the frame, its
+colormapped inverse depth, the validity overlay and, with ``--gt-depth`` (a
+folder of uint16 millimetre PNGs matched by base name), the ground truth's)
+are written under ``panels/``. With ``--ba`` the keyframes (every
+``--ba-stride``-th window) are refined by dense bundle adjustment on their
+depth maps downsampled by 4, each covisible with the two keyframes on either
+side (`dro_sfm_torch.ba.optimize_dense_ba`, stride 1, 6 iterations), their
+poses replace the chained ones in the trajectory and ``ba_scales.npy`` holds
+their depth scales. Writes ``depths.npy`` (memmapped, one map per window),
+``trajectory.json``, ``trajectory.png`` (`plot_trajectory`),
+``trajectory_pose.obj``, ``pointcloud.ply`` and, after BA, the annotated
+8-panel video ``depth_vis.avi`` (MJPEG, `DemoVideoComposer`; the JAX CLI
+writes ``depth_vis.mp4`` with OpenCV's mp4v, which the port has no encoder
+for); with ``--gt-poses`` it prints the ATE after sim3 alignment and draws
+the trajectory panels against the ground truth. Runs on the card unless
+``--device cpu``. A video file as input is not read (the card's machine has
+no MPEG-4 or H.264 decoder: ROADMAP C): it raises.
 """
 from __future__ import annotations
 
@@ -50,35 +55,45 @@ def parse_args(argv=None):
     p.add_argument("--ba-stride", type=int, default=2, help="keyframe subsampling for BA")
     p.add_argument("--gt-poses", default=None,
                    help="directory of per-frame GT pose txts ([4,4], matched by frame "
-                        "base name): prints the ATE after sim3 alignment")
-    p.add_argument("--gt-depth", default=None, help="GT depth panel (ROADMAP A9: raises)")
+                        "base name): prints the ATE after sim3 alignment and draws the GT "
+                        "trajectory panels")
+    p.add_argument("--gt-depth", default=None,
+                   help="directory of per-frame GT depth pngs (mm, matched by base name) "
+                        "for the GT-depth panel")
     p.add_argument("--fps", type=float, default=10.0)
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     return p.parse_args(argv)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, canvases=None) -> dict:
     """Run the CLI. Returns what it measured: the number of windows, each
-    window's pose matrices ([2,4,4]: to the
-    previous and the next frame) and milliseconds (host clock, the result on
-    the host), each frame's decode milliseconds, the point count, the ATE
-    (None without ground truth) and, with ``--ba``, the keyframes' window
-    indices and the BA's milliseconds (host clock, the result on the host)."""
+    window's pose matrices ([2,4,4]: to the previous and the next frame)
+    and milliseconds (host clock, the result on the host), each frame's
+    decode milliseconds, the point count, the ATE (None without ground
+    truth), with ``--ba`` the keyframes' window indices and the BA's
+    milliseconds, and for the video each frame's compose and encode
+    milliseconds (host clock), its frame size and its bytes. A list passed
+    as ``canvases`` receives each composed frame (uint8 RGB)."""
     args = parse_args(argv)
-    from dro_sfm_torch.scripts.frames import A9, FrameLoader, list_frames, open_model
-    from dro_sfm_torch.visualization.demo_video import VIDEO_NOT_PORTED
-    if args.gt_depth:
-        raise NotImplementedError(f"--gt-depth feeds the colormapped GT panel ({A9})")
+    from dro_sfm_torch.scripts.frames import FrameLoader, list_frames, open_model
     if not os.path.isdir(args.input):
-        raise NotImplementedError(f"{args.input}: decoding a video is {A9}; pass a "
+        raise NotImplementedError(f"{args.input}: decoding a video file is not ported (the "
+                                  "port has no MPEG-4 or H.264 decoder, ROADMAP C); pass a "
                                   "folder of frames")
     import numpy as np
     import torch
 
+    from dro_sfm_torch.data.scannet import read_png_depth_mm
     from dro_sfm_torch.inference import TrajectoryAccumulator, filter_depth, geometric_fusion
+    from dro_sfm_torch.utils.depth import viz_inv_depth
     from dro_sfm_torch.utils.device import resolve_device
-    from dro_sfm_torch.visualization.demo_video import align_to_gt, load_gt_poses, poses_to_obj
+    from dro_sfm_torch.utils.image_io import read_image_rgb, resize_bilinear_u8, write_png
+    from dro_sfm_torch.utils.video_io import AviWriter
+    from dro_sfm_torch.visualization.demo_video import (
+        DemoVideoComposer, align_to_gt, cloud_topdown_panel, draw_trajectory_panel,
+        load_gt_poses, poses_to_obj)
     from dro_sfm_torch.visualization.pointcloud import depth_to_points, write_ply
+    from dro_sfm_torch.visualization.trajectory import plot_trajectory
 
     files = list_frames(args.input, args.sample_rate)[:args.max_frames]
     if len(files) <= 2:
@@ -88,9 +103,21 @@ def main(argv=None) -> dict:
     infer, shape, K = open_model(args.checkpoint, device, args.image_shape)
     load = FrameLoader(shape)
     K_dev = torch.as_tensor(K, device=device)
+    ph, pw = shape[0] // 2, shape[1] // 2
+    panels_dir = os.path.join(args.output, "panels")
+    os.makedirs(panels_dir, exist_ok=True)
+
+    def spill(kind, idx, img):
+        write_png(os.path.join(panels_dir, f"{kind}_{idx:06d}.png"),
+                  resize_bilinear_u8(img, (ph, pw)))
+
+    def unspill(kind, idx):
+        path = os.path.join(panels_dir, f"{kind}_{idx:06d}.png")
+        return read_image_rgb(path) if os.path.exists(path) else None
 
     accum = TrajectoryAccumulator()
     depth_list, pose_list, all_points, all_colors, window_ms, pose_mats = [], [], [], [], [], []
+    cloud_counts, frame_names = [], []
     depths_out = None
     n_out = len(files) - 2
     for i in range(1, len(files) - 1):
@@ -126,6 +153,25 @@ def main(argv=None) -> dict:
                                       target[::s, ::s])
         all_points.append(pts)
         all_colors.append(colors)
+
+        # the window's panels: rgb, inverse-depth colormap, validity overlay,
+        # ground-truth depth, at half size
+        inv = np.where(depth > 0, 1.0 / np.maximum(depth, 1e-6), 0.0)
+        rgb_u8 = (target * 255).astype(np.uint8)
+        valid = (filtered > 0).astype(np.float32)[..., None]
+        m = i - 1
+        spill("rgb", m, rgb_u8)
+        spill("depth", m, (viz_inv_depth(inv) * 255).astype(np.uint8))
+        spill("mask", m, (rgb_u8 * (0.35 + 0.65 * valid)).astype(np.uint8))
+        if args.gt_depth:
+            base = os.path.splitext(os.path.basename(files[i]))[0]
+            gtp = os.path.join(args.gt_depth, base + ".png")
+            if os.path.exists(gtp):
+                gtd = read_png_depth_mm(gtp)[..., 0]
+                gti = np.where(gtd > 0, 1.0 / np.maximum(gtd, 1e-6), 0.0)
+                spill("gtd", m, (viz_inv_depth(gti) * 255).astype(np.uint8))
+        cloud_counts.append(sum(len(p) for p in all_points))
+        frame_names.append(os.path.basename(files[i]))
         if i % 10 == 0:
             print(f"[{i}/{len(files) - 2}] frames processed")
     depths_out.flush()
@@ -136,25 +182,75 @@ def main(argv=None) -> dict:
         accum.trajectory = pose_list
 
     gt_poses = load_gt_poses(args.gt_poses, files[1:-1]) if args.gt_poses else None
-    ate = None
+    ate = gt_positions = aligned_poses = None
     if gt_poses is not None and len(gt_poses) == len(pose_list):
-        _, ate = align_to_gt(pose_list, gt_poses)
+        aligned, ate = align_to_gt(pose_list, gt_poses)
+        gt_positions = np.stack([p[:3, 3] for p in gt_poses])
+        # the panel against the ground truth draws the sim3-aligned prediction
+        aligned_poses = []
+        for a in aligned:
+            T = np.eye(4)
+            T[:3, 3] = a
+            aligned_poses.append(T)
         print(f"ATE-RMSE vs GT trajectory (sim3-aligned): {ate:.4f} m")
     elif args.gt_poses:
-        print("warning: GT poses missing/unmatched; no ATE")
+        print("warning: GT poses missing/unmatched; trajectory panels render pred only")
 
     accum.save_json(os.path.join(args.output, "trajectory.json"))
+    plot_trajectory(os.path.join(args.output, "trajectory.png"), accum.trajectory,
+                    gt_poses=gt_poses)
     poses_to_obj(os.path.join(args.output, "trajectory_pose.obj"), pose_list)
     pts = np.concatenate(all_points)
-    write_ply(os.path.join(args.output, "pointcloud.ply"), pts, np.concatenate(all_colors))
+    colors = np.concatenate(all_colors)
+    write_ply(os.path.join(args.output, "pointcloud.ply"), pts, colors)
+
+    # The annotated video, after BA so that the trajectories are the refined ones.
+    composer = DemoVideoComposer(shape, model_path=args.checkpoint, data_path=args.input,
+                                 sample_rate=args.sample_rate, max_frames=args.max_frames,
+                                 fps=args.fps)
+    video_path = os.path.join(args.output, "depth_vis.avi")
+    compose_ms = []
+    panel_size = (ph, pw)
+    with AviWriter(video_path, args.fps) as writer:
+        for i in range(len(frame_names)):
+            t0 = time.perf_counter()
+            panels = {
+                "rgb": unspill("rgb", i),
+                "mask": unspill("mask", i),
+                "depth": unspill("depth", i),
+                "traj": draw_trajectory_panel(pose_list, i, size=panel_size, label="pred"),
+                "cloud": cloud_topdown_panel(pts[:cloud_counts[i]], colors[:cloud_counts[i]],
+                                             size=panel_size),
+            }
+            gtd = unspill("gtd", i) if args.gt_depth else None
+            if gtd is not None:
+                panels["depth_gt"] = gtd
+            if gt_positions is not None:
+                panels["traj_vs_gt"] = draw_trajectory_panel(
+                    aligned_poses, i, size=panel_size, overlay=gt_positions,
+                    label="pred-sim3(b) vs gt(r)")
+                panels["traj_gt"] = draw_trajectory_panel(
+                    gt_poses, i, size=panel_size, color=(255, 90, 90), label="gt")
+            frame = composer.compose(panels, i, frame_names[i], ate=ate)
+            compose_ms.append(1e3 * (time.perf_counter() - t0))
+            writer.write(frame)
+            if canvases is not None:
+                canvases.append(frame)
+        encode_ms = writer.encode_ms
+    avi_bytes = os.path.getsize(video_path)
+    H, W = composer.frame_size
     steady = sorted(window_ms[1:]) or window_ms
-    print(f"outputs in {args.output}: depths.npy, trajectory.json, trajectory_pose.obj, "
-          f"pointcloud.ply ({pts.shape[0]} points); {n_out} windows, "
+    print(f"outputs in {args.output}: depths.npy, panels/, trajectory.json/png/obj, "
+          f"pointcloud.ply ({pts.shape[0]} points), depth_vis.avi ({W}x{H} annotated "
+          f"8-panel, {avi_bytes} bytes); {n_out} windows, "
           f"{steady[len(steady) // 2]:.2f} ms per window (median after the first), "
-          f"{np.median(load.decode_ms):.2f} ms per frame decode on {device}")
-    print(f"not written: {VIDEO_NOT_PORTED}")
+          f"{np.median(load.decode_ms):.2f} ms per frame decode, "
+          f"{np.median(compose_ms):.2f} ms compose and {np.median(encode_ms):.2f} ms encode "
+          f"per video frame on {device}")
     return {"windows": n_out, "pose_mats": pose_mats, "window_ms": window_ms,
-            "decode_ms": load.decode_ms, "points": int(pts.shape[0]), "ate": ate, "ba": ba}
+            "decode_ms": load.decode_ms, "points": int(pts.shape[0]), "ate": ate, "ba": ba,
+            "compose_ms": compose_ms, "encode_ms": encode_ms, "frame_size": (H, W),
+            "avi_bytes": avi_bytes, "video": video_path}
 
 
 BA_DOWNSAMPLE = 4                  # the keyframes' depth maps, as the JAX CLI

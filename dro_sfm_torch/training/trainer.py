@@ -64,7 +64,7 @@ from dro_sfm_torch.training.metrics import (
 from dro_sfm_torch.training.state import create_train_state, group_schedule, make_optimizer
 from dro_sfm_torch.training.step import EVAL_KEYS, make_eval_step, make_train_step
 from dro_sfm_torch.utils.logging import AvgMeter, pcolor, print_metrics_table
-from dro_sfm_torch.utils.save import check_save_flags, save_depth
+from dro_sfm_torch.utils.save import save_depth
 
 
 def model_config_from(cfg) -> SfmModelConfig:
@@ -398,11 +398,9 @@ class Trainer:
 
     def test(self, save_artifacts: bool = False) -> Dict[str, float]:
         """Evaluate the test datasets; with ``save_artifacts`` also write
-        the depth files that ``save.depth`` asks for."""
+        the depth files and images that ``save.depth`` asks for."""
         if self.test_datasets is None:
             raise ValueError("No test dataset configured")
-        if save_artifacts:
-            check_save_flags(self.cfg.save)
         loaders = [make_loader(ds, self.cfg.datasets.test.batch_size, "test",
                                num_workers=self.cfg.datasets.test.num_workers)
                    for ds in self.test_datasets]

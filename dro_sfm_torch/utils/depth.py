@@ -1,10 +1,11 @@
 """Flip-fusion post-processing of inverse depth maps, and depth files.
 
 PyTorch counterpart of `fuse_inv_depth`, `post_process_inv_depth`,
-`load_depth` and `write_depth` in `dro_sfm_tpu/utils/depth.py`: depth files
-are ``.npz`` (``depth``, ``intrinsics``) or uint16 ``.png`` holding
-``depth * 256`` (`dro_sfm_torch.utils.image_io`). The colormap
-(``viz_inv_depth``) needs matplotlib and is ROADMAP A9.
+`viz_inv_depth`, `load_depth` and `write_depth` in
+`dro_sfm_tpu/utils/depth.py`: depth files are ``.npz`` (``depth``,
+``intrinsics``) or uint16 ``.png`` holding ``depth * 256``
+(`dro_sfm_torch.utils.image_io`); the colormap is matplotlib's, bit for bit,
+from the port's own table (`dro_sfm_torch.utils.colormap`).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from dro_sfm_torch.ops.image import flip_lr
+from dro_sfm_torch.utils.colormap import apply_colormap
 from dro_sfm_torch.utils.image_io import read_png, write_png
 
 
@@ -45,6 +47,21 @@ def post_process_inv_depth(inv_depth: torch.Tensor,
     mask_hat = torch.flip(mask, dims=(1,))
     return (mask_hat * inv_depth + mask * inv_depth_hat
             + (1.0 - mask - mask_hat) * fused)
+
+
+def viz_inv_depth(inv_depth: np.ndarray, normalizer: Optional[float] = None,
+                  percentile: float = 95, colormap: str = "plasma",
+                  filter_zeros: bool = False) -> np.ndarray:
+    """Colormap an inverse depth map [H,W] or [H,W,1] (numpy, on the host)
+    -> RGB float64 [H,W,3]: the map divided by ``normalizer`` (by default
+    its ``percentile``-th percentile, over the non-zero values with
+    ``filter_zeros``) and clipped to [0, 1]."""
+    inv = np.asarray(inv_depth).squeeze()
+    if normalizer is None:
+        vals = inv[inv > 0] if filter_zeros and (inv > 0).any() else inv
+        normalizer = np.percentile(vals, percentile)
+    inv = inv / (normalizer + 1e-6)
+    return apply_colormap(np.clip(inv, 0.0, 1.0), colormap)[..., :3]
 
 
 def load_depth(path: str) -> np.ndarray:

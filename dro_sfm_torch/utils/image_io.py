@@ -3,10 +3,13 @@
 The card's machine has no OpenCV, Pillow or imageio, so the port reads and
 writes images itself:
 
-* `read_png` (`decode_png` of the bytes): non-interlaced 8-bit gray,
-  gray+alpha, RGB and RGBA, and 16-bit gray (big-endian in the file). zlib
-  inflates; the five row filters
-  are undone by ``png_unfilter`` of the host codec
+* `read_png` (`decode_png` of the bytes): gray, gray+alpha, RGB and RGBA at
+  8 and 16 bits (big-endian in the file), gray at 1, 2 and 4 bits (scaled to
+  0-255, as libpng's ``expand_gray_1_2_4_to_8``), and palette files at 1-8
+  bits (expanded to RGB, or RGBA when a ``tRNS`` chunk gives the entries
+  alpha), non-interlaced or Adam7-interlaced (each of the seven passes
+  unfiltered on its own and scattered to its pixels). zlib inflates; the
+  five row filters are undone by ``png_unfilter`` of the host codec
   (``csrc/image_codec.cpp``, `dro_sfm_torch.hostlib`). `_unfilter` is its
   plain numpy version: it reconstructs the rows along anti-diagonals (a
   pixel depends on its left, upper and upper-left neighbours, which all lie
@@ -22,8 +25,9 @@ writes images itself:
 * `decode_bmp`: uncompressed 24- and 32-bit and palette (8-bit) BMP, bottom-up
   and top-down, in numpy.
 * `read_image_rgb`: a frame as uint8 RGB [H,W,3], as ``cv2.imread(path,
-  IMREAD_COLOR)[..., ::-1]`` gives it; the format is chosen by the file's
-  first bytes, as OpenCV chooses it, not by its name.
+  IMREAD_COLOR)[..., ::-1]`` gives it (16-bit samples keep their high
+  byte); the format is chosen by the file's first bytes, as OpenCV chooses
+  it, not by its name.
 * `resize_bilinear_u8`: ``cv2.resize(..., INTER_LINEAR)`` on uint8, bit for
   bit: 11-bit fixed-point weights from float32 source coordinates (half-pixel
   centres), an exact integer horizontal pass, and OpenCV's vector vertical
@@ -35,8 +39,11 @@ writes images itself:
 * `resize_nearest`: ``cv2.resize(..., INTER_NEAREST)``: source index
   ``min(floor(dst * (1 / (out / in))), in - 1)`` in double.
 
-Interlaced and palette PNGs, 16-bit colour and video raise, naming ROADMAP
-A9.
+* `encode_jpeg`: baseline JPEG as ``cv2.imencode(".jpg", bgr,
+  [IMWRITE_JPEG_QUALITY, q])`` writes it, through the host codec.
+
+Video files are written and read by `dro_sfm_torch.utils.video_io` (MJPEG
+AVI); decoding MPEG-4 or H.264 video is not ported (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -51,7 +58,10 @@ import numpy as np
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-_NOT_PORTED = "ROADMAP A9: the port decodes non-interlaced 8-bit and 16-bit gray PNG only"
+# Adam7: (first row, first column, row step, column step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _ERR_LEN = 512
 
 
@@ -65,7 +75,11 @@ def _codec() -> ctypes.CDLL:
     lib.jpeg_info.argtypes = [buf, size, i32p, i32p, i32p, err, size]
     lib.jpeg_decode.argtypes = [buf, size, out, size, err, size]
     lib.png_unfilter.argtypes = [out, ctypes.c_int, ctypes.c_int, ctypes.c_int, out, err, size]
-    for fn in (lib.jpeg_info, lib.jpeg_decode, lib.png_unfilter):
+    lib.jpeg_encode.argtypes = [out, ctypes.c_int, ctypes.c_int, ctypes.c_int, out, size,
+                                ctypes.POINTER(ctypes.c_size_t), err, size]
+    lib.gif_lzw.argtypes = [out, size, ctypes.c_int, out, size, ctypes.POINTER(ctypes.c_size_t),
+                            err, size]
+    for fn in (lib.jpeg_info, lib.jpeg_decode, lib.png_unfilter, lib.jpeg_encode, lib.gif_lzw):
         fn.restype = ctypes.c_int
     return lib
 
@@ -134,8 +148,9 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """The samples of a PNG file: uint8 [H,W,C] (C = 1, 2, 3 or 4 for gray,
-    gray+alpha, RGB, RGBA) or, for 16-bit gray, uint16 [H,W,1]."""
+    """The samples of a PNG file, [H,W,C] (C = 1, 2, 3 or 4 for gray,
+    gray+alpha, RGB, RGBA; a palette file gives RGB, or RGBA with
+    ``tRNS``): uint8, or uint16 for 16-bit files."""
     with open(path, "rb") as f:
         return decode_png(f.read(), path)
 
@@ -143,33 +158,70 @@ def read_png(path: str) -> np.ndarray:
 def decode_png(data: bytes, path: str = "PNG") -> np.ndarray:
     """`read_png` of the file's bytes."""
     if not data.startswith(PNG_SIGNATURE):
-        raise NotImplementedError(f"{path} is not a PNG file; other image and video "
-                                  f"formats are {_NOT_PORTED}")
-    header, idat = None, []
+        raise NotImplementedError(f"{path} is not a PNG file")
+    header, idat, palette, trns = None, [], None, None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif kind == b"IEND":
             break
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if interlace or ctype not in _CHANNELS or depth not in (8, 16) \
-            or (depth == 16 and ctype != 0):
-        raise NotImplementedError(
-            f"{path}: PNG of colour type {ctype}, bit depth {depth}, interlace "
-            f"{interlace}; {_NOT_PORTED}, gray+alpha, RGB and RGBA")
-    ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size != h * (w * bpp + 1):
-        raise ValueError(f"{path}: {rows.size} bytes of image data, want {h * (w * bpp + 1)}")
-    pixels = png_unfilter(rows.reshape(h, w * bpp + 1), bpp).reshape(h, w, bpp)
+    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1:
+        raise ValueError(f"{path}: PNG of colour type {ctype}, bit depth {depth}, "
+                         f"interlace {interlace} does not exist")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without PLTE")
+    ch = 1 if ctype == 3 else _CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx in passes:
+        ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
+        if ph <= 0 or pw <= 0:
+            continue
+        rowbytes = -(-pw * ch * depth // 8)
+        n = ph * (rowbytes + 1)
+        if pos + n > raw.size:
+            raise ValueError(f"{path}: {raw.size} bytes of image data, too few for its size")
+        rows = png_unfilter(raw[pos:pos + n].reshape(ph, rowbytes + 1), max(1, ch * depth // 8))
+        out[y0::dy, x0::dx] = _samples(rows, pw, ch, depth, ctype)
+        pos += n
+    if pos != raw.size:
+        raise ValueError(f"{path}: {raw.size} bytes of image data, want {pos}")
+    if ctype != 3:
+        return out
+    index = out[..., 0]
+    if index.max(initial=0) >= len(palette):
+        raise ValueError(f"{path}: palette index {int(index.max())} past its "
+                         f"{len(palette)} entries")
+    if trns is None:
+        return palette[index]
+    alpha = np.full(len(palette), 255, np.uint8)
+    alpha[:min(len(trns), len(palette))] = trns[:len(palette)]
+    return np.concatenate([palette, alpha[:, None]], axis=1)[index]
+
+
+def _samples(rows: np.ndarray, w: int, ch: int, depth: int, ctype: int) -> np.ndarray:
+    """The samples [h, w, ch] of unfiltered rows [h, rowbytes]: 16-bit ones
+    from big-endian pairs, sub-byte ones unpacked (most significant bits
+    first) and, for gray, scaled to 0-255."""
     if depth == 16:
-        return pixels.view(">u2").astype(np.uint16)
-    return pixels
+        return rows.view(">u2").astype(np.uint16).reshape(len(rows), w, ch)
+    if depth == 8:
+        return rows.reshape(len(rows), w, ch)
+    bits = np.unpackbits(rows, axis=1).reshape(len(rows), -1, depth)
+    vals = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(axis=2, dtype=np.uint8)
+    vals = vals[:, :w, None]
+    return vals * np.uint8(255 // (2 ** depth - 1)) if ctype == 0 else vals
 
 
 def _filtered(pixels: np.ndarray) -> np.ndarray:
@@ -251,6 +303,30 @@ def decode_jpeg(data: bytes, what: str = "JPEG") -> np.ndarray:
     return _orient(out, orientation.value)
 
 
+def encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
+    """Baseline JPEG of uint8 RGB [H,W,3] at ``quality`` (1-100), the bytes
+    of ``cv2.imencode(".jpg", image[..., ::-1], [IMWRITE_JPEG_QUALITY,
+    quality])``."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[-1] != 3:
+        raise ValueError(f"encode_jpeg takes uint8 RGB [H,W,3], not {image.dtype} "
+                         f"{image.shape}")
+    h, w, _ = image.shape
+    lib = _codec()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    written = ctypes.c_size_t()
+    cap = h * w * 3 // 2 + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        code = lib.jpeg_encode(image.ctypes.data, h, w, int(quality), out.ctypes.data, cap,
+                               ctypes.byref(written), err, _ERR_LEN)
+        if code != -3:
+            break
+        cap = written.value
+    _check(code, err, "JPEG encode")
+    return out[:written.value].tobytes()
+
+
 def decode_bmp(data: bytes, what: str = "BMP") -> np.ndarray:
     """uint8 RGB [H,W,3] of an uncompressed 24-bit, 32-bit (alpha dropped)
     or 8-bit palette BMP with a Windows info header (40 bytes or longer);
@@ -298,7 +374,7 @@ def read_image_rgb(path: str) -> np.ndarray:
     if data.startswith(PNG_SIGNATURE):
         img = decode_png(data, path)
         if img.dtype != np.uint8:
-            raise NotImplementedError(f"{path}: a 16-bit PNG is not a colour frame")
+            img = (img >> 8).astype(np.uint8)
         if img.shape[-1] in (1, 2):
             return np.repeat(img[..., :1], 3, axis=-1)
         return np.ascontiguousarray(img[..., :3])
@@ -307,7 +383,7 @@ def read_image_rgb(path: str) -> np.ndarray:
     if data.startswith(b"BM"):
         return decode_bmp(data, path)
     raise NotImplementedError(f"{path}: not a PNG, JPEG or BMP file (first bytes "
-                              f"{data[:8]!r}); other formats and video are ROADMAP A9")
+                              f"{data[:8]!r})")
 
 
 def _linear_taps(n_in: int, n_out: int):

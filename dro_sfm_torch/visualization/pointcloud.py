@@ -1,11 +1,12 @@
 """Point clouds from depth: unprojection, .ply / .obj files, voxel grids.
 
 The port's copy of `dro_sfm_tpu/visualization/pointcloud.py` (numpy, no
-viewer). Fusing a scene's ground-truth depth files needs their dataset
-readers (ROADMAP A5).
+viewer), with `fuse_scene_pointcloud` reading a scene's files through the
+port's PNG and JPEG readers.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -107,3 +108,59 @@ def voxel_downsample(points: np.ndarray,
             for i in range(3)], axis=1) / counts[:, None]
         out_cols = out_cols.astype(colors.dtype)
     return out_pts.astype(points.dtype), out_cols
+
+
+def fuse_scene_pointcloud(scene_dir: str, out_path: str,
+                          image_dir: str = "color", depth_dir: str = "depth",
+                          pose_dir: str = "pose",
+                          intrinsics_file: str = "intrinsic/intrinsic_color.txt",
+                          stride: int = 10, pixel_stride: int = 4,
+                          voxel: float = 0.0, depth_max: float = 10.0) -> int:
+    """Fuse a scene's ground-truth depth maps (uint16 PNG, millimetres) into
+    one coloured world point cloud: every ``stride``-th frame of
+    ``image_dir`` unprojected with its pose, subsampled by ``pixel_stride``,
+    depths past ``depth_max`` dropped, optionally voxel-downsampled, written
+    as ``.ply`` or ``.obj``. Returns the point count."""
+    from dro_sfm_torch.data.scannet import read_png_depth_mm
+    from dro_sfm_torch.utils.image_io import read_image_rgb, resize_bilinear_u8
+    img_root = os.path.join(scene_dir, image_dir)
+    frames = sorted(f for f in os.listdir(img_root)
+                    if f.lower().endswith((".jpg", ".png")))[::stride]
+    K_path = os.path.join(scene_dir, intrinsics_file)
+    K = (np.genfromtxt(K_path)[:3, :3] if os.path.exists(K_path)
+         else None)
+    all_pts, all_cols = [], []
+    for fname in frames:
+        base = os.path.splitext(fname)[0]
+        dp = os.path.join(scene_dir, depth_dir, base + ".png")
+        pp = os.path.join(scene_dir, pose_dir, base + ".txt")
+        if not (os.path.exists(dp) and os.path.exists(pp)):
+            continue
+        depth = read_png_depth_mm(dp)[..., 0]          # metres, -1 where 0
+        depth[(depth < 0) | (depth > depth_max)] = 0.0
+        pose = np.genfromtxt(pp).reshape(4, 4)
+        if not np.all(np.isfinite(pose)):
+            continue
+        rgb = resize_bilinear_u8(read_image_rgb(os.path.join(img_root, fname)),
+                                 depth.shape[:2])
+        s = pixel_stride
+        Ks = (K if K is not None else np.array(
+            [[depth.shape[1], 0, depth.shape[1] / 2],
+             [0, depth.shape[1], depth.shape[0] / 2], [0, 0, 1.0]])).copy()
+        Ks[0] /= s
+        Ks[1] /= s
+        pts, cols = depth_to_points(depth[::s, ::s], Ks, pose, rgb[::s, ::s])
+        all_pts.append(pts)
+        all_cols.append(cols)
+    if not all_pts:
+        return 0
+    pts = np.concatenate(all_pts)
+    cols = np.concatenate(all_cols)
+    if voxel > 0:
+        pts, cols = voxel_downsample(pts, cols, voxel)
+    if out_path.endswith(".obj"):
+        write_obj(out_path, pts, cols)
+    else:
+        write_ply(out_path, pts, cols)
+    return pts.shape[0]
+

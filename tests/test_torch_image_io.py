@@ -6,8 +6,9 @@ five row filters occur), bit-equal to ``cv2.imread``; OpenCV reads the
 port's files back bit-equal; 16-bit depth files round-trip through both
 packages' ``load_depth``/``write_depth``. The bilinear resize equals
 ``cv2.resize(INTER_LINEAR)`` (its fixed-point weights and rounding); a frame
-already at the shape is returned as it is. What the port does not decode
-raises, naming ROADMAP A9.
+already at the shape is returned as it is. A file that is not a PNG, or one
+whose image data does not fit its header, raises; palette and 16-bit colour
+files decode (`test_torch_png_decode.py` holds them and Adam7 to OpenCV).
 """
 import struct
 import zlib
@@ -138,12 +139,15 @@ def test_what_is_not_decoded_raises(tmp_path, images):
     interlaced = str(tmp_path / "i.png")
     write_png(interlaced, images["noise"])
     data = bytearray(open(interlaced, "rb").read())
-    data[28] = 1                                            # IHDR interlace byte
+    data[28] = 1                   # IHDR says Adam7; the data is not interlaced
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
     open(interlaced, "wb").write(bytes(data))
-    for path in (jpg, pal, rgb16, interlaced):
-        with pytest.raises(NotImplementedError, match="A9"):
-            read_png(path)
+    with pytest.raises(NotImplementedError, match="not a PNG"):
+        read_png(jpg)
+    assert np.array_equal(read_png(pal), cv2.imread(pal, cv2.IMREAD_COLOR)[..., ::-1])
+    assert np.array_equal(read_png(rgb16), cv2.imread(rgb16, cv2.IMREAD_UNCHANGED)[..., ::-1])
+    with pytest.raises(ValueError, match="row filter|bytes of image data"):
+        read_png(interlaced)
     with pytest.raises(ValueError, match="CRC"):
         data[20] ^= 1
         open(interlaced, "wb").write(bytes(data))

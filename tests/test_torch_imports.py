@@ -9,7 +9,12 @@ itself), and ``wandb`` is imported only inside ``loggers.py:WandbLogger``.
 The trainer, the CLIs (the launcher and the depth-map metrics among them),
 the process group and collectives (`parallel/`), the dataset readers, the
 inference applications, bundle adjustment (`ba/`) and its benchmark
-``tools/torch_bench_ba.py`` import none of them.
+``tools/torch_bench_ba.py`` import none of them, nor do the depth images,
+the drawing, the image and video files, the demo video, the renderer and the
+``vis`` and ``ingest_capture`` scripts. Among the port's tools, only the
+generators of committed data (``tools/torch_make_colormap.py``,
+``tools/torch_make_font.py`` and ``tools/torch_make_jpeg_fixtures.py``)
+import OpenCV, matplotlib or Pillow, and none of them imports JAX.
 """
 import ast
 import subprocess
@@ -92,6 +97,27 @@ def test_ba_modules_and_their_benchmark_are_checked():
             "tools/torch_bench_ba.py"} <= names
 
 
+def test_demo_modules_and_scripts_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"dro_sfm_torch/utils/colormap.py", "dro_sfm_torch/utils/video_io.py",
+            "dro_sfm_torch/utils/save.py", "dro_sfm_torch/loggers.py",
+            "dro_sfm_torch/visualization/draw.py", "dro_sfm_torch/visualization/image_grid.py",
+            "dro_sfm_torch/visualization/gif.py", "dro_sfm_torch/visualization/demo_video.py",
+            "dro_sfm_torch/visualization/trajectory.py", "dro_sfm_torch/visualization/splat.py",
+            "dro_sfm_torch/visualization/pointcloud.py", "dro_sfm_torch/data/depth_filter.py",
+            "dro_sfm_torch/scripts/vis.py", "dro_sfm_torch/scripts/ingest_capture.py"} <= names
+
+
+def test_only_the_generators_import_opencv_matplotlib_pillow():
+    tools = sorted((ROOT / "tools").glob("torch_*.py"))
+    users = {p.name for p in tools
+             if any(m.split(".")[0] in ("cv2", "matplotlib", "PIL") for m in imported_modules(p))}
+    assert users == {"torch_make_colormap.py", "torch_make_font.py",
+                     "torch_make_jpeg_fixtures.py"}
+    for p in tools:
+        assert not [m for m in imported_modules(p) if m.split(".")[0] in FORBIDDEN], p.name
+
+
 def test_trainer_import_leaves_out_jax_yaml_cv2():
     code = ("import sys, dro_sfm_torch.training.trainer, dro_sfm_torch.scripts.train, "
             "dro_sfm_torch.scripts.eval, dro_sfm_torch.scripts.infer, "
@@ -103,7 +129,11 @@ def test_trainer_import_leaves_out_jax_yaml_cv2():
             "dro_sfm_torch.parallel.collectives, dro_sfm_torch.scripts.launch_multihost, "
             "dro_sfm_torch.scripts.evaluate_depth_maps, dro_sfm_torch.ba, "
             "dro_sfm_torch.ba.dense_ba, dro_sfm_torch.geometry.rotations, "
-            "tools.torch_bench_ba\n"
+            "dro_sfm_torch.utils.colormap, dro_sfm_torch.utils.video_io, "
+            "dro_sfm_torch.visualization.draw, dro_sfm_torch.visualization.image_grid, "
+            "dro_sfm_torch.visualization.gif, dro_sfm_torch.visualization.splat, "
+            "dro_sfm_torch.scripts.vis, dro_sfm_torch.scripts.ingest_capture, "
+            "dro_sfm_torch.data.depth_filter, tools.torch_bench_ba\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
             "assert not bad, bad\n" % (FORBIDDEN + ABSENT_ON_THE_CARD + ("wandb",),))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

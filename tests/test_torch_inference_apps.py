@@ -208,8 +208,9 @@ def test_umeyama_ate_and_gt_poses_match_jax(tmp_path):
                                                                                   frames)
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
     assert tdemo.load_gt_poses(str(tmp_path), frames + ["missing.png"]) is None
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttraj.plot_trajectory(str(tmp_path / "t.png"), pred)
+    fig = ttraj.plot_trajectory(str(tmp_path / "t.png"), pred, gt_poses=gt)
+    assert fig["image"].shape == (ttraj.PLOT_SIZE, ttraj.PLOT_SIZE, 3)
+    assert (tmp_path / "t.png").stat().st_size > 0
 
 
 def test_video_helpers_match_jax(tmp_path):

@@ -204,7 +204,9 @@ def test_not_ported_raises(tmp_path, overrides, error, match):
 
 def test_png_artifacts_and_missing_card_raise(tmp_path):
     """``save.depth.png`` writes uint16 depth pngs (depth * 256) beside the
-    npz files; the rgb and viz images raise (ROADMAP A9)."""
+    npz files; ``rgb`` and ``viz`` write the image and the colormapped
+    inverse depth of each sample (``viz_inv_depth`` of the npz's depth)."""
+    from dro_sfm_torch.utils.depth import viz_inv_depth
     from dro_sfm_torch.utils.image_io import read_png
     trainer = Trainer(tiny_config(tmp_path, save={"depth": {"png": True}}), device="cpu")
     trainer.test(save_artifacts=True)
@@ -213,10 +215,17 @@ def test_png_artifacts_and_missing_card_raise(tmp_path):
     for png in pngs:
         depth = np.load(str(png)[:-len(".png")] + ".npz")["depth"]
         assert np.array_equal(read_png(str(png))[..., 0], (depth * 256.0).astype(np.uint16))
-    for flag in ("rgb", "viz"):
-        trainer = Trainer(tiny_config(tmp_path, save={"depth": {flag: True}}), device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
-            trainer.test(save_artifacts=True)
+    trainer = Trainer(tiny_config(tmp_path, save={"depth": {"rgb": True, "viz": True}}),
+                      device="cpu")
+    trainer.test(save_artifacts=True)
+    for png in pngs:
+        stem = str(png)[:-len("_depth.png")]
+        depth = np.load(stem + "_depth.npz")["depth"]
+        rgb, viz = read_png(stem + "_rgb.png"), read_png(stem + "_viz.png")
+        assert rgb.shape == viz.shape == (*depth.shape[:2], 3) and rgb.dtype == np.uint8
+        inv = np.where(depth > 0, 1.0 / depth, 0.0)
+        want = (viz_inv_depth(inv) * 255).astype(np.uint8)
+        assert np.abs(viz.astype(int) - want).max() <= 1   # the npz holds 1 / inv
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train_cli.main([str(tiny_yaml(tmp_path))])
