@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving and training paths (supervised,
 self-supervised, semi-supervised and single-frame), its trainer, its
 dataset readers (NYU's HDF5 dumps among them), its training in several
-processes, its serving export, its bundle adjustment and its demo video, on
-one NVIDIA GPU and check their kernels.
+processes, its serving export, its bundle adjustment, its demo video and its
+split of image heights over several processes, on one NVIDIA GPU and check
+their kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -215,7 +216,27 @@ result line):
    top half the frame); ``vis`` renders the run's ``pointcloud.ply`` on
    the card bit-equal to the CPU, and a turntable is timed. Prints ms a
    window, compose and encode ms a video frame, MB a frame and ``vis``
-   ms a frame on the card.
+   ms a frame on the card;
+30. spatial: the height split (``arch.spatial_shards`` = 2, D = 1) on two
+   spawned ranks on this card over gloo. (b) K1-K3 at the bands' shapes
+   (P = 12x80 target pixels of B=2 against the gathered 24x80 context maps,
+   coordinates on every row of the view and outside it, both bands) and
+   K5/K6 axis 1 on the bands widened by 4 rows (20x80, depth B=2 and pose
+   B*N=4), bf16 and fp32, against their plain versions at the bars of
+   phases 3, 7 and 12, with the bf16 times; (a) SupModelMF it12-h-out
+   192x640 N=2 B=2 from `tame_weights`, ``sep_conv`` "split" and "pallas",
+   fp32 and bf16: each rank's step on its 96 rows, counts reset just before
+   and read just after (K1 24, K2 24, K3 18, and K5, K6-input, K6-weight 48
+   with "pallas"), against one process on the whole batch (phase 25's
+   `dist_verdict`: the fp32 loss within 1e-5 relative), the ranks'
+   gradients and parameters after Adam equal bit for bit, ms a step, and
+   each rank's peak memory, which must be below one process's; (c)
+   `Trainer.fit` on ``configs/train_synthetic_192x640.yaml`` at fp32 with
+   ``arch.spatial_shards: 2`` (2 steps of B=8, one B=4 validation batch)
+   from `tame_weights`, its launches a step and an eval batch checked, its
+   validation against a one-process `Trainer` on its checkpoint (every
+   metric within 1e-5 relative plus 1e-7, phase 25's bar). A rank that
+   raises or outlives 240 s fails.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -3984,11 +4005,368 @@ def phase_demo(counters, gpu):
     return launches
 
 
+SPATIAL_BUILD = ROOT / "build" / "spatial"
+SPATIAL_S = 2                              # ranks of the height split, D = 1
+SPATIAL_B = 2                              # the global batch of (a)
+SPATIAL_TIMED = 2                          # timed steps a case and rank
+SPATIAL_TIMEOUT = 240                      # seconds the ranks may take
+SPATIAL_CASES = (("split", False), ("split", True), ("pallas", False), ("pallas", True))
+
+
+def spatial_trainer_config(tag, shards):
+    """`trainer_config` (2 steps of B=8, one B=4 validation batch) at fp32
+    with ``arch.spatial_shards`` = ``shards``, files under
+    ``build/spatial/<tag>``; evaluation only for ``shards`` = 1."""
+    cfg = trainer_config(max_epochs=1)
+    cfg.arch.spatial_shards = shards
+    cfg.model.depth_net.mixed_precision = False
+    cfg.checkpoint.filepath = str(SPATIAL_BUILD / tag / "ckpt")
+    cfg.save.folder = str(SPATIAL_BUILD / tag / "depth")
+    if shards == 1:
+        cfg.datasets.train.dataset = []
+    return cfg
+
+
+def spatial_rank(rank, world, store, job_path, out_dir):
+    """One rank of the height split on the card (gloo, the same card for
+    both): (a) each case of `SPATIAL_CASES` one counted step on this rank's
+    band, its peak memory, timed steps; (c) `Trainer.fit` of
+    `spatial_trainer_config`. Waits for ``go`` beside the job before any
+    work on the card. Writes ``out_dir/rank<R>.pt``."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=200))
+    try:
+        from dro_sfm_torch.parallel import spatial
+        from dro_sfm_torch.parallel.mesh import make_layout
+        from dro_sfm_torch.training.trainer import Trainer
+        layout = make_layout(SPATIAL_S)
+        counters = counter_map()
+        go = Path(job_path).with_name("go")
+        while not go.exists():
+            time.sleep(0.2)
+        job = torch.load(job_path, map_location="cuda", weights_only=False)
+        band = spatial.split_rows(job["batch"], layout)
+        out = {"rows": band["rgb"].shape[1], "steps": {}}
+        for sep_conv, mixed in SPATIAL_CASES:
+            gc.collect()                         # the last case's net and Adam
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():          # the split step's path starts here
+                c.reset()
+            net, step, state, metrics, grads, after = dist_step(
+                train_config(sep_conv=sep_conv, mixed_precision=mixed), job["state"], band,
+                flip_generator_for(rank != 0))
+            launches = {k: c.launches for k, c in counters.items()}   # and ends here
+            peak = torch.cuda.max_memory_allocated()
+            flips, times = torch.Generator().manual_seed(5), []
+            for _ in range(SPATIAL_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, band, flips)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            out["steps"][(sep_conv, mixed)] = {"launches": launches, "peak": peak, "ms": times,
+                                               "step": on_host(metrics, grads, after)}
+            del net, step, state
+        # (c) the Trainer from the yaml config, from the job's weights
+        torch.cuda.empty_cache()
+        trainer = Trainer(spatial_trainer_config("split", SPATIAL_S), device="cuda")
+        trainer.net.load_state_dict(job["state"], strict=True)
+        train = trainer.train_step = CountedStep(trainer.train_step, counters, timed=True)
+        evaluate = CountedStep(trainer.eval_step_for(False), counters)
+        trainer._eval_steps[False] = evaluate
+        for c in counters.values():              # the split trainer's path starts here
+            c.reset()
+        t0 = time.perf_counter()
+        metrics = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        out["trainer"] = {"metrics": metrics, "s": fit_s, "ms": train.ms,
+                          "launches": {k: c.launches for k, c in counters.items()},
+                          "step_launches": train.launches, "eval_launches": evaluate.launches,
+                          "saved": [p for _, p in trainer.checkpointer.saved]}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def on_host(metrics, grads, after):
+    """A step's results with its tensors moved to the host (off the peaks
+    of the next cases)."""
+    return (metrics, {k: v.cpu() for k, v in grads.items()},
+            {k: v.cpu() for k, v in after.items()})
+
+
+def spatial_band_inputs(gen, b, n, h, hb, w, c, dtype, r0):
+    """K1-K3 at a band's shapes: f1 [b, hb*w, c] (the band's pixels),
+    features [b*n, h, w, c] (the gathered context maps), coords [b*n, hb*w, 2]
+    whose x is the band's grid with 1.5 px of noise and whose y falls
+    anywhere from 2 rows above the view to 2 below it, so that every row of
+    the view and the outside are sampled."""
+    dev = "cuda"
+    p = hb * w
+    f1 = torch.randn(b, p, c, generator=gen, device=dev).to(dtype)
+    features = torch.randn(b * n, h, w, c, generator=gen, device=dev).to(dtype)
+    gx = torch.arange(w, device=dev).repeat(hb).float()
+    x = gx + 1.5 * torch.randn(b * n, p, generator=gen, device=dev)
+    y = -2.0 + (h + 3.0) * torch.rand(b * n, p, generator=gen, device=dev)
+    y[:, :w] = r0 + 0.25            # and the band's own first row
+    return f1, features, torch.stack([x, y], -1).contiguous()
+
+
+def phase_spatial_kernels(gen):
+    """(b): K1-K3 at the band shapes of (a) (B=2, N=2, 12 of 24 rows of 80,
+    C=128, both bands) and K5/K6 axis 1 on the bands widened by 4 rows each
+    side (depth B=2 and pose B*N=4, 20x80), bf16 and fp32, against their
+    plain versions at the bars of phases k1, k23 and gru; the bf16 times."""
+    from dro_sfm_torch.ops import gru_pass
+    from dro_sfm_torch.ops.tent_warp import (
+        warp_diff,
+        warp_diff_bwd_coords,
+        warp_diff_bwd_coords_plain,
+        warp_diff_bwd_feat,
+        warp_diff_bwd_feat_plain,
+        warp_diff_plain,
+    )
+    h, w, c, hb = SERVE_H // 8, SERVE_W // 8, 128, SERVE_H // 8 // SPATIAL_S
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        for band in range(SPATIAL_S):
+            f1, features, coords = spatial_band_inputs(gen, SPATIAL_B, VIEWS, h, hb, w, c,
+                                                       dtype, band * hb)
+            rows = torch.unique(coords[..., 1].floor().long().clamp(-1, h))
+            if rows.numel() != h + 2:
+                fail(f"spatial (b): the band's coordinates sample {rows.numel()} of "
+                     f"{h + 2} rows")
+            g = torch.randn(SPATIAL_B * VIEWS, hb * w, c, generator=gen, device="cuda").to(dtype)
+            out = warp_diff(f1, features, coords, VIEWS)
+            d_feat = warp_diff_bwd_feat(coords, g, h, w, dtype)
+            d_co = warp_diff_bwd_coords(features, coords, g)
+            torch.cuda.synchronize()
+            ref = warp_diff_plain(f1, features, coords, VIEWS)
+            ref_feat = warp_diff_bwd_feat_plain(coords, g, h, w, dtype)
+            ref_co = warp_diff_bwd_coords_plain(features, coords, g)
+            errs = {"K1": (out.float() - ref.float()).abs().max().item(),
+                    "K2": (d_feat.float() - ref_feat.float()).abs().max().item(),
+                    "K3": (d_co - ref_co).abs().max().item()}
+            tols = {"K1": k1_tolerance(dtype, ref),
+                    "K2": k2_tolerance(coords, g, h, w, dtype, ref_feat),
+                    "K3": k3_tolerance(features, coords, g)}
+            line = (f"spatial (b) band {band} of {SPATIAL_S}: K1-K3 P={hb}x{w} against "
+                    f"{SPATIAL_B * VIEWS}x{h}x{w}x{c} {dt}: " + ", ".join(
+                        f"{k} max_abs_err {errs[k]:.3e} tol {tols[k]:.3e}" for k in errs))
+            if any(errs[k] > tols[k] for k in errs) or not all(
+                    torch.isfinite(t).all() for t in (out, d_feat, d_co)):
+                fail(line)
+            if dtype == torch.bfloat16 and band == SPATIAL_S - 1:
+                calls = {"K1": (lambda: warp_diff(f1, features, coords, VIEWS),
+                                lambda: warp_diff_plain(f1, features, coords, VIEWS),
+                                k1_bound(f1, features, coords)),
+                         "K2": (lambda: warp_diff_bwd_feat(coords, g, h, w, dtype),
+                                lambda: warp_diff_bwd_feat_plain(coords, g, h, w, dtype),
+                                k2_bound(coords, g, h, w, dtype)),
+                         "K3": (lambda: warp_diff_bwd_coords(features, coords, g),
+                                lambda: warp_diff_bwd_coords_plain(features, coords, g),
+                                k3_bound(features, coords, g))}
+                for k, (kernel, plain, (bound, by)) in calls.items():
+                    timings[k] = {"max_abs_err": errs[k], "ms": time_ms(kernel),
+                                  "plain_ms": time_ms(plain, reps=5, warmup=1),
+                                  "bound_ms": bound, "bound_by": by}
+                line += " | " + ", ".join(
+                    f"{k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} bound "
+                    f"{v['bound_ms']:.4f} ({v['bound_by']})" for k, v in timings.items())
+            print(line, flush=True)
+        for what, b in (("depth", SPATIAL_B), ("pose", SPATIAL_B * VIEWS)):
+            inp = gru_inputs(gen, b, hb + 8, w, GRU_D, GRU_CX, dtype)
+            args = [inp[k] for k in ("h", "x", "wzr", "bzr", "wq", "bq")]
+            out = gru_pass.gru_pass_fwd(*args, 1)
+            grads = gru_pass.gru_pass_bwd(*args, inp["g"], 1)
+            torch.cuda.synchronize()
+            ref = gru_pass.gru_pass_plain(*args, 1)
+            refs = gru_pass.gru_pass_bwd_plain(*args, inp["g"], 1)
+            bars = gru_bars(dtype)
+
+            def rel(a, r):
+                return (a.float() - r.float()).abs().max().item() / max(
+                    r.float().abs().max().item(), 1e-30)
+
+            errs = {"K5": rel(out, ref)}
+            bad = errs["K5"] > bars["fwd"]
+            for name, got, want in zip(GRU_GRADS, grads, refs):
+                errs[name] = rel(got, want)
+                bad |= errs[name] > bars["act" if name in ("dh", "dx") else "weight"]
+            line = (f"spatial (b) K5/K6 axis 1 on the widened band, {what} {b}x{hb + 8}x{w} "
+                    f"D={GRU_D} Cx={GRU_CX} {dt}: " + " ".join(
+                        f"{k} {v:.2e}" for k, v in errs.items())
+                    + f" (bars {bars['fwd']:.1e}, {bars['act']:.1e}, {bars['weight']:.1e})")
+            if bad or not torch.isfinite(out).all():
+                fail(line)
+            if dtype == torch.bfloat16 and what == "depth":
+                r = time_gru(inp, 1, gru_pass, gru_intermediates(inp, 1, gru_pass))
+                for k in r:
+                    r[k]["max_abs_err"] = max(errs[n] for n in (
+                        ("K5",) if k == "K5" else ("dh", "dx") if k == "K6-input"
+                        else GRU_GRADS[2:]))
+                    timings[k] = r[k]
+                line += "".join(f" | {k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} "
+                                f"bound {v['bound_ms']:.4f}" for k, v in r.items())
+            print(line, flush=True)
+    return timings
+
+
+def phase_spatial(counters, gpu):
+    """The height split (see the module docstring, phase 30)."""
+    import gc
+    import multiprocessing
+    import shutil
+
+    from dro_sfm_torch.training.trainer import Trainer
+    shutil.rmtree(SPATIAL_BUILD, ignore_errors=True)
+    SPATIAL_BUILD.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    start = tame_weights(start_weights(train_config()).state_dict())
+    batch = make_train_batch(SPATIAL_B, seed=6)
+    job = SPATIAL_BUILD / "job.pt"
+    torch.save({"state": {k: v.cpu() for k, v in start.items()},
+                "batch": {k: v.cpu() for k, v in batch.items()}}, job)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=spatial_rank, args=(
+        r, SPATIAL_S, str(SPATIAL_BUILD / "gloo_store"), str(job), str(SPATIAL_BUILD)))
+        for r in range(SPATIAL_S)]
+    for p in procs:                            # they start up while the references run
+        p.start()
+    deadline = time.monotonic() + SPATIAL_TIMEOUT
+    try:
+        timings = phase_spatial_kernels(torch.Generator(device="cuda").manual_seed(7))
+        # (a)'s references: one process on the whole batch, peak and ms
+        refs = {}
+        for sep_conv, mixed in SPATIAL_CASES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            net, step, state, metrics, grads, after = dist_step(
+                train_config(sep_conv=sep_conv, mixed_precision=mixed), start, batch, None,
+                do_flip=False)
+            peak = torch.cuda.max_memory_allocated()
+            flips, times = torch.Generator().manual_seed(5), []
+            for _ in range(SPATIAL_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, batch, flips)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            refs[(sep_conv, mixed)] = {"step": on_host(metrics, grads, after), "peak": peak,
+                                       "ms": times}
+            del net, step, state
+        torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t_phase
+        (SPATIAL_BUILD / "go").touch()         # the ranks' work on the card starts here
+        t_go = time.perf_counter()
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if hung or codes != [0] * SPATIAL_S:
+        fail(f"spatial: ranks {hung} still ran after {SPATIAL_TIMEOUT} s, exit codes {codes}")
+    ranks_s = time.perf_counter() - t_go
+    ranks = [torch.load(SPATIAL_BUILD / f"rank{r}.pt", weights_only=False)
+             for r in range(SPATIAL_S)]
+    if [r["rows"] for r in ranks] != [SERVE_H // SPATIAL_S] * SPATIAL_S:
+        fail(f"spatial: rows a rank {[r['rows'] for r in ranks]}")
+
+    # (a) each case against one process; every line printed before a failure
+    problems = []
+    for sep_conv, mixed in SPATIAL_CASES:
+        key, prec = (sep_conv, mixed), ("bf16" if mixed else "fp32")
+        want = TRAIN_LAUNCHES_PALLAS if sep_conv == "pallas" else TRAIN_LAUNCHES
+        ref = refs[key]
+        own = leaf_errors(ref["step"][1], refs[(sep_conv, False)]["step"][1]) if mixed else None
+        for r, res in enumerate(ranks):
+            got = res["steps"][key]
+            if got["launches"] != {k: want.get(k, 0) for k in counters}:
+                problems.append(f"rank {r} {sep_conv} {prec} step launches "
+                                f"{got['launches']}, want {want}")
+            failures, worst, rel = dist_verdict(got["step"], ref["step"], own)
+            if failures:
+                problems.append(f"rank {r} {sep_conv} {prec} against one process: "
+                                f"{failures[:6]}")
+            if not got["peak"] < ref["peak"]:
+                problems.append(f"rank {r} {sep_conv} {prec} peak {got['peak']} bytes, one "
+                                f"process {ref['peak']}")
+            print(f"spatial (a) rank {r} of {SPATIAL_S} on one card (gloo), {sep_conv} {prec}, "
+                  f"it12-h-out 192x640 B={SPATIAL_B} N={VIEWS}, {SERVE_H // SPATIAL_S} rows a "
+                  f"rank, against one process: loss {got['step'][0]['loss']:.6f} vs "
+                  f"{ref['step'][0]['loss']:.6f} (relative {rel:.2e}), worst leaf rel L2 "
+                  f"{worst[0]:.3e} ({worst[1]}); launches {got['launches']}; ms a step "
+                  f"{' / '.join(f'{v:.2f}' for v in got['ms'])} (one process "
+                  f"{' / '.join(f'{v:.2f}' for v in ref['ms'])}); peak "
+                  f"{got['peak'] / 2**20:.1f} MiB (one process {ref['peak'] / 2**20:.1f} MiB); "
+                  f"on {gpu}", flush=True)
+        a, b = ranks[0]["steps"][key]["step"], ranks[1]["steps"][key]["step"]
+        if not (all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+                and all(torch.equal(a[2][k], b[2][k]) for k in a[2])):
+            problems.append(f"the ranks' gradients or parameters after Adam differ ({key})")
+    if problems:
+        fail(f"spatial: {problems}")
+
+    # (c) the Trainer: launches, and its validation against one process
+    for r, res in enumerate(ranks):
+        tr = res["trainer"]
+        check_launches(f"spatial rank {r} train step", tr["step_launches"], TRAIN_LAUNCHES,
+                       counters)
+        check_launches(f"spatial rank {r} eval batch", tr["eval_launches"], EVAL_LAUNCHES,
+                       counters)
+        if len(tr["step_launches"]) != 2 or len(tr["eval_launches"]) != 1:
+            fail(f"spatial: rank {r} {len(tr['step_launches'])} steps, "
+                 f"{len(tr['eval_launches'])} eval batches")
+        check_finite(f"spatial rank {r} fit()", tr["metrics"])
+    (ckpt,) = ranks[0]["trainer"]["saved"]
+    if ranks[1]["trainer"]["saved"]:
+        fail("spatial: rank 1 wrote a checkpoint")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    single = Trainer(spatial_trainer_config("one", 1), resume=ckpt, device="cuda").validate()
+    gaps = {}
+    for k, v in single.items():
+        got = ranks[0]["trainer"]["metrics"][k]
+        if ranks[1]["trainer"]["metrics"][k] != got:
+            fail(f"spatial: the ranks' validation {k} differ")
+        gaps[k] = abs(got - v) / max(abs(v), 1e-12)
+        if not abs(got - v) <= 1e-5 * abs(v) + 1e-7:         # phase dist_trainer's bar
+            fail(f"spatial: split validation {k} {got!r}, one process {v!r}")
+    tr = ranks[0]["trainer"]
+    worst = max(gaps, key=gaps.get)
+    print(f"spatial (c) Trainer, train_synthetic_192x640 fp32 with arch.spatial_shards: "
+          f"{SPATIAL_S} on {SPATIAL_S} ranks (gloo, one card), from tame_weights: fit() "
+          f"{tr['s']:.1f} s, ms a step {' / '.join(f'{v:.2f}' for v in tr['ms'])}, launches "
+          f"over fit() {tr['launches']}; its validation against one process on its "
+          f"checkpoint: abs_rel_pp_gt {tr['metrics']['abs_rel_pp_gt']!r} vs "
+          f"{single['abs_rel_pp_gt']!r}, largest relative gap {gaps[worst]:.2e} ({worst}; "
+          f"bar 1e-5 relative + 1e-7 on every metric, as phase dist_trainer); on {gpu}",
+          flush=True)
+    print(f"spatial: references and (b) {refs_s:.1f} s, the ranks' run after go "
+          f"{ranks_s:.1f} s", flush=True)
+    shutil.rmtree(SPATIAL_BUILD, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return ranks[0]["steps"][("pallas", True)]["launches"], timings
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
           "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
           "trainer", "selfsup_trainer", "apps", "datasets", "dist_trainer", "nyu", "export",
-          "ba", "demo")
+          "ba", "demo", "spatial")
 
 
 def main() -> int:
@@ -4166,6 +4544,15 @@ def main() -> int:
     launches_v = phase("demo", phase_demo, counters, gpu)
     if launches_v is not None and launches_v["K1"] == 0:
         fail("the demo path never launched K1")
+
+    # 30) the height split (this slice's path: two ranks on this card, their
+    # launches counted a step, K1-K3 at the band shapes and K5/K6 on the
+    # widened bands against their plain versions)
+    split = phase("spatial", phase_spatial, counters, gpu)
+    if split is not None:
+        for name in TRAIN_LAUNCHES_PALLAS:
+            if split[0][name] == 0:
+                fail(f"the height-split path never launched {name}")
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)

@@ -4,19 +4,23 @@ PyTorch counterpart of `dro_sfm_tpu/geometry/camera.py`: an unnormalized
 pixel grid at integer centres, intrinsics rescaling with the +0.5
 pixel-centre shift, the analytic inverse of pinhole intrinsics, and the
 `Camera` that lifts depth to points and projects them (z clamped at 1e-5,
-normalised coordinates ``2x / (W - 1) - 1``).
+normalised coordinates ``2x / (W - 1) - 1``). Under a height split
+(`parallel/spatial.py`) a band's grid holds global y (`pixel_grid`'s
+``row0``), and `Camera` normalises y by the image's rows.
 """
 from __future__ import annotations
 
 import torch
 
 from dro_sfm_torch.geometry.pose import Pose
+from dro_sfm_torch.parallel import spatial
 
 
-def pixel_grid(h: int, w: int, dtype=torch.float32,
-               device=None) -> torch.Tensor:
-    """Homogeneous pixel coordinate grid [H, W, 3] of (x, y, 1)."""
-    ys, xs = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+def pixel_grid(h: int, w: int, dtype=torch.float32, device=None,
+               row0: int = 0) -> torch.Tensor:
+    """Homogeneous pixel coordinate grid [H, W, 3] of (x, y, 1), y starting
+    at ``row0`` (a band's first global row)."""
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + h, dtype=dtype, device=device),
                             torch.arange(w, dtype=dtype, device=device),
                             indexing="ij")
     return torch.stack([xs, ys, torch.ones_like(xs)], dim=-1)
@@ -71,7 +75,8 @@ class Camera:
         Kinv @ (x, y, 1) scaled by depth, moved to the world frame by
         ``Tcw``'s inverse when ``frame="w"``."""
         h, w = depth.shape[-3], depth.shape[-2]
-        grid = pixel_grid(h, w, dtype=depth.dtype, device=depth.device)
+        grid = pixel_grid(h, w, dtype=depth.dtype, device=depth.device,
+                          row0=spatial.row_offset(h))
         rays = torch.einsum("...ij,hwj->...hwi", invert_intrinsics(self.K), grid)
         points = rays * depth
         if frame == "c":
@@ -85,7 +90,7 @@ class Camera:
         """Project 3D points [..., H, W, 3] to coordinates [..., H, W, 2]:
         pixels, or [-1, 1] with ``2u / (W - 1) - 1`` when ``normalize``. z is
         clamped at 1e-5, so points behind the camera land far outside."""
-        h, w = points.shape[-3], points.shape[-2]
+        h, w = spatial.image_rows(points.shape[-3]), points.shape[-2]
         if frame == "w":
             points = self.Tcw.transform_points(points)
         elif frame != "c":

@@ -6,6 +6,12 @@ the difference of the pixel coordinates that ground-truth depth reprojects
 to under the ground-truth and the predicted pose; each weighted by
 ``gamma ** (P - 1 - p)`` and normalised by the weights. Also the generic
 single-term losses (l1, mse, berhu, silog, abs_rel) chosen by method suffix.
+
+Under a height split (`parallel/spatial.py`) each mean over pixels is the
+band's sum over the image's pixel count, summed over the spatial group
+(`band_mean`): the loss is the whole image's on every rank, and each rank's
+gradient is its band's share. Every term of the depth and pose losses goes
+through it; no term is computed on replicated values alone.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from dro_sfm_torch.geometry.camera import Camera
 from dro_sfm_torch.geometry.pose import Pose
 from dro_sfm_torch.losses.progressive import progressive_scale_mask
 from dro_sfm_torch.ops.depth_ops import depth2inv
+from dro_sfm_torch.parallel.spatial import band_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +57,8 @@ def supervised_depth_loss(inv_depths: torch.Tensor, gt_inv_depth: torch.Tensor,
     p = inv_depths.shape[0]
     valid = ((gt_inv_depth > 1.0 / cfg.max_depth)
              & (gt_inv_depth < 1.0 / cfg.min_depth)).to(inv_depths.dtype)[None]
-    per_pred = (valid * (gt_inv_depth[None] - inv_depths).abs()).mean(
-        dim=tuple(range(1, inv_depths.ndim)))                  # [P]
+    per_pred = band_mean(valid * (gt_inv_depth[None] - inv_depths).abs(),
+                         range(1, inv_depths.ndim))            # [P]
     w = _decay_weights(p, cfg, progress, inv_depths)
     return (per_pred * w).sum() / w.sum()
 
@@ -96,7 +103,7 @@ def supervised_pose_loss(pose_vecs: torch.Tensor, gt_pose_context: torch.Tensor,
     valid = (mask_gt[None] & mask_pred).to(gt_depth.dtype)
     valid = valid * depth_mask[None, None]
     diff = valid * (coords_pred - coords_gt[None]).abs().clamp_max(1.0)
-    per_pred = diff.mean(dim=tuple(range(2, diff.ndim))).mean(dim=1)  # [P]
+    per_pred = band_mean(diff, range(2, diff.ndim)).mean(dim=1)      # [P]
     w = _decay_weights(p, cfg, progress, diff)
     return (per_pred * w).sum() / w.sum()
 

@@ -15,6 +15,12 @@ invariants are hoisted as in the JAX version.
 Dtype policy with ``mixed_precision``: convolutions, GRU hidden states and
 context, the cost and the upsampling masks run in bf16; inverse depth,
 poses, geometry and the final head convs stay fp32.
+
+Under a height split (`parallel/spatial.py`, a band active) every map is
+this rank's band of rows: the pixel grid holds global y, the warp samples
+the context views' feature maps gathered to full height once a forward
+(the target's P = h_band * w pixels may land on any row), the pose heads
+sum over the spatial group, and the upsampled depth is the band's rows.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from dro_sfm_torch.models.update import (
 from dro_sfm_torch.ops.depth_ops import disp_to_depth, inv2depth
 from dro_sfm_torch.ops.tent_warp import warp_cost as _sample_cost
 from dro_sfm_torch.ops.upsample import convex_upsample
+from dro_sfm_torch.parallel import spatial
 from dro_sfm_torch.utils.device import resolve_device
 
 WARP_IMPLS = ("pallas", "gather", "matmul")
@@ -110,12 +117,14 @@ def warp_cost(fmap1, fmaps_ref, depth, pose_vecs, K_scaled,
               impl: str = "pallas"):
     """Per-pixel feature-metric cost for every view.
 
-    fmap1 [B,h,w,C]; fmaps_ref [B,N,h,w,C]; depth [B,h,w,1]; pose_vecs
-    [B,N,6]; K_scaled [B,3,3] -> cost [B,N,h,w,C].
+    fmap1 [B,h,w,C]; fmaps_ref [B,N,h',w,C]; depth [B,h,w,1]; pose_vecs
+    [B,N,6]; K_scaled [B,3,3] -> cost [B,N,h,w,C]. Under a height split h
+    is the band's rows and h' the whole height (the caller gathers).
     """
     h, w = depth.shape[-3], depth.shape[-2]
     A, b = _proj_affine(K_scaled, pose_vec_to_mat(pose_vecs, "euler"))
-    grid = pixel_grid(h, w, dtype=depth.dtype, device=depth.device)
+    grid = pixel_grid(h, w, dtype=depth.dtype, device=depth.device,
+                      row0=spatial.row_offset(h))
     G = torch.einsum("bnij,hwj->bnhwi", A, grid)
     proj = G * depth[:, None] + b[:, :, None, None, :]
     return _sample_cost(fmap1, fmaps_ref, _proj_to_coords(proj), impl)
@@ -362,9 +371,11 @@ class DepthPoseNet(nn.Module):
             cp = self.cnet_pose(_nchw(pairs.flatten(0, 1))).to(dt)
             hidden_p, inp_p = torch.tanh(cp[:, :hdim]), torch.relu(cp[:, hdim:])
             K_scaled = scale_intrinsics(intrinsics.float(), 1.0 / self.feat_ratio)
-            grid = pixel_grid(h, w, device=target.device)
+            grid = pixel_grid(h, w, device=target.device, row0=spatial.row_offset(h))
             rays = torch.einsum("bij,hwj->bhwi", invert_intrinsics(K_scaled), grid)
-            consts = {"fmap1": fmap1, "fmaps_ref": fmaps_ref, "K": K_scaled,
+            # The warp reads the context maps at any row: whole height.
+            consts = {"fmap1": fmap1, "fmaps_ref": spatial.gather_rows(fmaps_ref, 2),
+                      "K": K_scaled,
                       "grid": grid, "rays": rays, "inp_d": inp_d, "inp_p": inp_p}
             keep_d, keep_m, keep_p = self.refinement(
                 hidden_d, hidden_p, inv_depth, pose_init, consts, last_only)

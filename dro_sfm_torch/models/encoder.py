@@ -5,16 +5,21 @@ layers 1-3 (stride 16), bilinear x2 upsampling (half-pixel centres) fused
 with the stride-8 skip, projected to ``out_chs``. BatchNorm runs in eval mode.
 Submodule names follow the JAX parameter tree (``layer1_block0``,
 ``downsample_conv``, ``upconv1_fusion``, ...), so converted weights load
-leaf by leaf.
+leaf by leaf. Under a height split (`parallel/spatial.py`) the max-pool
+fetches its halo rows with -inf outside the image and the x2 resize one
+row each side, its source rows clamped at the image's edges.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from dro_sfm_torch.models.layers import BatchNorm2d, Conv2d
-from dro_sfm_torch.ops.image import resize_bilinear
+from dro_sfm_torch.ops.image import resize_bilinear, resize_bilinear_rows
+from dro_sfm_torch.parallel import spatial
 
 
 class BasicBlock(nn.Module):
@@ -74,18 +79,39 @@ class ResNetEncoder(nn.Module):
         self.out_conv = Conv2d(128, out_chs, 3, padding=1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
-        y = F.max_pool2d(y, 3, stride=2, padding=1)
+        y = max_pool(F.relu(self.bn1(self.conv1(x.to(self.dtype)))))
         skip8 = None
         for li, blocks in enumerate(self.layers, start=1):
             for bi in range(blocks):
                 y = getattr(self, f"layer{li}_block{bi}")(y)
             if li == 2:
                 skip8 = y
-        # stride 16 -> 8: half-pixel bilinear resize on the channel-last view.
-        h, w = y.shape[-2], y.shape[-1]
-        y = resize_bilinear(y.permute(0, 2, 3, 1), (2 * h, 2 * w),
-                            align_corners=False).permute(0, 3, 1, 2)
-        y = F.relu(self.upconv1(y))
+        y = F.relu(self.upconv1(upsample2(y, skip8.shape[-2])))
         y = F.relu(self.upconv1_fusion(torch.cat([y, skip8], dim=1)))
         return self.out_conv(y)
+
+
+def max_pool(y: torch.Tensor) -> torch.Tensor:
+    """The stem's 3x3 stride-2 max-pool (pad 1) of NCHW ``y``; under a
+    height split on its band, the rows beyond the image -inf."""
+    if spatial.current() is None:
+        return F.max_pool2d(y, 3, stride=2, padding=1)
+    return F.max_pool2d(spatial.conv_rows(y, 3, 2, 1, fill=-math.inf), 3, stride=2,
+                        padding=(0, 1))
+
+
+def upsample2(y: torch.Tensor, rows: int) -> torch.Tensor:
+    """Stride 16 -> 8: the half-pixel bilinear x2 resize of NCHW ``y`` on
+    the channel-last view, ``rows`` output rows (this rank's at stride 8
+    under a height split: its band widened by one row each side, source
+    rows clamped at the image's edges)."""
+    band = spatial.current()
+    w = y.shape[-1]
+    if band is None:
+        return resize_bilinear(y.permute(0, 2, 3, 1), (2 * y.shape[-2], 2 * w),
+                               align_corners=False).permute(0, 3, 1, 2)
+    h16 = band.global_rows(16)
+    o0 = band.rows(8)[0]
+    ext = spatial.halo(y, 2, 1, 1).permute(0, 2, 3, 1)
+    return resize_bilinear_rows(ext, band.rows(16)[0] - 1, h16, (2 * h16, 2 * w),
+                                (o0, o0 + rows)).permute(0, 3, 1, 2)

@@ -9,6 +9,13 @@ processes, the global batch's, as the JAX package's step over the globally
 sharded batch takes them. Weights are drawn
 from a ``torch.Generator``: He-normal (truncated at two standard deviations,
 flax's ``he_normal``) for convolutions, zeros for biases.
+
+Under a height split (`parallel/spatial.py`, a band active) a convolution
+that reads rows beyond its band fetches them from the neighbours first:
+``pad`` rows above and ``k - 1 - pad`` below at stride 1, and at stride 2
+those that the derived output band reads (zeros outside the image, the
+convolution's own padding); BatchNorm's sums over the world count each
+band's pixels once.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dro_sfm_torch.parallel import spatial
 from dro_sfm_torch.parallel.collectives import all_reduce_sum
 from dro_sfm_torch.parallel.mesh import process_count
 
@@ -48,6 +56,10 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        kh, sh, ph = self.kernel_size[0], self.stride[0], self.padding[0]
+        if spatial.current() is not None and (kh > 1 or sh > 1):
+            return F.conv2d(spatial.conv_rows(x.to(dt), kh, sh, ph), self.weight.to(dt),
+                            bias, self.stride, (0, self.padding[1]))
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 

@@ -4,6 +4,13 @@ PyTorch counterpart of `dro_sfm_tpu/models/update.py`. Submodule names follow
 the JAX parameter tree. ``dtype`` is the compute dtype of the convolutions
 (bf16 under mixed precision); the final convs of `DepthHead` and `PoseHead`
 always run in fp32, since they produce the depth and pose deltas.
+
+Under a height split (`parallel/spatial.py`) the convolutions exchange
+their halos themselves (`models/layers.py:Conv2d`), the pose head's mean
+over (H, W) is the band's sum summed over the spatial group over the
+image's pixel count, so every rank holds the same pose, and the fused
+(5,1) GRU pass runs on the band widened by 4 rows each side: q at a row
+reads r*h two rows away, and r there reads [h, x] two rows further.
 """
 from __future__ import annotations
 
@@ -13,6 +20,11 @@ import torch.nn.functional as F
 
 from dro_sfm_torch.models.layers import Conv2d
 from dro_sfm_torch.ops.gru_pass import gru_sep1d_pass
+from dro_sfm_torch.parallel import spatial
+
+# Rows the fused (5,1) pass reads beyond a band: two taps for z, r, two more
+# for q's r*h.
+GRU_HALO = 4
 
 
 class DepthHead(nn.Module):
@@ -39,7 +51,7 @@ class PoseHead(nn.Module):
         self.conv2 = Conv2d(hidden_dim, 6, 3, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv2(F.relu(self.conv1(x)).float()).mean(dim=(-2, -1))
+        y = spatial.plane_mean(self.conv2(F.relu(self.conv1(x)).float()))
         return torch.cat([y[:, :3], 0.01 * y[:, 3:]], dim=-1)
 
 
@@ -102,13 +114,24 @@ class SepConvGRU(nn.Module):
         """Both passes channel-minor: h and x are laid out [B,H,W,C] once,
         the (1,5) then the (5,1) pass run there, and h' goes back as an NCHW
         view. Each OIHW weight enters as a [5, Cin, out] view of the fp32
-        parameter (`gru_sep1d_pass` casts it)."""
+        parameter (`gru_sep1d_pass` casts it). Under a height split the
+        (5,1) pass runs on [h, x] widened by `GRU_HALO` rows each side
+        (zeros outside the image, as the kernel's own padding) and keeps
+        the band's rows."""
         h = h.permute(0, 2, 3, 1).contiguous()
         x = x.permute(0, 2, 3, 1).contiguous()
+        d = h.shape[-1]
         for convzr, convq, axis in ((self.convzr1, self.convq1, 2),
                                     (self.convzr2, self.convq2, 1)):
-            h = gru_sep1d_pass(h, x, convzr.weight.flatten(2).permute(2, 1, 0), convzr.bias,
+            hp, xp = h, x
+            banded = axis == 1 and spatial.current() is not None
+            if banded:
+                hx = spatial.halo(torch.cat([h, x], dim=-1), 1, GRU_HALO, GRU_HALO)
+                hp, xp = hx[..., :d].contiguous(), hx[..., d:].contiguous()
+            h = gru_sep1d_pass(hp, xp, convzr.weight.flatten(2).permute(2, 1, 0), convzr.bias,
                                convq.weight.flatten(2).permute(2, 1, 0), convq.bias, axis)
+            if banded:
+                h = h[:, GRU_HALO:-GRU_HALO].contiguous()
         return h.permute(0, 3, 1, 2)
 
 

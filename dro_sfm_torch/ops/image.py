@@ -21,15 +21,32 @@ def resize_bilinear(image: torch.Tensor, shape,
     h, w = image.shape[-3], image.shape[-2]
     if (h, w) == (ho, wo):
         return image
+    if not align_corners:
+        return resize_bilinear_rows(image, 0, h, (ho, wo), (0, ho))
     kw = {"dtype": torch.float32, "device": image.device}
-    if align_corners:
-        xs = torch.linspace(0.0, w - 1.0, wo, **kw)
-        ys = torch.linspace(0.0, h - 1.0, ho, **kw)
-    else:
-        xs = ((torch.arange(wo, **kw) + 0.5) * (w / wo) - 0.5).clamp(0.0, w - 1.0)
-        ys = ((torch.arange(ho, **kw) + 0.5) * (h / ho) - 0.5).clamp(0.0, h - 1.0)
+    xs = torch.linspace(0.0, w - 1.0, wo, **kw)
+    ys = torch.linspace(0.0, h - 1.0, ho, **kw)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     grid = torch.stack([gx, gy], dim=-1).expand(*image.shape[:-3], ho, wo, 2)
+    return bilinear_sample(image, grid)
+
+
+def resize_bilinear_rows(image: torch.Tensor, src_row0: int, src_rows: int, shape,
+                         rows) -> torch.Tensor:
+    """Rows ``[rows[0], rows[1])`` of ``resize_bilinear(full, shape,
+    align_corners=False)``, where ``image`` [..., h, W, C] holds the rows
+    ``[src_row0, src_row0 + h)`` of ``full``, a source of ``src_rows`` rows
+    (rows of ``image`` outside the source are never weighted). The taps and
+    weights are those of the whole resize: a band of a height split
+    (`models/encoder.py`)."""
+    ho, wo = int(shape[0]), int(shape[1])
+    w = image.shape[-2]
+    kw = {"dtype": torch.float32, "device": image.device}
+    xs = ((torch.arange(wo, **kw) + 0.5) * (w / wo) - 0.5).clamp(0.0, w - 1.0)
+    ys = ((torch.arange(rows[0], rows[1], **kw) + 0.5) * (src_rows / ho) - 0.5).clamp(
+        0.0, src_rows - 1.0) - src_row0
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    grid = torch.stack([gx, gy], dim=-1).expand(*image.shape[:-3], len(ys), wo, 2)
     return bilinear_sample(image, grid)
 
 

@@ -450,15 +450,18 @@ def warp_cost(fmap1: torch.Tensor, fmaps_ref: torch.Tensor,
               coords: torch.Tensor, impl: str = "pallas") -> torch.Tensor:
     """Multi-view squared feature difference after warping.
 
-    fmap1 [B,h,w,C]; fmaps_ref [B,N,h,w,C]; coords [B,N,h,w,2] pixel coords
-    -> cost [B,N,h,w,C] in fmap1's dtype. ``impl="pallas"`` goes through
-    `warp_diff` (the kernels on CUDA tensors); ``"gather"`` and ``"matmul"``,
-    the JAX package's other samplers, run the plain version on any device
-    and differentiate it with autograd.
+    fmap1 [B,h,w,C]; fmaps_ref [B,N,h',w',C]; coords [B,N,h,w,2] pixel
+    coords -> cost [B,N,h,w,C] in fmap1's dtype (h' = h, w' = w but for a
+    band of a height split, whose target pixels sample the whole height).
+    ``impl="pallas"`` goes through `warp_diff` (the kernels on CUDA
+    tensors); ``"gather"`` and ``"matmul"``, the JAX package's other
+    samplers, run the plain version on any device and differentiate it with
+    autograd.
     """
-    b, n, h, w, c = fmaps_ref.shape
+    b, h, w, c = fmap1.shape
+    n = fmaps_ref.shape[1]
     f1 = fmap1.reshape(b, h * w, c)
-    features = fmaps_ref.reshape(b * n, h, w, c)
+    features = fmaps_ref.reshape(b * n, *fmaps_ref.shape[2:])
     flat_coords = coords.reshape(b * n, h * w, 2)
     if impl == "pallas":
         diff = warp_diff(f1, features, flat_coords, n)

@@ -1,12 +1,17 @@
 """RAFT-style convex upsampling of coarse depth maps (channel-last).
 
 PyTorch counterpart of `dro_sfm_tpu/ops/upsample.py`: each fine pixel is a
-softmax-convex combination of its 3x3 coarse neighbourhood.
+softmax-convex combination of its 3x3 coarse neighbourhood. Under a height
+split (`parallel/spatial.py`) the neighbourhoods of a band read one row of
+each neighbour (zeros outside the image), and the upsampled band is rows
+``[r * r0, r * r1)``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from dro_sfm_torch.parallel import spatial
 
 
 def neighborhood_3x3(x: torch.Tensor) -> torch.Tensor:
@@ -14,7 +19,10 @@ def neighborhood_3x3(x: torch.Tensor) -> torch.Tensor:
     row-major over (dy, dx) in {-1, 0, 1}^2 (the order of torch's
     ``F.unfold(x, 3, padding=1)``)."""
     h, w = x.shape[-3], x.shape[-2]
-    xp = F.pad(x[..., 0], (1, 1, 1, 1))
+    if spatial.current() is None:
+        xp = F.pad(x[..., 0], (1, 1, 1, 1))
+    else:
+        xp = F.pad(spatial.halo(x, -3, 1, 1)[..., 0], (1, 1))
     taps = [xp[..., dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
     return torch.stack(taps, dim=-1)
 

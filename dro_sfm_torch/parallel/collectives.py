@@ -16,6 +16,13 @@ gloo on the CPU or for two processes on one card. gloo reduces CUDA tensors
 with ``all_reduce`` and ``broadcast`` only, so every reduction here is an
 ``all_reduce`` of sums.
 
+Under a height split (`mesh.Layout`, ``arch.spatial_shards`` = S > 1) the
+world is D data shards of S spatial ranks, and each rank's gradient is its
+band's share: `average_gradients` sums over the world and divides by D
+(the sum over the spatial ranks, the mean over the data shards), and
+`average_metrics` and `all_reduce_metric_sums` reduce over the data group
+only, since the S ranks of a sample hold its whole metrics each.
+
 Every function returns at once when there is one process. All processes
 must call each one at the same point: each is a collective. Each collective
 runs inside a `torch.profiler.record_function` span named
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dro_sfm_torch.parallel.mesh import process_count
+from dro_sfm_torch.parallel.mesh import current_layout, process_count
 
 SPAN = "collective:"
 # The default group of this process and its gloo twin for host values.
@@ -53,10 +60,11 @@ def host_group():
     return _HOST_GROUP["gloo"][1]
 
 
-def _host_sum(values) -> np.ndarray:
-    """The float64 sums of ``values`` over the processes."""
+def _host_sum(values, group=None) -> np.ndarray:
+    """The float64 sums of ``values`` over the processes (of ``group``, a
+    gloo group, when given)."""
     t = torch.from_numpy(np.array(values, dtype=np.float64))
-    dist.all_reduce(t, group=host_group())
+    dist.all_reduce(t, group=host_group() if group is None else group)
     return t.numpy()
 
 
@@ -77,11 +85,14 @@ def all_reduce_metric_sums(sums: np.ndarray, count: int,
     """The sums of per-sample metric accumulators ``sums`` [K] and of the
     sample counts over the processes: (global sums [K], global count). With
     ``expected_total``, raises unless every sample of the dataset was seen
-    once (the padding duplicates of the shards carry ``valid=False``)."""
+    once (the padding duplicates of the shards carry ``valid=False``).
+    Under a height split the sums run over the data group."""
     if process_count() > 1:
+        layout = current_layout()
         with _span("all_reduce_metric_sums"):
             total = _host_sum(np.concatenate([np.asarray(sums, np.float64),
-                                              [float(count)]]))
+                                              [float(count)]]),
+                              None if layout is None else layout.data_host_group)
         sums, count = total[:-1], int(round(total[-1]))
     if expected_total is not None and count != expected_total:
         raise RuntimeError(f"distributed eval saw {count} samples, expected "
@@ -164,17 +175,20 @@ def _flat_by_dtype(tensors: Iterable[torch.Tensor], collective) -> None:
 
 
 def average_gradients(params: Iterable[torch.nn.Parameter]) -> None:
-    """Replace each gradient by its mean over the processes: one
-    ``all_reduce`` a dtype. Every process holds the same parameters with a
-    gradient (the same net and task)."""
+    """Replace each gradient by its mean over the processes (under a height
+    split, its sum over the spatial ranks and mean over the data shards):
+    one ``all_reduce`` a dtype. Every process holds the same parameters
+    with a gradient (the same net and task)."""
     world = process_count()
     grads = [p.grad for p in params if p.grad is not None]
     if world == 1 or not grads:
         return
+    layout = current_layout()
+    shards = world if layout is None else layout.data
 
     def mean(flat):
         dist.all_reduce(flat)
-        flat.div_(world)
+        flat.div_(shards)
 
     with _span("average_gradients"), torch.no_grad():
         _flat_by_dtype(grads, mean)
@@ -182,15 +196,18 @@ def average_gradients(params: Iterable[torch.nn.Parameter]) -> None:
 
 def average_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The mean over the processes of each 0-d metric (fp32, detached): the
-    global batch's, where the shards are equal."""
+    global batch's, where the shards are equal. Under a height split, the
+    mean over the data group (each sample counted once)."""
     world = process_count()
     if world == 1:
         return metrics
+    layout = current_layout()
+    group, shards = (None, world) if layout is None else (layout.data_group, layout.data)
     keys = sorted(metrics)
     flat = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
     with _span("average_metrics"):
-        dist.all_reduce(flat)
-    flat.div_(world)
+        dist.all_reduce(flat, group=group)
+    flat.div_(shards)
     return {k: flat[i] for i, k in enumerate(keys)}
 
 

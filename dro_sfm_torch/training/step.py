@@ -15,6 +15,14 @@ JAX step over the global batch, of which each process holds a shard:
 train-mode BatchNorm takes the global batch's statistics, the flip is
 process 0's decision, the gradients are averaged before the clip and the
 update, and the returned metrics are the means over the processes.
+
+Under a height split (`parallel/mesh.py:Layout`, ``arch.spatial_shards`` =
+S > 1) each process holds one band of rows of its data shard's samples
+(`parallel/spatial.py:split_rows`): both steps make the band `active`
+around the forward and the backward (the image is S times the batch's
+rows), the training step's gradients are summed over the spatial ranks and
+averaged over the data shards, and the evaluation step gathers the
+predicted depth (and the ground truth) to full height before its metrics.
 """
 from __future__ import annotations
 
@@ -32,12 +40,13 @@ from dro_sfm_torch.models.sfm import (
 )
 from dro_sfm_torch.ops.depth_ops import inv2depth
 from dro_sfm_torch.ops.image import flip_intrinsics, flip_lr
+from dro_sfm_torch.parallel import spatial
 from dro_sfm_torch.parallel.collectives import (
     average_gradients,
     average_metrics,
     broadcast_flag,
 )
-from dro_sfm_torch.parallel.mesh import process_count
+from dro_sfm_torch.parallel.mesh import current_layout, process_count
 from dro_sfm_torch.training.metrics import MetricsConfig, compute_depth_metrics
 from dro_sfm_torch.training.state import Optimizer, TrainState
 from dro_sfm_torch.utils.depth import post_process_inv_depth
@@ -68,7 +77,8 @@ def make_train_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
 
     With several processes every process calls it on its equal shard of the
     global batch, with the same ``generator`` state; the flip drawn by
-    process 0 holds for all.
+    process 0 holds for all. Under a height split a process's shard is its
+    band of rows of its data shard's samples.
     """
     device = resolve_device(device)
     keys = model_cfg.batch_keys
@@ -84,10 +94,11 @@ def make_train_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
                 and model_cfg.flip_lr_prob > 0.0:
             do_flip = broadcast_flag(draw_flip(generator, model_cfg.flip_lr_prob))
         optimizer.zero_grad()
-        loss, (_, metrics) = forward_and_loss(model_cfg, net, batch, generator,
-                                              progress=progress, do_flip=do_flip,
-                                              percep_fn=percep_fn)
-        loss.backward()
+        with spatial.active(spatial.band_for(current_layout(), batch["rgb"].shape[1])):
+            loss, (_, metrics) = forward_and_loss(model_cfg, net, batch, generator,
+                                                  progress=progress, do_flip=do_flip,
+                                                  percep_fn=percep_fn)
+            loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         if several:
@@ -120,8 +131,9 @@ def make_eval_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
         batch = {k: torch.as_tensor(batch[k]).to(device=device, dtype=torch.float32)
                  for k in EVAL_KEYS if k in batch}
         was_training = net.training
+        band = spatial.band_for(current_layout(), batch["rgb"].shape[1])
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), spatial.active(band):
                 return _evaluate(net, batch, metrics_cfg, demon_scaling)
         finally:
             net.train(was_training)
@@ -141,6 +153,8 @@ def _evaluate(net, batch, metrics_cfg, demon_scaling):
     out_f = forward(net, flipped, train=False, last_only=True)
     inv_depth_pp = post_process_inv_depth(inv_depth, out_f["inv_depths"][-1],
                                           method="mean")
+    if spatial.current() is not None:       # median scaling needs the whole image
+        inv_depth, inv_depth_pp = (spatial.gather_rows(t, 1) for t in (inv_depth, inv_depth_pp))
     depth = inv2depth(inv_depth)
     depth_pp = inv2depth(inv_depth_pp)
 

@@ -19,8 +19,15 @@ over the global batch (`training/step.py`). The weights start as process
 0's. Validation sums its metrics over the processes and checks that every
 sample was seen once; the preemption stop is agreed by all processes at
 shared points; process 0 alone prints, logs, saves depth files and writes
-checkpoints. Not ported: ``arch.spatial_shards`` > 1, the JAX package's
-height split of every layer over several devices (ROADMAP A8, queue C).
+checkpoints.
+
+With ``arch.spatial_shards`` = S > 1 the world is D = world / S data
+shards of S spatial ranks (`parallel/mesh.py:Layout`, the JAX package's
+(data, spatial) mesh): each epoch is sharded over the data index, and each
+spatial rank keeps its band of rows of the image keys (`parallel/spatial.py`),
+in training and in validation, whose metrics count each sample once.
+Checkpoints hold no layout and resume with any S. The split runs
+``SupModelMF`` only (the other tasks are ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -36,7 +43,12 @@ from dro_sfm_torch.data import make_loader, setup_dataset
 from dro_sfm_torch.data.loader import device_prefetch, to_device
 from dro_sfm_torch.loggers import NoOpLogger, make_logger
 from dro_sfm_torch.losses.photometric import PhotometricLossConfig
-from dro_sfm_torch.models.sfm import SfmModelConfig, resolve_memory_policy
+from dro_sfm_torch.models.sfm import (
+    SfmModelConfig,
+    check_spatial_task,
+    resolve_memory_policy,
+)
+from dro_sfm_torch.parallel import spatial
 from dro_sfm_torch.parallel.collectives import (
     all_reduce_metric_sums,
     any_process_flag,
@@ -45,6 +57,7 @@ from dro_sfm_torch.parallel.collectives import (
 from dro_sfm_torch.parallel.mesh import (
     is_rank0,
     local_device,
+    make_layout,
     maybe_init_distributed,
     process_count,
 )
@@ -105,13 +118,6 @@ def flip_generator(seed: int, epoch: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed * 1_000_003 + epoch)
 
 
-def _check_spatial_shards(cfg) -> None:
-    if int(cfg.arch.get("spatial_shards", 1)) > 1:
-        raise NotImplementedError(
-            "arch.spatial_shards > 1 is not ported: the port shards the batch "
-            "only, one process a device (ROADMAP A8, queue C)")
-
-
 class Trainer:
     """Train and evaluate ``cfg`` on ``device`` (the card unless the caller
     asks for the CPU; in several processes this process's card), from the
@@ -121,11 +127,13 @@ class Trainer:
     group that the environment describes, unless the caller made one."""
 
     def __init__(self, cfg, resume: Optional[str] = None, device=None):
-        _check_spatial_shards(cfg)
         self.cfg = cfg
         self.device = local_device(device)
         maybe_init_distributed(self.device)       # before the loaders shard
         self.model_cfg = model_config_from(cfg)
+        self.layout = self._make_layout(int(cfg.arch.get("spatial_shards", 1)))
+        shard = ({} if self.layout is None else
+                 {"num_shards": self.layout.data, "shard_id": self.layout.data_index})
         self.metrics_cfg = MetricsConfig(
             crop=cfg.model.params.crop,
             min_depth=cfg.model.params.min_depth,
@@ -140,7 +148,7 @@ class Trainer:
             self.train_dataset = setup_dataset(cfg.datasets.train, aug, "train")
             self.train_loader = make_loader(
                 self.train_dataset, cfg.datasets.train.batch_size, "train",
-                num_workers=cfg.datasets.train.num_workers, seed=cfg.arch.seed)
+                num_workers=cfg.datasets.train.num_workers, seed=cfg.arch.seed, **shard)
         self.val_datasets = (
             setup_dataset(cfg.datasets.validation, aug, "validation")
             if cfg.datasets.validation.dataset else [])
@@ -149,7 +157,7 @@ class Trainer:
             self.test_datasets = setup_dataset(cfg.datasets.test, aug, "test")
         self.val_loaders = [
             make_loader(ds, cfg.datasets.validation.batch_size, "validation",
-                        num_workers=cfg.datasets.validation.num_workers)
+                        num_workers=cfg.datasets.validation.num_workers, **shard)
             for ds in self.val_datasets]
 
         # Net, optimizer and state.
@@ -182,9 +190,12 @@ class Trainer:
         # One evaluation step per DeMoN-scaling flag: the scaling applies per
         # evaluation dataset.
         self._eval_steps: Dict[bool, object] = {}
+        # Process 0 alone archives the code: processes that share the folder
+        # would write (and, outside a git checkout, remove) one file at once.
         self.checkpointer = CheckpointManager(
             cfg.checkpoint.filepath, monitor=cfg.checkpoint.monitor,
             save_top_k=cfg.checkpoint.save_top_k, mode=cfg.checkpoint.mode,
+            save_code=is_rank0(),
             sync_url=cfg.checkpoint.get("s3_url", "") or cfg.checkpoint.get("s3_path", ""),
             sync_frequency=int(cfg.checkpoint.get("s3_frequency", 1)))
         self.metric_keys = ALL_METRIC_NAMES
@@ -192,12 +203,27 @@ class Trainer:
         self.logger.log_config(cfg)
         self._preempted = False
 
+    def _make_layout(self, spatial_shards: int):
+        """The (data, spatial) layout of ``arch.spatial_shards`` (None for
+        1), with the JAX package's checks as ValueError: H/8 divides by S
+        (`spatial.Band`) and S divides the world size (`make_layout`); a task
+        the split does not run raises NotImplementedError first."""
+        if spatial_shards == 1:
+            return None
+        check_spatial_task(self.model_cfg.name)
+        spatial.Band(self.cfg.datasets.augmentation.image_shape[0], spatial_shards, 0)
+        return make_layout(spatial_shards)
+
     # ------------------------------------------------------------------
     def _place(self, batch) -> Dict[str, torch.Tensor]:
-        return to_device(batch, self.device, EVAL_KEYS)
+        """An evaluation batch on the device: under a height split this
+        rank's rows of the images, the ground truth whole."""
+        return to_device(spatial.split_rows(batch, self.layout, ("rgb", "rgb_context")),
+                         self.device, EVAL_KEYS)
 
     def _place_train(self, batch) -> Dict[str, torch.Tensor]:
-        return to_device(batch, self.device, self.model_cfg.batch_keys)
+        return to_device(spatial.split_rows(batch, self.layout), self.device,
+                         self.model_cfg.batch_keys)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)

@@ -5,9 +5,9 @@ trains, validates and writes its top-k checkpoint; a resume into the next
 epoch that ends bit for bit where an uninterrupted run ends; the SIGTERM
 emergency checkpoint; the padded evaluation tail; the train CLI in a
 subprocess and the eval CLI on its checkpoint; depth files as ``save.depth``
-asks; what is not ported raises (spatial shards, the file datasets, the rgb
-and viz images). Warm starts from the JAX package's files are held in
-`test_torch_init_weights.py`.
+asks; what is refused raises (spatial shards that do not divide the world
+size, an unknown dataset), and the rgb and viz images. Warm starts from the
+JAX package's files are held in `test_torch_init_weights.py`.
 """
 import json
 import os
@@ -194,7 +194,7 @@ def test_train_cli_profiles_the_first_steps(tmp_path):
 
 
 @pytest.mark.parametrize("overrides, error, match", [
-    ({"arch": {"spatial_shards": 2}}, NotImplementedError, "A8"),
+    ({"arch": {"spatial_shards": 2}}, ValueError, "must divide the world size 1"),
     ({"datasets": {"train": {"dataset": ["NoSuchSet"]}}}, KeyError, "NoSuchSet"),
 ])
 def test_not_ported_raises(tmp_path, overrides, error, match):
