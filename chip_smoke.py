@@ -219,24 +219,42 @@ result line):
    ms a frame on the card;
 30. spatial: the height split (``arch.spatial_shards`` = 2, D = 1) on two
    spawned ranks on this card over gloo. (b) K1-K3 at the bands' shapes
-   (P = 12x80 target pixels of B=2 against the gathered 24x80 context maps,
+   (P = 12x80 target pixels of B=8 against the gathered 24x80 context maps,
    coordinates on every row of the view and outside it, both bands) and
-   K5/K6 axis 1 on the bands widened by 4 rows (20x80, depth B=2 and pose
-   B*N=4), bf16 and fp32, against their plain versions at the bars of
-   phases 3, 7 and 12, with the bf16 times; (a) SupModelMF it12-h-out
-   192x640 N=2 B=2 from `tame_weights`, ``sep_conv`` "split" and "pallas",
-   fp32 and bf16: each rank's step on its 96 rows, counts reset just before
-   and read just after (K1 24, K2 24, K3 18, and K5, K6-input, K6-weight 48
-   with "pallas"), against one process on the whole batch (phase 25's
-   `dist_verdict`: the fp32 loss within 1e-5 relative), the ranks'
-   gradients and parameters after Adam equal bit for bit, ms a step, and
-   each rank's peak memory, which must be below one process's; (c)
-   `Trainer.fit` on ``configs/train_synthetic_192x640.yaml`` at fp32 with
+   K5/K6 axis 1 on the bands widened by 4 rows (20x80, depth B=8 and pose
+   B*N=16), bf16 and fp32, against their plain versions at the bars of
+   phases 3, 7 and 12, with the bf16 times; (a) 192x640 N=2 B=8, each case
+   of `SPATIAL_CASES`: SupModelMF it12-h-out on noise from `tame_weights`,
+   ``sep_conv`` "split" and "pallas", fp32 and bf16; on rendered scenes,
+   the photometric loss at the config defaults (the ``min`` with the
+   automask), SelfSupModelMF bf16 with either GRU path, SemiSupModelMFPose
+   bf16, the single-frame SelfSupModel fp32 (seed-0 ResNets, bands down to
+   stride 32) and SelfSupModelMF fp32 with the perceptual term (0.1; the
+   VGG net whole on every rank on gathered images): each rank's step on its
+   96 rows, counts reset just before and read just after (K1 24, K2 24, K3
+   18, and K5, K6-input, K6-weight 48 with "pallas"; none for
+   SelfSupModel), its exchanges by function (a host profile of that step),
+   ms and host syncs by line of one more step (torch's sync debug mode;
+   gloo's own copies are not ATen's and do not count), against one process
+   on the whole batch (phase 25's `dist_verdict`: the fp32 loss within 1e-5
+   relative and fp32 leaves within 1e-2, or within twice fp32's own reach
+   where the multi-frame photometric loss's reach passes that (one
+   process's step on the samples in reverse order); a bf16 case's loss
+   within BF16_BAR and its leaves against its fp32 twin's own error; where
+   a case's precision cannot hold its leaves (`spatial_leaves_held`: bf16
+   under the photometric ``min``, whose near-ties make bf16 leaves chaotic;
+   SelfSupModel's fp32, whose pose encoder's backward cancels) each rank
+   also takes a twin at the next precision, held to one process's: the
+   fp32 step, or the fp64 gradient within 1e-8 and its loss within 1e-12),
+   the ranks' gradients and parameters after Adam equal bit for bit, and
+   each rank's peak memory, which must be below one process's; (c) `Trainer.fit` on
+   ``configs/train_synthetic_192x640.yaml`` and on
+   ``configs/train_synthetic_selfsup.yaml`` at 192x640, fp32, with
    ``arch.spatial_shards: 2`` (2 steps of B=8, one B=4 validation batch)
-   from `tame_weights`, its launches a step and an eval batch checked, its
-   validation against a one-process `Trainer` on its checkpoint (every
+   from `tame_weights`, their launches a step and an eval batch checked,
+   each validation against a one-process `Trainer` on its checkpoint (every
    metric within 1e-5 relative plus 1e-7, phase 25's bar). A rank that
-   raises or outlives 240 s fails.
+   raises or outlives 600 s fails.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -248,6 +266,7 @@ the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -3166,7 +3185,7 @@ def stats_beyond(after, ref_after, bar=1e-3):
             and (after[k] - v).abs().max().item() > bar * v.abs().max().item()]
 
 
-def dist_verdict(result, ref, own=None):
+def dist_verdict(result, ref, own=None, reach=None):
     """(failures, (worst rel L2, its leaf), the loss's relative error) of a
     rank's step against the one-process step on the whole batch. In bf16
     (``own``: each leaf's bf16 own error, the one-process bf16 gradient
@@ -3175,8 +3194,12 @@ def dist_verdict(result, ref, own=None):
     other points (another batch size runs other cuDNN algorithms) part by
     up to bf16's own error. In fp32 the loss within 1e-5 relative and each
     leaf at cosine >= 0.9999 and relative L2 <= 1e-2, the reach of the
-    order of the sums (`tests/test_torch_dist_train.py`). Both: the
-    BatchNorm statistics within 1e-3 of the largest element."""
+    order of the sums (`tests/test_torch_dist_train.py`); with ``reach``
+    (each leaf's relative L2 between two one-process steps that differ in
+    the order of the samples) a leaf's bar is the larger of 1e-2 and twice
+    its reach, the cosine implied (`tests/test_torch_spatial_tasks.py`;
+    phase spatial's multi-frame fp32 photometric steps at B=8 pass 1e-2).
+    Both: the BatchNorm statistics within 1e-3 of the largest element."""
     (metrics, grads, after), (ref_metrics, ref_grads, ref_after) = result, ref
     failures, worst = [], (0.0, "")
     rel = abs(metrics["loss"] - ref_metrics["loss"]) / abs(ref_metrics["loss"])
@@ -3189,8 +3212,11 @@ def dist_verdict(result, ref, own=None):
                 failures.append(f"{k} nonzero where one process has zero")
             continue
         r, cos = rel_l2(got, want), cosine(got, want)
-        bar = max(BF16_BAR, own.get(k, 0.0)) if own else 1e-2
-        if not (r <= bar and (own or cos >= 0.9999)):
+        if own:
+            bar = max(BF16_BAR, own.get(k, 0.0))
+        else:
+            bar = max(1e-2, 2.0 * reach.get(k, 0.0)) if reach else 1e-2
+        if not (r <= bar and (own or bar > 1e-2 or cos >= 0.9999)):
             failures.append(f"{k} rel L2 {r:.3e} cosine {cos:.6f} bar {bar:.3e}")
         worst = max(worst, (r, k))
     failures += [f"{k} beyond 1e-3" for k in stats_beyond(after, ref_after)]
@@ -4007,18 +4033,107 @@ def phase_demo(counters, gpu):
 
 SPATIAL_BUILD = ROOT / "build" / "spatial"
 SPATIAL_S = 2                              # ranks of the height split, D = 1
-SPATIAL_B = 2                              # the global batch of (a)
-SPATIAL_TIMED = 2                          # timed steps a case and rank
-SPATIAL_TIMEOUT = 240                      # seconds the ranks may take
-SPATIAL_CASES = (("split", False), ("split", True), ("pallas", False), ("pallas", True))
+SPATIAL_B = 8                              # the global batch of (a)
+SPATIAL_TIMED = 1                          # timed steps a case and rank
+SPATIAL_TIMEOUT = 600                      # seconds the ranks may take
+SPATIAL_PERCEP = 0.1                       # the perceptual case's percep_loss_weight
+# (a)'s cases: (task, sep_conv, bf16, perceptual term). SupModelMF on the
+# noise batch of `make_train_batch`, the other tasks on rendered scenes
+# (`make_scene_batch`), the photometric loss at the config defaults (the
+# ``min`` with the automask); SelfSupModel runs the single-frame ResNets.
+SPATIAL_CASES = (("SupModelMF", "split", False, False), ("SupModelMF", "split", True, False),
+                 ("SupModelMF", "pallas", False, False), ("SupModelMF", "pallas", True, False),
+                 ("SelfSupModelMF", "split", True, False),
+                 ("SelfSupModelMF", "pallas", True, False),
+                 ("SemiSupModelMFPose", "split", True, False),
+                 ("SelfSupModel", "split", False, False),
+                 ("SelfSupModelMF", "split", False, True))
 
 
-def spatial_trainer_config(tag, shards):
-    """`trainer_config` (2 steps of B=8, one B=4 validation batch) at fp32
-    with ``arch.spatial_shards`` = ``shards``, files under
-    ``build/spatial/<tag>``; evaluation only for ``shards`` = 1."""
-    cfg = trainer_config(max_epochs=1)
+def spatial_case_config(task, sep_conv, mixed, percep):
+    """`train_config` of an (a) case."""
+    from dro_sfm_torch.losses.photometric import PhotometricLossConfig
+    photometric = PhotometricLossConfig(percep_loss_weight=SPATIAL_PERCEP if percep else 0.0)
+    return train_config(name=task, sep_conv=sep_conv, mixed_precision=mixed,
+                        photometric=photometric)
+
+
+def spatial_case_name(case):
+    task, sep_conv, mixed, percep = case
+    return (f"{task} {sep_conv} {'bf16' if mixed else 'fp32'}"
+            + (f" percep {SPATIAL_PERCEP}" if percep else ""))
+
+
+def spatial_case_inputs(case, job):
+    """(state, batch) of an (a) case from the job: the multi-frame nets
+    start from `tame_weights`, SelfSupModel from its seed-0 net."""
+    task = case[0]
+    state = job["states"]["sf" if task == "SelfSupModel" else "mf"]
+    return state, job["batches"]["noise" if task == "SupModelMF" else "scenes"]
+
+
+def spatial_leaves_held(case):
+    """Whether (a) holds a case's gradient leaves to one process's at the
+    case's own precision. Not in bf16 under the photometric ``min`` over
+    views: its near-ties turn bf16 rounding into gradient jumps, so that one
+    process's bf16 leaves lie up to 0.83 (relative L2, cosine 0.5) from its
+    fp32 twin's (as phase selfsup_e2e prints the default loss's bf16
+    gradients only). Not for SelfSupModel in fp32: its pose encoder's batch
+    norms feed a spatial mean, whose backward cancels almost wholly, so that
+    the order of fp32's sums moves some leaves past 1e-2 at B=8 while one
+    process lies within 5e-3 of fp64 there. Such a case's loss, BatchNorm
+    statistics, launches and peak are held, and its leaves through a twin at
+    the next precision that every rank also steps: the fp32 case
+    (`spatial_twin`), or for SelfSupModel the gradient in fp64
+    (`spatial_grads64`)."""
+    return not (case[0] != "SupModelMF" and case[2]) and case[0] != "SelfSupModel"
+
+
+def spatial_twin(case):
+    """The fp32 case of the same task, GRU path and loss."""
+    return (case[0], case[1], False, case[3])
+
+
+def spatial_grads64(case, state, batch):
+    """(loss, gradient leaves on the host) of an (a) case's step computed in
+    fp64: the train step's forward, backward and gradient sum, without the
+    optimizer or the flip, on this process's band under a height split."""
+    from dro_sfm_torch.models.layers import Conv2d
+    from dro_sfm_torch.models.sfm import forward_and_loss
+    from dro_sfm_torch.parallel import spatial
+    from dro_sfm_torch.parallel.collectives import average_gradients
+    from dro_sfm_torch.parallel.mesh import current_layout
+    cfg = spatial_case_config(*case)
+    net = cfg.build_net(device=batch["rgb"].device)
+    net.load_state_dict(state, strict=True)
+    net.double()
+    for m in net.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = torch.float64
+    batch = {k: v.double() for k, v in batch.items()}
+    band = spatial.band_for(current_layout(), batch["rgb"].shape[1], cfg.deepest_stride)
+    with spatial.active(band):
+        loss, _ = forward_and_loss(cfg, net, batch, None, do_flip=False)
+        loss.backward()
+    average_gradients(net.parameters())
+    return loss.item(), {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+
+
+def spatial_case_launches(case):
+    """The launches a step of an (a) case must make."""
+    if case[0] == "SelfSupModel":
+        return {}
+    return TRAIN_LAUNCHES_PALLAS if case[1] == "pallas" else TRAIN_LAUNCHES
+
+
+def spatial_trainer_config(tag, shards, config=TRAINER_CONFIG):
+    """`trainer_config` of ``config`` (2 steps of B=8, one B=4 validation
+    batch) at 192x640 and fp32 with ``arch.spatial_shards`` = ``shards``,
+    files under ``build/spatial/<tag>``; evaluation only for ``shards`` =
+    1."""
+    cfg = trainer_config(max_epochs=1, config=config)
     cfg.arch.spatial_shards = shards
+    cfg.datasets.augmentation.image_shape = (SERVE_H, SERVE_W)
     cfg.model.depth_net.mixed_precision = False
     cfg.checkpoint.filepath = str(SPATIAL_BUILD / tag / "ckpt")
     cfg.save.folder = str(SPATIAL_BUILD / tag / "depth")
@@ -4027,11 +4142,16 @@ def spatial_trainer_config(tag, shards):
     return cfg
 
 
+# (c)'s Trainers: tag -> config
+SPATIAL_TRAINERS = {"split": TRAINER_CONFIG, "split_selfsup": SELFSUP_CONFIG}
+
+
 def spatial_rank(rank, world, store, job_path, out_dir):
     """One rank of the height split on the card (gloo, the same card for
     both): (a) each case of `SPATIAL_CASES` one counted step on this rank's
-    band, its peak memory, timed steps; (c) `Trainer.fit` of
-    `spatial_trainer_config`. Waits for ``go`` beside the job before any
+    band (its exchanges by function, from a host profile), its peak memory,
+    timed steps, a step's host syncs; (c) `Trainer.fit` of each
+    `SPATIAL_TRAINERS` config. Waits for ``go`` beside the job before any
     work on the card. Writes ``out_dir/rank<R>.pt``."""
     import datetime
     import gc
@@ -4044,6 +4164,7 @@ def spatial_rank(rank, world, store, job_path, out_dir):
                             world_size=world, timeout=datetime.timedelta(seconds=200))
     try:
         from dro_sfm_torch.parallel import spatial
+        from dro_sfm_torch.parallel.collectives import SPAN
         from dro_sfm_torch.parallel.mesh import make_layout
         from dro_sfm_torch.training.trainer import Trainer
         layout = make_layout(SPATIAL_S)
@@ -4052,48 +4173,85 @@ def spatial_rank(rank, world, store, job_path, out_dir):
         while not go.exists():
             time.sleep(0.2)
         job = torch.load(job_path, map_location="cuda", weights_only=False)
-        band = spatial.split_rows(job["batch"], layout)
-        out = {"rows": band["rgb"].shape[1], "steps": {}}
-        for sep_conv, mixed in SPATIAL_CASES:
+        bands = {k: spatial.split_rows(v, layout) for k, v in job["batches"].items()}
+        out = {"rows": bands["noise"]["rgb"].shape[1], "steps": {}, "trainers": {}}
+        for case in SPATIAL_CASES:
+            state, _ = spatial_case_inputs(case, job)
+            band = bands["noise" if case[0] == "SupModelMF" else "scenes"]
             gc.collect()                         # the last case's net and Adam
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             for c in counters.values():          # the split step's path starts here
                 c.reset()
-            net, step, state, metrics, grads, after = dist_step(
-                train_config(sep_conv=sep_conv, mixed_precision=mixed), job["state"], band,
-                flip_generator_for(rank != 0))
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                net, step, state, metrics, grads, after = dist_step(
+                    spatial_case_config(*case), state, band, flip_generator_for(rank != 0))
             launches = {k: c.launches for k, c in counters.items()}   # and ends here
+            exchanges = {e.key[len(SPAN):]: e.count for e in prof.key_averages()
+                         if e.key.startswith(SPAN)}
             peak = torch.cuda.max_memory_allocated()
             flips, times = torch.Generator().manual_seed(5), []
             for _ in range(SPATIAL_TIMED):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, _ = step(state, band, flips)
-                torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - t0))
-            out["steps"][(sep_conv, mixed)] = {"launches": launches, "peak": peak, "ms": times,
-                                               "step": on_host(metrics, grads, after)}
+                ms, syncs = timed_syncs(lambda: step(state, band, flips))
+                times.append(ms)
+            out["steps"][case] = {"launches": launches, "peak": peak, "ms": times,
+                                  "exchanges": exchanges, "syncs": syncs,
+                                  "step": on_host(metrics, grads, after)}
             del net, step, state
-        # (c) the Trainer from the yaml config, from the job's weights
-        torch.cuda.empty_cache()
-        trainer = Trainer(spatial_trainer_config("split", SPATIAL_S), device="cuda")
-        trainer.net.load_state_dict(job["state"], strict=True)
-        train = trainer.train_step = CountedStep(trainer.train_step, counters, timed=True)
-        evaluate = CountedStep(trainer.eval_step_for(False), counters)
-        trainer._eval_steps[False] = evaluate
-        for c in counters.values():              # the split trainer's path starts here
-            c.reset()
-        t0 = time.perf_counter()
-        metrics = trainer.fit()
-        fit_s = time.perf_counter() - t0
-        out["trainer"] = {"metrics": metrics, "s": fit_s, "ms": train.ms,
-                          "launches": {k: c.launches for k, c in counters.items()},
-                          "step_launches": train.launches, "eval_launches": evaluate.launches,
-                          "saved": [p for _, p in trainer.checkpointer.saved]}
+            if not spatial_leaves_held(case):    # its leaves, held through a twin
+                gc.collect()
+                torch.cuda.empty_cache()
+                start = spatial_case_inputs(case, job)[0]
+                out["steps"][case]["twin"] = (
+                    on_host(*dist_step(spatial_case_config(*spatial_twin(case)), start, band,
+                                       flip_generator_for(rank != 0))[3:])
+                    if case[2] else spatial_grads64(case, start, band))
+        # (c) the Trainers from the yaml configs, from the job's weights
+        for tag, config in SPATIAL_TRAINERS.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            trainer = Trainer(spatial_trainer_config(tag, SPATIAL_S, config), device="cuda")
+            trainer.net.load_state_dict(job["states"]["mf"], strict=True)
+            train = trainer.train_step = CountedStep(trainer.train_step, counters, timed=True)
+            evaluate = CountedStep(trainer.eval_step_for(False), counters)
+            trainer._eval_steps[False] = evaluate
+            for c in counters.values():          # the split trainer's path starts here
+                c.reset()
+            t0 = time.perf_counter()
+            metrics = trainer.fit()
+            fit_s = time.perf_counter() - t0
+            out["trainers"][tag] = {
+                "metrics": metrics, "s": fit_s, "ms": train.ms,
+                "launches": {k: c.launches for k, c in counters.items()},
+                "step_launches": train.launches, "eval_launches": evaluate.launches,
+                "saved": [p for _, p in trainer.checkpointer.saved]}
+            del trainer, train, evaluate
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def host_syncs(fn):
+    """The host synchronisations with the card during ``fn()`` (torch's sync
+    debug mode), counted by the line that made them."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                               if "synchroniz" in str(w.message).lower())
+
+
+def timed_syncs(fn):
+    """(ms, `host_syncs`) of ``fn()``, from its start to the card's end."""
+    start = []
+    syncs = host_syncs(lambda: (start.append(time.perf_counter()), fn()))
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - start[0]), syncs
 
 
 def on_host(metrics, grads, after):
@@ -4221,9 +4379,99 @@ def phase_spatial_kernels(gen):
     return timings
 
 
+def spatial_reference(case, state, batch, timed=SPATIAL_TIMED):
+    """One process's step of an (a) case on the whole batch: its results on
+    the host, peak bytes and ms of ``timed`` more steps."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net, step, train_state, metrics, grads, after = dist_step(
+        spatial_case_config(*case), state, batch, None, do_flip=False)
+    peak = torch.cuda.max_memory_allocated()
+    flips, times = torch.Generator().manual_seed(5), []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_state, _ = step(train_state, batch, flips)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    del net, step, train_state
+    return {"step": on_host(metrics, grads, after), "peak": peak, "ms": times}
+
+
+def spatial_verdicts(ranks, refs, own, reach, counters, gpu):
+    """(a)'s problems: each case of every rank against one process, as
+    phase_spatial sets out; every line printed before a failure."""
+    problems = []
+    for case in SPATIAL_CASES:
+        name, want, ref = spatial_case_name(case), spatial_case_launches(case), refs[case]
+        for r, res in enumerate(ranks):
+            got = res["steps"][case]
+            if got["launches"] != {k: want.get(k, 0) for k in counters}:
+                problems.append(f"rank {r} {name} step launches {got['launches']}, want {want}")
+            twin = spatial_twin(case)
+
+            def leaf(key, worst):
+                return (f"{worst[0]:.3e} ({worst[1]}" + (
+                    f", fp32's own reach there {reach[key].get(worst[1], 0.0):.3e}"
+                    if key in reach else "") + ")")
+
+            failures, worst, rel = dist_verdict(got["step"], ref["step"], own.get(case),
+                                                reach.get(case))
+            leaves = f"worst leaf rel L2 {leaf(case, worst)}"
+            if not spatial_leaves_held(case):
+                failures = [f for f in failures if f.startswith("loss ") or "beyond" in f]
+                if case[2]:
+                    more, held, _ = dist_verdict(got["twin"], refs[twin]["step"],
+                                                 reach=reach[twin])
+                else:
+                    more, held = verdict64(got["twin"], ref["fp64"])
+                failures += [f"{'fp32' if case[2] else 'fp64'} twin: {f}" for f in more]
+                leaves = (f"leaves printed only, worst {leaf(case, worst)}; its "
+                          f"{'fp32' if case[2] else 'fp64'} twin's worst leaf rel L2 "
+                          f"{leaf(twin, held)}")
+            if failures:
+                problems.append(f"rank {r} {name} against one process: {failures[:6]}")
+            if not got["peak"] < ref["peak"]:
+                problems.append(f"rank {r} {name} peak {got['peak']} bytes, one process "
+                                f"{ref['peak']}")
+            print(f"spatial (a) rank {r} of {SPATIAL_S} on one card (gloo), {name}, "
+                  f"{'it12-h-out ' if case[0] != 'SelfSupModel' else ''}192x640 B={SPATIAL_B} "
+                  f"N={VIEWS}, {SERVE_H // SPATIAL_S} rows a rank, against one process: loss "
+                  f"{got['step'][0]['loss']:.6f} vs {ref['step'][0]['loss']:.6f} (relative "
+                  f"{rel:.2e}), {leaves}; launches {got['launches']}; exchanges a step "
+                  f"{sum(got['exchanges'].values())} ("
+                  + ", ".join(f"{k} {n}" for k, n in sorted(got["exchanges"].items()))
+                  + f"); host syncs a step {sum(got['syncs'].values())} ("
+                  + (", ".join(f"{k} {n}x" for k, n in got["syncs"].most_common(4)) or "none")
+                  + f"); ms a step "
+                  f"{' / '.join(f'{v:.2f}' for v in got['ms'])} (one process "
+                  f"{' / '.join(f'{v:.2f}' for v in ref['ms'])}); peak "
+                  f"{got['peak'] / 2**20:.1f} MiB (one process {ref['peak'] / 2**20:.1f} MiB); "
+                  f"on {gpu}", flush=True)
+        a, b = ranks[0]["steps"][case]["step"], ranks[1]["steps"][case]["step"]
+        if not (all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+                and all(torch.equal(a[2][k], b[2][k]) for k in a[2])):
+            problems.append(f"the ranks' gradients or parameters after Adam differ ({name})")
+    return problems
+
+
+def verdict64(result, ref):
+    """(failures, (worst rel L2, its leaf)) of a rank's `spatial_grads64`
+    against one process's: the loss within 1e-12 relative and each leaf
+    within 1e-8, fp64's rounding amplified by the backward's cancellations
+    (2e-16 and 2e-13 on the CPU at 64x96)."""
+    (loss, grads), (ref_loss, ref_grads) = result, ref
+    worst = max((e, k) for k, e in leaf_errors(grads, ref_grads).items())
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    failures = [] if rel <= 1e-12 else [f"loss {loss!r} vs {ref_loss!r}"]
+    return failures + [f"{k} rel L2 {e:.3e}" for k, e in leaf_errors(grads, ref_grads).items()
+                       if not e <= 1e-8], worst
+
+
 def phase_spatial(counters, gpu):
     """The height split (see the module docstring, phase 30)."""
-    import gc
     import multiprocessing
     import shutil
 
@@ -4231,40 +4479,47 @@ def phase_spatial(counters, gpu):
     shutil.rmtree(SPATIAL_BUILD, ignore_errors=True)
     SPATIAL_BUILD.mkdir(parents=True)
     t_phase = time.perf_counter()
-    start = tame_weights(start_weights(train_config()).state_dict())
-    batch = make_train_batch(SPATIAL_B, seed=6)
-    job = SPATIAL_BUILD / "job.pt"
-    torch.save({"state": {k: v.cpu() for k, v in start.items()},
-                "batch": {k: v.cpu() for k, v in batch.items()}}, job)
+    sf = spatial_case_config("SelfSupModel", "split", False, False)
+    job = {"states": {"mf": tame_weights(start_weights(train_config()).state_dict()),
+                      "sf": start_weights(sf).state_dict()},
+           "batches": {"noise": make_train_batch(SPATIAL_B, seed=6),
+                       "scenes": make_scene_batch(SPATIAL_B, seed=6)}}
+    job_path = SPATIAL_BUILD / "job.pt"
+    torch.save({part: {name: {k: v.cpu() for k, v in d.items()} for name, d in job[part].items()}
+                for part in job}, job_path)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=spatial_rank, args=(
-        r, SPATIAL_S, str(SPATIAL_BUILD / "gloo_store"), str(job), str(SPATIAL_BUILD)))
+        r, SPATIAL_S, str(SPATIAL_BUILD / "gloo_store"), str(job_path), str(SPATIAL_BUILD)))
         for r in range(SPATIAL_S)]
     for p in procs:                            # they start up while the references run
         p.start()
     deadline = time.monotonic() + SPATIAL_TIMEOUT
     try:
         timings = phase_spatial_kernels(torch.Generator(device="cuda").manual_seed(7))
-        # (a)'s references: one process on the whole batch, peak and ms
-        refs = {}
-        for sep_conv, mixed in SPATIAL_CASES:
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            net, step, state, metrics, grads, after = dist_step(
-                train_config(sep_conv=sep_conv, mixed_precision=mixed), start, batch, None,
-                do_flip=False)
-            peak = torch.cuda.max_memory_allocated()
-            flips, times = torch.Generator().manual_seed(5), []
-            for _ in range(SPATIAL_TIMED):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, _ = step(state, batch, flips)
-                torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - t0))
-            refs[(sep_conv, mixed)] = {"step": on_host(metrics, grads, after), "peak": peak,
-                                       "ms": times}
-            del net, step, state
+        # (a)'s references: one process on the whole batch, peak and ms;
+        # each bf16 case's fp32 twin (its leaves' own error, and the
+        # reference of the ranks' fp32 step where its bf16 leaves are not
+        # held), SelfSupModel's fp64 gradient; for each fp32 step of the
+        # multi-frame photometric loss the step on the samples in reverse
+        # order (fp32's reach on each leaf, which the ``min``'s near-ties
+        # widen)
+        refs, own, reach = {}, {}, {}
+        for case in SPATIAL_CASES:
+            state, batch = spatial_case_inputs(case, job)
+            refs[case] = spatial_reference(case, state, batch)
+        for case in SPATIAL_CASES:
+            state, batch = spatial_case_inputs(case, job)
+            twin = spatial_twin(case)
+            if case[2]:
+                if twin not in refs:
+                    refs[twin] = spatial_reference(twin, state, batch, 0)
+                own[case] = leaf_errors(refs[case]["step"][1], refs[twin]["step"][1])
+            if not spatial_leaves_held(case) and not case[2]:
+                refs[case]["fp64"] = spatial_grads64(case, state, batch)
+            elif case[0] != "SupModelMF" and (twin == case or not spatial_leaves_held(case)):
+                flipped = {k: v.flip(0) for k, v in batch.items()}
+                reach[twin] = leaf_errors(spatial_reference(twin, state, flipped, 0)["step"][1],
+                                          refs[twin]["step"][1])
         torch.cuda.empty_cache()
         refs_s = time.perf_counter() - t_phase
         (SPATIAL_BUILD / "go").touch()         # the ranks' work on the card starts here
@@ -4286,80 +4541,54 @@ def phase_spatial(counters, gpu):
     if [r["rows"] for r in ranks] != [SERVE_H // SPATIAL_S] * SPATIAL_S:
         fail(f"spatial: rows a rank {[r['rows'] for r in ranks]}")
 
-    # (a) each case against one process; every line printed before a failure
-    problems = []
-    for sep_conv, mixed in SPATIAL_CASES:
-        key, prec = (sep_conv, mixed), ("bf16" if mixed else "fp32")
-        want = TRAIN_LAUNCHES_PALLAS if sep_conv == "pallas" else TRAIN_LAUNCHES
-        ref = refs[key]
-        own = leaf_errors(ref["step"][1], refs[(sep_conv, False)]["step"][1]) if mixed else None
-        for r, res in enumerate(ranks):
-            got = res["steps"][key]
-            if got["launches"] != {k: want.get(k, 0) for k in counters}:
-                problems.append(f"rank {r} {sep_conv} {prec} step launches "
-                                f"{got['launches']}, want {want}")
-            failures, worst, rel = dist_verdict(got["step"], ref["step"], own)
-            if failures:
-                problems.append(f"rank {r} {sep_conv} {prec} against one process: "
-                                f"{failures[:6]}")
-            if not got["peak"] < ref["peak"]:
-                problems.append(f"rank {r} {sep_conv} {prec} peak {got['peak']} bytes, one "
-                                f"process {ref['peak']}")
-            print(f"spatial (a) rank {r} of {SPATIAL_S} on one card (gloo), {sep_conv} {prec}, "
-                  f"it12-h-out 192x640 B={SPATIAL_B} N={VIEWS}, {SERVE_H // SPATIAL_S} rows a "
-                  f"rank, against one process: loss {got['step'][0]['loss']:.6f} vs "
-                  f"{ref['step'][0]['loss']:.6f} (relative {rel:.2e}), worst leaf rel L2 "
-                  f"{worst[0]:.3e} ({worst[1]}); launches {got['launches']}; ms a step "
-                  f"{' / '.join(f'{v:.2f}' for v in got['ms'])} (one process "
-                  f"{' / '.join(f'{v:.2f}' for v in ref['ms'])}); peak "
-                  f"{got['peak'] / 2**20:.1f} MiB (one process {ref['peak'] / 2**20:.1f} MiB); "
-                  f"on {gpu}", flush=True)
-        a, b = ranks[0]["steps"][key]["step"], ranks[1]["steps"][key]["step"]
-        if not (all(torch.equal(a[1][k], b[1][k]) for k in a[1])
-                and all(torch.equal(a[2][k], b[2][k]) for k in a[2])):
-            problems.append(f"the ranks' gradients or parameters after Adam differ ({key})")
+    # (a) each case against one process
+    problems = spatial_verdicts(ranks, refs, own, reach, counters, gpu)
     if problems:
         fail(f"spatial: {problems}")
 
-    # (c) the Trainer: launches, and its validation against one process
-    for r, res in enumerate(ranks):
-        tr = res["trainer"]
-        check_launches(f"spatial rank {r} train step", tr["step_launches"], TRAIN_LAUNCHES,
-                       counters)
-        check_launches(f"spatial rank {r} eval batch", tr["eval_launches"], EVAL_LAUNCHES,
-                       counters)
-        if len(tr["step_launches"]) != 2 or len(tr["eval_launches"]) != 1:
-            fail(f"spatial: rank {r} {len(tr['step_launches'])} steps, "
-                 f"{len(tr['eval_launches'])} eval batches")
-        check_finite(f"spatial rank {r} fit()", tr["metrics"])
-    (ckpt,) = ranks[0]["trainer"]["saved"]
-    if ranks[1]["trainer"]["saved"]:
-        fail("spatial: rank 1 wrote a checkpoint")
+    # (c) the Trainers: launches, and each validation against one process
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    single = Trainer(spatial_trainer_config("one", 1), resume=ckpt, device="cuda").validate()
-    gaps = {}
-    for k, v in single.items():
-        got = ranks[0]["trainer"]["metrics"][k]
-        if ranks[1]["trainer"]["metrics"][k] != got:
-            fail(f"spatial: the ranks' validation {k} differ")
-        gaps[k] = abs(got - v) / max(abs(v), 1e-12)
-        if not abs(got - v) <= 1e-5 * abs(v) + 1e-7:         # phase dist_trainer's bar
-            fail(f"spatial: split validation {k} {got!r}, one process {v!r}")
-    tr = ranks[0]["trainer"]
-    worst = max(gaps, key=gaps.get)
-    print(f"spatial (c) Trainer, train_synthetic_192x640 fp32 with arch.spatial_shards: "
-          f"{SPATIAL_S} on {SPATIAL_S} ranks (gloo, one card), from tame_weights: fit() "
-          f"{tr['s']:.1f} s, ms a step {' / '.join(f'{v:.2f}' for v in tr['ms'])}, launches "
-          f"over fit() {tr['launches']}; its validation against one process on its "
-          f"checkpoint: abs_rel_pp_gt {tr['metrics']['abs_rel_pp_gt']!r} vs "
-          f"{single['abs_rel_pp_gt']!r}, largest relative gap {gaps[worst]:.2e} ({worst}; "
-          f"bar 1e-5 relative + 1e-7 on every metric, as phase dist_trainer); on {gpu}",
-          flush=True)
+    for tag, config in SPATIAL_TRAINERS.items():
+        for r, res in enumerate(ranks):
+            tr = res["trainers"][tag]
+            check_launches(f"spatial rank {r} {tag} train step", tr["step_launches"],
+                           TRAIN_LAUNCHES, counters)
+            check_launches(f"spatial rank {r} {tag} eval batch", tr["eval_launches"],
+                           EVAL_LAUNCHES, counters)
+            if len(tr["step_launches"]) != 2 or len(tr["eval_launches"]) != 1:
+                fail(f"spatial: rank {r} {tag} {len(tr['step_launches'])} steps, "
+                     f"{len(tr['eval_launches'])} eval batches")
+            check_finite(f"spatial rank {r} {tag} fit()", tr["metrics"])
+        (ckpt,) = ranks[0]["trainers"][tag]["saved"]
+        if ranks[1]["trainers"][tag]["saved"]:
+            fail(f"spatial: rank 1 wrote a {tag} checkpoint")
+        single = Trainer(spatial_trainer_config(f"one_{tag}", 1, config), resume=ckpt,
+                         device="cuda").validate()
+        gaps = {}
+        for k, v in single.items():
+            got = ranks[0]["trainers"][tag]["metrics"][k]
+            if ranks[1]["trainers"][tag]["metrics"][k] != got:
+                fail(f"spatial: the ranks' {tag} validation {k} differ")
+            gaps[k] = abs(got - v) / max(abs(v), 1e-12)
+            if not abs(got - v) <= 1e-5 * abs(v) + 1e-7:         # phase dist_trainer's bar
+                fail(f"spatial: {tag} validation {k} {got!r}, one process {v!r}")
+        tr = ranks[0]["trainers"][tag]
+        worst = max(gaps, key=gaps.get)
+        print(f"spatial (c) Trainer, {config.stem} at 192x640 fp32 with arch.spatial_shards: "
+              f"{SPATIAL_S} on {SPATIAL_S} ranks (gloo, one card), from tame_weights: fit() "
+              f"{tr['s']:.1f} s, ms a step {' / '.join(f'{v:.2f}' for v in tr['ms'])}, launches "
+              f"over fit() {tr['launches']}; its validation against one process on its "
+              f"checkpoint: abs_rel_pp_gt {tr['metrics']['abs_rel_pp_gt']!r} vs "
+              f"{single['abs_rel_pp_gt']!r}, largest relative gap {gaps[worst]:.2e} ({worst}; "
+              f"bar 1e-5 relative + 1e-7 on every metric, as phase dist_trainer); on {gpu}",
+              flush=True)
     print(f"spatial: references and (b) {refs_s:.1f} s, the ranks' run after go "
           f"{ranks_s:.1f} s", flush=True)
     shutil.rmtree(SPATIAL_BUILD, ignore_errors=True)
     torch.cuda.empty_cache()
-    return ranks[0]["steps"][("pallas", True)]["launches"], timings
+    steps = ranks[0]["steps"]
+    return steps[("SupModelMF", "pallas", True, False)]["launches"], timings, {
+        "self-supervised": steps[("SelfSupModelMF", "pallas", True, False)]["launches"]}
 
 
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
@@ -4551,7 +4780,7 @@ def main() -> int:
     split = phase("spatial", phase_spatial, counters, gpu)
     if split is not None:
         for name in TRAIN_LAUNCHES_PALLAS:
-            if split[0][name] == 0:
+            if split[0][name] == 0 or split[2]["self-supervised"][name] == 0:
                 fail(f"the height-split path never launched {name}")
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):

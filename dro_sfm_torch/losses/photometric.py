@@ -8,6 +8,19 @@ by ``gamma ** (P - 1 - p)`` over predictions, plus the edge-aware smoothness
 and the optional perceptual term. Plain PyTorch: the warp is
 `ops/resample.py:bilinear_sample`, whose gradient reaches the coordinates
 through the tap weights (the context images take none).
+
+Under a height split (`parallel/spatial.py`) the images, the depths and the
+residuals are the band's rows. The warp samples the context views gathered
+to the whole height (3 channels, no gradient) at the band's own pixels,
+which `Camera` lifts at their global rows; SSIM and the vertical differences
+fetch their neighbours' rows; the clamp's statistics are summed over every
+process (the data and the spatial ranks); the reductions over pixels are
+`spatial.band_mean`s with the whole image's count (the smoothness's
+vertical term over (H - 1) W), and the smoothness's per-image mean of the
+inverse depth is summed over the group (`spatial.image_mean`). The
+perceptual net resizes to 224x224, which mixes rows across bands: it runs
+whole on every rank, on the target and the final warp gathered to the whole
+height, and its distance enters through `spatial.whole_term`.
 """
 from __future__ import annotations
 
@@ -24,6 +37,7 @@ from dro_sfm_torch.ops.depth_ops import inv2depth
 from dro_sfm_torch.ops.image import gradient_x, gradient_y
 from dro_sfm_torch.ops.resample import bilinear_sample
 from dro_sfm_torch.ops.ssim import ssim_loss
+from dro_sfm_torch.parallel import spatial
 from dro_sfm_torch.parallel.collectives import all_reduce_sum
 from dro_sfm_torch.parallel.mesh import process_count
 
@@ -60,7 +74,8 @@ def warp_context(image_ctx: torch.Tensor, inv_depths: torch.Tensor,
 
     image_ctx [B,N,H,W,3]; inv_depths [P,B,H,W,1]; pose_vecs [B,N,P,6];
     K [B,3,3] -> warped [P,B,N,H,W,3]. Prediction p warps with the pose of
-    the same prediction.
+    the same prediction. Under a height split the depths and the result are
+    the band's rows, ``image_ctx`` the whole height.
     """
     p, b = inv_depths.shape[0], inv_depths.shape[1]
     n = image_ctx.shape[1]
@@ -88,7 +103,9 @@ def _photometric_residual(est: torch.Tensor, ref: torch.Tensor,
     if cfg.clip_loss > 0.0:
         # Clamp at mean + clip * std, the statistics pooled over everything
         # but the prediction (0) and view (2) axes, the batch included (the
-        # global batch with several processes); std with ddof 0.
+        # global batch and the whole image with several processes: the sums
+        # run over every process, data and spatial ranks alike); std with
+        # ddof 0.
         dims = (1,) + tuple(range(3, res.ndim))
         if process_count() > 1:
             mean, std = _global_mean_std(res, dims)
@@ -118,14 +135,15 @@ def smoothness_loss(inv_depths: torch.Tensor, image: torch.Tensor,
     predictions progressive scaling has dropped, with a matching
     denominator."""
     p = inv_depths.shape[0]
-    mean_inv = inv_depths.mean(dim=(-3, -2, -1), keepdim=True)
+    h = spatial.image_rows(inv_depths.shape[-3])
+    mean_inv = spatial.image_mean(inv_depths, (-3, -2, -1), keepdim=True)
     norm = inv_depths / mean_inv.clamp_min(1e-6)
     dx = gradient_x(norm).abs()
     dy = gradient_y(norm).abs()
     wx = torch.exp(-gradient_x(image).abs().mean(dim=-1, keepdim=True))
     wy = torch.exp(-gradient_y(image).abs().mean(dim=-1, keepdim=True))
-    sx = (dx * wx[None]).mean(dim=tuple(range(1, dx.ndim)))          # [P]
-    sy = (dy * wy[None]).mean(dim=tuple(range(1, dy.ndim)))
+    sx = spatial.band_mean(dx * wx[None], range(1, dx.ndim))          # [P]
+    sy = spatial.band_mean(dy * wy[None], range(1, dy.ndim), rows=h - 1)
     idx = torch.arange(p, dtype=inv_depths.dtype, device=inv_depths.device)
     if cfg.smooth_finest_last:
         idx = (p - 1) - idx
@@ -133,6 +151,21 @@ def smoothness_loss(inv_depths: torch.Tensor, image: torch.Tensor,
     if mask is None:
         return per_pred.sum() / p
     return (per_pred * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def perceptual_term(percep_fn, image: torch.Tensor, warped: torch.Tensor) -> torch.Tensor:
+    """The mean of ``percep_fn(target, warp) -> [B*N,h,w,1]`` between the
+    target [B,H,W,3] and its warps [B,N,H,W,3], views folded into the batch.
+    Under a height split both are gathered to the whole height and the net
+    runs whole on every rank (its 224x224 resize mixes rows across bands);
+    the distance enters as a `spatial.whole_term`."""
+    final = spatial.gather_rows(warped, -3)                          # [B,N,H,W,3]
+    b, n = final.shape[0], final.shape[1]
+    tgt = spatial.gather_rows(image, -3)[:, None].expand_as(final)
+    with spatial.active(None):
+        distance = percep_fn(tgt.reshape(b * n, *final.shape[2:]),
+                             final.reshape(b * n, *final.shape[2:])).mean()
+    return spatial.whole_term(distance)
 
 
 def multiview_photometric_loss(
@@ -150,7 +183,8 @@ def multiview_photometric_loss(
     into the batch.
     """
     p = inv_depths.shape[0]
-    warped = warp_context(context, inv_depths, pose_vecs, K)        # [P,B,N,H,W,3]
+    warped = warp_context(spatial.gather_rows(context, 2), inv_depths, pose_vecs,
+                          K)                                        # [P,B,N,H,W,3]
     target = image[None, :, None]                                   # [1,B,1,H,W,3]
     residuals = _photometric_residual(warped, target, cfg)          # [P,B,N,H,W,C]
 
@@ -163,9 +197,10 @@ def multiview_photometric_loss(
     if cfg.photometric_reduce_op == "min":
         # A joint minimum over views and channels (with SSIM off the
         # residual keeps its 3 channels, and the minimum spans them).
-        per_pred = residuals.amin(dim=2).amin(dim=-1).mean(dim=(1, 2, 3))
+        per_pixel = residuals.amin(dim=2).amin(dim=-1, keepdim=True)   # [P,B,H,W,1]
+        per_pred = spatial.band_mean(per_pixel, (1, 2, 3, 4))
     elif cfg.photometric_reduce_op == "mean":
-        per_pred = residuals.mean(dim=tuple(range(1, residuals.ndim)))
+        per_pred = spatial.band_mean(residuals, range(1, residuals.ndim))
     else:
         raise ValueError(cfg.photometric_reduce_op)
 
@@ -186,10 +221,7 @@ def multiview_photometric_loss(
         metrics["smoothness_loss"] = smooth
         loss = loss + smooth
     if cfg.percep_loss_weight > 0.0 and percep_fn is not None:
-        b, n = context.shape[0], context.shape[1]
-        final_warp = warped[-1].reshape(b * n, *warped.shape[3:])
-        tgt = image[:, None].expand_as(context).reshape(b * n, *context.shape[2:])
-        percep = cfg.percep_loss_weight * percep_fn(tgt, final_warp).mean()
+        percep = cfg.percep_loss_weight * perceptual_term(percep_fn, image, warped[-1])
         metrics["percep_loss"] = percep
         loss = loss + percep
     return loss, metrics

@@ -64,8 +64,8 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm (eps 1e-5) in fp32, returning the input dtype, with flax's
-    train-mode semantics.
+    """BatchNorm (eps 1e-5) in fp32 (fp64 for an fp64 input, as flax
+    promotes), returning the input dtype, with flax's train-mode semantics.
 
     Train mode takes the batch mean and the *biased* variance over N, H and
     W in fp32, as flax does (``E[x^2] - E[x]^2`` clipped at 0), normalises
@@ -84,11 +84,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
-            return F.batch_norm(x.float(), self.running_mean, self.running_var,
+            return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(x.dtype)
-        xf = x.float()
         if process_count() > 1:
             mean, var = _global_moments(xf)
         else:

@@ -4,8 +4,10 @@ PyTorch counterpart of `dro_sfm_tpu/models/sfm.py`, for the eight task
 names: the multi-frame ones run `DepthPoseNet`, the single-frame ones
 `SingleFrameNet`; the loss is supervised (``Sup*``), photometric
 (``SelfSup*``), a weighted sum of both (``SemiSup*``) or a zero connected to
-the outputs (``SfmModel*``); under a height split only ``SupModelMF``
-(`check_spatial_task`). The random horizontal flip flips the images
+the outputs (``SfmModel*``), each under a height split too, on row bands
+(`parallel/spatial.py`: every loss term has the whole image's value and
+each rank the band's share of its gradient; `SfmModelConfig.deepest_stride`
+sets the bands' height rule). The random horizontal flip flips the images
 and the intrinsics (fx -> -fx, cx -> W - cx), which re-parameterises the
 pixels without changing the 3D geometry, so the predicted poses stay valid
 and only the depth maps are flipped back. The decision is one draw from an
@@ -29,7 +31,6 @@ from dro_sfm_torch.losses.supervised import (
 )
 from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
 from dro_sfm_torch.ops.image import flip_intrinsics, flip_lr
-from dro_sfm_torch.parallel import spatial
 
 MF_MODEL_NAMES = ("SfmModelMF", "SelfSupModelMF", "SupModelMF",
                   "SemiSupModelMFPose")
@@ -124,6 +125,13 @@ class SfmModelConfig:
         return keys
 
     @property
+    def deepest_stride(self) -> int:
+        """The coarsest stride of the net's maps, which a height split's
+        bands must reach (`spatial.Band`): 32 for the single-frame ResNet-18
+        pyramid, 16 for `DepthPoseNet`'s encoder."""
+        return 32 if self.single_frame else 16
+
+    @property
     def supervised(self) -> SupervisedLossConfig:
         # The single-frame scales are weighted uniformly, the multi-frame
         # refinement iterations with the gamma decay.
@@ -155,22 +163,6 @@ class SfmModelConfig:
             max_depth=self.max_depth, mixed_precision=self.mixed_precision,
             warp_impl=self.warp_impl, sep_conv=self.sep_conv, remat=self.remat,
             unroll=self.scan_unroll, device=device, generator=generator)
-
-
-# The tasks a height split (``arch.spatial_shards`` > 1) runs: every loss
-# term of ``SupModelMF`` is a mean over pixels of the band
-# (`losses/supervised.py`); the photometric loss, the single-frame nets and
-# the perceptual net are ROADMAP A14.
-SPATIAL_TASKS = ("SupModelMF",)
-
-
-def check_spatial_task(name: str) -> None:
-    """Raise NotImplementedError unless task ``name`` runs under a height
-    split."""
-    if name not in SPATIAL_TASKS:
-        raise NotImplementedError(
-            f"{name} with arch.spatial_shards > 1 is not ported: the height split "
-            f"runs {SPATIAL_TASKS} (ROADMAP A14)")
 
 
 def draw_flip(generator: torch.Generator, flip_lr_prob: float) -> bool:
@@ -217,8 +209,6 @@ def compute_loss(cfg: SfmModelConfig, output: Dict[str, torch.Tensor],
     photometric (only when ``w < 1``) plus ``w`` supervised, ``w`` being
     ``supervised_loss_weight``. ``SfmModel*`` give a zero that depends on
     the outputs, so that its backward gives zero gradients."""
-    if spatial.current() is not None:
-        check_spatial_task(cfg.name)
     inv_depths = output["inv_depths"]
     pose_vecs = output["pose_vecs"]
     K = batch["intrinsics"]

@@ -8,6 +8,15 @@ follow the flax tree (``depth_net.encoder.layer1_block0``,
 ``depth_net.decoder.upconv_4_0``, ``pose_net.squeeze``, ...), so converted
 weights load leaf by leaf. Everything runs in fp32; BatchNorm follows the
 JAX package's train-mode semantics (`layers.BatchNorm2d`).
+
+Under a height split (`parallel/spatial.py`, a band down to stride 32
+active) every map is the band's rows: the convolutions and the stem's
+max-pool fetch their halos (`layers.Conv2d`, `encoder.max_pool`), the
+decoder's nearest x2 gives the band's rows at the finer stride
+(`ops/image.py:upsample_nearest2`), so that the skip connections line up,
+the pose net's mean is the whole image's (`spatial.plane_mean`), and the
+resize of each scale to full resolution stays inside the band, whose first
+row is a multiple of 8.
 """
 from __future__ import annotations
 
@@ -17,10 +26,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dro_sfm_torch.models.encoder import BasicBlock
+from dro_sfm_torch.models.encoder import BasicBlock, max_pool
 from dro_sfm_torch.models.layers import BatchNorm2d, Conv2d
 from dro_sfm_torch.ops.depth_ops import disp_to_depth
-from dro_sfm_torch.ops.image import resize_nearest
+from dro_sfm_torch.ops.image import resize_nearest, upsample_nearest2
+from dro_sfm_torch.parallel import spatial
 from dro_sfm_torch.utils.device import resolve_device
 
 ENCODER_WIDTHS = (64, 64, 128, 256, 512)     # channels at strides 2, 4, 8, 16, 32
@@ -56,7 +66,7 @@ class ResNetFeatures(nn.Module):
     def forward(self, x: torch.Tensor):
         y = F.relu(self.bn1(self.conv1(x)))
         feats = [y]
-        y = F.max_pool2d(y, 3, stride=2, padding=1)
+        y = max_pool(y)
         for li, blocks in enumerate(self.layers, 1):
             for bi in range(blocks):
                 y = getattr(self, f"layer{li}_block{bi}")(y)
@@ -91,8 +101,7 @@ class DepthDecoder(nn.Module):
         x = feats[-1]
         for i in range(4, -1, -1):
             x = F.elu(getattr(self, f"upconv_{i}_0")(x))
-            h, w = x.shape[-2], x.shape[-1]
-            x = _nchw(resize_nearest(_nhwc(x), (2 * h, 2 * w)))
+            x = _nchw(upsample_nearest2(_nhwc(x)))
             if i > 0:
                 x = torch.cat([x, feats[i - 1]], dim=1)
             x = F.elu(getattr(self, f"upconv_{i}_1")(x))
@@ -138,7 +147,7 @@ class PoseResNet(nn.Module):
         y = F.relu(self.squeeze(y))
         y = F.relu(self.pose_0(y))
         y = F.relu(self.pose_1(y))
-        out = 0.01 * self.pose_2(y).mean(dim=(-2, -1))           # [B*N, 6] = [r | t]
+        out = 0.01 * spatial.plane_mean(self.pose_2(y))          # [B*N, 6] = [r | t]
         return torch.cat([out[:, 3:], out[:, :3]], dim=-1).reshape(b, n, 6)
 
 
@@ -174,8 +183,21 @@ class SingleFrameNet(nn.Module):
         h, w = target.shape[1], target.shape[2]
         if last_only:
             inv_depths = inv_depths[:1]
-        stacked = torch.stack([resize_nearest(_nhwc(d), (h, w))
-                               for d in inv_depths[::-1]])
+        stacked = torch.stack([_full_resolution(_nhwc(d), h, w) for d in inv_depths[::-1]])
         pose = self.pose_net(target, refs)
         pose_vecs = pose[:, :, None].expand(*pose.shape[:2], stacked.shape[0], 6)
         return {"inv_depths": stacked, "pose_vecs": pose_vecs}
+
+
+def _full_resolution(d: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """A decoder scale [B,h_s,w_s,1] resized (nearest) to [B,h,w,1]. Under
+    a height split its band's rows: the band at stride s starts at r0 / s,
+    r0 being a multiple of 8 (H/8 divides by S), so the band's rows read
+    only its own."""
+    band = spatial.current()
+    if band is not None:
+        s = band.stride_of(d.shape[-3])
+        r0 = band.rows(1)[0]
+        if r0 % s:
+            raise ValueError(f"band {band.index}: rows from {r0} are not aligned at stride {s}")
+    return resize_nearest(d, (h, w))

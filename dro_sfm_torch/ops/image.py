@@ -1,12 +1,19 @@
 """Image resizes, gradients, flips and the SSIM pool on channel-last tensors.
 
-PyTorch counterpart of `dro_sfm_tpu/ops/image.py`.
+PyTorch counterpart of `dro_sfm_tpu/ops/image.py`. Under a height split
+(`parallel/spatial.py`) the operators that read rows beyond a band fetch
+them: `gradient_y` the first row of the band below (the last band gives one
+difference fewer, as the whole image gives H - 1), the SSIM pool one row
+each side (`reflect_rows`: reflected at the image's edges), and the
+decoder's nearest x2 (`upsample_nearest2`) the row above where a band at
+the finer stride starts on an odd row.
 """
 from __future__ import annotations
 
 import torch
 
 from dro_sfm_torch.ops.resample import bilinear_sample
+from dro_sfm_torch.parallel import spatial
 
 
 def resize_bilinear(image: torch.Tensor, shape,
@@ -63,13 +70,37 @@ def resize_nearest(image: torch.Tensor, shape) -> torch.Tensor:
     return image.index_select(-3, ys).index_select(-2, xs)
 
 
+def upsample_nearest2(image: torch.Tensor) -> torch.Tensor:
+    """``resize_nearest(image, (2H, 2W))`` of [..., H, W, C]; under a
+    height split the band's rows at half the stride of ``image``'s, which
+    read the row above the band where that band starts on an odd row (the
+    last band's rows end at the image's rows at that stride)."""
+    band = spatial.current()
+    h, w = image.shape[-3], image.shape[-2]
+    if band is None:
+        return resize_nearest(image, (2 * h, 2 * w))
+    s = band.stride_of(h)
+    first = {band.rows(s, j): band.rows(s // 2, j)[0] // 2 for j in range(band.shards)}
+    ext = spatial.fetch_rows(image, -3, lambda r0, r1: (first[(r0, r1)], r1))
+    o0, o1 = band.rows(s // 2)
+    ys = torch.arange(o0, o1, device=image.device) // 2 - first[band.rows(s)]
+    xs = torch.arange(2 * w, device=image.device) // 2
+    return ext.index_select(-3, ys).index_select(-2, xs)
+
+
 def gradient_x(image: torch.Tensor) -> torch.Tensor:
     """Horizontal forward difference [..., H, W-1, C]."""
     return image[..., :, :-1, :] - image[..., :, 1:, :]
 
 
 def gradient_y(image: torch.Tensor) -> torch.Tensor:
-    """Vertical forward difference [..., H-1, W, C]."""
+    """Vertical forward difference [..., H-1, W, C]; under a height split
+    the band's differences, with the first row of the band below (the last
+    band's one fewer)."""
+    band = spatial.current()
+    if band is not None:
+        n = band.global_rows(band.stride_of(image.shape[-3]))
+        image = spatial.fetch_rows(image, -3, lambda r0, r1: (r0, min(r1 + 1, n)))
     return image[..., :-1, :, :] - image[..., 1:, :, :]
 
 
@@ -80,19 +111,33 @@ def _reflect_pad1(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([x.narrow(dim, 1, 1), x, x.narrow(dim, n - 2, 1)], dim=dim)
 
 
-def avg_pool_3x3_reflect(x: torch.Tensor) -> torch.Tensor:
-    """3x3 mean filter with reflection padding, stride 1, on [..., H, W, C]
-    of any rank: the SSIM building block. The nine taps are summed in
-    row-major order, the order of the JAX package's window sum, so the two
-    agree bit for bit in fp32."""
-    h, w = x.shape[-3], x.shape[-2]
-    xp = _reflect_pad1(_reflect_pad1(x, -3), -2)
+def reflect_rows(x: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, C] with one row each side reflected; under a height split
+    the band with its neighbours' rows (`spatial.reflect_halo`)."""
+    if spatial.current() is None:
+        return _reflect_pad1(x, -3)
+    return spatial.reflect_halo(x, -3)
+
+
+def avg_pool_3x3_rows(xp: torch.Tensor) -> torch.Tensor:
+    """The 3x3 mean filter of [..., H + 2, W, C] rows already widened by
+    one each side (`reflect_rows`), reflection-padded across: [..., H, W, C].
+    The nine taps are summed in row-major order, the order of the JAX
+    package's window sum, so the two agree bit for bit in fp32."""
+    h, w = xp.shape[-3] - 2, xp.shape[-2]
+    xp = _reflect_pad1(xp, -2)
     total = None
     for dy in range(3):
         for dx in range(3):
             tap = xp[..., dy:dy + h, dx:dx + w, :]
             total = tap if total is None else total + tap
     return total / 9.0
+
+
+def avg_pool_3x3_reflect(x: torch.Tensor) -> torch.Tensor:
+    """3x3 mean filter with reflection padding, stride 1, on [..., H, W, C]
+    of any rank: the SSIM building block (`avg_pool_3x3_rows`)."""
+    return avg_pool_3x3_rows(reflect_rows(x))
 
 
 def flip_lr(image: torch.Tensor) -> torch.Tensor:

@@ -17,34 +17,42 @@ The nets carry no layout. The training and evaluation steps make the band
 the autograd threads too); each operator that reads rows beyond its own asks
 `current()` and, with no band, runs as it does in one process, bit for bit.
 An operator finds the stride of its input from the input's height
-(`Band.stride_of`): with k = H / 8S >= 2 a band holds 8k, 4k, 2k, k and
-ceil(k/2) or floor(k/2) rows at strides 1 to 16, at least one and all
-distinct. At H = 8S half the bands would hold no row at stride 16, which
-`Band` refuses. Each (band, stride, rows needed) has one fetch plan, made on
-its first call and kept (`_fetch_plan`); a fetch copies its rows as
-contiguous runs, with no index tensor and no host synchronisation.
+(`Band.stride_of`), at the strides 1 to ``deepest`` of the band's net (16:
+`DepthPoseNet`'s encoder; 32: the ResNet-18 pyramid of the single-frame
+nets). With H/8 divisible by S, every band holds a row and a distinct number
+of rows at each of those strides exactly when H >= deepest * S (k = H / 8S
+>= deepest / 8: 8k, 4k, 2k, k rows at strides 1 to 8, then about k/2 and
+k/4), which `Band` enforces. An operator whose rows are not a band's at any
+stride (H - 1 rows after a vertical difference) passes its stride or its row
+count and never guesses. Each (band, stride, rows needed) has one fetch
+plan, made on its first call and kept (`_fetch_plan`); a fetch copies its
+rows as contiguous runs, with no index tensor and no host synchronisation.
 
 The exchanges, differentiable, on the band's group:
 - `fetch_rows`: the rows ``[a, b)`` an operator needs beyond its band, from
   the ranks that own them, with ``fill`` outside the image; its backward
-  returns the fetched rows' gradient to their owners, which add it;
+  returns the fetched rows' gradient to their owners, which add it
+  (`halo`, `conv_rows`, and `reflect_halo`, whose rows beyond the image are
+  the reflection that the edge band holds itself);
 - `gather_rows`: the whole height; its backward sums the gradient over the
   group and keeps the own band;
-- `spatial_sum`: the sum over the group (the pose head's mean); its
-  gradient is the sum of the ranks' gradients, since every rank's value
-  feeds every rank's band;
+- `spatial_sum`: the sum over the group (`image_mean`: the pose heads' and
+  the smoothness's means over the image); its gradient is the sum of the
+  ranks' gradients, since every rank's value feeds every rank's band;
 - `band_mean`: a loss's mean over pixels from the band's share (the band's
   sum over the image's pixel count), summed over the group; its gradient on
   each rank is the share's own, so that the ranks' gradients sum to the
   whole image's (`parallel/collectives.py:average_gradients` sums them over
-  the spatial ranks).
+  the spatial ranks); `whole_term` is the same rule for a term that every
+  rank computes whole (the perceptual distance on gathered images): its
+  value, with 1/S of its gradient on each rank.
 
 Each is an ``all_reduce`` of sums, the one collective that gloo runs on CUDA
 tensors as well as NCCL does: `fetch_rows` and `gather_rows` reduce a
 zero-filled buffer that each rank fills with the rows it owns, so their
 results are exact in any dtype. Halos are a few rows and the gathered maps
-are at stride 8. Each runs inside a `torch.profiler.record_function` span
-``collective:<function>``.
+are at stride 8 (or 3-channel images). Each runs inside a
+`torch.profiler.record_function` span ``collective:<function>``.
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ import torch.distributed as dist
 from dro_sfm_torch.parallel.collectives import _span, all_reduce_sum
 from dro_sfm_torch.parallel.mesh import Layout
 
-STRIDES = (1, 2, 4, 8, 16)
+STRIDES = (1, 2, 4, 8, 16, 32)
 # The height dimension of each image-like batch key ([B,H,W,C] or
 # [B,N,H,W,C]), as the JAX package's `mesh.py:_SPATIAL_H_DIM`; every other
 # key (intrinsics, poses, ...) stays whole on every spatial rank.
@@ -73,19 +81,25 @@ def _ceil_div(a: int, b: int) -> int:
 
 class Band:
     """Rank ``index``'s band of an image of ``height`` rows split over the
-    ``shards`` ranks of ``group`` (None: the default group)."""
+    ``shards`` ranks of ``group`` (None: the default group), for a net whose
+    maps go down to stride ``deepest`` (16 or 32)."""
 
-    def __init__(self, height: int, shards: int, index: int, group=None):
-        height, shards, index = int(height), int(shards), int(index)
+    def __init__(self, height: int, shards: int, index: int, group=None,
+                 deepest: int = 16):
+        height, shards, index, deepest = int(height), int(shards), int(index), int(deepest)
+        if deepest not in (16, 32):
+            raise ValueError(f"deepest stride {deepest}: 16 or 32")
         if height % 8 or (height // 8) % shards:
             raise ValueError(f"image height {height}: H/8 must divide by "
                              f"arch.spatial_shards={shards}")
-        if height < 16 * shards:
+        if height < deepest * shards:
             raise ValueError(
                 f"image height {height} over arch.spatial_shards={shards}: a band needs at "
-                "least 2 rows at stride 8 (H >= 16 S); with one, half the bands would hold "
-                "no row at stride 16")
+                f"least {deepest // 8} rows at stride 8 (H >= {deepest} S), or some band "
+                f"would hold no row, or two strides' maps the same number of rows, down to "
+                f"stride {deepest}")
         self.height, self.shards, self.index, self.group = height, shards, index, group
+        self.strides = tuple(s for s in STRIDES if s <= deepest)
 
     def rows(self, stride: int, index: Optional[int] = None) -> Tuple[int, int]:
         """Band ``index``'s (default this rank's) global rows [r0, r1) at
@@ -100,7 +114,7 @@ class Band:
 
     def stride_of(self, local_rows: int) -> int:
         """The stride at which this rank's band holds ``local_rows`` rows."""
-        for s in STRIDES:
+        for s in self.strides:
             r0, r1 = self.rows(s)
             if r1 - r0 == local_rows:
                 return s
@@ -108,13 +122,15 @@ class Band:
                          f"{self.shards} holds {local_rows} rows")
 
 
-def band_for(layout: Optional[Layout], local_height: int) -> Optional[Band]:
+def band_for(layout: Optional[Layout], local_height: int,
+             deepest: int = 16) -> Optional[Band]:
     """The band of this rank for a batch whose images hold ``local_height``
-    rows here (None without a split)."""
+    rows here, and a net down to stride ``deepest`` (None without a
+    split)."""
     if layout is None:
         return None
     return Band(local_height * layout.spatial, layout.spatial, layout.spatial_index,
-                layout.spatial_group)
+                layout.spatial_group, deepest)
 
 
 def split_rows(batch: Dict, layout: Optional[Layout], keys=tuple(SPATIAL_H_DIM)) -> Dict:
@@ -217,12 +233,16 @@ def _fetch_plan(height: int, shards: int, index: int, stride: int,
 
 def _buffer_like(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
     """Zeros shaped as ``x`` with ``rows`` along ``dim``: channel-last
-    where ``x`` is a channel-last NCHW view (a one-channel map too), so that
-    a convolution on the fetched rows picks the layout, and the algorithm,
-    that it picks on the band; else contiguous (NCCL reduces either)."""
+    where ``x`` is an NCHW view whose channels are innermost (a one-channel
+    map too, and a band's rows sliced from a whole batch, whose batch stride
+    is the whole image's), so that a convolution on the fetched rows picks
+    the layout, and the algorithm, that it picks on the band; else
+    contiguous (NCCL reduces either). On NCHW buffers cuDNN took a workspace
+    larger than the rest of a rank's memory for the single-frame decoder's
+    convolutions."""
     shape = list(x.shape)
     shape[dim] = rows
-    if x.ndim == 4 and x.stride(1) == 1 and x.is_contiguous(memory_format=torch.channels_last):
+    if x.ndim == 4 and x.stride(1) == 1:
         return torch.empty(shape, dtype=x.dtype, device=x.device,
                            memory_format=torch.channels_last).zero_()
     return x.new_zeros(shape)
@@ -296,6 +316,25 @@ def halo(x: torch.Tensor, dim: int, above: int, below: int,
     return fetch_rows(x, dim, lambda r0, r1: (r0 - above, r1 + below), fill)
 
 
+def reflect_halo(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``'s band widened by one row each side along ``dim``: the
+    neighbours' rows, and beyond the image's top and bottom edges their
+    reflection (rows 1 and n - 2, the edge element not repeated, as
+    ``jnp.pad(mode="reflect")``), which the edge band holds itself (a band
+    holds at least 16 rows at stride 1)."""
+    band = current()
+    dim = dim % x.ndim
+    stride = band.stride_of(x.shape[dim])
+    n = band.global_rows(stride)
+    out = fetch_rows(x, dim, lambda r0, r1: (max(r0 - 1, 0), min(r1 + 1, n)))
+    r0, r1 = band.rows(stride)
+    if r0 == 0:
+        out = torch.cat([x.narrow(dim, 1, 1), out], dim=dim)
+    if r1 == n:
+        out = torch.cat([out, x.narrow(dim, x.shape[dim] - 2, 1)], dim=dim)
+    return out
+
+
 def conv_rows(x: torch.Tensor, kernel: int, stride: int, pad: int,
               fill: float = 0.0) -> torch.Tensor:
     """The input rows (dim 2 of NCHW ``x``) that a window of ``kernel`` rows,
@@ -344,6 +383,18 @@ def spatial_sum(x: torch.Tensor) -> torch.Tensor:
     return x if band is None else all_reduce_sum(x, group=band.group)
 
 
+def _image_count(x: torch.Tensor, dims: Tuple[int, ...], rows_dim: int, band: Band,
+                 rows: Optional[int]) -> int:
+    """The whole image's element count over ``dims`` of ``x``, whose
+    ``rows_dim`` holds a band's rows (``rows`` in the whole image, by default
+    those of the stride its height gives)."""
+    if rows_dim not in dims:
+        raise ValueError(f"a mean over {dims} of a band must include the rows (dim {rows_dim})")
+    if rows is None:
+        rows = band.global_rows(band.stride_of(x.shape[rows_dim]))
+    return math.prod(rows if d == rows_dim else x.shape[d] for d in dims)
+
+
 class _ShareTotal(torch.autograd.Function):
 
     @staticmethod
@@ -358,28 +409,57 @@ class _ShareTotal(torch.autograd.Function):
         return g, None
 
 
-def band_mean(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+def band_mean(x: torch.Tensor, dims: Sequence[int], rows: Optional[int] = None) -> torch.Tensor:
     """``x.mean(dims)`` of the whole image, on every rank of the group: the
-    band's sum over the image's count (the rows are dim -3, channel-last),
-    summed over the group; its gradient on each rank is the band's share's.
-    Without a band, ``x.mean(dims)``."""
+    band's sum over the image's count (the rows are dim -3, channel-last;
+    ``rows`` of them in the whole image, by default those of the stride the
+    band's height gives), summed over the group; its gradient on each rank
+    is the band's share's. Without a band, ``x.mean(dims)``."""
     band = current()
     dims = tuple(d % x.ndim for d in dims)
     if band is None:
         return x.mean(dim=dims)
-    rows = x.ndim - 3
-    if rows not in dims:
-        raise ValueError(f"band_mean over {dims} must include the rows (dim {rows})")
-    count = math.prod(band.global_rows(band.stride_of(x.shape[d])) if d == rows
-                      else x.shape[d] for d in dims)
+    count = _image_count(x, dims, x.ndim - 3, band, rows)
     return _ShareTotal.apply(x.sum(dim=dims) / count, band.group)
+
+
+class _WholeTerm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, shards):
+        ctx.shards = shards
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.shards, None
+
+
+def whole_term(x: torch.Tensor) -> torch.Tensor:
+    """A loss term that every rank of the group computes whole (from
+    gathered rows): its value, with 1/S of its gradient on each rank, so that
+    the ranks' gradients sum to the whole's, as `band_mean`'s shares do.
+    ``x`` itself without a band."""
+    band = current()
+    return x if band is None else _WholeTerm.apply(x, band.shards)
+
+
+def image_mean(x: torch.Tensor, dims: Sequence[int], rows_dim: int = -3,
+               keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dims)`` of the whole image, on every rank of the group, for
+    a value that feeds every rank's band: the band's sums summed over the
+    group (`spatial_sum`, whose gradient is the sum of the ranks'), over the
+    image's count; ``rows_dim`` holds the rows. Without a band,
+    ``x.mean(dims)``."""
+    band = current()
+    dims = tuple(d % x.ndim for d in dims)
+    if band is None:
+        return x.mean(dim=dims, keepdim=keepdim)
+    count = _image_count(x, dims, rows_dim % x.ndim, band, None)
+    return spatial_sum(x.sum(dim=dims, keepdim=keepdim)) / count
 
 
 def plane_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean over (H, W) of NCHW ``x`` over the whole image, on every
-    rank of the group (`spatial_sum` of the band's sums)."""
-    band = current()
-    if band is None:
-        return x.mean(dim=(-2, -1))
-    rows = band.global_rows(band.stride_of(x.shape[-2]))
-    return spatial_sum(x.sum(dim=(-2, -1))) / (rows * x.shape[-1])
+    rank of the group (`image_mean`)."""
+    return image_mean(x, (-2, -1), rows_dim=-2)

@@ -20,9 +20,10 @@ Under a height split (`parallel/mesh.py:Layout`, ``arch.spatial_shards`` =
 S > 1) each process holds one band of rows of its data shard's samples
 (`parallel/spatial.py:split_rows`): both steps make the band `active`
 around the forward and the backward (the image is S times the batch's
-rows), the training step's gradients are summed over the spatial ranks and
-averaged over the data shards, and the evaluation step gathers the
-predicted depth (and the ground truth) to full height before its metrics.
+rows, the bands reaching the net's deepest stride), the training step's
+gradients are summed over the spatial ranks and averaged over the data
+shards, and the evaluation step gathers the predicted depth to full height
+before its metrics (the ground truth comes whole). Every task runs so.
 """
 from __future__ import annotations
 
@@ -94,7 +95,9 @@ def make_train_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
                 and model_cfg.flip_lr_prob > 0.0:
             do_flip = broadcast_flag(draw_flip(generator, model_cfg.flip_lr_prob))
         optimizer.zero_grad()
-        with spatial.active(spatial.band_for(current_layout(), batch["rgb"].shape[1])):
+        band = spatial.band_for(current_layout(), batch["rgb"].shape[1],
+                                model_cfg.deepest_stride)
+        with spatial.active(band):
             loss, (_, metrics) = forward_and_loss(model_cfg, net, batch, generator,
                                                   progress=progress, do_flip=do_flip,
                                                   percep_fn=percep_fn)
@@ -131,7 +134,8 @@ def make_eval_step(model_cfg: SfmModelConfig, net: torch.nn.Module,
         batch = {k: torch.as_tensor(batch[k]).to(device=device, dtype=torch.float32)
                  for k in EVAL_KEYS if k in batch}
         was_training = net.training
-        band = spatial.band_for(current_layout(), batch["rgb"].shape[1])
+        band = spatial.band_for(current_layout(), batch["rgb"].shape[1],
+                                model_cfg.deepest_stride)
         try:
             with torch.inference_mode(), spatial.active(band):
                 return _evaluate(net, batch, metrics_cfg, demon_scaling)

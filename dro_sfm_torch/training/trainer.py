@@ -26,8 +26,9 @@ shards of S spatial ranks (`parallel/mesh.py:Layout`, the JAX package's
 (data, spatial) mesh): each epoch is sharded over the data index, and each
 spatial rank keeps its band of rows of the image keys (`parallel/spatial.py`),
 in training and in validation, whose metrics count each sample once.
-Checkpoints hold no layout and resume with any S. The split runs
-``SupModelMF`` only (the other tasks are ROADMAP A14).
+Checkpoints hold no layout and resume with any S. Every task runs the
+split; the single-frame tasks need H >= 32 S, the multi-frame ones H >= 16 S
+(`SfmModelConfig.deepest_stride`).
 """
 from __future__ import annotations
 
@@ -43,11 +44,7 @@ from dro_sfm_torch.data import make_loader, setup_dataset
 from dro_sfm_torch.data.loader import device_prefetch, to_device
 from dro_sfm_torch.loggers import NoOpLogger, make_logger
 from dro_sfm_torch.losses.photometric import PhotometricLossConfig
-from dro_sfm_torch.models.sfm import (
-    SfmModelConfig,
-    check_spatial_task,
-    resolve_memory_policy,
-)
+from dro_sfm_torch.models.sfm import SfmModelConfig, resolve_memory_policy
 from dro_sfm_torch.parallel import spatial
 from dro_sfm_torch.parallel.collectives import (
     all_reduce_metric_sums,
@@ -205,13 +202,14 @@ class Trainer:
 
     def _make_layout(self, spatial_shards: int):
         """The (data, spatial) layout of ``arch.spatial_shards`` (None for
-        1), with the JAX package's checks as ValueError: H/8 divides by S
-        (`spatial.Band`) and S divides the world size (`make_layout`); a task
-        the split does not run raises NotImplementedError first."""
+        1), with the JAX package's checks as ValueError: H/8 divides by S and
+        every band reaches the net's deepest stride, H >= 16 S (32 S for the
+        single-frame tasks; `spatial.Band`), and S divides the world size
+        (`make_layout`)."""
         if spatial_shards == 1:
             return None
-        check_spatial_task(self.model_cfg.name)
-        spatial.Band(self.cfg.datasets.augmentation.image_shape[0], spatial_shards, 0)
+        spatial.Band(self.cfg.datasets.augmentation.image_shape[0], spatial_shards, 0,
+                     deepest=self.model_cfg.deepest_stride)
         return make_layout(spatial_shards)
 
     # ------------------------------------------------------------------

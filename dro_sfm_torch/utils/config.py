@@ -127,7 +127,7 @@ DEFAULTS: Dict[str, Any] = {
     "name": "",
     "debug": False,
     # spatial_shards: image heights split over this many devices per
-    # data-parallel replica (not ported: ROADMAP A8).
+    # data-parallel replica (`parallel/spatial.py`), for every task.
     "arch": {"seed": 42, "min_epochs": 1, "max_epochs": 50,
              "spatial_shards": 1},
     "checkpoint": {

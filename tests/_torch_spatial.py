@@ -8,7 +8,10 @@ the whole output. `run_op` runs it on one band (or on the whole tensor with
 no band) and returns the output, the inputs' gradients and the parameters'
 gradients of ``sum(output * cotangent)``: a rank takes its band's rows of the
 cotangent, or 1/S of it where the output is whole on every rank (each rank
-holds a share of that objective, so the shares' gradients sum to the whole's).
+holds a share of that objective, so the shares' gradients sum to the whole's)
+unless the operator shares its gradient itself (``share``: a loss term
+through `spatial.band_mean` or `spatial.whole_term`). A case's bands reach
+stride ``deepest`` (default 16).
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ CONVS = {"conv3x3": (4, 5, 3, 1, 1, True), "conv7x7s2": (3, 4, 7, 2, 3, False),
 
 def build_op(case):
     """(module or None, forward(module, inputs)) of an operator case."""
-    from dro_sfm_torch.models import encoder, layers, update
+    from dro_sfm_torch.losses import photometric
+    from dro_sfm_torch.models import encoder, layers, percep, single_frame, update
     from dro_sfm_torch.models.depth_pose_net import warp_cost
+    from dro_sfm_torch.ops import image, ssim
     from dro_sfm_torch.ops.upsample import convex_upsample
     from dro_sfm_torch.parallel import spatial
     name, meta = case["name"], case.get("meta", {})
@@ -62,6 +67,42 @@ def build_op(case):
     elif name == "encoder":
         module = encoder.ResNetEncoder(meta["out"]).train()
         fwd = lambda m, i: m(i["x"])                                    # noqa: E731
+    elif name == "reflect_pool":
+        fwd = lambda m, i: image.avg_pool_3x3_reflect(i["x"])           # noqa: E731
+    elif name == "ssim":
+        fwd = lambda m, i: ssim.ssim_loss(i["x"], i["y"])               # noqa: E731
+    elif name == "gradient_y":
+        fwd = lambda m, i: image.gradient_y(i["x"])                     # noqa: E731
+    elif name.startswith("nearest_x2"):
+        fwd = lambda m, i: image.upsample_nearest2(i["x"])              # noqa: E731
+    elif name == "smoothness":
+        def fwd(m, i):
+            return photometric.smoothness_loss(i["inv_depths"], i["image"],
+                                               photometric.PhotometricLossConfig())
+    elif name.startswith("photometric_"):
+        cfg = photometric.PhotometricLossConfig(**meta["cfg"])
+        if cfg.percep_loss_weight > 0:
+            module = percep.PercepNet(resize=False, device="cpu")
+
+        def fwd(m, i):
+            loss, _ = photometric.multiview_photometric_loss(
+                i["image"], i["context"], i["inv_depths"], i["K"], i["pose_vecs"], cfg,
+                percep_fn=m, progress=meta["progress"])
+            return loss
+    elif name == "percep_share":
+        module = percep.PercepNet(resize=False, device="cpu")
+        fwd = lambda m, i: photometric.perceptual_term(m, i["image"], i["warps"])  # noqa: E731
+    elif name == "depth_decoder":
+        module = single_frame.DepthDecoder()
+
+        def fwd(m, i):
+            feats = [i[f"f{k}"] for k in range(5)]
+            h, w = 2 * feats[0].shape[-2], 2 * feats[0].shape[-1]
+            return torch.stack([single_frame._full_resolution(single_frame._nhwc(d), h, w)
+                                for d in m(feats)[::-1]])
+    elif name == "pose_resnet":
+        module = single_frame.PoseResNet().train()
+        fwd = lambda m, i: m(i["target"], i["refs"])                    # noqa: E731
     else:
         raise KeyError(name)
     if module is not None:
@@ -92,12 +133,13 @@ def run_op(case, band=None):
         if k not in case.get("fixed", ()):
             v.requires_grad_()
     w = torch.from_numpy(np.ascontiguousarray(band_rows(case["w"], case["out"], band)))
-    if band is not None and case["out"] is None:
+    if band is not None and case["out"] is None and not case.get("share"):
         w = w / band.shards
     with spatial.active(band):
         y = fwd(module, inputs)
         (y.float() * w).sum().backward()
-    params = {} if module is None else {k: p.grad.clone() for k, p in module.named_parameters()}
+    params = {} if module is None else {k: p.grad.clone() for k, p in module.named_parameters()
+                                        if p.grad is not None}
     buffers = {} if module is None else {k: b.clone() for k, b in module.named_buffers()}
     return (y.detach(), {k: v.grad for k, v in inputs.items() if v.grad is not None},
             params, buffers)
@@ -110,25 +152,34 @@ def ops_rank(rank, world, cases, out_dir):
     torch.manual_seed(0)
     out = {}
     for key, case in cases.items():
-        out[key] = run_op(case, Band(case["height"], world, rank))
+        out[key] = run_op(case, Band(case["height"], world, rank,
+                                     deepest=case.get("deepest", 16)))
     save(out_dir, rank, out)
 
 
 # -- the step ------------------------------------------------------------------------
+
+def band_shard(batch, layout):
+    """This rank's data shard's band of the numpy ``batch`` as tensors (the
+    whole batch without ``layout``)."""
+    from dro_sfm_torch.parallel import spatial
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if layout is None:
+        return batch
+    per = batch["rgb"].shape[0] // layout.data
+    lo = layout.data_index * per
+    return spatial.split_rows({k: v[lo:lo + per] for k, v in batch.items()}, layout)
+
 
 def split_step_rank(rank, world, job, out_dir):
     """The port's training step on this rank's data shard's band under
     ``job["spatial"]`` = S (D = world / S), rank 0 drawing the flip
     ``job["flip"]`` and the others the opposite; then, with ``job["forward"]``,
     the loss of a train-mode forward on ``job["forward"]``'s batch."""
-    from dro_sfm_torch.parallel import spatial
     from dro_sfm_torch.parallel.mesh import make_layout
     from tests._torch_dist import flip_generator_for, port_step
     layout = make_layout(job["spatial"])
-    batch = {k: torch.from_numpy(v) for k, v in job["batch"].items()}
-    per = batch["rgb"].shape[0] // layout.data
-    lo = layout.data_index * per
-    shard = spatial.split_rows({k: v[lo:lo + per] for k, v in batch.items()}, layout)
+    shard = band_shard(job["batch"], layout)
     flip = job["flip"] if rank == 0 else not job["flip"]
     metrics, grads, after = port_step(job["tcfg"], job["state_dict"], shard,
                                       flip_generator_for(flip))
@@ -139,6 +190,28 @@ def split_step_rank(rank, world, job, out_dir):
     save(out_dir, rank, out)
 
 
+def tasks_rank(rank, world, job, out_dir):
+    """Each case of ``job["cases"]`` on this rank's data shard's band under
+    ``job["spatial"]`` = S: a training step (``"step"``, rank 0 drawing the
+    flip ``case["flip"]`` and the others the opposite) or the loss and terms
+    of a train-mode forward without the flip (``"forward"``)."""
+    from dro_sfm_torch.parallel.mesh import make_layout
+    from tests._torch_dist import flip_generator_for, port_step
+    layout = make_layout(job["spatial"])
+    out = {}
+    for name, case in job["cases"].items():
+        if case["kind"] == "forward":
+            out[name] = forward_loss(case["tcfg"], case["state_dict"], case["batch"], layout)
+            continue
+        shard = band_shard(case["batch"], layout)
+        flip = case["flip"] if rank == 0 else not case["flip"]
+        metrics, grads, after = port_step(case["tcfg"], case["state_dict"], shard,
+                                          flip_generator_for(flip))
+        out[name] = {"metrics": metrics, "grads": grads, "after": after,
+                     "rows": shard["rgb"].shape[1]}
+    save(out_dir, rank, out)
+
+
 def forward_loss(tcfg, state_dict, batch, layout=None):
     """The loss and its terms of a train-mode forward (no flip) on
     ``batch`` (this rank's data shard and band under ``layout``)."""
@@ -146,12 +219,8 @@ def forward_loss(tcfg, state_dict, batch, layout=None):
     from dro_sfm_torch.parallel import spatial
     net = tcfg.build_net(device="cpu")
     net.load_state_dict(state_dict, strict=True)
-    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    if layout is not None:
-        per = batch["rgb"].shape[0] // layout.data
-        lo = layout.data_index * per
-        batch = spatial.split_rows({k: v[lo:lo + per] for k, v in batch.items()}, layout)
-    band = spatial.band_for(layout, batch["rgb"].shape[1])
+    batch = band_shard(batch, layout)
+    band = spatial.band_for(layout, batch["rgb"].shape[1], tcfg.deepest_stride)
     with torch.no_grad(), spatial.active(band):
         loss, (_, metrics) = forward_and_loss(tcfg, net, batch, None, do_flip=False)
     return {"loss": float(loss), **{k: float(v) for k, v in metrics.items()}}

@@ -8,9 +8,19 @@ stem's max-pool (-inf beyond the image), the x2 bilinear resize from stride
 16 to 8, the split and the fused (`gru_pass_plain` on the band widened by 4
 rows) SepConvGRU, the convex upsampling's 3x3 neighbourhoods, the pose
 head's mean over the plane, train-mode BatchNorm, the warp cost against the
-gathered context maps (plain K1-K3) and the whole train-mode encoder. Inputs
-and weights from numpy seeds; the cotangent of the output is random. S = 2
-on 80 rows (the stride-16 maps' 5 rows split 3 + 2) and S = 4 on 128 rows.
+gathered context maps (plain K1-K3) and the whole train-mode encoder; and
+those of the photometric loss and the single-frame nets: the SSIM pool and
+SSIM on the reflecting halo (bit for bit), the vertical difference (the last
+band one row short), the decoder's nearest x2 from stride 32 (bit for bit;
+on 80 rows band 1 starts on the odd row 3 at stride 16), the smoothness,
+the whole loss in the ten settings of `tests/test_torch_photometric.py` (the
+loss within 1e-6 of the whole port's; the gradients against JAX at that
+file's 1e-4 relative L2), the perceptual term's share, `DepthDecoder` with
+its scales resized to full resolution, and the train-mode `PoseResNet` (its
+bands down to stride 32). Inputs and weights from numpy seeds; the
+cotangent of the output is random. S = 2 on 80 rows (the stride-16 maps' 5
+rows split 3 + 2) and S = 4 on 128 rows; the single-frame nets on 96 and
+128.
 
 Bars, those of `tests/test_spatial.py`: relative 1e-5 with an absolute
 floor of 1e-5 times the larger of 1 and the reference's largest element,
@@ -23,16 +33,23 @@ whole and moves every layer below it (on the S = 2 case the port's
 whole-tensor fp32 input gradient lies 3.3e-3 from fp64 at its largest
 element, the bands' 1.1e-5 and JAX's 2.1e-5).
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dro_sfm_tpu.losses import photometric as jphoto
 from dro_sfm_tpu.models import depth_pose_net as jdpn
 from dro_sfm_tpu.models import encoder as jenc
+from dro_sfm_tpu.models import single_frame as jsf
 from dro_sfm_tpu.models import update as jupd
+from dro_sfm_tpu.models.percep import PercepNet as JaxPercepNet
+from dro_sfm_tpu.ops import image as jimage
 from dro_sfm_tpu.ops.image import resize_bilinear as j_resize
+from dro_sfm_tpu.ops.ssim import ssim_loss as j_ssim_loss
 from dro_sfm_tpu.ops.upsample import convex_upsample as j_convex
 from dro_sfm_torch.convert import from_jax_variables
 from dro_sfm_torch.geometry.camera import Camera, pixel_grid
@@ -40,10 +57,18 @@ from dro_sfm_torch.parallel import spatial
 from tests._torch_dist import load, run_ranks
 from tests._torch_spatial import CONVS, ops_rank, run_op
 from tests.test_torch_modules import fill_variables
+from tests.test_torch_photometric import CASES as PHOTOMETRIC_CASES
 
 torch.set_num_threads(2)
 HEIGHTS = {2: 80, 4: 128}          # image rows for S ranks
 B, W8 = 2, 6                       # batch, columns at stride 8
+# The single-frame nets' cases (bands down to stride 32, H >= 32 S, H a
+# multiple of 32 for the U-Net's skips) and the nearest x2's from stride 32:
+# 80 rows hold 3 at stride 32 and 5 at stride 16 (the x2's sixth row is
+# beyond the image, its cotangent zero), so band 1 starts at stride 16 on
+# the odd row 3 and reads row 1 of band 0.
+SINGLE_FRAME_HEIGHTS = {2: 96, 4: 128}
+NEAREST_HEIGHTS = {"nearest_x2": {2: 80, 4: 128}, "nearest_x2_96": {2: 96, 4: 160}}
 
 
 def nchw(a):
@@ -61,6 +86,26 @@ def jax_vjp(fn, args, w):
         return y, vjp(jnp.asarray(w, y.dtype))
     y, grads = jax.jit(run)(*args)
     return np.asarray(y), [jax.tree_util.tree_map(np.asarray, g) for g in grads]
+
+
+def photometric_inputs(rng, h, w, p=2, n=2):
+    """`tests/test_torch_photometric.py:make_inputs` at ``h`` x ``w``."""
+    K = np.array([[w * 0.8, 0, (w - 1) / 2], [0, w * 0.8, (h - 1) / 2], [0, 0, 1.0]],
+                 np.float32)
+    return {"image": rng.uniform(size=(B, h, w, 3)).astype(np.float32),
+            "context": rng.uniform(size=(B, n, h, w, 3)).astype(np.float32),
+            "inv_depths": rng.uniform(0.1, 1.0, size=(p, B, h, w, 1)).astype(np.float32),
+            "K": np.broadcast_to(K, (B, 3, 3)).copy(),
+            "pose_vecs": rng.normal(0, 0.03, size=(B, n, p, 6)).astype(np.float32)}
+
+
+def percep_fn_and_state(h, w, seed):
+    """A JAX `PercepNet` without the resize as a function, and its weights
+    in the port's names."""
+    jnet = JaxPercepNet(resize=False)
+    dummy = jnp.zeros((1, h, w, 3), jnp.float32)
+    variables = fill_variables(lambda k: jnet.init(k, dummy, dummy), seed=seed)
+    return (lambda a, b: jnet.apply(variables, a, b)), flax_state(variables)
 
 
 def make_case(name, s, rng):
@@ -182,10 +227,108 @@ def make_case(name, s, rng):
                             train=True, mutable=["batch_stats"])
             return jnp.moveaxis(y, -1, 1)
         args, names = [nchw(x), v["params"]], ["x", "params"]
+    elif name == "reflect_pool":
+        x = rng.uniform(size=(B, h, 2 * w, 3)).astype(np.float32)
+        case.update(inputs={"x": x}, rows={"x": (1, 1)}, out=(1, 1))
+        jfn = jimage.avg_pool_3x3_reflect
+        args, names = [x], ["x"]
+    elif name == "ssim":
+        x = rng.uniform(size=(B, 2, h, 2 * w, 3)).astype(np.float32)
+        y_ = rng.uniform(size=(B, 1, h, 2 * w, 3)).astype(np.float32)
+        case.update(inputs={"x": x, "y": y_}, rows={"x": (2, 1), "y": (2, 1)}, out=(2, 1))
+        jfn = j_ssim_loss
+        args, names = [x, y_], ["x", "y"]
+    elif name == "gradient_y":
+        x = rng.normal(size=(B, h, 2 * w, 2)).astype(np.float32)
+        case.update(inputs={"x": x}, rows={"x": (1, 1)}, out=(1, 1))
+        jfn = jimage.gradient_y
+        args, names = [x], ["x"]
+    elif name.startswith("nearest_x2"):
+        h = NEAREST_HEIGHTS[name][s]
+        x = rng.normal(size=(B, -(-h // 32), 3, 2)).astype(np.float32)
+        case.update(height=h, deepest=32, inputs={"x": x}, rows={"x": (1, 32)}, out=(1, 16),
+                    crop=-(-h // 16))
+        jfn = lambda x_: jimage.resize_nearest(x_, (2 * x_.shape[1], 2 * x_.shape[2]))  # noqa
+        args, names = [x], ["x"]
+    elif name == "smoothness":
+        inv = rng.uniform(0.1, 1.0, size=(2, B, h, 2 * w, 1)).astype(np.float32)
+        img = rng.uniform(size=(B, h, 2 * w, 3)).astype(np.float32)
+        case.update(inputs={"inv_depths": inv, "image": img},
+                    rows={"inv_depths": (2, 1), "image": (1, 1)}, out=None, share=True)
+
+        def jfn(inv_, img_):
+            return jphoto.smoothness_loss(inv_, img_, jphoto.PhotometricLossConfig())
+        args, names = [inv, img], ["inv_depths", "image"]
+    elif name.startswith("photometric_"):
+        setting = name[len("photometric_"):]
+        inp = photometric_inputs(rng, h, 2 * w)
+        cfg_kw = PHOTOMETRIC_CASES[setting]
+        progress = 0.5 if setting == "progressive" else 0.0
+        jpercep = None
+        if cfg_kw.get("percep_loss_weight", 0) > 0:
+            jpercep, state = percep_fn_and_state(h, 2 * w, int(rng.integers(100)))
+            case["state"] = state
+        case.update(meta={"cfg": cfg_kw, "progress": progress}, inputs=inp,
+                    rows={"image": (1, 1), "context": (2, 1), "inv_depths": (2, 1)},
+                    out=None, share=True, fixed=("image", "context", "K"))
+        jcfg = jphoto.PhotometricLossConfig(**cfg_kw)
+
+        def jfn(inv_, pose_):
+            return jphoto.multiview_photometric_loss(
+                jnp.asarray(inp["image"]), jnp.asarray(inp["context"]), inv_,
+                jnp.asarray(inp["K"]), pose_, jcfg, percep_fn=jpercep, progress=progress)[0]
+        args, names = [inp["inv_depths"], inp["pose_vecs"]], ["inv_depths", "pose_vecs"]
+    elif name == "percep_share":
+        img = rng.uniform(size=(B, h, 2 * w, 3)).astype(np.float32)
+        warps = rng.uniform(size=(B, 2, h, 2 * w, 3)).astype(np.float32)
+        jpercep, case["state"] = percep_fn_and_state(h, 2 * w, int(rng.integers(100)))
+        case.update(inputs={"image": img, "warps": warps},
+                    rows={"image": (1, 1), "warps": (2, 1)}, out=None, share=True)
+
+        def jfn(img_, warps_):
+            tgt = jnp.broadcast_to(img_[:, None], warps_.shape)
+            return jpercep(tgt.reshape(-1, *warps_.shape[2:]),
+                           warps_.reshape(-1, *warps_.shape[2:])).mean()
+        args, names = [img, warps], ["image", "warps"]
+    elif name == "depth_decoder":
+        h, wf = SINGLE_FRAME_HEIGHTS[s], 64
+        feats = [(rng.normal(size=(B, h >> (k + 1), wf >> (k + 1), c)) * 0.5).astype(np.float32)
+                 for k, c in enumerate((64, 64, 128, 256, 512))]
+        jm = jsf.DepthDecoder()
+        v = fill_variables(lambda k: jm.init(k, feats), seed=int(rng.integers(100)))
+        case.update(height=h, deepest=32, state=flax_state(v),
+                    inputs={f"f{k}": nchw(f) for k, f in enumerate(feats)},
+                    rows={f"f{k}": (2, 2 << k) for k in range(5)}, out=(2, 1))
+
+        def jfn(*a):
+            *fs, p_ = a
+            outs = jm.apply({"params": p_}, [jnp.moveaxis(f, 1, -1) for f in fs])
+            return jnp.stack([jimage.resize_nearest(d, (h, wf)) for d in outs[::-1]])
+        args = [nchw(f) for f in feats] + [v["params"]]
+        names = [f"f{k}" for k in range(5)] + ["params"]
+    elif name == "pose_resnet":
+        h, wf = SINGLE_FRAME_HEIGHTS[s], 64
+        tgt = rng.uniform(size=(B, h, wf, 3)).astype(np.float32)
+        refs = rng.uniform(size=(B, 2, h, wf, 3)).astype(np.float32)
+        jm = jsf.PoseResNet()
+        v = fill_variables(lambda k: jm.init(k, tgt, refs, train=False),
+                           seed=int(rng.integers(100)))
+        case.update(height=h, deepest=32, state=flax_state(v),
+                    inputs={"target": tgt, "refs": refs},
+                    rows={"target": (1, 1), "refs": (2, 1)}, out=None)
+        stats = v["batch_stats"]
+
+        def jfn(t_, r_, p_):
+            y, _ = jm.apply({"params": p_, "batch_stats": stats}, t_, r_, train=True,
+                            mutable=["batch_stats"])
+            return y
+        args, names = [tgt, refs, v["params"]], ["target", "refs", "params"]
     else:
         raise KeyError(name)
     probe = jax.eval_shape(jfn, *args)
     case["w"] = rng.normal(size=probe.shape).astype(np.float32)
+    if "crop" in case:                  # rows beyond the image at the output's stride
+        case["w"][(slice(None),) * case["out"][0] + (slice(case["crop"], None),)] = 0
     y, grads = jax_vjp(jfn, args, case["w"])
     jgrads, jparams = {}, {}
     for n_, g in zip(names, grads):
@@ -203,7 +346,29 @@ def make_case(name, s, rng):
 
 
 NAMES = list(CONVS) + ["maxpool", "resize_x2", "gru_split", "gru_fused", "convex_upsample",
-                       "pose_head", "batchnorm", "warp_cost", "encoder"]
+                       "pose_head", "batchnorm", "warp_cost", "encoder", "reflect_pool", "ssim",
+                       "gradient_y", "nearest_x2", "nearest_x2_96", "smoothness", "percep_share",
+                       "depth_decoder", "pose_resnet"] + [
+                           f"photometric_{k}" for k in PHOTOMETRIC_CASES]
+# Train-mode ResNets: 1e-4 against JAX, and their gradients' relative L2 bar
+# (see the docstring). At S = 4 oneDNN's CPU convolution takes a less
+# accurate algorithm on the pose net's one-row bands: their input gradient
+# lies 3.05e-3 from fp64 and from the whole port (4.7e-6 from fp64); with
+# oneDNN off the bands lie 2.5e-6 from the whole port (`python -m
+# tests._torch_spatial_reach op pose_resnet --shards 4`).
+RESNETS = {"encoder": 1e-3, "pose_resnet": 5e-3}
+# The loss terms' gradients against JAX: `tests/test_torch_photometric.py`'s
+# relative L2 bar (a projection, a bilinear warp and the SSIM chain, each
+# rounded in fp32 in another order); against the whole port elementwise.
+# Through the VGG net 1e-3: at S = 4 (128x12) JAX's d inv_depths lies
+# 2.555e-4 from the port's, whole and bands alike, which lie 3.7e-5 from
+# fp64 (`python -m tests._torch_spatial_reach op photometric_percep
+# --shards 4`).
+LOSSES = {"smoothness": 1e-4, "percep_share": 1e-3, **{
+    f"photometric_{k}": 1e-3 if "percep_loss_weight" in v else 1e-4
+    for k, v in PHOTOMETRIC_CASES.items()}}
+# The same taps in the same order on the band's rows and their halo.
+BIT_EXACT = ("reflect_pool", "ssim", "gradient_y", "nearest_x2", "nearest_x2_96")
 
 
 def assert_close(got, want, what, rtol=1e-5, l2=None):
@@ -245,7 +410,9 @@ def split(request, tmp_path_factory):
     cases = {name: c for name, (c, _) in made.items()}
     out = tmp_path_factory.mktemp(f"ops{s}")
     run_ranks(ops_rank, s, out, cases, str(out))
-    return s, made, load(out, s)
+    ranks = load(out, s)
+    shutil.rmtree(out)
+    return s, made, ranks
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -254,14 +421,23 @@ def test_band_matches_whole(split, name):
     case, (jy, jgrads, jparams) = made[name]
     y, grads, params, buffers = assemble(case, ranks, name, s)
     wy, wgrads, wparams, wbuffers = run_op(case)         # the port, whole, no band
+    if "crop" in case:                                    # the image's rows only
+        dim, crop = case["out"][0], case["crop"]
+        wy, jy = wy.narrow(dim, 0, crop), np.take(jy, range(crop), axis=dim)
+    if name in BIT_EXACT:
+        assert torch.equal(y, wy), f"{name}: the bands' output is not the whole's bits"
+    if name.startswith("photometric_"):         # a loss on identical inputs
+        rel = abs(float(y) - float(wy)) / abs(float(wy))
+        assert rel <= 1e-6, f"{name}: loss {float(y)!r} vs {float(wy)!r} ({rel:.2e})"
     assert_close(y, wy, f"{name} output vs the whole port")
-    jbar = 1e-4 if name == "encoder" else 1e-5
-    l2 = 1e-3 if name == "encoder" else None        # the ReLU kinks (docstring)
+    jbar = 1e-4 if name in RESNETS else 1e-5
+    l2 = RESNETS.get(name)                          # the ReLU kinks (docstring)
     assert_close(y, jy, f"{name} output vs JAX", jbar)
     assert set(grads) == set(wgrads) == set(jgrads), (set(grads), set(jgrads))
     for k in wgrads:
         assert_close(grads[k], wgrads[k], f"{name} d{k} vs the whole port", l2=l2)
-        assert_close(grads[k], jgrads[k], f"{name} d{k} vs JAX", jbar, l2=l2)
+        assert_close(grads[k], jgrads[k], f"{name} d{k} vs JAX", jbar,
+                     l2=LOSSES.get(name, l2))
     assert set(params) == set(wparams)
     for k in wparams:
         assert_close(params[k], wparams[k], f"{name} d{k} vs the whole port", l2=l2)
@@ -293,12 +469,42 @@ def test_pixel_grid_and_camera_hold_global_rows():
             assert torch.equal(pts, whole[:, r0:r1]) and torch.equal(uv, coords[:, r0:r1])
 
 
-@pytest.mark.parametrize("height, shards, match", [
-    (72, 2, "H/8 must divide by"), (60, 2, "H/8 must divide by"),
-    (16, 2, "at least 2 rows at stride 8")])
-def test_band_refuses_heights(height, shards, match):
+@pytest.mark.parametrize("height, shards, deepest, match", [
+    pytest.param(72, 2, 16, "H/8 must divide by", id="72-2-H/8 must divide by"),
+    pytest.param(60, 2, 16, "H/8 must divide by", id="60-2-H/8 must divide by"),
+    pytest.param(16, 2, 16, "at least 2 rows at stride 8", id="16-2-at least 2 rows at stride 8"),
+    pytest.param(48, 2, 32, "at least 4 rows at stride 8", id="48-2-stride32"),
+    pytest.param(96, 4, 32, "at least 4 rows at stride 8", id="96-4-stride32"),
+    pytest.param(72, 3, 32, "at least 4 rows at stride 8", id="72-3-stride32"),
+    pytest.param(100, 2, 32, "H/8 must divide by", id="100-2-stride32")])
+def test_band_refuses_heights(height, shards, deepest, match):
     with pytest.raises(ValueError, match=match):
-        spatial.Band(height, shards, 0)
+        spatial.Band(height, shards, 0, deepest=deepest)
+
+
+@pytest.mark.parametrize("deepest", [16, 32])
+def test_band_height_rule(deepest):
+    """The rule H >= deepest * S (H/8 divisible by S) is exactly the
+    heights at which every band of S >= 2 holds at least one row at every
+    stride down to ``deepest`` and a distinct number at each, so that an
+    operator finds its stride from its rows: derived by counting the rows
+    of every band of every H = 8kS, k < 40, S <= 8."""
+    strides = [s for s in spatial.STRIDES if s <= deepest]
+    for shards in range(2, 9):
+        for k in range(1, 40):
+            height = 8 * k * shards
+            per = height // shards
+            counts = [[-(-(i + 1) * per // s) + (-i * per // s) for s in strides]
+                      for i in range(shards)]
+            holds = all(min(c) >= 1 and len(set(c)) == len(c) for c in counts)
+            assert holds == (height >= deepest * shards), (deepest, shards, k, counts)
+            if holds:
+                bands = [spatial.Band(height, shards, i, deepest=deepest) for i in range(shards)]
+                for band, c in zip(bands, counts):
+                    assert [band.stride_of(n) for n in c] == strides
+            else:
+                with pytest.raises(ValueError):
+                    spatial.Band(height, shards, 0, deepest=deepest)
 
 
 def test_bands_at_strides():

@@ -15,7 +15,7 @@ the depth metrics part by up to 7e-4 relative and a1-a3 by 2 pixels of
 4,608 (4.3e-4), the pose metrics not at all. An evaluation batch
 of one sample is split by height and its depth gathered to the whole image.
 The refusals: S that does not divide the world size, H/8 that does not
-divide by S, and a task the split does not run.
+divide by S, and a single-frame task below its height rule (H >= 32 S).
 """
 from pathlib import Path
 
@@ -94,7 +94,8 @@ def test_an_eval_batch_of_one_is_split_by_height(fitted):
     (split_overrides(), ValueError, "must divide the world size 1"),
     ({**split_overrides(), "datasets": {"augmentation": {"image_shape": (40, 48)}}},
      ValueError, "H/8 must divide by"),
-    ({**split_overrides(), "model": {"name": "SelfSupModelMF"}}, NotImplementedError, "A14"),
+    ({**split_overrides(), "model": {"name": "SupModel"}}, ValueError,
+     "at least 4 rows at stride 8"),
 ])
 def test_split_refusals(tmp_path, overrides, error, match):
     cfg = load_config(str(CONFIG), {**overrides, "checkpoint": {"filepath": str(tmp_path)}})

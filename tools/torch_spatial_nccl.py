@@ -4,6 +4,7 @@ NCCL between them: the port's training step on one row band a card against
 one process on the whole batch, at D=1 x S=4 and at D=2 x S=2.
 
     python3 tools/torch_spatial_nccl.py                  # on a host with 4 cards
+    python3 tools/torch_spatial_nccl.py --task SelfSupModelMF   # the photometric loss
     python3 tools/torch_spatial_nccl.py --device cpu --version it4-h-out \\
         --height 64 --width 96                           # 4 gloo ranks on the CPU
 
@@ -12,20 +13,26 @@ under `dro_sfm_torch.scripts.launch_multihost`, once a layout, one rank a
 card. Each rank:
 
 1. rank 0 alone, before it joins the group: the one-process step on the
-   global batch (SupModelMF, it12-h-out at 192x640 by default, B=4, N=2,
-   `chip_smoke.tame_weights`, the flip off) in bf16 and fp32, its peak
-   memory and ms a step;
+   global batch (``--task``, SupModelMF by default; it12-h-out at 192x640
+   by default, B=4, N=2, `chip_smoke.tame_weights`, the flip off; noise
+   images, which are also the photometric loss's un-jittered originals) in
+   bf16 and fp32, its peak memory and ms a step; for a task with the
+   photometric loss also the fp32 step on the samples in the order 1, 0,
+   3, 2 (each leaf's order-of-sums reach, `chip_smoke.dist_verdict`);
 2. the split (`parallel/mesh.py:make_layout`): the step on its data
    shard's band, bf16 then fp32, rank 0 drawing no flip and the others a
    flip (rank 0's holds): the launches a step on the card (K1 24, K2 24, K3
    18), the gradients and the parameters after Adam equal on every rank bit
    for bit, and on rank 0 within `chip_smoke.dist_verdict`'s bars of the
-   one-process step (the fp32 loss within 1e-5 relative);
+   one-process step (the fp32 loss within 1e-5 relative; bf16 leaves of a
+   photometric task printed only, as `chip_smoke.spatial_leaves_held` says);
 3. 3 timed bf16 steps, then one with torch's sync debug mode on (the host
    synchronisations of a step, by the line that made them, as
    `chip_smoke.py` phase ba counts them) and one profiled
    (`torch.profiler`, host and card): ms a step, peak memory, the host's
-   time inside the ``collective:`` spans, the kernels' time on the card
+   time inside the ``collective:`` spans and their count by function (a
+   task's exchanges a step: the photometric term's are SelfSupModelMF's
+   less SupModelMF's), the kernels' time on the card
    (NCCL's apart) and the host's and the card's largest operators by their
    own time.
 
@@ -68,6 +75,7 @@ def make_batch(b, h, w, device, n=cs.VIEWS, seed=8):
              "intrinsics": K.expand(b, 3, 3).contiguous(),
              "depth": 1.0 + 59.0 * torch.rand(b, h, w, 1, generator=gen),
              "pose_context": torch.eye(4).expand(b, n, 4, 4).contiguous()}
+    batch["rgb_original"], batch["rgb_context_original"] = batch["rgb"], batch["rgb_context"]
     return {k: v.to(device) for k, v in batch.items()}
 
 
@@ -148,7 +156,8 @@ def worker(args):
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     counters = cs.counter_map()
     where = cs.nvidia_smi_line() if on_card else "the CPU (gloo; no times are the card's)"
-    configs = {prec: cs.train_config(version=args.version, mixed_precision=prec == "bf16")
+    configs = {prec: cs.train_config(name=args.task, version=args.version,
+                                     mixed_precision=prec == "bf16")
                for prec in ("bf16", "fp32")}
     start = configs["bf16"].build_net(device=device,
                                       generator=torch.Generator().manual_seed(0)).state_dict()
@@ -162,6 +171,12 @@ def worker(args):
             refs[prec] = (result, peak, ms)
             del step, state
         own = cs.leaf_errors(refs["bf16"][0][1], refs["fp32"][0][1])
+        reach = None
+        if configs["fp32"].uses_photometric:
+            order = [i ^ 1 for i in range(GLOBAL_B)]
+            swapped = step_once(configs["fp32"], start, {k: v[order] for k, v in batch.items()},
+                                None, device, False)[2]
+            reach = cs.leaf_errors(swapped[1], refs["fp32"][0][1])
     check(maybe_init_distributed(device), "no process group from the environment")
     layout = make_layout(args.spatial)
     check(GLOBAL_B % layout.data == 0, f"B={GLOBAL_B} does not split over {layout.data}")
@@ -210,14 +225,14 @@ def worker(args):
                     and e.key not in ranges and not e.key.startswith("nccl:")]
             busy = sum(cs.device_us(e) for e in card) / 1e3
             nccl = sum(cs.device_us(e) for e in card if e.key.startswith("nccl")) / 1e3
-            print(f"spatial_nccl D={layout.data} x S={layout.spatial} rank {rank} "
+            print(f"spatial_nccl D={layout.data} x S={layout.spatial} rank {rank} {args.task} "
                   f"({band['rgb'].shape[1]} rows of {per} samples): bf16 ms a step "
                   f"{' / '.join(f'{v:.2f}' for v in ms)}, peak {peak / 2**20:.1f} MiB; "
                   f"collectives' share of the profiled step (host time in the spans) "
                   f"{in_spans:.2f} of {wall:.2f} ms ({100 * in_spans / wall:.1f}%): "
                   + ", ".join(f"{k} {n}x {t:.2f} ms" for k, (n, t) in sorted(spans.items()))
                   + f"; launches a step {launches}; on {where}", flush=True)
-            print(f"spatial_nccl D={layout.data} x S={layout.spatial} rank {rank}: host "
+            print(f"spatial_nccl D={layout.data} x S={layout.spatial} rank {rank} {args.task}: host "
                   f"syncs of a bf16 step {syncs[0]} "
                   f"({', '.join(f'{k} {n}x' for k, n in syncs[1]) or 'none'}); the "
                   f"profiled step: kernels on the card {busy:.2f} of {wall:.2f} ms "
@@ -230,15 +245,21 @@ def worker(args):
             torch.cuda.empty_cache()
     if rank == 0:
         failures, worst, rel = cs.dist_verdict(results["bf16"], refs["bf16"][0], own)
-        failures32, worst32, rel32 = cs.dist_verdict(results["fp32"], refs["fp32"][0])
+        if not cs.spatial_leaves_held((args.task, "split", True, False)):
+            # bf16 leaves under the photometric ``min`` are printed, not held
+            failures = [f for f in failures if f.startswith("loss ") or "beyond" in f]
+        failures32, worst32, rel32 = cs.dist_verdict(results["fp32"], refs["fp32"][0],
+                                                     reach=reach)
         check(not failures and not failures32,
               f"against one process: {failures[:4]} {failures32[:4]}")
         (_, peak1, ms1) = refs["bf16"]
-        print(f"spatial_nccl D={layout.data} x S={layout.spatial}, {args.version} "
+        print(f"spatial_nccl D={layout.data} x S={layout.spatial}, {args.task} {args.version} "
               f"{args.height}x{args.width} B={GLOBAL_B}, against one process: bf16 loss "
               f"relative {rel:.2e}, worst leaf {worst[0]:.3e} ({worst[1]}); fp32 loss relative "
               f"{rel32:.2e} (bar 1e-5), worst leaf {worst32[0]:.3e} "
-              f"({worst32[1]}, bar 1e-2); gradients and state equal on every rank; one "
+              f"({worst32[1]}, bar "
+              f"{max(1e-2, 2 * (reach or {}).get(worst32[1], 0.0)):.2e}); gradients and "
+              f"state equal on every rank; one "
               f"process bf16 ms a step {' / '.join(f'{v:.2f}' for v in ms1)}, peak "
               f"{peak1 / 2**20:.1f} MiB; on {where}", flush=True)
     dist.destroy_process_group()
@@ -250,6 +271,9 @@ def main():
     parser.add_argument("--spatial", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--device", default=None,
                         help="cpu for a rehearsal on 4 gloo ranks (default: the cards)")
+    parser.add_argument("--task", default="SupModelMF",
+                        choices=("SupModelMF", "SelfSupModelMF", "SemiSupModelMFPose"),
+                        help="the multi-frame task whose step runs")
     parser.add_argument("--version", default="it12-h-out")
     parser.add_argument("--height", type=int, default=cs.SERVE_H)
     parser.add_argument("--width", type=int, default=cs.SERVE_W)
@@ -268,7 +292,7 @@ def main():
     for shards in LAYOUTS:
         cmd = [sys.executable, "-m", "dro_sfm_torch.scripts.launch_multihost", "--nprocs", "4",
                *(["--backend", "gloo"] if cpu else []), "--", __file__, "--worker",
-               "--spatial", str(shards), "--version", args.version,
+               "--spatial", str(shards), "--task", args.task, "--version", args.version,
                "--height", str(args.height), "--width", str(args.width),
                *(["--device", "cpu"] if cpu else [])]
         res = subprocess.run(cmd, cwd=ROOT, timeout=900)
