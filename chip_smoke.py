@@ -2,9 +2,10 @@
 """Drive the PyTorch port's serving and training paths (supervised,
 self-supervised, semi-supervised and single-frame), its trainer, its
 dataset readers (NYU's HDF5 dumps among them), its training in several
-processes, its serving export, its bundle adjustment, its demo video and its
-split of image heights over several processes, on one NVIDIA GPU and check
-their kernels.
+processes, its serving export, its bundle adjustment, its demo video, its
+split of image heights over several processes, its stride-4 feature net and
+its reading of upstream torch weights, on one NVIDIA GPU and check their
+kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -255,12 +256,44 @@ result line):
    each validation against a one-process `Trainer` on its checkpoint (every
    metric within 1e-5 relative plus 1e-7, phase 25's bar). A rank that
    raises or outlives 600 s fails.
+31. stride4: `DepthPoseNet(feat_ratio=4)` (it12-h-out bf16, 192x640, N=2;
+   maps of 48x160, 4x the pixels of stride 8) from `start_weights`'s seed
+   and head scale. Serving at B=1 and B=8 through `make_infer_fn` with
+   either GRU path, counts reset just before and read just after: K1 24 a
+   request (and K5 48 with "pallas"), nothing else; the B=1 request against
+   the plain warp in fp32 and bf16 (phase 5's bars); the B=8 SupModelMF step
+   (phase 8's memory policy) from `tame_weights` with either GRU path, K1
+   24, K2 24, K3 18 (K5, K6-input, K6-weight 48) a step, and its gradients
+   (deterministic algorithms, remat) against the plain warp at phase 9's
+   bars and against the plain GRU pass at phase 15's (in bf16 raised, leaf
+   by leaf, to twice the split path's distance to the plain pass; phase
+   15's planted faults must fail); K1-K3 (f1 [8,7680,128] against 16 maps of
+   48x160x128) and K5/K6 (the depth pass 8x48x160 and the pose pass
+   16x48x160, D=128, Cx=160, both axes) against their plain versions at the
+   bars of phases 3, 7 and 12, bf16 and fp32, with the bf16 times, bounds
+   and library yardsticks; a profile of one more step a GRU path; ms a
+   request, ms a step and peak memory;
+32. torch_weights: upstream torch weights through the port alone (the
+   card's machine has no flax, jax or yacs): the port's seed-0 it12-h-out net
+   under the reference's names saved as the reference's ``.ckpt``, its
+   config pickled as ``yacs.config.CfgNode``; ``python -m
+   dro_sfm_torch.scripts.convert_torch_weights dro-ckpt`` (its load check on
+   the card, `load_model` bit-equal to the source), then
+   ``eval_reference_ckpt`` on a rendered 192x256 ScanNet scene on the card
+   (K1 48 an eval batch and nothing else; every metric within 1e-6 relative
+   of the same weights loaded straight into a `Trainer`'s net); ``resnet18``
+   and ``vgg16`` state dicts of random arrays under torchvision's names
+   converted and grafted by a `Trainer`'s warm start
+   (``pretrained_encoders``, ``percep_net.checkpoint_path``) bit for bit;
+   a checkpoint pickling a foreign global refused. Its files live under
+   ``build/torch_weights`` and are removed at the end.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
 (K1-K6; launches of K1-K3 from the self-supervised training path, of K5
 and K6 from the ``sep_conv="pallas"`` supervised one, K4's from its entry
-point's path),
+point's path; then K1-K3 and K5/K6 at stride 4, their launches from phase
+31's serving and training runs),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -421,31 +454,39 @@ def phase_k1(warp_diff, warp_diff_plain):
         if err > tol or not torch.isfinite(out).all():
             fail(line)
         if name.startswith("serving"):
-            # grid_sample wants the grid in the features' dtype (bf16 here
-            # costs it ~0.3 px of precision; it is timed, never used).
-            grid = (torch.stack([coords[..., 0] / (w - 1), coords[..., 1] / (h - 1)],
-                                -1) * 2 - 1).to(dtype)
-            feat_nchw = features.permute(0, 3, 1, 2)      # channel-last view
-
-            def library():
-                warped = F.grid_sample(feat_nchw, grid[:, None], mode="bilinear",
-                                       padding_mode="zeros", align_corners=True)
-                return (f1.view(b, 1, h * w, c)
-                        - warped.view(b, n, c, h * w).transpose(-1, -2))
-
-            lib_err = (library().reshape_as(ref).float() - ref.float()).abs().max().item()
-            ms = time_ms(lambda: warp_diff(f1, features, coords, n))
-            plain_ms = time_ms(lambda: warp_diff_plain(f1, features, coords, n))
-            library_ms = time_ms(library)
-            bound_ms, bound_by = k1_bound(f1, features, coords)
-            line += (f" | kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-                     f"{library_ms:.4f} ms (err {lib_err:.2e}) bound {bound_ms:.4f} ms"
-                     f" ({bound_by})")
-            results[(b, dt)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": bound_ms, "bound_by": bound_by,
-                                "library_ms": library_ms}
+            results[(b, dt)] = r = time_k1(f1, features, coords, n, ref)
+            lib_err, r["max_abs_err"] = r.pop("library_err"), err
+            line += (f" | kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
+                     f"{r['library_ms']:.4f} ms (err {lib_err:.2e}) bound "
+                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
         print(line, flush=True)
     return results
+
+
+def time_k1(f1, features, coords, n, ref):
+    """Kernel, plain, library and bound times of K1 on one input, and the
+    library yardstick's largest error against the plain result ``ref``.
+    The yardstick is `grid_sample` on the channel-last view and the
+    difference from f1; it wants the grid in the features' dtype (bf16 costs
+    it ~0.3 px of precision; it is timed, never used)."""
+    from dro_sfm_torch.ops.tent_warp import warp_diff, warp_diff_plain
+    bn, h, w, c = features.shape
+    b = bn // n
+    grid = (torch.stack([coords[..., 0] / (w - 1), coords[..., 1] / (h - 1)],
+                        -1) * 2 - 1).to(features.dtype)
+    feat_nchw = features.permute(0, 3, 1, 2)
+
+    def library():
+        warped = F.grid_sample(feat_nchw, grid[:, None], mode="bilinear",
+                               padding_mode="zeros", align_corners=True)
+        return f1.view(b, 1, h * w, c) - warped.view(b, n, c, h * w).transpose(-1, -2)
+
+    out = {"library_err": (library().reshape_as(ref).float() - ref.float()).abs().max().item(),
+           "ms": time_ms(lambda: warp_diff(f1, features, coords, n)),
+           "plain_ms": time_ms(lambda: warp_diff_plain(f1, features, coords, n)),
+           "library_ms": time_ms(library)}
+    out["bound_ms"], out["bound_by"] = k1_bound(f1, features, coords)
+    return out
 
 
 def make_request(gen, b):
@@ -501,17 +542,18 @@ def phase_serving(DepthPoseNet, make_infer_fn, counters, gpu):
     return net, requests, launches
 
 
-def phase_end_to_end(DepthPoseNet, net_bf16, requests):
-    """Kernel vs plain warp through the whole net on the card. The kernel
-    repeats the plain version bit for bit, so the two runs differ only where
-    library convolutions vary from run to run: the bar is 1e-5 relative (L2)
-    in fp32 and 1e-2 in bf16."""
+def phase_end_to_end(DepthPoseNet, net_bf16, requests, feat_ratio=8):
+    """Kernel vs plain warp through the whole net (at ``feat_ratio``) on the
+    card. The kernel repeats the plain version bit for bit, so the two runs
+    differ only where library convolutions vary from run to run: the bar is
+    1e-5 relative (L2) in fp32 and 1e-2 in bf16."""
     req = requests[1]
     state = net_bf16.state_dict()
+    what = "" if feat_ratio == 8 else f"feat_ratio={feat_ratio} "
     for mp, bar in ((False, 1e-5), (True, 1e-2)):
         outs = {}
         for impl in ("pallas", "gather"):
-            net = DepthPoseNet(version="it12-h-out", mixed_precision=mp,
+            net = DepthPoseNet(version="it12-h-out", mixed_precision=mp, feat_ratio=feat_ratio,
                                warp_impl=impl, device="cuda")
             net.load_state_dict(state, strict=True)
             with torch.inference_mode():
@@ -519,7 +561,7 @@ def phase_end_to_end(DepthPoseNet, net_bf16, requests):
         for key in ("inv_depths", "pose_vecs"):
             a, b = outs["pallas"][key], outs["gather"][key]
             rel = ((a - b).norm() / b.norm()).item()
-            line = (f"end to end {'bf16' if mp else 'fp32'} {key}: kernel vs plain "
+            line = (f"end to end {what}{'bf16' if mp else 'fp32'} {key}: kernel vs plain "
                     f"rel L2 {rel:.3e} (bar {bar:.0e}), max abs "
                     f"{(a - b).abs().max().item():.3e}")
             if not (rel <= bar and torch.isfinite(a).all()):
@@ -815,7 +857,12 @@ def start_weights(cfg):
     10 and the gradient norm to 1e24 (the JAX package's step does the same
     from its own random weights), Adam's second moment overflows for
     millions of elements and those stop moving."""
-    net = cfg.build_net(device="cuda", generator=torch.Generator().manual_seed(0))
+    return scale_heads(cfg.build_net(device="cuda", generator=torch.Generator().manual_seed(0)))
+
+
+def scale_heads(net):
+    """``net`` with the last convolution of every depth and pose head
+    scaled by HEAD_SCALE, in place."""
     with torch.no_grad():
         for k, p in net.named_parameters():
             if k.endswith("head.conv2.weight"):
@@ -902,10 +949,11 @@ def phase_train(counters, gpu, sep_conv="split", want=TRAIN_LAUNCHES, name="SupM
     return state, train_step, batch, launches, ms
 
 
-def train_gradients(cfg, state_dict, batch):
-    """Parameter gradients of one training forward + backward (flip off)."""
+def train_gradients(cfg, state_dict, batch, feat_ratio=8):
+    """Parameter gradients of one training forward + backward (flip off),
+    the net at ``feat_ratio``."""
     from dro_sfm_torch.models.sfm import forward_and_loss
-    net = cfg.build_net(device="cuda")
+    net = cfg.build_net(device="cuda") if feat_ratio == 8 else stride4_net(cfg)
     net.load_state_dict(state_dict, strict=True)
     loss, _ = forward_and_loss(cfg, net, batch, None, do_flip=False)
     loss.backward()
@@ -950,10 +998,11 @@ def bf16_bar(own):
     return BF16_BAR if own < BF16_OWN_NOISY else max(BF16_BAR, BF16_SHARE * own)
 
 
-def compare_grads(got_all, ref_all, fp32_ref=None, fp32_bar=1e-4):
+def compare_grads(got_all, ref_all, fp32_ref=None, fp32_bar=1e-4, floors=None):
     """Each leaf of ``got_all`` against ``ref_all`` in fp64: fp32 bars
     (cosine >= 0.99999, rel L2 <= ``fp32_bar``) when ``fp32_ref`` is None,
-    else bf16 bars from bf16's own error against ``fp32_ref``. Returns
+    else bf16 bars from bf16's own error against ``fp32_ref``, raised to
+    ``floors[leaf]`` where ``floors`` gives one. Returns
     (leaves beyond their bar, leaves whose bf16 bar is relaxed, (worst rel
     L2, its leaf), worst cosine); the entries of the two lists are (leaf,
     rel L2, cosine, own error or None, bar). A zero gradient must stay zero;
@@ -972,7 +1021,7 @@ def compare_grads(got_all, ref_all, fp32_ref=None, fp32_bar=1e-4):
             own, bar, ok = None, fp32_bar, r <= fp32_bar and cos >= 0.99999
         else:
             own = rel_l2(ref, fp32_ref[k])
-            bar = bf16_bar(own)
+            bar = max(bf16_bar(own), (floors or {}).get(k, 0.0))
             ok = r <= bar
             if own >= BF16_OWN_NOISY:
                 relaxed.append((k, r, cos, own, bar))
@@ -4591,11 +4640,665 @@ def phase_spatial(counters, gpu):
         "self-supervised": steps[("SelfSupModelMF", "pallas", True, False)]["launches"]}
 
 
+# --- stride4: the stride-4 feature net, DepthPoseNet(feat_ratio=4) -----------
+
+STRIDE4 = 4
+STRIDE4_REQUESTS = 5                       # timed requests a batch and GRU path
+STRIDE4_STEPS = 2                          # a warm-up and a timed step a GRU path
+STRIDE4_SPLIT_FACTOR = 2.0                 # bf16 K5/K6 leaves: x the split path's distance
+
+
+def stride4_net(cfg=None, state=None):
+    """`DepthPoseNet(feat_ratio=4)` on the card with ``cfg``'s settings
+    (default `train_config()`): ``state`` loaded strictly, else the seed-0
+    weights with the heads scaled as `start_weights` scales them. No config
+    sets ``feat_ratio``, so the net is built here and handed to the entry
+    points (`make_infer_fn`, `make_train_step`)."""
+    from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
+    cfg = cfg or train_config()
+    net = DepthPoseNet(version=cfg.version, min_depth=cfg.min_depth, max_depth=cfg.max_depth,
+                       feat_ratio=STRIDE4, mixed_precision=cfg.mixed_precision,
+                       warp_impl=cfg.warp_impl, sep_conv=cfg.sep_conv, remat=cfg.remat,
+                       device="cuda", generator=torch.Generator().manual_seed(0))
+    if state is None:
+        return scale_heads(net)
+    net.load_state_dict(state, strict=True)
+    return net
+
+
+def stride4_serving(counters, gpu, start, requests):
+    """(1) B=1 and B=8 requests through `make_infer_fn` with either GRU
+    path, every count reset just before and read just after each batch's
+    requests: K1 24 a request, K5 48 with "pallas", nothing else. Returns
+    the launches and the median ms by (GRU path, B)."""
+    from dro_sfm_torch.inference import make_infer_fn
+    launches, ms = {k: 0 for k in counters}, {}
+    for sep in ("split", "pallas"):
+        infer = make_infer_fn(stride4_net(train_config(sep_conv=sep), start), device="cuda")
+        want = {"K1": K1_STEPS_PER_REQUEST,
+                **({"K5": 2 * K1_STEPS_PER_REQUEST} if sep == "pallas" else {})}
+        for b, req in requests.items():
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():      # the stride-4 serving path starts here
+                c.reset()
+            times = []
+            for i in range(STRIDE4_REQUESTS + 1):           # one warm-up request
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                depth, mats = infer(*req)
+                torch.cuda.synchronize()
+                if i:
+                    times.append(1e3 * (time.perf_counter() - t0))
+            got = {k: c.launches for k, c in counters.items()}   # and ends here
+            n = STRIDE4_REQUESTS + 1
+            per = {k: v // n for k, v in got.items() if v}
+            if per != want or any(v % n for v in got.values()):
+                fail(f"stride4 serving {sep} B={b}: launches {got} over {n} requests, "
+                     f"want {want} each")
+            if depth.shape != (b, SERVE_H, SERVE_W) or mats.shape != (b, VIEWS, 4, 4):
+                fail(f"stride4 serving B={b}: shapes {tuple(depth.shape)}, {tuple(mats.shape)}")
+            if not (torch.isfinite(depth).all() and torch.isfinite(mats).all()):
+                fail(f"stride4 serving {sep} B={b}: non-finite output")
+            if not ((depth >= 0.2 - 1e-4) & (depth <= 80.0 + 1e-2)).all():
+                fail(f"stride4 serving {sep} B={b}: depth outside [min_depth, max_depth]")
+            for k in counters:
+                launches[k] += got[k]
+            times.sort()
+            ms[sep, b] = times[len(times) // 2]
+            print(f"stride4 serving it12-h-out bf16 192x640 feat_ratio=4 (maps 48x160) N=2 "
+                  f"B={b} sep_conv={sep}: median {ms[sep, b]:.2f} ms/request (min "
+                  f"{times[0]:.2f}, max {times[-1]:.2f}, {STRIDE4_REQUESTS} requests) "
+                  f"{1e3 * b / ms[sep, b]:.1f} frames/s, launches/request {per}, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB on {gpu}", flush=True)
+    return launches, ms
+
+
+def stride4_training(counters, gpu, tame):
+    """(3) The B=8 SupModelMF step (bf16, phase 8's memory policy: no remat,
+    so K1 runs once a refinement step) through `make_train_step`
+    from ``tame`` with either GRU path: a warm-up and a timed step, every
+    count reset just before and read just after, each step's launches K1
+    24, K2 24, K3 18 (K5, K6-input, K6-weight 48 with "pallas"). Returns the
+    launches, ms a step and peak MiB by GRU path. A third step, outside the
+    counts, is profiled (`profile_train_step`)."""
+    from dro_sfm_torch.training.state import create_train_state, make_optimizer
+    from dro_sfm_torch.training.step import make_train_step
+    batch = make_train_batch(TRAIN_B)
+    launches, ms, peak = {k: 0 for k in counters}, {}, {}
+    for sep, want in (("split", TRAIN_LAUNCHES), ("pallas", TRAIN_LAUNCHES_PALLAS)):
+        cfg = train_config(sep_conv=sep)
+        net = stride4_net(cfg, tame)
+        opt = make_optimizer(net, steps_per_epoch=1000)
+        state = create_train_state(net, opt, device="cuda")
+        train_step = make_train_step(cfg, net, opt, device="cuda")
+        want = {k: want.get(k, 0) for k in counters}
+        flips = torch.Generator().manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():          # the stride-4 training path starts here
+            c.reset()
+        for i in range(STRIDE4_STEPS):
+            start = {k: c.launches for k, c in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch, flips)
+            loss = metrics["loss"].item()
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            got = {k: c.launches - start[k] for k, c in counters.items()}
+            if got != want:
+                fail(f"stride4 train step {i} sep_conv={sep}: launches {got}, want {want}")
+            if not math.isfinite(loss):
+                fail(f"stride4 train step {i} sep_conv={sep}: loss {loss}")
+        for k, c in counters.items():        # and ends here
+            launches[k] += c.launches
+        ms[sep], peak[sep] = step_ms, torch.cuda.max_memory_allocated() / 2**20
+        print(f"stride4 training SupModelMF it12-h-out bf16 remat={cfg.remat} 192x640 "
+              f"feat_ratio=4 N=2 "
+              f"B={TRAIN_B} sep_conv={sep} at tame weights: {ms[sep]:.2f} ms/step (the "
+              f"second of {STRIDE4_STEPS}), {1e3 * TRAIN_B / ms[sep]:.1f} frames/s, peak "
+              f"{peak[sep]:.0f} MiB, launches/step {got}, loss {loss:.4f} on {gpu}",
+              flush=True)
+        print(f"stride4 profile sep_conv={sep}:", flush=True)
+        profile_train_step(state, train_step, batch)
+        del net, opt, state, train_step
+        torch.cuda.empty_cache()
+    return launches, ms, peak
+
+
+def stride4_gradients(tame):
+    """(3) One B=8 step's gradients (flip off, deterministic library
+    algorithms; remat, which recomputes each refinement step in the
+    backward, to hold fp32 at B=8 in memory) at ``tame``.
+
+    K1-K3 against the plain warp at phase 9's bars (fp32 1e-4 and cosine
+    0.99999; bf16 `compare_grads`).
+
+    K5/K6 against the plain GRU pass at phase 15's bars in fp32: max(1e-4,
+    4 x the split path's worst distance to the plain pass). In bf16 phase
+    15's bar (`compare_grads`, 0.25 of bf16's own error on noisy leaves)
+    rejects the split path too at stride 4: cuDNN's bf16 gradients lie
+    0.64 of bf16's own error from the plain pass on the encoders' leaves,
+    as far as the kernel's (`tools/torch_gru_bf16_reach.py`). So a leaf's
+    bf16 bar is the larger of phase 15's and twice the split path's
+    distance to the plain pass on that leaf (STRIDE4_SPLIT_FACTOR). The
+    planted faults of phase 15 (K5 or K6 leaving out tap 0 of Wq) must fail
+    both precisions' bars."""
+    from dro_sfm_torch.ops import gru_pass
+    batch = make_train_batch(TRAIN_B, seed=2)
+    kernel_gru = (gru_pass.gru_pass_fwd, gru_pass.gru_pass_bwd)
+    runs = {"kernels": ("pallas", "split", kernel_gru),      # also the split path
+            "plain warp": ("gather", "split", kernel_gru),
+            "K5/K6": ("pallas", "pallas", kernel_gru),
+            "plain GRU pass": ("pallas", "pallas",
+                               (gru_pass.gru_pass_plain, gru_pass.gru_pass_bwd_plain)),
+            "K5 fault": ("pallas", "pallas", (without_wq_tap0(kernel_gru[0]), kernel_gru[1])),
+            "K6 fault": ("pallas", "pallas", (kernel_gru[0], without_wq_tap0(kernel_gru[1])))}
+    grads = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for mp in (False, True):
+            for name, (impl, sep, swap) in runs.items():
+                cfg = train_config(mixed_precision=mp, warp_impl=impl, sep_conv=sep,
+                                   remat=True)
+                with swapped_gru(gru_pass, *swap):
+                    grads[mp, name] = train_gradients(cfg, tame, batch, STRIDE4)[0]
+                torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(False)
+    plain = "plain GRU pass"
+    _, _, floor, _ = compare_grads(grads[False, "kernels"], grads[False, plain])
+    gru_bar = max(1e-4, GRU_E2E_FLOOR_FACTOR * floor[0])
+    split16 = {k: STRIDE4_SPLIT_FACTOR * rel_l2(grads[True, "kernels"][k], ref)
+               for k, ref in grads[True, plain].items() if ref.norm().item() > 0}
+    failed = []
+    for got, ref, what in (("kernels", "plain warp", "K1-K3 vs plain warp"),
+                           ("K5/K6", plain, "K5/K6 vs plain GRU pass"),
+                           ("K5 fault", plain, "planted K5 fault vs plain GRU pass"),
+                           ("K6 fault", plain, "planted K6 fault vs plain GRU pass")):
+        gru = ref == plain
+        for mp, dt in ((False, "fp32"), (True, "bf16")):
+            beyond, relaxed, worst, worst_cos = compare_grads(
+                grads[mp, got], grads[mp, ref], grads[False, ref] if mp else None,
+                gru_bar if gru else 1e-4, split16 if gru and mp else None)
+            fault = "fault" in got
+            if not fault:
+                for k, r, cos, own_err, b in beyond:
+                    print(f"  beyond its bar: {k} rel L2 {r:.3e} cosine {cos:.7f} own "
+                          f"{own_err} bar {b:.3e}")
+            bar_text = (f"bar {BF16_BAR:g}, {len(relaxed)} leaves relaxed"
+                        + (f", or {STRIDE4_SPLIT_FACTOR:g} x the split path's distance"
+                           if gru else "") if mp else f"bar {gru_bar if gru else 1e-4:.3e}")
+            print(f"stride4 end to end training {dt} B={TRAIN_B} at tame weights, {what}: "
+                  f"{len(beyond)} of {len(grads[mp, ref])} leaves beyond their bar "
+                  f"({bar_text}), worst rel L2 {worst[0]:.3e} ({worst[1]}), worst cosine "
+                  f"{worst_cos:.7f}", flush=True)
+            if bool(beyond) != fault:
+                failed.append(f"{what} {dt}: {len(beyond)} leaves beyond their bar")
+    beyond15, _, worst15, _ = compare_grads(grads[True, "kernels"], grads[True, plain],
+                                            grads[False, plain])
+    print(f"stride4 end to end training: the split path against the plain GRU pass, fp32 "
+          f"worst rel L2 {floor[0]:.3e} ({floor[1]}: the floor of the fp32 K5/K6 bar); "
+          f"bf16 {len(beyond15)} leaves beyond phase 15's bf16 bar, worst {worst15[0]:.3e} "
+          f"({worst15[1]}), printed, not held", flush=True)
+    if failed:
+        fail("stride4 end to end training: " + "; ".join(failed))
+
+
+def phase_stride4_kernels(gen):
+    """(4) K1-K3 (B=8, N=2, 48x160 maps, C=128) and K5/K6 (the depth pass
+    B=8 and the pose pass B*N=16 on 48x160, D=128, Cx=160, both axes),
+    bf16 and fp32, against their plain versions at the bars of phases 3, 7
+    and 12; in bf16 the kernel, plain, library and bound times (K5/K6 on the
+    depth pass). Returns the bf16 timings by kernel (K5/K6 axis 2)."""
+    from dro_sfm_torch.ops import gru_pass
+    from dro_sfm_torch.ops.tent_warp import (
+        warp_diff,
+        warp_diff_bwd_coords,
+        warp_diff_bwd_coords_plain,
+        warp_diff_bwd_feat,
+        warp_diff_bwd_feat_plain,
+        warp_diff_plain,
+    )
+    h, w, c = SERVE_H // STRIDE4, SERVE_W // STRIDE4, 128
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        f1, features, coords = k1_inputs(gen, TRAIN_B, VIEWS, h, w, c, dtype, "serving")
+        g = torch.randn(TRAIN_B * VIEWS, h * w, c, generator=gen, device="cuda").to(dtype)
+        out = warp_diff(f1, features, coords, VIEWS)
+        d_feat = warp_diff_bwd_feat(coords, g, h, w, dtype)
+        again = warp_diff_bwd_feat(coords, g, h, w, dtype)
+        d_co = warp_diff_bwd_coords(features, coords, g)
+        torch.cuda.synchronize()
+        ref = warp_diff_plain(f1, features, coords, VIEWS)
+        ref_feat = warp_diff_bwd_feat_plain(coords, g, h, w, dtype)
+        ref_co = warp_diff_bwd_coords_plain(features, coords, g)
+        errs = {"K1": (out.float() - ref.float()).abs().max().item(),
+                "K2": (d_feat.float() - ref_feat.float()).abs().max().item(),
+                "K3": (d_co - ref_co).abs().max().item()}
+        tols = {"K1": k1_tolerance(dtype, ref),
+                "K2": k2_tolerance(coords, g, h, w, dtype, ref_feat),
+                "K3": k3_tolerance(features, coords, g)}
+        line = (f"stride4 K1-K3 B={TRAIN_B} N={VIEWS} {h}x{w}x{c} {dt}: " + ", ".join(
+            f"{k} max_abs_err {errs[k]:.3e} tol {tols[k]:.3e}" for k in errs)
+            + f"; two K2 calls bitwise equal: {torch.equal(d_feat, again)}")
+        if any(errs[k] > tols[k] for k in errs) or not torch.equal(d_feat, again) or not all(
+                torch.isfinite(t).all() for t in (out, d_feat, d_co)):
+            fail(line)
+        if dtype == torch.bfloat16:
+            k1 = time_k1(f1, features, coords, VIEWS, ref)
+            lib_err = k1.pop("library_err")
+            k23 = time_k23(features, coords, g, dtype)
+            timings.update(K1=k1, K2=k23["K2"], K3=k23["K3"])
+            for k in ("K1", "K2", "K3"):
+                timings[k]["max_abs_err"] = errs[k]
+            line += "".join(
+                f" | {k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} library "
+                f"{v['library_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
+                for k, v in (("K1", k1), ("K2", k23["K2"]), ("K3", k23["K3"])))
+            line += (f" | K1 library err {lib_err:.2e} | K2 by launch: "
+                     f"{k2_split(coords, g, h, w, dtype)}")
+        print(line, flush=True)
+        del f1, features, coords, g, out, d_feat, again, d_co, ref, ref_feat, ref_co
+        for what, b in (("depth", TRAIN_B), ("pose", TRAIN_B * VIEWS)):
+            for axis in (2, 1):
+                inp = gru_inputs(gen, b, h, w, GRU_D, GRU_CX, dtype)
+                args = [inp[k] for k in ("h", "x", "wzr", "bzr", "wq", "bq")]
+                out = gru_pass.gru_pass_fwd(*args, axis)
+                grads = gru_pass.gru_pass_bwd(*args, inp["g"], axis)
+                again = gru_pass.gru_pass_bwd(*args, inp["g"], axis)
+                torch.cuda.synchronize()
+                ref = gru_pass.gru_pass_plain(*args, axis)
+                refs = gru_pass.gru_pass_bwd_plain(*args, inp["g"], axis)
+                bars = gru_bars(dtype)
+
+                def rel(a, r):
+                    return (a.float() - r.float()).abs().max().item() / max(
+                        r.float().abs().max().item(), 1e-30)
+
+                errs = {"K5": rel(out, ref)}
+                bad = errs["K5"] > bars["fwd"]
+                for name, got, want in zip(GRU_GRADS, grads, refs):
+                    errs[name] = rel(got, want)
+                    bad |= errs[name] > bars["act" if name in ("dh", "dx") else "weight"]
+                same = all(torch.equal(a, r) for a, r in zip(grads, again))
+                line = (f"stride4 K5/K6 {what} {b}x{h}x{w} D={GRU_D} Cx={GRU_CX} axis {axis} "
+                        f"{dt}: " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                        + f" (bars {bars['fwd']:.1e}, {bars['act']:.1e}, {bars['weight']:.1e})"
+                        f"; two K6 calls bitwise equal: {same}")
+                if bad or not same or not torch.isfinite(out).all():
+                    fail(line)
+                if dtype == torch.bfloat16 and what == "depth":
+                    r = time_gru(inp, axis, gru_pass, gru_intermediates(inp, axis, gru_pass))
+                    for k in r:
+                        r[k]["max_abs_err"] = max(errs[n] for n in (
+                            ("K5",) if k == "K5" else ("dh", "dx") if k == "K6-input"
+                            else GRU_GRADS[2:]))
+                        if axis == 2:
+                            timings[k] = r[k]
+                    line += "".join(f" | {k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f}"
+                                    f" library {v['library_ms']:.4f} bound {v['bound_ms']:.4f}"
+                                    for k, v in r.items())
+                print(line, flush=True)
+    return timings
+
+
+def phase_stride4(counters, gpu):
+    """The stride-4 feature net on the card: it12-h-out bf16 at 192x640
+    with ``feat_ratio=4`` (maps of 48x160), N=2. (1) serving (B=1 and B=8,
+    both GRU paths, `stride4_serving`); (2) the same B=1 request through the
+    plain warp, fp32 and bf16, at phase 5's bars; (3) the B=8 training step
+    with either GRU path (`stride4_training`) and its gradients against the
+    plain versions (`stride4_gradients`); (4) the kernels at the path's
+    shapes (`phase_stride4_kernels`); (5) ms a request, ms a step, peak
+    memory. Returns the launches of the serving and training runs and the
+    kernels' bf16 timings."""
+    from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
+    start = stride4_net().state_dict()
+    gen = torch.Generator().manual_seed(1)
+    requests = {b: make_request(gen, b) for b in (1, 8)}
+    served, req_ms = stride4_serving(counters, gpu, start, requests)
+    phase_end_to_end(DepthPoseNet, stride4_net(state=start), requests, STRIDE4)
+    tame = tame_weights(start)
+    trained, step_ms, peak = stride4_training(counters, gpu, tame)
+    stride4_gradients(tame)
+    timings = phase_stride4_kernels(torch.Generator(device="cuda").manual_seed(7))
+    print("stride4 summary on " + gpu + ": ms/request " + ", ".join(
+        f"{sep} B={b} {v:.2f}" for (sep, b), v in req_ms.items()) + "; ms/step " + ", ".join(
+        f"{sep} {v:.2f} (peak {peak[sep]:.0f} MiB)" for sep, v in step_ms.items()), flush=True)
+    return {k: served[k] + trained[k] for k in counters}, timings
+
+
+# --- torch_weights: upstream torch weights on the card, without flax or yacs --
+
+TW_BUILD = ROOT / "build" / "torch_weights"
+TW_FRAMES, TW_H, TW_W = 10, 192, 256       # the ScanNet scene: 8 samples with context
+TW_BATCH = 2
+TW_CONFIG = {"model": {"name": "SupModelMF",
+                       "depth_net": {"name": "DepthPoseNet", "version": "it12-h-out"},
+                       "params": {"min_depth": 0.2, "max_depth": 20.0, "crop": ""}},
+             "datasets": {"augmentation": {"image_shape": [TW_H, TW_W]}}}
+TW_BAR = 1e-6                              # converted against directly loaded metrics
+
+
+def reference_state_dict(state):
+    """The reference's names for a `DepthPoseNet` state dict (the inverse of
+    `torch_weights.convert_dro_checkpoint`), prefixed ``model.depth_net.``,
+    OIHW tensors on the CPU, with the ``num_batches_tracked`` counters."""
+    from dro_sfm_torch.convert import to_jax_variables
+    variables = to_jax_variables(state)
+    params, stats = variables["params"], variables["batch_stats"]
+    out = {}
+
+    def conv(dst, node):
+        out[f"{dst}.weight"] = torch.from_numpy(node["kernel"]).permute(3, 2, 0, 1)
+        if "bias" in node:
+            out[f"{dst}.bias"] = torch.from_numpy(node["bias"])
+
+    def bn(dst, p, s):
+        for leaf, value in (("weight", p["scale"]), ("bias", p["bias"]),
+                            ("running_mean", s["mean"]), ("running_var", s["var"])):
+            out[f"{dst}.{leaf}"] = torch.from_numpy(value)
+        out[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+    for enc in ("fnet", "cnet_depth", "cnet_pose"):
+        p, s = params[enc], stats[enc]
+        conv(f"{enc}.conv1", p["conv1"])
+        bn(f"{enc}.bn1", p["bn1"], s["bn1"])
+        for li in (1, 2, 3):
+            for bi in (0, 1):
+                blk, src = f"layer{li}_block{bi}", f"{enc}.layer{li}.{bi}"
+                conv(f"{src}.conv1", p[blk]["conv1"])
+                conv(f"{src}.conv2", p[blk]["conv2"])
+                bn(f"{src}.bn1", p[blk]["bn1"], s[blk]["bn1"])
+                bn(f"{src}.bn2", p[blk]["bn2"], s[blk]["bn2"])
+                if "downsample_conv" in p[blk]:
+                    conv(f"{src}.downsample.0", p[blk]["downsample_conv"])
+                    bn(f"{src}.downsample.1", p[blk]["downsample_bn"], s[blk]["downsample_bn"])
+        conv(f"{enc}.upconv1.0", p["upconv1"])
+        conv(f"{enc}.upconv1_fusion.0", p["upconv1_fusion"])
+        conv(f"{enc}.out_conv", p["out_conv"])
+    for dst, (mod, leaf) in (("depth_head.conv1", ("depth_head", "conv1")),
+                             ("depth_head.conv2", ("depth_head", "conv2")),
+                             ("pose_head.conv1_pose", ("pose_head", "conv1")),
+                             ("pose_head.conv2_pose", ("pose_head", "conv2")),
+                             ("upmask_net.mask.0", ("upmask_net", "conv1")),
+                             ("upmask_net.mask.2", ("upmask_net", "conv2"))):
+        conv(dst, params[mod][leaf])
+    ref = params["refinement"]
+    for kind in ("depth", "pose"):
+        block = f"update_block_{kind}"
+        cell = ref[block]["cell"]
+        for name, node in cell["encoder"].items():
+            conv(f"{block}.encoder.{name}", node)
+        head = ("depth_head.conv1", "depth_head.conv2") if kind == "depth" else (
+            "pose_head.conv1_pose", "pose_head.conv2_pose")
+        conv(f"{block}.{head[0]}", cell["head"]["conv1"])
+        conv(f"{block}.{head[1]}", cell["head"]["conv2"])
+        if kind == "depth":
+            conv(f"{block}.mask.0", ref["mask_head"]["mask1"])
+            conv(f"{block}.mask.2", ref["mask_head"]["mask2"])
+        for sfx in ("1", "2"):
+            zr = cell["gru"][f"convzr{sfx}"]
+            d = zr["kernel"].shape[-1] // 2
+            for gate, part in (("z", slice(0, d)), ("r", slice(d, 2 * d))):
+                conv(f"{block}.{kind}_gru.conv{gate}{sfx}",
+                     {"kernel": zr["kernel"][..., part], "bias": zr["bias"][part]})
+            conv(f"{block}.{kind}_gru.convq{sfx}", cell["gru"][f"convq{sfx}"])
+    return {f"model.depth_net.{k}": v.contiguous() for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def importable(modules):
+    """``modules`` (name -> module) in ``sys.modules`` for the body only."""
+    saved = {k: sys.modules.get(k) for k in modules}
+    sys.modules.update(modules)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def save_pickled_as(path, obj_fn, module, name, base=dict):
+    """``torch.save(obj_fn(cls))`` where ``cls`` is a ``base`` subclass
+    pickled as the global ``module.name``: the module is made importable
+    for the write only, so nothing of it is left to read the file with."""
+    import types
+
+    class Node(base):
+        pass
+
+    Node.__module__, Node.__qualname__, Node.__name__ = module, name, name
+    mods = {}
+    for i, part in enumerate(module.split(".")):
+        mods[".".join(module.split(".")[:i + 1])] = types.ModuleType(part)
+    setattr(mods[module], name, Node)
+    with importable(mods):
+        torch.save(obj_fn(Node), path)
+
+
+def write_tw_scannet(root):
+    """A ScanNet scene of TW_FRAMES rendered TW_H x TW_W views (JPEG, the
+    renderer's millimetre depth and camera-to-world poses), listed at every
+    frame of which every 5th exists (the reader keeps every 5th). Returns
+    the split's number of samples with both neighbours."""
+    import numpy as np
+
+    from dro_sfm_torch.utils.image_io import encode_jpeg
+    frames, poses, depths, K = render_video(TW_FRAMES, TW_H, TW_W)
+    scene = root / "scene0000_00"
+    for d in ("color", "depth", "pose", "intrinsic"):
+        (scene / d).mkdir(parents=True, exist_ok=True)
+    for i, (rgb, pose, depth) in enumerate(zip(frames, poses, depths)):
+        (scene / "color" / f"{5 * i:06d}.jpg").write_bytes(encode_jpeg(rgb, quality=95))
+        depth_png_bytes(scene / "depth" / f"{5 * i:06d}.png", depth, 1000.0)
+        np.savetxt(scene / "pose" / f"{5 * i:06d}.txt", pose)
+    K4 = np.eye(4)
+    K4[:3, :3] = K
+    np.savetxt(scene / "intrinsic" / "intrinsic_color.txt", K4)
+    (root.parent / "split.txt").write_text("".join(
+        f"scene0000_00/color {i:06d}.jpg\n" for i in range(5 * TW_FRAMES)))
+    return TW_FRAMES - 2
+
+
+def tw_trunk_states():
+    """Random state dicts under torchvision's names: ResNet-18 (conv1,
+    layers 1-4, fc) and VGG16's 13 convolutions, seed 4."""
+    gen = torch.Generator().manual_seed(4)
+    rn = {"conv1.weight": torch.randn(64, 3, 7, 7, generator=gen)}
+
+    def bn(name, c):
+        rn[f"{name}.weight"] = 1 + 0.1 * torch.randn(c, generator=gen)
+        rn[f"{name}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        rn[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        rn[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        rn[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    bn("bn1", 64)
+    cin = 64
+    for li, width in enumerate((64, 128, 256, 512), start=1):
+        for bi in (0, 1):
+            src = f"layer{li}.{bi}"
+            rn[f"{src}.conv1.weight"] = torch.randn(width, cin if bi == 0 else width, 3, 3,
+                                                    generator=gen)
+            bn(f"{src}.bn1", width)
+            rn[f"{src}.conv2.weight"] = torch.randn(width, width, 3, 3, generator=gen)
+            bn(f"{src}.bn2", width)
+            if bi == 0 and li > 1:
+                rn[f"{src}.downsample.0.weight"] = torch.randn(width, cin, 1, 1, generator=gen)
+                bn(f"{src}.downsample.1", width)
+        cin = width
+    rn["fc.weight"], rn["fc.bias"] = torch.randn(1000, 512, generator=gen), torch.zeros(1000)
+    vgg, cin = {}, 3
+    for idx, cout in zip((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28),
+                         (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)):
+        vgg[f"features.{idx}.weight"] = torch.randn(cout, cin, 3, 3, generator=gen)
+        vgg[f"features.{idx}.bias"] = torch.randn(cout, generator=gen)
+        cin = cout
+    return rn, vgg
+
+
+def tw_grafts(trainer, percep, rn, vgg):
+    """Leaves of the warm-started ``trainer``'s encoders and of its
+    perceptual net ``percep`` that differ in any bit from the torchvision
+    sources: each encoder's trunk (conv1 replicated over the image pair and
+    halved for ``cnet_pose``) and PercepNet's conv0-conv6."""
+    import re
+    want = {}
+    for k, v in rn.items():
+        if k.startswith(("layer4", "fc")) or k.endswith("num_batches_tracked"):
+            continue
+        name = re.sub(r"layer(\d)\.(\d)\.", r"layer\1_block\2.", k).replace(
+            "downsample.0.", "downsample_conv.").replace("downsample.1.", "downsample_bn.")
+        for enc in ("fnet", "cnet_depth", "cnet_pose"):
+            want[f"{enc}.{name}"] = v
+    want["cnet_pose.conv1.weight"] = torch.cat([rn["conv1.weight"]] * 2, dim=1) / 2
+    want.update({f"conv{i}.{leaf}": vgg[f"features.{idx}.{leaf}"]
+                 for i, idx in enumerate((0, 2, 5, 7, 10, 12, 14)) for leaf in ("weight", "bias")})
+    got = {**trainer.net.state_dict(), **percep.state_dict()}
+    return [k for k, v in want.items() if not torch.equal(got[k].cpu(), v)]
+
+
+def phase_torch_weights(counters, gpu):
+    """Upstream torch weights through the port alone (no flax, jax or yacs
+    on the card's machine). (1) The port's seed-0 it12-h-out `DepthPoseNet` under
+    the reference's names (`reference_state_dict`); (2) saved as the
+    reference's ``.ckpt`` (``state_dict``, ``config``, ``epoch``), its config
+    pickled as ``yacs.config.CfgNode``; (3) the ``convert_torch_weights
+    dro-ckpt`` CLI to an eval-ready ``.ckpt`` (its load check on the card;
+    `load_model` bit-equal to the source), then ``eval_reference_ckpt`` on a
+    rendered ScanNet scene at 192x256 (B=2) on the card, counts reset just
+    before and read just after: K1 48 an eval batch and nothing else; every
+    metric within TW_BAR relative of a `Trainer` on the same config whose net
+    took the weights straight; (4) ``resnet18`` and ``vgg16`` state dicts of
+    random arrays under torchvision's names converted by the CLI, and a
+    `Trainer` (SelfSupModelMF with the perceptual term) warm-started from
+    them: the grafted leaves bit-equal to the sources; (5) a ``.ckpt`` that
+    pickles a foreign global refused. Returns the eval's launches."""
+    import importlib.util
+    import pickle
+    import shutil
+
+    from dro_sfm_torch import torch_weights as tw
+    from dro_sfm_torch.inference import load_model
+    from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
+    from dro_sfm_torch.models.sfm import make_percep_fn
+    from dro_sfm_torch.scripts import convert_torch_weights, eval_reference_ckpt
+    from dro_sfm_torch.training.trainer import Trainer
+    from dro_sfm_torch.utils.config import load_config
+    shutil.rmtree(TW_BUILD, ignore_errors=True)
+    TW_BUILD.mkdir(parents=True)
+    try:
+        with contextlib.chdir(TW_BUILD):     # the trainers' ./results
+            # (1), (2)
+            net = DepthPoseNet(version="it12-h-out", device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+            source = {k: v.detach().clone() for k, v in net.state_dict().items()}
+            ref = TW_BUILD / "indoor_scannet.ckpt"
+            sd = reference_state_dict(source)
+            save_pickled_as(ref, lambda node: {
+                "state_dict": sd, "epoch": 3,
+                "config": node({k: node({kk: node(vv) if isinstance(vv, dict) else vv
+                                         for kk, vv in v.items()}) for k, v in
+                                TW_CONFIG.items()})}, "yacs.config", "CfgNode")
+            if importlib.util.find_spec("yacs") is not None:
+                fail("torch_weights: yacs is importable here")
+            if not isinstance(tw.read_reference_ckpt(str(ref))["config"], tw.ReferenceConfig):
+                fail("torch_weights: the config did not come back as ReferenceConfig")
+            # (3)
+            out = TW_BUILD / "converted" / "indoor_scannet.ckpt"
+            t0 = time.perf_counter()
+            convert_torch_weights.main(["dro-ckpt", str(ref), str(out)])
+            convert_s = time.perf_counter() - t0
+            loaded = load_model(str(out)).state_dict()
+            differ = [k for k in source if not torch.equal(loaded[k], source[k])]
+            if differ:
+                fail(f"torch_weights: load_model of the converted .ckpt differs from the "
+                     f"source in {len(differ)} tensors, first {differ[0]}")
+            n_samples = write_tw_scannet(TW_BUILD / "scannet" / "scans")
+            args = [str(ref), "--dataset", "Scannet", "--path",
+                    str(TW_BUILD / "scannet" / "scans"), "--split", "split.txt",
+                    "--batch-size", str(TW_BATCH), "--out", str(TW_BUILD / "eval.ckpt")]
+            for c in counters.values():      # the reference-checkpoint path starts here
+                c.reset()
+            t0 = time.perf_counter()
+            result = eval_reference_ckpt.main(args)
+            eval_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}   # and ends here
+            batches = -(-n_samples // TW_BATCH)
+            want = {k: (EVAL_LAUNCHES["K1"] * batches if k == "K1" else 0) for k in counters}
+            if launches != want:
+                fail(f"torch_weights: eval_reference_ckpt launched {launches} over {batches} "
+                     f"batches, want {want}")
+            cfg = eval_reference_ckpt.eval_config(str(TW_BUILD / "eval.ckpt"),
+                                                  eval_reference_ckpt.parse_args(args))
+            direct = Trainer(cfg, device="cuda")
+            direct.net.load_state_dict(source, strict=True)
+            want_m = direct.test()
+            got_m = result["metrics"]
+            worst = max((abs(got_m[k] - float(v)) / max(abs(float(v)), 1e-30), k)
+                        for k, v in want_m.items() if float(v) != 0 or got_m[k] != 0)
+            if set(got_m) != set(want_m) or worst[0] > TW_BAR or not all(
+                    math.isfinite(v) for v in got_m.values()):
+                fail(f"torch_weights: converted against directly loaded metrics, worst "
+                     f"{worst[0]:.3e} ({worst[1]}), bar {TW_BAR:g}")
+            print(f"torch_weights: reference .ckpt (CfgNode config, yacs absent) -> CLI "
+                  f"dro-ckpt {convert_s:.1f} s (load check and load_model on the card, "
+                  f"bit-equal) -> eval_reference_ckpt {eval_s:.1f} s on {n_samples} ScanNet "
+                  f"samples {TW_H}x{TW_W} B={TW_BATCH}: K1 {launches['K1']} launches "
+                  f"({launches['K1'] // batches}/batch); {len(got_m)} metrics against the "
+                  f"directly loaded net's, worst rel {worst[0]:.3e} ({worst[1]}, bar "
+                  f"{TW_BAR:g}); abs_rel_pp_gt {got_m['abs_rel_pp_gt']:.4f} on {gpu}",
+                  flush=True)
+            del net, direct
+            # (4)
+            rn, vgg = tw_trunk_states()
+            paths = {}
+            for kind, state in (("resnet18", rn), ("vgg16", vgg)):
+                src = TW_BUILD / f"{kind}.pth"
+                torch.save(state, src)
+                paths[kind] = str(TW_BUILD / f"{kind}.msgpack")
+                convert_torch_weights.main([kind, str(src), paths[kind]])
+            cfg = load_config(str(SELFSUP_CONFIG), overrides={
+                "model": {"depth_net": {"pretrained_encoders": paths["resnet18"]},
+                          "percep_net": {"checkpoint_path": paths["vgg16"]},
+                          "loss": {"percep_loss_weight": 0.1}},
+                "checkpoint": {"filepath": str(TW_BUILD / "ckpt")}})
+            trainer = Trainer(cfg, device="cuda")
+            percep = make_percep_fn(trainer.model_cfg, device="cuda")
+            if percep is None:
+                fail("torch_weights: the warm-started config has no perceptual net")
+            bad = tw_grafts(trainer, percep, rn, vgg)
+            if bad:
+                fail(f"torch_weights: {len(bad)} grafted leaves differ from the source, "
+                     f"first {bad[0]}")
+            print(f"torch_weights: resnet18 and vgg16 state dicts (torchvision's names) -> "
+                  f"CLI -> Trainer warm start ({cfg.model.name}, pretrained_encoders, "
+                  f"percep_net.checkpoint_path): the three encoders' trunks and PercepNet's "
+                  f"7 convolutions bit-equal to the sources", flush=True)
+            # (5)
+            foreign = TW_BUILD / "foreign.ckpt"
+            save_pickled_as(foreign, lambda node: node(state_dict=sd), "foreign.payload",
+                            "Payload", collections.OrderedDict)
+            try:
+                tw.read_reference_ckpt(str(foreign))
+                fail("torch_weights: a checkpoint with a foreign global was read")
+            except pickle.UnpicklingError as e:
+                print(f"torch_weights: foreign global refused: {e}", flush=True)
+    finally:
+        shutil.rmtree(TW_BUILD, ignore_errors=True)
+    return launches
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
           "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
           "trainer", "selfsup_trainer", "apps", "datasets", "dist_trainer", "nyu", "export",
-          "ba", "demo", "spatial")
+          "ba", "demo", "spatial", "stride4", "torch_weights")
 
 
 def main() -> int:
@@ -4782,6 +5485,21 @@ def main() -> int:
         for name in TRAIN_LAUNCHES_PALLAS:
             if split[0][name] == 0 or split[2]["self-supervised"][name] == 0:
                 fail(f"the height-split path never launched {name}")
+
+    # 31) the stride-4 feature net (this slice's path: serving and training
+    # launch K1-K3 and K5/K6 on 48x160 maps, held to their plain versions
+    # there)
+    stride4 = phase("stride4", phase_stride4, counters, gpu)
+    if stride4 is not None:
+        for name in TRAIN_LAUNCHES_PALLAS:
+            if stride4[0][name] == 0:
+                fail(f"the stride-4 path never launched {name}")
+
+    # 32) upstream torch weights without flax or yacs (its evaluation
+    # launches K1 48 a batch)
+    launches_w = phase("torch_weights", phase_torch_weights, counters, gpu)
+    if launches_w is not None and launches_w["K1"] == 0:
+        fail("the reference-checkpoint evaluation never launched K1")
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)
@@ -4815,6 +5533,17 @@ def main() -> int:
          "source": src + "gru_pass_bwd.cu", "replaces": gru_tpu + "287",
          "launches": launches_p["K6-weight"], **gru_timed["K6-weight"]},
     ]
+    s4_launches, s4_timed = stride4
+    for key, name, source, replaces in (
+            ("K1", "tent_warp_fwd_diff", "tent_warp_fwd.cu", warp + "182"),
+            ("K2", "tent_warp_bwd_feat", "tent_warp_bwd.cu", warp + "264"),
+            ("K3", "tent_warp_bwd_coords", "tent_warp_bwd.cu", warp + "205"),
+            ("K5", "gru_pass_fwd", "gru_pass_fwd.cu", gru_tpu + "270"),
+            ("K6-input", "gru_pass_bwd_input", "gru_pass_bwd.cu", gru_tpu + "287"),
+            ("K6-weight", "gru_pass_bwd_weight", "gru_pass_bwd.cu", gru_tpu + "287")):
+        lines.append({"name": f"{name} ({key}, stride 4: 48x160 maps)", "route": "cuda",
+                      "source": src + source, "replaces": replaces,
+                      "launches": s4_launches[key], **s4_timed[key]})
     print(json.dumps({"kernels": lines}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

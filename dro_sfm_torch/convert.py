@@ -10,9 +10,8 @@ the module path, and
   ``num_batches_tracked`` counter that torch keeps and flax does not.
 
 The fused ``convzr*`` GRU convs keep their z-then-r layout. An upstream torch
-checkpoint reaches the port through
-`tools/convert_torch_weights.py:convert_dro_checkpoint` (numpy) and then
-`from_jax_variables`. `to_jax_variables` is the inverse.
+checkpoint reaches the port through `torch_weights.py:convert_dro_checkpoint`
+(numpy) and then `from_jax_variables`. `to_jax_variables` is the inverse.
 
 The optimizer's state maps the same way (`optimizer_state_from_jax`,
 `optimizer_state_to_jax`): the JAX package's optax state, serialized by

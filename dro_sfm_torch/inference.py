@@ -28,8 +28,8 @@ from dro_sfm_torch.export_serving import build_serving_fn
 from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
 from dro_sfm_torch.utils.device import resolve_device
 
-_META = ("version", "min_depth", "max_depth", "mixed_precision", "warp_impl",
-         "sep_conv", "remat")
+_META = ("version", "min_depth", "max_depth", "feat_ratio", "mixed_precision",
+         "warp_impl", "sep_conv", "remat")
 
 
 def save_model(net: DepthPoseNet, path: str) -> None:
@@ -49,8 +49,9 @@ def load_model_and_config(path: str, device=None):
     asks for the CPU), loaded strictly:
 
     * `save_model`'s file: the net it describes (a key the file lacks, from
-      files written before ``warp_impl``, ``sep_conv`` and ``remat`` were
-      saved, takes the `DepthPoseNet` default); no config (None);
+      files written before ``feat_ratio``, ``warp_impl``, ``sep_conv`` and
+      ``remat`` were saved, takes the `DepthPoseNet` default, so stride 8);
+      no config (None);
     * a training checkpoint of the port or of the JAX package, with its
       ``<path>.json`` sidecar: the net of the sidecar's config as the JAX
       `load_model` builds it (``version``, ``min_depth or 0.1``,

@@ -2,12 +2,14 @@
 
 PyTorch counterpart of `dro_sfm_tpu/models/encoder.py`: conv1 + max-pool +
 layers 1-3 (stride 16), bilinear x2 upsampling (half-pixel centres) fused
-with the stride-8 skip, projected to ``out_chs``. BatchNorm runs in eval mode.
-Submodule names follow the JAX parameter tree (``layer1_block0``,
-``downsample_conv``, ``upconv1_fusion``, ...), so converted weights load
-leaf by leaf. Under a height split (`parallel/spatial.py`) the max-pool
-fetches its halo rows with -inf outside the image and the x2 resize one
-row each side, its source rows clamped at the image's edges.
+with the stride-8 skip and, at stride 4, once more with the stride-4 skip
+(``upconv2``, ``upconv2_fusion``), projected to ``out_chs``. BatchNorm runs
+in eval mode. Submodule names follow the JAX parameter tree
+(``layer1_block0``, ``downsample_conv``, ``upconv1_fusion``, ...), so
+converted weights load leaf by leaf. Under a height split
+(`parallel/spatial.py`) the max-pool fetches its halo rows with -inf
+outside the image and the x2 resize one row each side, its source rows
+clamped at the image's edges; stride 4 is not split (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -49,19 +51,20 @@ class BasicBlock(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """Truncated ResNet-18 with upconv fusion to stride 8.
+    """Truncated ResNet-18 with upconv fusion to stride 8 or 4.
 
-    x [B, 3 * num_input_images, H, W] -> [B, out_chs, H/8, W/8] in ``dtype``.
+    x [B, 3 * num_input_images, H, W] -> [B, out_chs, H/stride, W/stride] in
+    ``dtype``.
     """
 
     def __init__(self, out_chs: int = 32, stride: int = 8,
                  num_input_images: int = 1, layers=(2, 2, 2),
                  dtype=torch.float32, generator=None):
         super().__init__()
-        if stride != 8:
-            raise NotImplementedError(f"stride {stride} (only 8 is ported)")
+        if stride not in (8, 4):
+            raise NotImplementedError(f"stride {stride}")
         kw = {"dtype": dtype, "generator": generator}
-        self.dtype = dtype
+        self.dtype, self.stride = dtype, stride
         self.conv1 = Conv2d(3 * num_input_images, 64, 7, stride=2, padding=3,
                             bias=False, **kw)
         self.bn1 = BatchNorm2d(64)
@@ -76,18 +79,26 @@ class ResNetEncoder(nn.Module):
         self.layers = tuple(layers)
         self.upconv1 = Conv2d(256, 128, 3, padding=1, **kw)
         self.upconv1_fusion = Conv2d(128 + 128, 128, 3, padding=1, **kw)
-        self.out_conv = Conv2d(128, out_chs, 3, padding=1, **kw)
+        if stride == 4:
+            self.upconv2 = Conv2d(128, 64, 3, padding=1, **kw)
+            self.upconv2_fusion = Conv2d(64 + 64, 64, 3, padding=1, **kw)
+        self.out_conv = Conv2d(128 if stride == 8 else 64, out_chs, 3, padding=1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stride == 4 and spatial.current() is not None:
+            raise NotImplementedError("the stride-4 encoder under a height split "
+                                      "(ROADMAP C)")
         y = max_pool(F.relu(self.bn1(self.conv1(x.to(self.dtype)))))
-        skip8 = None
+        skips = {}
         for li, blocks in enumerate(self.layers, start=1):
             for bi in range(blocks):
                 y = getattr(self, f"layer{li}_block{bi}")(y)
-            if li == 2:
-                skip8 = y
-        y = F.relu(self.upconv1(upsample2(y, skip8.shape[-2])))
-        y = F.relu(self.upconv1_fusion(torch.cat([y, skip8], dim=1)))
+            skips[4 * 2 ** (li - 1)] = y
+        y = F.relu(self.upconv1(upsample2(y, skips[8].shape[-2])))
+        y = F.relu(self.upconv1_fusion(torch.cat([y, skips[8]], dim=1)))
+        if self.stride == 4:
+            y = F.relu(self.upconv2(upsample2(y, skips[4].shape[-2])))
+            y = F.relu(self.upconv2_fusion(torch.cat([y, skips[4]], dim=1)))
         return self.out_conv(y)
 
 
@@ -101,10 +112,11 @@ def max_pool(y: torch.Tensor) -> torch.Tensor:
 
 
 def upsample2(y: torch.Tensor, rows: int) -> torch.Tensor:
-    """Stride 16 -> 8: the half-pixel bilinear x2 resize of NCHW ``y`` on
-    the channel-last view, ``rows`` output rows (this rank's at stride 8
-    under a height split: its band widened by one row each side, source
-    rows clamped at the image's edges)."""
+    """The half-pixel bilinear x2 resize of NCHW ``y`` on the channel-last
+    view, ``rows`` output rows: stride 16 -> 8, and 8 -> 4 unsplit. Under a
+    height split (stride 16 -> 8 only) ``rows`` are this rank's at stride
+    8: its band widened by one row each side, source rows clamped at the
+    image's edges."""
     band = spatial.current()
     w = y.shape[-1]
     if band is None:

@@ -8,7 +8,7 @@ in the JAX trainer's order and loads the result back strictly
 (`convert.from_jax_variables`).
 
 * `graft_pretrained_encoders`: a converted single-image ResNet-18 trunk
-  (flax msgpack, written offline by `tools/convert_torch_weights.py`) on
+  (flax msgpack, written by `scripts/convert_torch_weights.py resnet18`) on
   each of the three encoders; conv1 is replicated and divided by the image
   count where an encoder takes a stacked image pair.
 * `load_partial_network`: every array of a saved checkpoint (the JAX

@@ -20,11 +20,14 @@ from dro_sfm_torch.ops.gru_pass import (GRU_BM, K6W_CH, K6W_OUT, K6W_PIX, _round
 CSRC = Path(kernels.__file__).resolve().parent / "csrc"
 H100_SMS = 132
 
-# (what, B, H, W, D, Cx): the shapes chip_smoke.py's GRU phase drives
+# (what, B, H, W, D, Cx): the shapes chip_smoke.py's GRU phase drives, and
+# the stride-4 net's (48x160 maps: 32-position segments along W, 4x the
+# stages of K6-weight), which its phase stride4 drives
 SHAPES = [("depth", 8, 24, 80, 128, 160), ("pose", 16, 24, 80, 128, 160),
           ("B=1", 1, 24, 80, 128, 160), ("3-px line", 2, 3, 7, 32, 24),
           ("D32 Cx24", 2, 8, 16, 32, 24), ("D32 Cx20", 2, 8, 16, 32, 20),
-          ("6x10", 2, 6, 10, 128, 160)]
+          ("6x10", 2, 6, 10, 128, 160), ("depth stride 4", 8, 48, 160, 128, 160),
+          ("pose stride 4", 16, 48, 160, 128, 160)]
 
 
 def line_order(b, h, w, axis):
@@ -47,7 +50,7 @@ def test_split_ranges_cover_every_pixel_once_in_order(what, b, h, w, d, cx, axis
 
 
 @pytest.mark.parametrize("s, want", [(80, 16), (24, 8), (3, 8), (10, 16), (7, 8), (64, 32),
-                                     (96, 32), (16, 16)])
+                                     (96, 32), (16, 16), (160, 32), (48, 16)])
 def test_segment_leaves_fewest_positions_empty(s, want):
     assert gru_segment(s) == want
 
@@ -59,6 +62,19 @@ def test_weight_grid_fills_one_wave_of_two_blocks_an_sm(what, b, axis):
     _, n_split, _ = k6_weight_plan(b, 24, 80, axis, dp, cxp, H100_SMS)
     tiles = -(-(dp + cxp) // K6W_CH) * (-(-2 * dp // K6W_OUT) + -(-dp // K6W_OUT))
     assert 2 * H100_SMS - tiles < tiles * n_split <= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("axis", [2, 1])
+@pytest.mark.parametrize("what, b", [("depth", 8), ("pose", 16)])
+def test_weight_grid_at_stride4_fills_one_wave(what, b, axis):
+    """At the stride-4 maps (48x160) each split walks 4x the stages of
+    24x80's, and the grid still fills one wave of two blocks an SM."""
+    dp, cxp = 128, 160
+    _, n_split, per = k6_weight_plan(b, 48, 160, axis, dp, cxp, H100_SMS)
+    _, n_split8, per8 = k6_weight_plan(b, 24, 80, axis, dp, cxp, H100_SMS)
+    tiles = -(-(dp + cxp) // K6W_CH) * (-(-2 * dp // K6W_OUT) + -(-dp // K6W_OUT))
+    assert 2 * H100_SMS - tiles < tiles * n_split <= 2 * H100_SMS
+    assert n_split == n_split8 and 3 * per8 <= per <= 5 * per8
 
 
 @pytest.mark.parametrize("what, b, h, w, d, cx", SHAPES, ids=[s[0] for s in SHAPES])

@@ -1,17 +1,24 @@
-"""Import hygiene of the PyTorch port: it never reaches JAX or the JAX package.
+"""Import hygiene of the PyTorch port: it never reaches JAX, the JAX package
+or the JAX package's tools.
 
 Every ``.py`` under ``dro_sfm_torch/`` and ``chip_smoke.py`` is parsed and
 its imports checked; importing the package in a fresh interpreter must leave
-``jax`` out of ``sys.modules``. The card's machine has none of PyYAML,
-OpenCV, Pillow, matplotlib, msgpack, h5py or imageio, so no module of the
-port imports them (it reads flax's msgpack and PNG, JPEG and BMP files
-itself), and ``wandb`` is imported only inside ``loggers.py:WandbLogger``.
+``jax`` out of ``sys.modules``. Of ``tools/`` only the port's own
+``tools/torch_*.py`` may be imported. The card's machine has none of PyYAML,
+OpenCV, Pillow, matplotlib, msgpack, h5py, imageio, yacs or torchvision, so
+no module of the port imports them (it reads flax's msgpack, PNG, JPEG and
+BMP files and the reference's yacs-pickled checkpoints itself), and
+``wandb`` is imported only inside ``loggers.py:WandbLogger``.
 The trainer, the CLIs (the launcher and the depth-map metrics among them),
 the process group and collectives (`parallel/`), the dataset readers, the
 inference applications, bundle adjustment (`ba/`) and its benchmark
 ``tools/torch_bench_ba.py`` import none of them, nor do the depth images,
 the drawing, the image and video files, the demo video, the renderer and the
-``vis`` and ``ingest_capture`` scripts. Among the port's tools, only the
+``vis`` and ``ingest_capture`` scripts, the torch-weight converters
+(``torch_weights.py``, the ``convert_torch_weights`` and
+``eval_reference_ckpt`` scripts) and the offline dataset tools
+(``generate_splits``, ``export_gt_pointcloud``, ``pose_stats``,
+``preview_dataset``, ``debug_depth``). Among the port's tools, only the
 generators of committed data (``tools/torch_make_colormap.py``,
 ``tools/torch_make_font.py`` and ``tools/torch_make_jpeg_fixtures.py``)
 import OpenCV, matplotlib or Pillow, and none of them imports JAX.
@@ -24,19 +31,32 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dro_sfm_tpu")
-ABSENT_ON_THE_CARD = ("yaml", "cv2", "PIL", "matplotlib", "msgpack", "h5py", "imageio")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dro_sfm_tpu", "tools")
+ABSENT_ON_THE_CARD = ("yaml", "cv2", "PIL", "matplotlib", "msgpack", "h5py", "imageio",
+                      "yacs", "torchvision")
 FILES = sorted((ROOT / "dro_sfm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                          ROOT / "tools" / "torch_bench_ba.py"]
 
 
+def forbidden(name: str) -> bool:
+    """A module of JAX or of the JAX package, or a JAX tool: any module of
+    ``tools`` but the port's own ``tools.torch_*``."""
+    parts = name.split(".")
+    if parts[0] == "tools":
+        return len(parts) > 1 and not parts[1].startswith("torch_")
+    return parts[0] in FORBIDDEN
+
+
 def imported_modules(path: Path):
+    """Every module ``path`` imports; ``from a import b`` gives ``a`` and
+    ``a.b``."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
+            yield from (f"{node.module}.{a.name}" for a in node.names)
         elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
               in ("import_module", "__import__") and node.args
               and isinstance(node.args[0], ast.Constant)):
@@ -45,9 +65,13 @@ def imported_modules(path: Path):
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
-    bad = [m for m in imported_modules(path)
-           if m.split(".")[0] in FORBIDDEN]
+    bad = [m for m in imported_modules(path) if forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_names_the_jax_tools():
+    assert forbidden("tools.convert_torch_weights") and forbidden("flax.serialization")
+    assert not forbidden("tools.torch_bench_ba") and not forbidden("torch")
 
 
 def test_package_import_leaves_jax_out():
@@ -108,6 +132,18 @@ def test_demo_modules_and_scripts_are_checked():
             "dro_sfm_torch/scripts/vis.py", "dro_sfm_torch/scripts/ingest_capture.py"} <= names
 
 
+def test_weight_converters_and_dataset_tools_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"dro_sfm_torch/torch_weights.py",
+            "dro_sfm_torch/scripts/convert_torch_weights.py",
+            "dro_sfm_torch/scripts/eval_reference_ckpt.py",
+            "dro_sfm_torch/scripts/generate_splits.py",
+            "dro_sfm_torch/scripts/export_gt_pointcloud.py",
+            "dro_sfm_torch/scripts/pose_stats.py",
+            "dro_sfm_torch/scripts/preview_dataset.py",
+            "dro_sfm_torch/scripts/debug_depth.py"} <= names
+
+
 def test_only_the_generators_import_opencv_matplotlib_pillow():
     tools = sorted((ROOT / "tools").glob("torch_*.py"))
     users = {p.name for p in tools
@@ -115,7 +151,7 @@ def test_only_the_generators_import_opencv_matplotlib_pillow():
     assert users == {"torch_make_colormap.py", "torch_make_font.py",
                      "torch_make_jpeg_fixtures.py"}
     for p in tools:
-        assert not [m for m in imported_modules(p) if m.split(".")[0] in FORBIDDEN], p.name
+        assert not [m for m in imported_modules(p) if forbidden(m)], p.name
 
 
 def test_trainer_import_leaves_out_jax_yaml_cv2():
@@ -133,9 +169,15 @@ def test_trainer_import_leaves_out_jax_yaml_cv2():
             "dro_sfm_torch.visualization.draw, dro_sfm_torch.visualization.image_grid, "
             "dro_sfm_torch.visualization.gif, dro_sfm_torch.visualization.splat, "
             "dro_sfm_torch.scripts.vis, dro_sfm_torch.scripts.ingest_capture, "
-            "dro_sfm_torch.data.depth_filter, tools.torch_bench_ba\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
-            "assert not bad, bad\n" % (FORBIDDEN + ABSENT_ON_THE_CARD + ("wandb",),))
+            "dro_sfm_torch.data.depth_filter, tools.torch_bench_ba, "
+            "dro_sfm_torch.torch_weights, dro_sfm_torch.scripts.convert_torch_weights, "
+            "dro_sfm_torch.scripts.eval_reference_ckpt, dro_sfm_torch.scripts.generate_splits, "
+            "dro_sfm_torch.scripts.export_gt_pointcloud, dro_sfm_torch.scripts.pose_stats, "
+            "dro_sfm_torch.scripts.preview_dataset, dro_sfm_torch.scripts.debug_depth\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in %r\n"
+            "       or m.startswith('tools.') and not m.startswith('tools.torch_')]\n"
+            "assert not bad, bad\n" % (tuple(m for m in FORBIDDEN if m != "tools")
+                                        + ABSENT_ON_THE_CARD + ("wandb",),))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
