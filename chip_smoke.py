@@ -3,9 +3,9 @@
 self-supervised, semi-supervised and single-frame), its trainer, its
 dataset readers (NYU's HDF5 dumps among them), its training in several
 processes, its serving export, its bundle adjustment, its demo video, its
-split of image heights over several processes, its stride-4 feature net and
-its reading of upstream torch weights, on one NVIDIA GPU and check their
-kernels.
+split of image heights over several processes, its stride-4 feature net,
+its reading of upstream torch weights and its video input, on one NVIDIA
+GPU and check their kernels.
 
     python3 chip_smoke.py              # on one card
 
@@ -288,12 +288,32 @@ result line):
    a checkpoint pickling a foreign global refused. Its files live under
    ``build/torch_weights`` and are removed at the end.
 
+33. video: a video file as ``infer_video``'s input. The host MPEG-4 decoder
+   (``csrc/mpeg4_video.cpp``) built with this machine's C++ compiler; every
+   committed video (``dro_sfm_torch/testdata/video``: MP4, MOV and AVI, odd
+   sizes, all three TCOEF escapes, AC prediction and DQUANT) demuxed and
+   decoded to the sha256 of OpenCV's packets, luma planes and RGB frames
+   (``fixtures.json``, bar 0 levels), the decoder's counts too, and each
+   refused stream raising `NotImplementedError` naming its tool; decode
+   ms a frame at 640x480 and 1280x720. Then ``infer_video`` on
+   ``walk_640x480.mp4`` (36 frames, 34 windows) at it12-h-out fp32 192x640
+   with `start_weights`'s seed-0 weights (the port's checkpoint format) and
+   no ``--device``, counts reset just before and read just after: K1 24 a
+   window and nothing else; the CLI again on the extracted
+   ``input_frames/``, its depths and poses bit-equal. At these weights the
+   eval-mode refinement is chaotic (`tame_weights`), so the plain warp's
+   distance is printed only; the CLI runs the clip again at `tame_weights`
+   (the same launch check), its depths and poses against the same windows
+   through the plain warp within 1e-5 relative L2 (phase ``apps``' bar).
+   Prints the extraction's decode, encode and whole ms a frame and ms a
+   window.
+
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
 (K1-K6; launches of K1-K3 from the self-supervised training path, of K5
 and K6 from the ``sep_conv="pallas"`` supervised one, K4's from its entry
 point's path; then K1-K3 and K5/K6 at stride 4, their launches from phase
-31's serving and training runs),
+31's serving and training runs; K1's first entry adds phase 33's),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2412,10 +2432,8 @@ def phase_apps(counters, gpu):
     import numpy as np
 
     from dro_sfm_torch.data.video import dummy_calibration
-    from dro_sfm_torch.inference import filter_depth, load_model, make_infer_fn
-    from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
+    from dro_sfm_torch.inference import filter_depth, load_model
     from dro_sfm_torch.scripts import infer_video
-    from dro_sfm_torch.scripts.frames import FrameLoader
     from dro_sfm_torch.training.state import create_train_state, make_optimizer
     from dro_sfm_torch.training.step import make_train_step
     from dro_sfm_torch.training.trainer import Trainer, model_config_from
@@ -2492,23 +2510,10 @@ def phase_apps(counters, gpu):
         fail(f"apps: no finite ATE ({result['ate']})")
 
     # The same windows through the plain warp.
-    plain = DepthPoseNet(version=served.version, min_depth=served.min_depth,
-                         max_depth=served.max_depth, warp_impl="gather", device="cuda")
-    plain.load_state_dict(served.state_dict(), strict=True)
-    infer = make_infer_fn(plain, device="cuda")
-    load = FrameLoader((SERVE_H, SERVE_W))
-    files = sorted((APPS_BUILD / "frames").glob("*.png"))
-    K = torch.tensor(dummy_calibration(SERVE_W, SERVE_H))
     depths = np.load(APPS_BUILD / "out" / "depths.npy")
-    ref_d, ref_m = [], []
-    for i in range(1, len(files) - 1):
-        d, m = infer(torch.from_numpy(load(str(files[i])))[None],
-                     torch.from_numpy(np.stack([load(str(files[i - 1])),
-                                                load(str(files[i + 1]))]))[None], K[None])
-        ref_d.append(d[0].cpu().numpy())
-        ref_m.append(m[0].cpu().numpy())
-    for what, got, ref in (("depths", depths, np.stack(ref_d)),
-                           ("poses", np.stack(result["pose_mats"]), np.stack(ref_m))):
+    ref_d, ref_m = plain_windows(path, APPS_BUILD / "frames", "*.png")
+    for what, got, ref in (("depths", depths, ref_d),
+                           ("poses", np.stack(result["pose_mats"]), ref_m)):
         rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
         line = (f"apps: infer_video {what} against the plain warp over {windows} windows: "
                 f"rel L2 {rel:.3e} (bar 1e-5)")
@@ -5294,11 +5299,204 @@ def phase_torch_weights(counters, gpu):
     return launches
 
 
+VIDEO_BUILD = ROOT / "build" / "video"
+VIDEO_FIXTURES = ROOT / "dro_sfm_torch" / "testdata" / "video"
+VIDEO_CLIP = "walk_640x480.mp4"                 # 36 frames: 34 windows
+VIDEO_RATES = ("walk_640x480.mp4", "walk_1280x720.mp4")
+
+
+def video_fixtures():
+    """Every committed video through the card's host build of the decoder:
+    packets, luma planes and RGB frames against the sha256 of OpenCV's
+    (``fixtures.json``), each refused stream raising; the median decode ms
+    a frame (`VideoReader`, RGB) of the VIDEO_RATES clips."""
+    import hashlib
+
+    import numpy as np
+
+    from dro_sfm_torch import hostlib
+    from dro_sfm_torch.utils.video_io import Mpeg4Decoder, VideoReader, demux
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    t0 = time.perf_counter()
+    fresh = not hostlib.library_path("mpeg4_video").is_file()
+    hostlib.build("mpeg4_video")
+    print(f"video decoder {'built' if fresh else 'found'} in {time.perf_counter() - t0:.1f} s "
+          f"with {hostlib.find_cxx()}", flush=True)
+    meta = json.loads((VIDEO_FIXTURES / "fixtures.json").read_text())
+    for name, entry in meta["files"].items():
+        stream = demux(str(VIDEO_FIXTURES / name))
+        dec = Mpeg4Decoder(stream.config)
+        got = {"packets": [], "luma": [], "rgb": []}
+        for p in stream.packets():
+            got["packets"].append(hashlib.sha256(p).hexdigest())
+            if not dec.decode(p):
+                fail(f"video: a packet of {name} gave no frame")
+            img, y = dec.frame(rgb=True, luma=True)
+            got["luma"].append(sha(y))
+            got["rgb"].append(sha(img))
+        bad = [k for k in got if got[k] != entry["opencv"][k]]
+        if bad or stream.fps != entry["fps"] or dec.stats != entry["stats"]:
+            fail(f"video: {name} differs from OpenCV's {bad} (fps {stream.fps}, want "
+                 f"{entry['fps']}; stats {dec.stats == entry['stats']})")
+    for name, entry in meta["refusals"].items():
+        try:
+            sum(1 for _ in VideoReader(str(VIDEO_FIXTURES / name)))
+            fail(f"video: {name} decoded; it should raise naming {entry['raises']!r}")
+        except NotImplementedError as e:
+            if entry["raises"] not in str(e):
+                fail(f"video: {name} raised {e}, want {entry['raises']!r}")
+    rates = {}
+    for name in VIDEO_RATES:
+        reader = VideoReader(str(VIDEO_FIXTURES / name))
+        for _ in range(2):                   # the second pass is timed
+            reader.decode_ms.clear()
+            frames = sum(1 for _ in reader)
+        ms = sorted(reader.decode_ms)
+        rates[name] = (ms[len(ms) // 2], ms[0], ms[-1], frames)
+    n = sum(e["frames"] for e in meta["files"].values())
+    print(f"video fixtures: {len(meta['files'])} files, {n} frames: packets, luma and RGB "
+          f"equal to OpenCV's sha256 (bar 0 levels); {len(meta['refusals'])} refused streams "
+          f"raise NotImplementedError naming their tool", flush=True)
+    return rates
+
+
+def plain_windows(ckpt, frames_dir, pattern="*.jpg"):
+    """The depths and pose matrices of every 3-frame window of the frames
+    ``pattern`` in ``frames_dir`` (name order) through the net of ``ckpt``
+    with the plain warp, on the card."""
+    import numpy as np
+
+    from dro_sfm_torch.data.video import dummy_calibration
+    from dro_sfm_torch.inference import load_model_and_config, make_infer_fn
+    from dro_sfm_torch.models.depth_pose_net import DepthPoseNet
+    from dro_sfm_torch.scripts.frames import FrameLoader
+    served, _ = load_model_and_config(ckpt, "cuda")
+    plain = DepthPoseNet(version=served.version, min_depth=served.min_depth,
+                         max_depth=served.max_depth, mixed_precision=served.mixed_precision,
+                         warp_impl="gather", device="cuda")
+    plain.load_state_dict(served.state_dict(), strict=True)
+    infer = make_infer_fn(plain, device="cuda")
+    load = FrameLoader((SERVE_H, SERVE_W))
+    files = sorted(Path(frames_dir).glob(pattern))
+    K = torch.tensor(dummy_calibration(SERVE_W, SERVE_H))
+    ref_d, ref_m = [], []
+    for i in range(1, len(files) - 1):
+        d, m = infer(torch.from_numpy(load(str(files[i])))[None],
+                     torch.from_numpy(np.stack([load(str(files[i - 1])),
+                                                load(str(files[i + 1]))]))[None], K[None])
+        ref_d.append(d[0].cpu().numpy())
+        ref_m.append(m[0].cpu().numpy())
+    return np.stack(ref_d), np.stack(ref_m)
+
+
+def video_run(counters, ckpt, out, shape):
+    """``infer_video`` on VIDEO_CLIP without ``--device``, counts reset just
+    before and read just after: (result, launches, seconds); it fails unless
+    36 frames are extracted and the 34 windows launch K1 24 each and nothing
+    else."""
+    from dro_sfm_torch.scripts import infer_video
+    for c in counters.values():              # the video path starts here
+        c.reset()
+    t0 = time.perf_counter()
+    result = infer_video.main(["--checkpoint", ckpt, "--input", str(VIDEO_FIXTURES / VIDEO_CLIP),
+                               "--output", str(out), *shape])
+    seconds = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}   # and ends here
+    windows, ext = result["windows"], result["extraction"]
+    want = {k: (K1_STEPS_PER_REQUEST * windows if k == "K1" else 0) for k in counters}
+    if ext is None or ext["frames"] != 36 or windows != 34 or launches != want:
+        fail(f"video: infer_video extracted {ext and ext['frames']} frames, ran {windows} "
+             f"windows with launches {launches}, want 36, 34 and {want}")
+    return result, launches, seconds
+
+
+def phase_video(counters, gpu):
+    """A video file as infer_video's input (phase 33 of the docstring)."""
+    import shutil
+
+    import numpy as np
+
+    from dro_sfm_torch.inference import save_model
+    from dro_sfm_torch.scripts import infer_video
+    from dro_sfm_torch.training.trainer import model_config_from
+    t_start = time.perf_counter()
+    shutil.rmtree(VIDEO_BUILD, ignore_errors=True)
+    rates = video_fixtures()
+
+    VIDEO_BUILD.mkdir(parents=True)
+    net = start_weights(model_config_from(trainer_config())).eval()
+    net.mixed_precision = False
+    ckpt = str(VIDEO_BUILD / "net.pt")
+    save_model(net, ckpt)
+    net.load_state_dict(tame_weights(net.state_dict()))
+    tame = str(VIDEO_BUILD / "tame.pt")
+    save_model(net, tame)
+    del net
+    shape = ["--image-shape", str(SERVE_H), str(SERVE_W)]
+
+    # 1) infer_video on the clip at start_weights, no --device: its launches
+    # counted (the main path)
+    out = VIDEO_BUILD / "out"
+    result, launches, cli_s = video_run(counters, ckpt, out, shape)
+    windows, ext = result["windows"], result["extraction"]
+
+    # 2) the same CLI on the extracted frames: the same bits
+    again = infer_video.main(["--checkpoint", ckpt, "--input", str(out / "input_frames"),
+                              "--output", str(VIDEO_BUILD / "again"), *shape])
+    depths = np.load(out / "depths.npy")
+    same = (np.array_equal(depths, np.load(VIDEO_BUILD / "again" / "depths.npy"))
+            and np.array_equal(np.stack(result["pose_mats"]), np.stack(again["pose_mats"])))
+    if not same:
+        fail("video: infer_video on the extracted frames differs from the run on the video")
+
+    # 3) the windows through the plain warp (phase apps' bar, 1e-5). At
+    # start_weights the eval-mode refinement at 192x640 is chaotic
+    # (`tame_weights`): on these frames the plain warp parts from K1 by about
+    # 0.1, printed only; the bar holds the same clip through the CLI at
+    # tame_weights, its launches counted too.
+    ref = plain_windows(ckpt, out / "input_frames")
+    chaotic = float(np.linalg.norm(depths - ref[0]) / np.linalg.norm(ref[0]))
+    tamed, launches_t, _ = video_run(counters, tame, VIDEO_BUILD / "tame", shape)
+    ref = plain_windows(tame, VIDEO_BUILD / "tame" / "input_frames")
+    rels = {}
+    for what, got, want in (("depths", np.load(VIDEO_BUILD / "tame" / "depths.npy"), ref[0]),
+                            ("poses", np.stack(tamed["pose_mats"]), ref[1])):
+        rels[what] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        if not (rels[what] <= 1e-5 and np.isfinite(got).all()):
+            fail(f"video: infer_video {what} at tame_weights against the plain warp: rel L2 "
+                 f"{rels[what]:.3e} (bar 1e-5)")
+
+    def med(xs):
+        xs = sorted(xs)
+        return f"median {xs[len(xs) // 2]:.2f} (min {xs[0]:.2f}, max {xs[-1]:.2f})"
+
+    extract = [d + e for d, e in zip(ext["decode_ms"], ext["encode_ms"])]
+    for name, (m, lo, hi, n) in rates.items():
+        print(f"video decode {name}: median {m:.2f} ms a frame (min {lo:.2f}, max {hi:.2f}) "
+              f"over {n} frames, RGB out, host clock", flush=True)
+    print(f"video infer_video {VIDEO_CLIP} it12-h-out fp32 {SERVE_H}x{SERVE_W} N=2 B=1: "
+          f"{ext['frames']} frames extracted, decode {med(ext['decode_ms'])} ms, JPEG encode "
+          f"{med(ext['encode_ms'])} ms, extraction {med(extract)} ms a frame; {windows} windows, "
+          f"{med(result['window_ms'][1:])} ms a window after the first "
+          f"({result['window_ms'][0]:.2f}); K1 {launches['K1']} launches "
+          f"({launches['K1'] // windows}/window), nothing else; the run on the extracted "
+          f"frames bit-equal; against the plain warp at tame_weights rel L2 depths "
+          f"{rels['depths']:.3e}, poses {rels['poses']:.3e} (bar 1e-5; K1 "
+          f"{launches_t['K1']} launches), at start_weights depths {chaotic:.3e} (chaotic, "
+          f"printed only); CLI {cli_s:.1f} s; phase "
+          f"{time.perf_counter() - t_start:.1f} s on {gpu}", flush=True)
+    shutil.rmtree(VIDEO_BUILD, ignore_errors=True)
+    return launches
+
+
 PHASES = ("k1", "serving", "e2e", "profile", "k23", "train", "train_e2e", "train_profile",
           "k4", "gru", "serving_pallas", "train_pallas", "train_pallas_e2e",
           "train_pallas_profile", "selfsup", "selfsup_e2e", "selfsup_profile", "tasks",
           "trainer", "selfsup_trainer", "apps", "datasets", "dist_trainer", "nyu", "export",
-          "ba", "demo", "spatial", "stride4", "torch_weights")
+          "ba", "demo", "spatial", "stride4", "torch_weights", "video")
 
 
 def main() -> int:
@@ -5500,6 +5698,11 @@ def main() -> int:
     launches_w = phase("torch_weights", phase_torch_weights, counters, gpu)
     if launches_w is not None and launches_w["K1"] == 0:
         fail("the reference-checkpoint evaluation never launched K1")
+    # 33) a video file as infer_video's input (this slice's path: the host
+    # decoder against OpenCV's digests, then K1 24 a window)
+    launches_video = phase("video", phase_video, counters, gpu)
+    if launches_video is not None and launches_video["K1"] == 0:
+        fail("the video path never launched K1")
     print(f"all phases: {time.perf_counter() - clock['start']:.1f} s", flush=True)
     if set(only) != set(PHASES):
         print(f"ran phases {only} only: no result line", flush=True)
@@ -5513,7 +5716,7 @@ def main() -> int:
     lines = [
         {"name": "tent_warp_fwd_diff (K1)", "route": "cuda",
          "source": src + "tent_warp_fwd.cu", "replaces": warp + "182",
-         "launches": launches_s["K1"], **k1[(8, "bfloat16")]},
+         "launches": launches_s["K1"] + launches_video["K1"], **k1[(8, "bfloat16")]},
         {"name": "tent_warp_bwd_feat (K2)", "route": "cuda",
          "source": src + "tent_warp_bwd.cu", "replaces": warp + "264",
          "launches": launches_s["K2"], **timed["K2"]},

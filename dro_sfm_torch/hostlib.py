@@ -1,10 +1,12 @@
-"""Build the port's host C++ libraries (the image codec).
+"""Build the port's host C++ libraries (the image codec and the MPEG-4
+video decoder).
 
-``csrc/image_codec.cpp`` is plain C++ with a C interface. It is compiled
-with the host C++ compiler (``$CXX``, else ``c++`` or ``g++``) into a shared
-library at first use, under ``build/host`` beside the package (listed in
-``.gitignore``); its user loads it with ``ctypes``
-(`dro_sfm_torch.utils.image_io`), which releases the interpreter lock for
+``csrc/image_codec.cpp`` and ``csrc/mpeg4_video.cpp`` are plain C++ with a
+C interface. Each is compiled with the host C++ compiler (``$CXX``, else
+``c++`` or ``g++``) into a shared library at first use, under
+``build/host`` beside the package (listed in ``.gitignore``); its user
+loads it with ``ctypes`` (`dro_sfm_torch.utils.image_io`,
+`dro_sfm_torch.utils.video_io`), which releases the interpreter lock for
 the length of each call. The library's name carries a hash of the
 source and the flags; it is written to a temporary file and moved into
 place, so that processes building it at the same time do not collide.
@@ -21,7 +23,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"image_codec": CSRC / "image_codec.cpp"}
+SOURCES = {"image_codec": CSRC / "image_codec.cpp", "mpeg4_video": CSRC / "mpeg4_video.cpp"}
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 
@@ -30,8 +32,9 @@ def find_cxx() -> str:
     for cand in (os.environ.get("CXX"), "c++", "g++"):
         if cand and shutil.which(cand):
             return shutil.which(cand)
-    raise RuntimeError("no C++ compiler found ($CXX, c++ or g++): the image codec of "
-                       "dro_sfm_torch is built from csrc/image_codec.cpp at first use")
+    raise RuntimeError("no C++ compiler found ($CXX, c++ or g++): the image codec and "
+                       "the video decoder of dro_sfm_torch are built from csrc/*.cpp at "
+                       "first use")
 
 
 def library_path(name: str) -> Path:

@@ -1,10 +1,13 @@
-"""What the inference CLIs share: frame folders, frame loading and the
-served model.
+"""What the inference CLIs share: frame folders, a video file's frames,
+frame loading and the served model.
 
 Frames are PNG, JPEG or BMP files (`dro_sfm_torch.utils.image_io`), loaded
 as the JAX CLIs load them (RGB, resized as ``cv2.resize(INTER_LINEAR)`` to
-the model's shape when they are not at it, float32 in [0, 1]); a video file
-is not read (ROADMAP C).
+the model's shape when they are not at it, float32 in [0, 1]). A video file
+(``VIDEO_EXT``) is split into such a folder by `extract_frames`, as the JAX
+CLI's ``parse_video`` splits it; the port decodes MP4, MOV and AVI of
+MPEG-4 Part 2 video and MJPEG AVI (`dro_sfm_torch.utils.video_io`), and
+raises on the other containers of ``VIDEO_EXT`` (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -16,6 +19,31 @@ import numpy as np
 
 IMG_EXT = (".png", ".jpg", ".jpeg", ".bmp")
 VIDEO_EXT = (".mp4", ".avi", ".mov", ".mpeg", ".flv", ".wmv")
+
+
+def extract_frames(video: str, save_root: str, sample_rate: int = 1) -> dict:
+    """Every ``sample_rate``-th frame of the video file ``video`` written
+    under ``save_root`` as ``{saved:06d}.jpg`` (JPEG at quality 95, the
+    bytes of ``cv2.imwrite``'s default), as the JAX CLI's ``parse_video``
+    writes them. Returns the number of frames written (``frames``), the
+    stream's ``fps`` and each frame's decode and encode milliseconds (host
+    clock; ``decode_ms`` for every frame of the video, ``encode_ms`` for
+    the written ones)."""
+    from dro_sfm_torch.utils.image_io import encode_jpeg
+    from dro_sfm_torch.utils.video_io import VideoReader
+    os.makedirs(save_root, exist_ok=True)
+    reader = VideoReader(video)
+    saved, encode_ms = 0, []
+    for count, frame in enumerate(reader):
+        if count % sample_rate == 0:
+            t0 = time.perf_counter()
+            data = encode_jpeg(frame, 95)
+            with open(os.path.join(save_root, f"{saved:06d}.jpg"), "wb") as f:
+                f.write(data)
+            encode_ms.append(1e3 * (time.perf_counter() - t0))
+            saved += 1
+    return {"frames": saved, "fps": reader.fps, "decode_ms": reader.decode_ms,
+            "encode_ms": encode_ms}
 
 
 def list_frames(folder: str, sample_rate: int = 1) -> List[str]:

@@ -1,12 +1,21 @@
-"""Video SfM CLI of the port: a frame folder -> depth maps, trajectory, point
-cloud and the annotated demo video.
+"""Video SfM CLI of the port: a video file or a frame folder -> depth maps,
+trajectory, point cloud and the annotated demo video.
 
     python -m dro_sfm_torch.scripts.infer_video --checkpoint x.ckpt --input frames/ \
         --output out/ [--fusion-views 3] [--ba] [--gt-poses poses/] [--gt-depth depth/] \
         [--device cpu]
 
-The port's counterpart of `scripts/infer_video.py`: 3-frame windows ``i-1,
-i, i+1`` for ``i = 1 ... n-2`` over a folder of frames (PNG, JPEG, BMP), the
+The port's counterpart of `scripts/infer_video.py`: a video file
+(``--input clip.mp4``: MP4, MOV or AVI of MPEG-4 Part 2 video, as OpenCV's
+``mp4v`` writes it, or MJPEG AVI) is first split, as the JAX CLI's
+``parse_video`` splits it, into ``<output>/input_frames/{i:06d}.jpg``: every
+``--sample-rate``-th frame, decoded on the host
+(`dro_sfm_torch.utils.video_io.VideoReader`) and written as JPEG at quality
+95 (``cv2.imwrite``'s bytes); that folder, in name order and cut at
+``--max-frames``, is the input. Other codecs and containers (H.264, FLV,
+MPEG, WMV) and MPEG-4 tools beyond Simple Profile raise `NotImplementedError`,
+a broken file `ValueError` (ROADMAP C). Then 3-frame windows ``i-1,
+i, i+1`` for ``i = 1 ... n-2`` over the folder of frames (PNG, JPEG, BMP), the
 poses chained with monocular scale propagation, each depth filtered
 (gradient, range) and, with ``--fusion-views`` > 1, fused with the previous
 views by geometric consistency on the device, and a global coloured point
@@ -25,8 +34,7 @@ their depth scales. Writes ``depths.npy`` (memmapped, one map per window),
 writes ``depth_vis.mp4`` with OpenCV's mp4v, which the port has no encoder
 for); with ``--gt-poses`` it prints the ATE after sim3 alignment and draws
 the trajectory panels against the ground truth. Runs on the card unless
-``--device cpu``. A video file as input is not read (the card's machine has
-no MPEG-4 or H.264 decoder: ROADMAP C): it raises.
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ import time
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="dro_sfm_torch video SfM")
     p.add_argument("--checkpoint", required=True)
-    p.add_argument("--input", required=True, help="frame folder")
+    p.add_argument("--input", required=True, help="video file or frame folder")
     p.add_argument("--output", required=True, help="output folder")
     p.add_argument("--sample-rate", type=int, default=1)
     p.add_argument("--max-frames", type=int, default=500)
@@ -69,17 +77,29 @@ def main(argv=None, canvases=None) -> dict:
     """Run the CLI. Returns what it measured: the number of windows, each
     window's pose matrices ([2,4,4]: to the previous and the next frame)
     and milliseconds (host clock, the result on the host), each frame's
-    decode milliseconds, the point count, the ATE (None without ground
+    decode milliseconds, for a video file the extraction's frames and each
+    frame's video decode and JPEG encode milliseconds (``extraction``, None
+    for a folder), the point count, the ATE (None without ground
     truth), with ``--ba`` the keyframes' window indices and the BA's
     milliseconds, and for the video each frame's compose and encode
     milliseconds (host clock), its frame size and its bytes. A list passed
     as ``canvases`` receives each composed frame (uint8 RGB)."""
     args = parse_args(argv)
-    from dro_sfm_torch.scripts.frames import FrameLoader, list_frames, open_model
-    if not os.path.isdir(args.input):
-        raise NotImplementedError(f"{args.input}: decoding a video file is not ported (the "
-                                  "port has no MPEG-4 or H.264 decoder, ROADMAP C); pass a "
-                                  "folder of frames")
+    from dro_sfm_torch.scripts.frames import (
+        VIDEO_EXT, FrameLoader, extract_frames, list_frames, open_model)
+    extraction = None
+    if os.path.isdir(args.input):
+        files = list_frames(args.input, args.sample_rate)
+    else:
+        if os.path.splitext(args.input)[1].lower() not in VIDEO_EXT:
+            raise ValueError(f"{args.input}: neither a frame folder nor a video file "
+                             f"({', '.join(VIDEO_EXT)})")
+        os.makedirs(args.output, exist_ok=True)
+        frames_dir = os.path.join(args.output, "input_frames")
+        extraction = extract_frames(args.input, frames_dir, args.sample_rate)
+        print(f"extracted {extraction['frames']} frames")
+        files = [os.path.join(frames_dir, f) for f in sorted(os.listdir(frames_dir))]
+    files = files[:args.max_frames]
     import numpy as np
     import torch
 
@@ -95,7 +115,6 @@ def main(argv=None, canvases=None) -> dict:
     from dro_sfm_torch.visualization.pointcloud import depth_to_points, write_ply
     from dro_sfm_torch.visualization.trajectory import plot_trajectory
 
-    files = list_frames(args.input, args.sample_rate)[:args.max_frames]
     if len(files) <= 2:
         raise ValueError(f"need at least 3 frames in {args.input}, found {len(files)}")
     os.makedirs(args.output, exist_ok=True)
@@ -240,6 +259,10 @@ def main(argv=None, canvases=None) -> dict:
     avi_bytes = os.path.getsize(video_path)
     H, W = composer.frame_size
     steady = sorted(window_ms[1:]) or window_ms
+    if extraction is not None:
+        print(f"{args.input}: {extraction['frames']} frames extracted at "
+              f"{np.median(extraction['decode_ms']):.2f} ms per frame video decode and "
+              f"{np.median(extraction['encode_ms']):.2f} ms per frame JPEG encode (medians)")
     print(f"outputs in {args.output}: depths.npy, panels/, trajectory.json/png/obj, "
           f"pointcloud.ply ({pts.shape[0]} points), depth_vis.avi ({W}x{H} annotated "
           f"8-panel, {avi_bytes} bytes); {n_out} windows, "
@@ -250,7 +273,7 @@ def main(argv=None, canvases=None) -> dict:
     return {"windows": n_out, "pose_mats": pose_mats, "window_ms": window_ms,
             "decode_ms": load.decode_ms, "points": int(pts.shape[0]), "ate": ate, "ba": ba,
             "compose_ms": compose_ms, "encode_ms": encode_ms, "frame_size": (H, W),
-            "avi_bytes": avi_bytes, "video": video_path}
+            "avi_bytes": avi_bytes, "video": video_path, "extraction": extraction}
 
 
 BA_DOWNSAMPLE = 4                  # the keyframes' depth maps, as the JAX CLI

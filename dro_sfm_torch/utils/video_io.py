@@ -1,6 +1,7 @@
-"""Video and animation files without OpenCV or Pillow: MJPEG AVI and GIF89a.
+"""Video and animation files without OpenCV, FFmpeg or Pillow: MJPEG AVI and
+GIF89a written, MPEG-4 Part 2 video in MP4, MOV and AVI read.
 
-The card's machine has no video encoder the port may use, so it writes the
+The card's machine has no video codec the port may use, so it writes the
 two containers itself, on the host:
 
 * `AviWriter`: an AVI 1.0 file (RIFF ``AVI ``) of one ``vids`` stream in
@@ -12,6 +13,21 @@ two containers itself, on the host:
   limit) raises before it is written, and a writer left by an exception
   removes its file, so that no broken file is left.
 * `read_avi_mjpeg`: the frames (uint8 RGB) and rate of such a file.
+* `VideoReader`: the frames of a video file as
+  ``cv2.VideoCapture`` reads them (uint8 RGB, in decode order), as FFmpeg
+  demuxes and decodes them. `demux` tells the container by its first bytes:
+  `demux_mp4` reads an ISO BMFF file's first video track (its ``mp4v``
+  sample entry's ``esds`` VOL, its samples from ``stsz``, ``stsc``,
+  ``stco``/``co64``, ``stts`` and the edit list), `demux_avi` the
+  ``##dc``/``##db`` chunks of an AVI's first video stream across its RIFF
+  ``AVI `` and ``AVIX`` segments; each packet equals FFmpeg's byte for
+  byte. `Mpeg4Decoder` decodes MPEG-4 Part 2 Simple Profile video in the
+  host library ``csrc/mpeg4_video.cpp`` (built by `dro_sfm_torch.hostlib`),
+  bit-equal to FFmpeg's luma and to OpenCV's RGB on the streams FFmpeg's
+  ``mpeg4`` encoder writes; MJPEG AVI frames go through the JPEG decoder
+  (libjpeg's upsampling, not FFmpeg's). Other codecs and containers, and
+  MPEG-4 tools beyond Simple Profile, raise `NotImplementedError`; a broken
+  file raises `ValueError`, and no frame is ever skipped.
 * `write_gif`: GIF89a with a NETSCAPE loop extension and, before each frame,
   a graphic control extension holding its duration (in hundredths of a
   second, ``int(ms / 10)`` as Pillow writes it). Each frame's palette
@@ -21,6 +37,7 @@ two containers itself, on the host:
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import struct
 import time
@@ -153,42 +170,476 @@ def _riff_chunks(data: bytes, start: int, end: int):
         pos += 8 + size + (size & 1)
 
 
-def avi_frames(path: str) -> Tuple[List[bytes], float]:
-    """The JPEG bytes of each frame of an MJPEG AVI and its frames a
-    second."""
-    with open(path, "rb") as f:
-        data = f.read()
+# ------------------------------------------------------------ video input
+
+# fourccs of MPEG-4 Part 2 video in AVI (strf's compression or strh's handler)
+MPEG4_FOURCCS = (b"FMP4", b"MP4V", b"XVID", b"DIVX", b"DX50")
+_OTHER_CODECS = {b"H264": "H.264", b"X264": "H.264", b"AVC1": "H.264", b"AVC3": "H.264",
+                 b"HEV1": "H.265", b"HVC1": "H.265", b"HEVC": "H.265", b"DIV3": "MS MPEG-4 v3",
+                 b"MP43": "MS MPEG-4 v3", b"MP42": "MS MPEG-4 v2", b"WMV1": "WMV",
+                 b"WMV2": "WMV", b"WMV3": "WMV", b"AV01": "AV1", b"VP80": "VP8",
+                 b"VP09": "VP9", b"S263": "H.263", b"H263": "H.263", b"MJPA": "Motion JPEG"}
+# the first bytes of containers that the port does not read
+_OTHER_CONTAINERS = ((b"FLV", "FLV"), (b"\x00\x00\x01\xba", "MPEG program stream"),
+                     (b"\x00\x00\x01\xb3", "MPEG video elementary stream"),
+                     (b"\x30\x26\xb2\x75\x8e\x66\xcf\x11", "ASF (WMV)"),
+                     (b"\x1a\x45\xdf\xa3", "Matroska/WebM"), (b"OggS", "Ogg"))
+_BMFF_TOP = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uuid")
+
+
+def _other_codec(fourcc: bytes, path: str):
+    name = _OTHER_CODECS.get(fourcc.upper(), None)
+    what = f"{name} ({fourcc.decode(errors='replace')!r})" if name else \
+        f"the codec {fourcc.decode(errors='replace')!r}"
+    return NotImplementedError(f"{path}: {what} video; the port decodes MPEG-4 Part 2 "
+                               f"(mp4v) and MJPEG only (ROADMAP C)")
+
+
+class Demuxed:
+    """One video stream of a file: ``codec`` ("mpeg4" or "mjpeg"), the
+    decoder configuration ``config`` (the VOL of an MP4's ``esds``, else
+    empty), ``fps``, and its packets in decode order as (offset, size) in
+    the file, read by `packet`."""
+
+    def __init__(self, path, data, codec, config, spans, fps):
+        self.path, self.data, self.codec = path, data, codec
+        self.config, self.spans, self.fps = config, spans, fps
+
+    def __len__(self) -> int:
+        return len(self.spans)
+
+    def packet(self, i: int) -> bytes:
+        off, n = self.spans[i]
+        return self.data[off:off + n]
+
+    def packets(self):
+        return (self.packet(i) for i in range(len(self.spans)))
+
+
+def _u32(data, pos):
+    return struct.unpack_from(">I", data, pos)[0]
+
+
+def _boxes(data, start: int, end: int, path: str):
+    """(kind, body start, end) of the ISO BMFF boxes in data[start:end]."""
+    pos = start
+    while pos + 8 <= end:
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if size == 1:
+            if pos + 16 > end:
+                raise ValueError(f"{path}: truncated MP4 box {kind!r}")
+            size, head = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        elif size == 0:
+            size = end - pos
+        if size < head or pos + size > end:
+            raise ValueError(f"{path}: truncated MP4 box {kind!r}")
+        yield kind, pos + head, pos + size
+        pos += size
+
+
+def _child(data, start, end, kind, path):
+    for k, s, e in _boxes(data, start, end, path):
+        if k == kind:
+            return s, e
+    return None
+
+
+def _need(data, start, end, kind, path):
+    found = _child(data, start, end, kind, path)
+    if found is None:
+        raise ValueError(f"{path}: MP4 without a {kind.decode()} box")
+    return found
+
+
+def _descriptor(data, pos, end, path):
+    """(tag, body start, body end) of the MPEG-4 descriptor at pos."""
+    if pos + 2 > end:
+        raise ValueError(f"{path}: truncated esds descriptor")
+    tag, size, pos = data[pos], 0, pos + 1
+    for _ in range(4):
+        if pos >= end:
+            raise ValueError(f"{path}: truncated esds descriptor")
+        b = data[pos]
+        pos += 1
+        size = (size << 7) | (b & 0x7F)
+        if not b & 0x80:
+            break
+    if pos + size > end:
+        raise ValueError(f"{path}: truncated esds descriptor")
+    return tag, pos, pos + size
+
+
+def _esds_config(data, start, end, path) -> bytes:
+    """The DecoderSpecificInfo (the VOS, VO and VOL headers) of an esds."""
+    tag, s, e = _descriptor(data, start + 4, end, path)
+    if tag != 3:
+        raise ValueError(f"{path}: esds without an ES descriptor")
+    flags = data[s + 2]
+    s += 3 + (2 if flags & 0x80 else 0)
+    if flags & 0x40:
+        s += 1 + data[s]
+    s += 2 if flags & 0x20 else 0
+    tag, s, e = _descriptor(data, s, e, path)
+    if tag != 4:
+        raise ValueError(f"{path}: esds without a decoder configuration")
+    if data[s] != 0x20:
+        raise NotImplementedError(f"{path}: an mp4v track of object type 0x{data[s]:02x} "
+                                  f"(not MPEG-4 Visual); the port decodes MPEG-4 Part 2 "
+                                  f"only (ROADMAP C)")
+    s += 13
+    while s < e:
+        tag, ds, de = _descriptor(data, s, e, path)
+        if tag == 5:
+            return bytes(data[ds:de])
+        s = de
+    raise ValueError(f"{path}: esds without a decoder-specific configuration (VOL)")
+
+
+def _full_box_table(data, s, e, fmt, path, what):
+    """The entries of a full box holding a 32-bit count and records of
+    struct ``fmt``."""
+    n = _u32(data, s + 4)
+    size = struct.calcsize(fmt)
+    if s + 8 + n * size > e:
+        raise ValueError(f"{path}: truncated {what} box")
+    return [struct.unpack_from(fmt, data, s + 8 + i * size) for i in range(n)]
+
+
+def demux_mp4(path: str, data) -> Demuxed:
+    """The first video track of an ISO BMFF file (MP4, MOV, M4V): its
+    ``mp4v`` sample entry's VOL and its samples from ``stsz``, ``stsc``,
+    ``stco``/``co64`` and ``stts``, with its edit list applied where FFmpeg's
+    demuxer gives every sample as it is: an empty edit shifts time only, and
+    the one edit of the media must start at media time 0 and reach past the
+    last sample's start; an edit list that trims, repeats or changes the
+    rate raises, as does a fragmented file."""
+    moov = None
+    for kind, s, e in _boxes(data, 0, len(data), path):
+        if kind == b"moof":
+            raise NotImplementedError(f"{path}: a fragmented MP4 (moof); the port reads "
+                                      f"whole-file sample tables only (ROADMAP C)")
+        if kind == b"moov":
+            moov = (s, e)
+    if moov is None:
+        raise ValueError(f"{path}: an MP4 without a moov box")
+    if _child(data, *moov, b"mvex", path) is not None:
+        raise NotImplementedError(f"{path}: a fragmented MP4 (mvex); the port reads "
+                                  f"whole-file sample tables only (ROADMAP C)")
+    mvhd = _need(data, *moov, b"mvhd", path)
+    movie_scale = _u32(data, mvhd[0] + (20 if data[mvhd[0]] == 1 else 12))
+    for kind, ts, te in _boxes(data, *moov, path):
+        if kind != b"trak":
+            continue
+        mdia = _need(data, ts, te, b"mdia", path)
+        hdlr = _need(data, *mdia, b"hdlr", path)
+        if data[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
+            continue
+        mdhd = _need(data, *mdia, b"mdhd", path)
+        scale = _u32(data, mdhd[0] + (20 if data[mdhd[0]] == 1 else 12))
+        stbl = _need(data, *_need(data, *mdia, b"minf", path), b"stbl", path)
+        ss, se = _need(data, *stbl, b"stsd", path)
+        if _u32(data, ss + 4) != 1:
+            raise NotImplementedError(f"{path}: a video track of {_u32(data, ss + 4)} "
+                                      f"sample descriptions (ROADMAP C)")
+        size, fourcc = struct.unpack_from(">I4s", data, ss + 8)
+        if ss + 8 + size > se or size < 86:
+            raise ValueError(f"{path}: truncated stsd box")
+        if fourcc != b"mp4v":
+            raise _other_codec(fourcc, path)
+        esds = _need(data, ss + 8 + 86, ss + 8 + size, b"esds", path)
+        config = _esds_config(data, *esds, path)
+        s, e = _need(data, *stbl, b"stsz", path)
+        fixed, count = struct.unpack_from(">II", data, s + 4)
+        if count > len(data):
+            raise ValueError(f"{path}: {count} samples in a file of {len(data)} bytes")
+        if fixed:
+            sizes = [fixed] * count
+        else:
+            if s + 12 + 4 * count > e:
+                raise ValueError(f"{path}: truncated stsz box")
+            sizes = list(struct.unpack_from(f">{count}I", data, s + 12))
+        stsc = _full_box_table(data, *_need(data, *stbl, b"stsc", path), ">III", path, "stsc")
+        co = _child(data, *stbl, b"stco", path)
+        offsets = [o for (o,) in (_full_box_table(data, *co, ">I", path, "stco") if co else
+                                  _full_box_table(data, *_need(data, *stbl, b"co64", path),
+                                                  ">Q", path, "co64"))]
+        stts = _full_box_table(data, *_need(data, *stbl, b"stts", path), ">II", path, "stts")
+        spans = []
+        for i, chunk in enumerate(offsets):
+            per = None
+            for first, n, _ in stsc:
+                if first - 1 <= i:
+                    per = n
+            if per is None:
+                raise ValueError(f"{path}: chunk {i + 1} before the first stsc entry")
+            for _ in range(per):
+                if len(spans) == count:
+                    break
+                spans.append((chunk, sizes[len(spans)]))
+                chunk += spans[-1][1]
+        if len(spans) != count or any(o + n > len(data) for o, n in spans):
+            raise ValueError(f"{path}: its sample table points past the file or misses "
+                             f"samples ({len(spans)} of {count})")
+        times, t = [], 0
+        for n, delta in stts:
+            for _ in range(min(n, count - len(times))):
+                times.append(t)
+                t += delta
+        if len(times) < count:
+            raise ValueError(f"{path}: stts times {len(times)} of {count} samples")
+        fps = scale * count / t if t else 0.0
+        edts = _child(data, ts, te, b"edts", path)
+        elst = _child(data, *edts, b"elst", path) if edts else None
+        if elst is not None:
+            v1 = data[elst[0]] == 1
+            edits = _full_box_table(data, *elst, ">QqHH" if v1 else ">IiHH", path, "elst")
+            edits = [ed for ed in edits if ed[1] != -1]          # empty edits: a delay
+            if len(edits) > 1 or any(ed[2:] != (1, 0) for ed in edits) or \
+                    any(ed[1] != 0 for ed in edits):
+                raise NotImplementedError(
+                    f"{path}: an MP4 edit list {edits} that trims or repeats the video; "
+                    f"the port applies one edit from media time 0 only (ROADMAP C)")
+            end = edits[0][0] * scale / movie_scale if edits and movie_scale else t
+            if sum(1 for x in times[:count] if x < end) < count:
+                raise NotImplementedError(
+                    f"{path}: an MP4 edit list that ends the video before its last sample "
+                    f"(FFmpeg demuxes the samples past it and drops their frames); the port "
+                    f"applies an edit that keeps every sample only (ROADMAP C)")
+        return Demuxed(path, data, "mpeg4", config, spans, fps)
+    raise ValueError(f"{path}: an MP4 without a video track")
+
+
+def _movi_packets(data, start: int, end: int, ids):
+    """(offset, size) of the non-empty chunks ``ids`` of a ``movi`` list, in
+    file order, the ``rec `` lists inside it included."""
+    for fourcc, pos, n in _riff_chunks(data, start, end):
+        if fourcc in ids and n:
+            yield pos, n
+        elif fourcc == b"LIST" and data[pos:pos + 4] == b"rec ":
+            yield from _movi_packets(data, pos + 4, pos + n, ids)
+
+
+def demux_avi(path: str, data) -> Demuxed:
+    """The first video stream of an AVI (RIFF ``AVI `` and the OpenDML
+    ``AVIX`` segments after it): its packets are the ``##dc``/``##db``
+    chunks of ``movi`` in file order (empty ones skipped), MPEG-4 Part 2
+    (`MPEG4_FOURCCS`) or MJPEG."""
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{path}: not an AVI file")
-    frames, fps = [], None
-    end = min(len(data), 8 + struct.unpack_from("<I", data, 4)[0])
-    for fourcc, pos, n in _riff_chunks(data, 12, end):
-        if fourcc != b"LIST":
-            continue
-        kind = data[pos:pos + 4]
-        for sub, spos, sn in _riff_chunks(data, pos + 4, pos + n):
-            if kind == b"hdrl" and sub == b"LIST" and data[spos:spos + 4] == b"strl":
-                for s2, p2, _ in _riff_chunks(data, spos + 4, spos + sn):
-                    if s2 == b"strh":
-                        handler = data[p2 + 4:p2 + 8]
-                        if data[p2:p2 + 4] != b"vids" or handler.upper() != b"MJPG":
-                            raise NotImplementedError(
-                                f"{path}: stream {data[p2:p2 + 8]!r}; the port reads MJPEG "
-                                f"AVI only (ROADMAP C)")
-                        scale, rate = struct.unpack_from("<2I", data, p2 + 20)
-                        fps = rate / scale
-            elif kind == b"movi" and sub[2:] == b"dc":
-                frames.append(data[spos:spos + sn])
-    if fps is None:
-        raise ValueError(f"{path}: an AVI without its stream header")
-    return frames, fps
+    stream, codec, fps, spans, index = None, None, None, [], 0
+    pos = 0
+    while pos + 12 <= len(data):
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        if data[pos:pos + 4] != b"RIFF" or data[pos + 8:pos + 12] not in (b"AVI ", b"AVIX"):
+            break
+        end = min(len(data), pos + 8 + size)
+        for fourcc, cpos, n in _riff_chunks(data, pos + 12, end):
+            if fourcc != b"LIST":
+                continue
+            kind = data[cpos:cpos + 4]
+            if kind == b"hdrl":
+                for sub, spos, sn in _riff_chunks(data, cpos + 4, cpos + n):
+                    if sub != b"LIST" or data[spos:spos + 4] != b"strl":
+                        continue
+                    if stream is None:
+                        strh = strf = None
+                        for s2, p2, n2 in _riff_chunks(data, spos + 4, spos + sn):
+                            if s2 == b"strh" and n2 >= 32:
+                                strh = p2
+                            elif s2 == b"strf" and n2 >= 20:
+                                strf = p2
+                        if strh is not None and data[strh:strh + 4] == b"vids":
+                            handler = bytes(data[strh + 4:strh + 8])
+                            comp = bytes(data[strf + 16:strf + 20]) if strf else handler
+                            tags = (comp.upper(), handler.upper())
+                            if any(t in MPEG4_FOURCCS for t in tags):
+                                codec = "mpeg4"
+                            elif b"MJPG" in tags:
+                                codec = "mjpeg"
+                            else:
+                                raise _other_codec(comp if comp.strip(b"\0 ") else handler,
+                                                   path)
+                            scale, rate = struct.unpack_from("<2I", data, strh + 20)
+                            fps = rate / scale if scale else 0.0
+                            stream = index
+                    index += 1
+            elif kind == b"movi" and stream is not None:
+                ids = (b"%02ddc" % stream, b"%02ddb" % stream)
+                spans.extend(_movi_packets(data, cpos + 4, cpos + n, ids))
+        pos = pos + 8 + size + (size & 1)
+    if stream is None:
+        raise ValueError(f"{path}: an AVI without a video stream header")
+    return Demuxed(path, data, codec, b"", spans, fps)
+
+
+def demux(path: str) -> Demuxed:
+    """The video stream of the file at ``path``, its container told by its
+    first bytes (as FFmpeg probes it): AVI, or ISO BMFF (MP4, MOV, M4V).
+    Other containers raise `NotImplementedError`, a file that is none of
+    them `ValueError`."""
+    import mmap
+    with open(path, "rb") as f:
+        if os.fstat(f.fileno()).st_size == 0:
+            raise ValueError(f"{path}: an empty file")
+        data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    head = data[:12]
+    read = demux_avi if head[:4] == b"RIFF" and head[8:12] == b"AVI " else \
+        demux_mp4 if head[4:8] in _BMFF_TOP else None
+    if read is not None:
+        try:
+            return read(path, data)
+        except (struct.error, IndexError) as e:        # a field past its box or chunk
+            raise ValueError(f"{path}: a broken {read.__name__[6:].upper()} file ({e})") from e
+    for magic, name in _OTHER_CONTAINERS:
+        if head.startswith(magic):
+            raise NotImplementedError(f"{path}: a {name} file; the port reads MP4/MOV and "
+                                      f"AVI only (ROADMAP C)")
+    raise ValueError(f"{path}: not a video file the port knows (AVI, MP4, MOV)")
+
+
+@functools.lru_cache(maxsize=None)
+def _mpeg4() -> ctypes.CDLL:
+    """The host MPEG-4 decoder, built at first use, its entry points typed."""
+    from dro_sfm_torch import hostlib
+    lib = ctypes.CDLL(str(hostlib.build("mpeg4_video")))
+    handle, size, err = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p
+    i32p = ctypes.POINTER(ctypes.c_int)
+    lib.m4v_new.argtypes = []
+    lib.m4v_new.restype = handle
+    lib.m4v_free.argtypes = [handle]
+    lib.m4v_free.restype = None
+    lib.m4v_decode.argtypes = [handle, ctypes.c_char_p, size, err, size]
+    lib.m4v_info.argtypes = [handle, i32p, i32p, err, size]
+    lib.m4v_frame.argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, err, size]
+    lib.m4v_stats.argtypes = [handle, ctypes.c_void_p, ctypes.c_int]
+    for fn in (lib.m4v_decode, lib.m4v_info, lib.m4v_frame, lib.m4v_stats):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+class Mpeg4Decoder:
+    """MPEG-4 Part 2 video (``csrc/mpeg4_video.cpp``): `decode` takes the
+    packets in decode order, each giving at most one frame, and keeps the
+    reference frame between calls; ``config`` holds headers to read first
+    (an MP4's VOL)."""
+
+    def __init__(self, config: bytes = b"", what: str = "MPEG-4"):
+        self.lib, self.what = _mpeg4(), what
+        self.handle = self.lib.m4v_new()
+        if config:
+            self.decode(config)
+
+    def decode(self, packet: bytes) -> bool:
+        """Decode one packet; True when it held a frame."""
+        err = ctypes.create_string_buffer(image_io._ERR_LEN)
+        code = self.lib.m4v_decode(self.handle, bytes(packet), len(packet), err,
+                                   image_io._ERR_LEN)
+        if code == 1:
+            return False
+        image_io._check(code, err, self.what)
+        return True
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        h, w = ctypes.c_int(), ctypes.c_int()
+        self.lib.m4v_info(self.handle, ctypes.byref(h), ctypes.byref(w), None, 0)
+        return h.value, w.value
+
+    @property
+    def encoder(self) -> str:
+        """The user data that names the encoder ("Lavc62.28.101"), if any."""
+        h, w = ctypes.c_int(), ctypes.c_int()
+        buf = ctypes.create_string_buffer(64)
+        self.lib.m4v_info(self.handle, ctypes.byref(h), ctypes.byref(w), buf, 64)
+        return buf.value.decode(errors="replace")
+
+    STATS = ("i_vops", "p_vops", "intra_mbs", "inter_mbs", "skipped_mbs", "p_intra_mbs",
+             "ac_pred_mbs", "dquant_mbs", "escape1", "escape2", "escape3",
+             "outside_predictions", "half_pel_predictions", "rounding_vops", "ac_rescales")
+
+    @property
+    def stats(self) -> dict:
+        """What the decoded VOPs held, by `STATS` name: VOPs and macroblocks
+        by type, TCOEF escapes by type, predictions read partly outside the
+        VOP (unrestricted vectors), half-pel predictions, VOPs with
+        rounding_type 1, AC predictions rescaled to another QP."""
+        out = np.zeros(len(self.STATS), np.int64)
+        self.lib.m4v_stats(self.handle, out.ctypes.data, len(out))
+        return dict(zip(self.STATS, out.tolist()))
+
+    def frame(self, rgb: bool = True, luma: bool = False):
+        """The last frame: uint8 RGB [H,W,3] as ``cv2.VideoCapture`` gives it
+        (flipped to RGB), its luma plane [H,W], or both as a pair."""
+        h, w = self.shape
+        out_rgb = np.empty((h, w, 3), np.uint8) if rgb else None
+        out_y = np.empty((h, w), np.uint8) if luma else None
+        err = ctypes.create_string_buffer(image_io._ERR_LEN)
+        image_io._check(self.lib.m4v_frame(
+            self.handle, None if out_rgb is None else out_rgb.ctypes.data,
+            None if out_y is None else out_y.ctypes.data, err, image_io._ERR_LEN), err,
+            self.what)
+        return (out_rgb, out_y) if rgb and luma else out_rgb if rgb else out_y
+
+    def close(self) -> None:
+        if self.handle:
+            self.lib.m4v_free(self.handle)
+            self.handle = None
+
+    def __del__(self):
+        self.close()
+
+
+class VideoReader:
+    """The frames of a video file in decode order (`demux`): MPEG-4 Part 2
+    through `Mpeg4Decoder`, MJPEG AVI through the JPEG decoder. Iterating
+    gives uint8 RGB [H,W,3]; with ``luma`` the luma planes [H,W] (MPEG-4
+    only). ``fps`` is the stream's rate and ``decode_ms`` holds each frame's
+    decode milliseconds (host clock, the packet's read included). A packet
+    that fails to decode raises; none is skipped."""
+
+    def __init__(self, path: str):
+        self.path = str(path)
+        self.stream = demux(self.path)
+        self.fps = self.stream.fps
+        self.decode_ms: List[float] = []
+
+    def __len__(self) -> int:
+        return len(self.stream)
+
+    def __iter__(self):
+        return self.frames()
+
+    def frames(self, luma: bool = False):
+        s = self.stream
+        if s.codec == "mjpeg":
+            if luma:
+                raise ValueError(f"{self.path}: luma planes of MPEG-4 video only")
+            for i in range(len(s)):
+                t0 = time.perf_counter()
+                img = image_io.decode_jpeg(s.packet(i), self.path)
+                self.decode_ms.append(1e3 * (time.perf_counter() - t0))
+                yield img
+            return
+        dec = Mpeg4Decoder(s.config, self.path)
+        try:
+            for i in range(len(s)):
+                t0 = time.perf_counter()
+                if dec.decode(s.packet(i)):
+                    img = dec.frame(rgb=not luma, luma=luma)
+                    self.decode_ms.append(1e3 * (time.perf_counter() - t0))
+                    yield img
+        finally:
+            dec.close()
 
 
 def read_avi_mjpeg(path: str) -> Tuple[List[np.ndarray], float]:
     """The frames of an MJPEG AVI as uint8 RGB [H,W,3] (the port's JPEG
     decoder) and its frames a second."""
-    frames, fps = avi_frames(path)
-    return [image_io.decode_jpeg(f, path) for f in frames], fps
+    reader = VideoReader(path)
+    if reader.stream.codec != "mjpeg":
+        raise NotImplementedError(f"{path}: a {reader.stream.codec} stream, not MJPEG")
+    return list(reader), reader.fps
 
 
 def median_cut(rgb: np.ndarray, colors: int = 256) -> Tuple[np.ndarray, np.ndarray]:

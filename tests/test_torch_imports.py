@@ -18,9 +18,12 @@ the drawing, the image and video files, the demo video, the renderer and the
 (``torch_weights.py``, the ``convert_torch_weights`` and
 ``eval_reference_ckpt`` scripts) and the offline dataset tools
 (``generate_splits``, ``export_gt_pointcloud``, ``pose_stats``,
-``preview_dataset``, ``debug_depth``). Among the port's tools, only the
-generators of committed data (``tools/torch_make_colormap.py``,
-``tools/torch_make_font.py`` and ``tools/torch_make_jpeg_fixtures.py``)
+``preview_dataset``, ``debug_depth``); the fresh interpreter that imports
+them also decodes a committed MPEG-4 video (the video input of
+``infer_video``: `dro_sfm_torch.utils.video_io` and its host decoder) and
+still holds none of them. Among the port's tools, only the generators of
+committed data (``tools/torch_make_colormap.py``, ``tools/torch_make_font.py``,
+``tools/torch_make_jpeg_fixtures.py`` and ``tools/torch_make_video_fixtures.py``)
 import OpenCV, matplotlib or Pillow, and none of them imports JAX.
 """
 import ast
@@ -149,7 +152,7 @@ def test_only_the_generators_import_opencv_matplotlib_pillow():
     users = {p.name for p in tools
              if any(m.split(".")[0] in ("cv2", "matplotlib", "PIL") for m in imported_modules(p))}
     assert users == {"torch_make_colormap.py", "torch_make_font.py",
-                     "torch_make_jpeg_fixtures.py"}
+                     "torch_make_jpeg_fixtures.py", "torch_make_video_fixtures.py"}
     for p in tools:
         assert not [m for m in imported_modules(p) if forbidden(m)], p.name
 
@@ -174,6 +177,9 @@ def test_trainer_import_leaves_out_jax_yaml_cv2():
             "dro_sfm_torch.scripts.eval_reference_ckpt, dro_sfm_torch.scripts.generate_splits, "
             "dro_sfm_torch.scripts.export_gt_pointcloud, dro_sfm_torch.scripts.pose_stats, "
             "dro_sfm_torch.scripts.preview_dataset, dro_sfm_torch.scripts.debug_depth\n"
+            "from dro_sfm_torch.utils.video_io import VideoReader\n"
+            "frame = next(iter(VideoReader('dro_sfm_torch/testdata/video/walk_640x480.mp4')))\n"
+            "assert frame.shape == (480, 640, 3), frame.shape\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in %r\n"
             "       or m.startswith('tools.') and not m.startswith('tools.torch_')]\n"
             "assert not bad, bad\n" % (tuple(m for m in FORBIDDEN if m != "tools")

@@ -10,12 +10,15 @@ are held to the JAX package's ``load_model``, ``make_infer_fn``,
 (read by OpenCV): depth maps and trajectories within 1e-4 (relative L2 per
 map, absolute on the poses); the point cloud's size within the pixels that
 lie within 1e-4 of ``filter_depth``'s thresholds in the JAX depth. The same
-frames as JPEG and BMP files go through ``infer_video`` to the same bar.
+frames as JPEG and BMP files go through ``infer_video`` to the same bar, and
+as an ``mp4v`` video written by OpenCV: the JAX CLI's ``parse_video`` and the
+port's CLI extract byte-equal JPEG frames from it, and the port's windows
+over them match the JAX package's to the same bar.
 ``infer_video --ba`` refines the keyframes as the JAX CLI does: its keyframe
 poses and ``ba_scales.npy`` against the JAX package's `optimize_dense_ba`
 fed the port's own depth maps and chained poses with the CLI's ``K_ba``
-and edges (1e-4). What the port does not read (a video file, a progressive
-JPEG) raises, a video naming its ROADMAP item.
+and edges (1e-4). What the port does not read (an FLV file, a progressive
+JPEG) raises `NotImplementedError`, a corrupt MP4 file `ValueError`.
 """
 import json
 import os
@@ -142,6 +145,59 @@ def test_infer_video_matches_the_jax_package(scene, reference, capsys):
     assert result["points"] == ply_count(os.path.join(out, "pointcloud.ply"))
     obj = open(os.path.join(out, "trajectory_pose.obj")).read().splitlines()
     assert sum(line.startswith("v ") for line in obj) == FRAMES - 2
+
+
+def test_infer_video_on_a_video_file_matches_the_jax_package(scene, reference, capsys):
+    """The scene's frames as an mp4v .mp4 (cv2.VideoWriter): the JAX CLI's
+    extraction (`scripts/infer_video.py:parse_video`) and the port's CLI
+    write byte-equal JPEG frames; the port's depths and trajectory over them
+    match the JAX package's windows over the JAX frames (1e-4, the bars of
+    `test_infer_video_matches_the_jax_package`)."""
+    import importlib.util
+    tmp = scene["tmp"] / "from_video"
+    tmp.mkdir()
+    video = str(tmp / "clip.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 10, (W, H))
+    for f in sorted(os.listdir(scene["frames"])):
+        writer.write(cv2.imread(os.path.join(scene["frames"], f), cv2.IMREAD_COLOR))
+    writer.release()
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts", "infer_video.py")
+    spec = importlib.util.spec_from_file_location("jax_infer_video_cli", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    jax_dir = str(tmp / "jax_frames")
+    assert module.parse_video(video, jax_dir, 1) == FRAMES
+    out = str(tmp / "port")
+    result = infer_video.main(["--checkpoint", scene["ckpt"], "--input", video, "--output", out,
+                               "--device", "cpu"])
+    assert f"extracted {FRAMES} frames" in capsys.readouterr().out
+    names = sorted(os.listdir(jax_dir))
+    assert sorted(os.listdir(os.path.join(out, "input_frames"))) == names
+    for n in names:
+        with open(os.path.join(jax_dir, n), "rb") as a, \
+                open(os.path.join(out, "input_frames", n), "rb") as b:
+            assert a.read() == b.read(), n
+    ext = result["extraction"]
+    assert ext["frames"] == FRAMES and len(ext["decode_ms"]) == len(ext["encode_ms"]) == FRAMES
+    assert result["windows"] == FRAMES - 2
+
+    def load(f):
+        img = cv2.imread(os.path.join(jax_dir, f), cv2.IMREAD_COLOR)[..., ::-1]
+        return cv2.resize(img, (W, H)).astype(np.float32) / 255.0
+
+    accum, want = TrajectoryAccumulator(), []
+    for i in range(1, FRAMES - 1):
+        depth, poses = reference["fn"](
+            reference["variables"], jnp.asarray(load(names[i])[None]),
+            jnp.asarray(np.stack([load(names[i - 1]), load(names[i + 1])])[None]),
+            jnp.asarray(reference["K"][None]))
+        want.append(np.asarray(depth))
+        accum.add(np.asarray(poses)[0], np.asarray(poses)[1])
+    depths = np.load(os.path.join(out, "depths.npy"))
+    for got, ref in zip(depths, want):
+        assert rel_l2(got, ref) <= 1e-4
+    traj = np.asarray(json.load(open(os.path.join(out, "trajectory.json"))))
+    np.testing.assert_allclose(traj, np.stack(accum.trajectory), atol=1e-4, rtol=0)
 
 
 def test_infer_video_fusion_runs(scene):
@@ -293,16 +349,20 @@ def test_what_is_not_ported_raises(scene, tmp_path):
     for i in range(3):
         cv2.imwrite(str(jpg_dir / f"{i}.jpg"), np.zeros((H, W, 3), np.uint8),
                     [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    video = tmp_path / "clip.mp4"
-    video.write_bytes(b"")
+    flv = tmp_path / "clip.flv"
+    flv.write_bytes(b"FLV\x01\x05\x00\x00\x00\x09" + bytes(64))
+    corrupt = tmp_path / "clip.mp4"
+    corrupt.write_bytes(b"\x00\x00\x00\x18ftypisom" + np.random.default_rng(0).bytes(4096))
     cases = [
-        (infer_video.main, ["--input", str(video), "--output", str(tmp_path)], "ROADMAP C"),
+        (infer_video.main, ["--input", str(flv), "--output", str(tmp_path)], "FLV.*ROADMAP C"),
         (infer_video.main, ["--input", str(jpg_dir), "--output", str(tmp_path)],
          "progressive"),
     ]
     for main, args, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             main(common + args)
+    with pytest.raises(ValueError, match="clip.mp4"):
+        infer_video.main(common + ["--input", str(corrupt), "--output", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             infer_pose.main(["--checkpoint", scene["ckpt"], "--input", scene["frames"],
