@@ -208,16 +208,18 @@ result line):
    checkpoint format): 12 rendered frames (PNG), their poses and their
    exact depths (uint16 millimetre PNG); ``infer_video`` with
    ``--gt-poses`` and ``--gt-depth`` in this process, counts reset just
-   before and read just after: K1 24 a window and nothing else; the
-   MJPEG ``depth_vis.avi`` read back by the port (``read_avi_mjpeg``):
-   ``windows`` frames of the composer's frame size, each within DEMO_PSNR
-   dB of the canvas `compose` returned; the ``depth`` panels equal to the
+   before and read just after: K1 24 a window and nothing else; the mp4v
+   ``depth_vis.mp4`` read back by the port (``VideoReader``): ``windows``
+   frames of the composer's frame size, each bit-equal to the host
+   encoder's reconstruction of the canvas `compose` returned (the encoder
+   run again on the canvases) and within DEMO_PSNR dB of it; the ``depth``
+   panels equal to the
    host `viz_inv_depth` of ``depths.npy`` resized as OpenCV resizes, bit
    for bit; ``infer --save viz`` on 2 frames (K1 24 a frame; the panel's
    top half the frame); ``vis`` renders the run's ``pointcloud.ply`` on
-   the card bit-equal to the CPU, and a turntable is timed. Prints ms a
-   window, compose and encode ms a video frame, MB a frame and ``vis``
-   ms a frame on the card;
+   the card bit-equal to the CPU, and an mp4v turntable is timed. Prints ms
+   a window, compose and encode ms a video frame, bytes a frame and PSNR,
+   and ``vis`` ms a frame on the card;
 30. spatial: the height split (``arch.spatial_shards`` = 2, D = 1) on two
    spawned ranks on this card over gloo. (b) K1-K3 at the bands' shapes
    (P = 12x80 target pixels of B=8 against the gathered 24x80 context maps,
@@ -295,7 +297,13 @@ result line):
    decoded to the sha256 of OpenCV's packets, luma planes and RGB frames
    (``fixtures.json``, bar 0 levels), the decoder's counts too, and each
    refused stream raising `NotImplementedError` naming its tool; decode
-   ms a frame at 640x480 and 1280x720. Then ``infer_video`` on
+   ms a frame at 640x480 and 1280x720. The host MPEG-4 encoder
+   (``csrc/mpeg4_encode.cpp``) built the same way re-encodes the decoded
+   frames of ``walk_640x480.mp4`` and ``walk_1280x720.mp4`` to mp4v MP4
+   (`VideoWriter`, QP 3, an I-VOP every 12 frames): encode ms a frame
+   (median, min, max), bytes a frame and PSNR against its input, host
+   clock; the re-decode is held bit-equal to the encoder's reconstruction,
+   every frame. Then ``infer_video`` on
    ``walk_640x480.mp4`` (36 frames, 34 windows) at it12-h-out fp32 192x640
    with `start_weights`'s seed-0 weights (the port's checkpoint format) and
    no ``--device``, counts reset just before and read just after: K1 24 a
@@ -3983,7 +3991,7 @@ def phase_demo(counters, gpu):
     from dro_sfm_torch.scripts import infer, infer_video, vis
     from dro_sfm_torch.utils.depth import viz_inv_depth
     from dro_sfm_torch.utils.image_io import read_png, resize_bilinear_u8
-    from dro_sfm_torch.utils.video_io import read_avi_mjpeg
+    from dro_sfm_torch.utils.video_io import Mpeg4Encoder, VideoReader
     from dro_sfm_torch.visualization.splat import View, render_points
     t_start = time.perf_counter()
     shutil.rmtree(DEMO_BUILD, ignore_errors=True)
@@ -4006,15 +4014,27 @@ def phase_demo(counters, gpu):
     if windows != DEMO_FRAMES - 2 or launches != want:
         fail(f"demo: infer_video ran {windows} windows with launches {launches}, want {want}")
 
-    # 2) the video read back by the port, against the composed canvases
-    video, fps = read_avi_mjpeg(result["video"])
+    # 2) the video read back by the port, against the encoder's reconstruction
+    # of the composed canvases (cropped to even sides, as the writer crops)
+    reader = VideoReader(result["video"])
+    video = list(reader)
+    h, w = result["frame_size"][0] & ~1, result["frame_size"][1] & ~1
+    encoder = Mpeg4Encoder(h, w, reader.fps)
+    exact = 0
+    for f, c in zip(video, canvases):
+        encoder.encode(c[:h, :w])
+        exact += bool(np.array_equal(f, encoder.reconstruction()))
+    encoder.close()
     sizes = {f.shape for f in video}
-    psnrs = [psnr_db(f, c) for f, c in zip(video, canvases)]
-    line = (f"demo depth_vis.avi: {len(video)} frames of {sorted(sizes)} at {fps} fps, want "
-            f"{windows} of {result['frame_size']}; PSNR against the canvases min "
-            f"{min(psnrs):.2f} dB, max {max(psnrs):.2f} dB (bar {DEMO_PSNR})")
-    if not (len(video) == len(canvases) == windows
-            and sizes == {(*result["frame_size"], 3)} and min(psnrs) >= DEMO_PSNR):
+    psnrs = [psnr_db(f, c[:h, :w]) for f, c in zip(video, canvases)]
+    video_bytes = result["video_bytes"]
+    line = (f"demo depth_vis.mp4: {len(video)} frames of {sorted(sizes)} at {reader.fps} fps, "
+            f"want {windows} of {result['frame_size']}; bit-equal to the encoder's "
+            f"reconstruction {exact}/{len(video)}; PSNR against the canvases min "
+            f"{min(psnrs):.2f} dB, mean {sum(psnrs) / len(psnrs):.2f} dB, max "
+            f"{max(psnrs):.2f} dB (bar {DEMO_PSNR}); {video_bytes / windows:.1f} bytes a frame")
+    if not (len(video) == len(canvases) == windows == exact
+            and sizes == {(h, w, 3)} and min(psnrs) >= DEMO_PSNR):
         fail(line)
     print(line, flush=True)
 
@@ -4056,7 +4076,7 @@ def phase_demo(counters, gpu):
                             view).cpu()
     on_cpu = render_points(torch.tensor(pts), torch.tensor(cols), view)
     turn = vis.main(["--ply", str(out / "pointcloud.ply"), "--trajectory",
-                     str(out / "trajectory.json"), "--output", str(DEMO_BUILD / "turn.avi"),
+                     str(out / "trajectory.json"), "--output", str(DEMO_BUILD / "turn.mp4"),
                      "--frames", str(VIS_FRAMES), "--device", "cuda"])
     vis_ms = sorted(turn["render_ms"][1:])
     line = (f"demo vis: {len(pts)} points at {vis.SIZE}x{vis.SIZE}, card and CPU "
@@ -4070,14 +4090,14 @@ def phase_demo(counters, gpu):
     steady = sorted(result["window_ms"][1:])
     compose = sorted(result["compose_ms"])
     encode = sorted(result["encode_ms"])
-    mb = result["avi_bytes"] / windows / 2 ** 20
     print(f"demo infer_video it12-h-out fp32 {SERVE_H}x{SERVE_W} N=2 B=1 --gt-poses --gt-depth: "
           f"{windows} windows, median {steady[len(steady) // 2]:.2f} ms/window (min "
           f"{steady[0]:.2f}, max {steady[-1]:.2f}); video {result['frame_size'][1]}x"
           f"{result['frame_size'][0]}: compose median {compose[len(compose) // 2]:.2f} ms/frame "
           f"(min {compose[0]:.2f}, max {compose[-1]:.2f}), encode median "
           f"{encode[len(encode) // 2]:.2f} ms/frame (min {encode[0]:.2f}, max {encode[-1]:.2f}), "
-          f"{mb:.4f} MB/frame ({result['avi_bytes']} bytes); CLI {cli_s:.1f} s; K1 "
+          f"{video_bytes / windows:.1f} bytes/frame ({video_bytes} bytes mp4v); CLI "
+          f"{cli_s:.1f} s; K1 "
           f"{launches['K1']} launches ({launches['K1'] // windows}/window), infer --save viz K1 "
           f"{viz_launches} on 2 frames; ATE {result['ate']:.4f}; phase "
           f"{time.perf_counter() - t_start:.1f} s on {gpu}", flush=True)
@@ -5363,6 +5383,55 @@ def video_fixtures():
     return rates
 
 
+def video_encode():
+    """The host MPEG-4 encoder built with this machine's compiler, then the
+    decoded frames of each VIDEO_RATES clip re-encoded to mp4v MP4
+    (`VideoWriter`) under VIDEO_BUILD and read back: it fails
+    unless each re-decoded frame equals the encoder's reconstruction."""
+    import os
+
+    import numpy as np
+
+    from dro_sfm_torch import hostlib
+    from dro_sfm_torch.utils import video_io
+    from dro_sfm_torch.utils.video_io import VideoReader, VideoWriter
+    t0 = time.perf_counter()
+    fresh = not hostlib.library_path("mpeg4_encode").is_file()
+    hostlib.build("mpeg4_encode")
+    info = {}                                # the first processor's fields of /proc/cpuinfo
+    for line in open("/proc/cpuinfo"):
+        key, _, value = line.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    cpu = (info.get("model name", "unknown") + f" ({info.get('vendor_id')} family "
+           f"{info.get('cpu family')} model {info.get('model')})")
+    print(f"video encoder {'built' if fresh else 'found'} in {time.perf_counter() - t0:.1f} s "
+          f"with {hostlib.find_cxx()}; host CPU {cpu}, {len(os.sched_getaffinity(0))} cores "
+          f"usable", flush=True)
+    for name in VIDEO_RATES:
+        reader = VideoReader(str(VIDEO_FIXTURES / name))
+        frames = list(reader)
+        path = VIDEO_BUILD / f"encoded_{name}"
+        recon = []
+        with VideoWriter(str(path), reader.fps) as writer:
+            for f in frames:
+                writer.write(f)
+                recon.append(writer.reconstruction())
+        back = list(VideoReader(str(path)))
+        exact = sum(bool(np.array_equal(a, b)) for a, b in zip(back, recon))
+        psnrs = [psnr_db(a, f) for a, f in zip(back, frames)]
+        ms = sorted(writer.encode_ms)
+        h, w = frames[0].shape[:2]
+        line = (f"video encode {name}: {len(frames)} frames of {w}x{h}, QP {video_io.QP}, GOP "
+                f"{video_io.GOP}: median {ms[len(ms) // 2]:.2f} ms a frame (min {ms[0]:.2f}, max "
+                f"{ms[-1]:.2f}), host clock; {path.stat().st_size / len(frames):.1f} bytes a "
+                f"frame ({path.stat().st_size} bytes); PSNR against its input mean "
+                f"{sum(psnrs) / len(psnrs):.2f} dB, min {min(psnrs):.2f} dB; re-decoded "
+                f"bit-equal to the reconstruction {exact}/{len(frames)}")
+        if len(back) != len(frames) or exact != len(frames):
+            fail(line)
+        print(line, flush=True)
+
+
 def plain_windows(ckpt, frames_dir, pattern="*.jpg"):
     """The depths and pose matrices of every 3-frame window of the frames
     ``pattern`` in ``frames_dir`` (name order) through the net of ``ckpt``
@@ -5427,6 +5496,7 @@ def phase_video(counters, gpu):
     rates = video_fixtures()
 
     VIDEO_BUILD.mkdir(parents=True)
+    video_encode()
     net = start_weights(model_config_from(trainer_config())).eval()
     net.mixed_precision = False
     ckpt = str(VIDEO_BUILD / "net.pt")

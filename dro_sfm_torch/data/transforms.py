@@ -8,12 +8,18 @@ The port's copy of `dro_sfm_tpu/data/transforms.py`:
   at full resolution) -> float arrays.
 
 The intrinsics rescale is the plain ``K[0] *= out_w / w; K[1] *= out_h / h``.
-Images resize bilinearly and depth by nearest neighbour, bit for bit as
-``cv2.resize`` with ``INTER_LINEAR`` on uint8 and ``INTER_NEAREST``
-(`dro_sfm_torch.utils.image_io`). The file readers decode uint8 and convert
-to float after the resize; the synthetic scenes render float images at the
-configured shape, NYU's HDF5 reader gives float images at the files' shape,
-and a float image of another shape raises.
+Images resize bilinearly and depth by nearest neighbour, as ``cv2.resize``
+with ``INTER_LINEAR`` and ``INTER_NEAREST``: uint8 bit for bit
+(`dro_sfm_torch.utils.image_io`); float32 (NYU's HDF5 frames at another
+``image_shape``) by `resize_linear_f32`, OpenCV 5.0.0's path for float
+images of 1, 3 or 4 channels (its IPP library): weights from the double
+source coordinate rounded to float32, then a horizontal and a vertical pass
+of ``fma(f, b - a, a)``. That is bit for bit, but where a horizontal
+enlargement puts output columns left of the first source column or right
+of the last, whose rows IPP blends with other roundings (by at most 2^-24 on
+images in [0, 1]). The file readers decode uint8 and convert to float after
+the resize; the synthetic scenes render float images at the configured
+shape.
 
 The colour jitter follows torchvision's ColorJitter (factors uniform in
 [max(0, 1-x), 1+x], hue in [-h, h]) in fixed brightness, contrast,
@@ -160,14 +166,38 @@ def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
+def _linear_taps_f32(n_in: int, n_out: int):
+    """The INTER_LINEAR taps of one axis of a float image: the two source
+    indices (clipped to the image) and the second's float32 weight, the
+    fraction of the double coordinate ``(i + 0.5) * n_in / n_out - 0.5``
+    (0 where it lies before the first sample or from the last on)."""
+    d = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(d)
+    f = (d - s).astype(np.float32)
+    s = s.astype(np.int64)
+    f[(s < 0) | (s >= n_in - 1)] = 0
+    return np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1), f
+
+
+def resize_linear_f32(img: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
+    """float32 [H,W] or [H,W,C] -> [h,w(,C)] (``shape`` = (h, w)) as
+    ``cv2.resize(img, (w, h), interpolation=INTER_LINEAR)`` (module
+    docstring): each row interpolated along x, then the rows along y, each
+    step ``fma(f, b - a, a)``."""
+    h, w = int(shape[0]), int(shape[1])
+    x0, x1, fx = _linear_taps_f32(img.shape[1], w)
+    y0, y1, fy = _linear_taps_f32(img.shape[0], h)
+    tail = [1] * (img.ndim - 2)
+    fx, fy = fx.reshape(1, -1, *tail), fy.reshape(-1, 1, *tail)
+    rows = _fma32(fx, img[:, x1] - img[:, x0], img[:, x0])
+    return _fma32(fy, rows[y1] - rows[y0], rows[y0])
+
+
 def _resize_rgb(img: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
     if img.shape[:2] == tuple(shape):
         return img
-    if img.dtype != np.uint8:
-        raise NotImplementedError(
-            f"a float {img.shape[:2]} image for image_shape {tuple(shape)}: float images "
-            "are not resized (the synthetic scenes render at the image shape, NYU's HDF5 "
-            "frames run at their own; the other file readers give uint8)")
+    if img.dtype == np.float32:
+        return resize_linear_f32(img, shape)
     return resize_bilinear_u8(img, shape)
 
 

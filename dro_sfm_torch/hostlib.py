@@ -1,14 +1,15 @@
 """Build the port's host C++ libraries (the image codec and the MPEG-4
-video decoder).
+video decoder and encoder).
 
-``csrc/image_codec.cpp`` and ``csrc/mpeg4_video.cpp`` are plain C++ with a
-C interface. Each is compiled with the host C++ compiler (``$CXX``, else
+``csrc/image_codec.cpp``, ``csrc/mpeg4_video.cpp`` and
+``csrc/mpeg4_encode.cpp`` are plain C++ with a C interface; the two MPEG-4
+sources include ``csrc/mpeg4_tables.h``. Each is compiled with the host C++ compiler (``$CXX``, else
 ``c++`` or ``g++``) into a shared library at first use, under
 ``build/host`` beside the package (listed in ``.gitignore``); its user
 loads it with ``ctypes`` (`dro_sfm_torch.utils.image_io`,
 `dro_sfm_torch.utils.video_io`), which releases the interpreter lock for
 the length of each call. The library's name carries a hash of the
-source and the flags; it is written to a temporary file and moved into
+source, the headers of ``csrc`` and the flags; it is written to a temporary file and moved into
 place, so that processes building it at the same time do not collide.
 Nothing is built when a module is imported, and a missing compiler or a
 failed build raises: the port has no Python decoder to fall back on.
@@ -23,7 +24,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"image_codec": CSRC / "image_codec.cpp", "mpeg4_video": CSRC / "mpeg4_video.cpp"}
+SOURCES = {"image_codec": CSRC / "image_codec.cpp", "mpeg4_video": CSRC / "mpeg4_video.cpp",
+           "mpeg4_encode": CSRC / "mpeg4_encode.cpp"}
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 
@@ -33,12 +35,14 @@ def find_cxx() -> str:
         if cand and shutil.which(cand):
             return shutil.which(cand)
     raise RuntimeError("no C++ compiler found ($CXX, c++ or g++): the image codec and "
-                       "the video decoder of dro_sfm_torch are built from csrc/*.cpp at "
+                       "the video codec of dro_sfm_torch are built from csrc/*.cpp at "
                        "first use")
 
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.h")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
     return CSRC.parents[1] / "build" / "host" / f"lib{name}_{digest.hexdigest()[:12]}.so"
 

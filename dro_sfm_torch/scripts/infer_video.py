@@ -30,9 +30,9 @@ poses replace the chained ones in the trajectory and ``ba_scales.npy`` holds
 their depth scales. Writes ``depths.npy`` (memmapped, one map per window),
 ``trajectory.json``, ``trajectory.png`` (`plot_trajectory`),
 ``trajectory_pose.obj``, ``pointcloud.ply`` and, after BA, the annotated
-8-panel video ``depth_vis.avi`` (MJPEG, `DemoVideoComposer`; the JAX CLI
-writes ``depth_vis.mp4`` with OpenCV's mp4v, which the port has no encoder
-for); with ``--gt-poses`` it prints the ATE after sim3 alignment and draws
+8-panel video ``depth_vis.mp4`` (`DemoVideoComposer`; MPEG-4 Part 2 in MP4,
+as OpenCV's mp4v writes it, from the host encoder `VideoWriter`); with
+``--gt-poses`` it prints the ATE after sim3 alignment and draws
 the trajectory panels against the ground truth. Runs on the card unless
 ``--device cpu``.
 """
@@ -108,7 +108,7 @@ def main(argv=None, canvases=None) -> dict:
     from dro_sfm_torch.utils.depth import viz_inv_depth
     from dro_sfm_torch.utils.device import resolve_device
     from dro_sfm_torch.utils.image_io import read_image_rgb, resize_bilinear_u8, write_png
-    from dro_sfm_torch.utils.video_io import AviWriter
+    from dro_sfm_torch.utils.video_io import VideoWriter
     from dro_sfm_torch.visualization.demo_video import (
         DemoVideoComposer, align_to_gt, cloud_topdown_panel, draw_trajectory_panel,
         load_gt_poses, poses_to_obj)
@@ -227,10 +227,10 @@ def main(argv=None, canvases=None) -> dict:
     composer = DemoVideoComposer(shape, model_path=args.checkpoint, data_path=args.input,
                                  sample_rate=args.sample_rate, max_frames=args.max_frames,
                                  fps=args.fps)
-    video_path = os.path.join(args.output, "depth_vis.avi")
+    video_path = os.path.join(args.output, "depth_vis.mp4")
     compose_ms = []
     panel_size = (ph, pw)
-    with AviWriter(video_path, args.fps) as writer:
+    with VideoWriter(video_path, args.fps) as writer:
         for i in range(len(frame_names)):
             t0 = time.perf_counter()
             panels = {
@@ -256,7 +256,7 @@ def main(argv=None, canvases=None) -> dict:
             if canvases is not None:
                 canvases.append(frame)
         encode_ms = writer.encode_ms
-    avi_bytes = os.path.getsize(video_path)
+    video_bytes = os.path.getsize(video_path)
     H, W = composer.frame_size
     steady = sorted(window_ms[1:]) or window_ms
     if extraction is not None:
@@ -264,8 +264,8 @@ def main(argv=None, canvases=None) -> dict:
               f"{np.median(extraction['decode_ms']):.2f} ms per frame video decode and "
               f"{np.median(extraction['encode_ms']):.2f} ms per frame JPEG encode (medians)")
     print(f"outputs in {args.output}: depths.npy, panels/, trajectory.json/png/obj, "
-          f"pointcloud.ply ({pts.shape[0]} points), depth_vis.avi ({W}x{H} annotated "
-          f"8-panel, {avi_bytes} bytes); {n_out} windows, "
+          f"pointcloud.ply ({pts.shape[0]} points), depth_vis.mp4 ({W}x{H} annotated "
+          f"8-panel mp4v, {video_bytes} bytes); {n_out} windows, "
           f"{steady[len(steady) // 2]:.2f} ms per window (median after the first), "
           f"{np.median(load.decode_ms):.2f} ms per frame decode, "
           f"{np.median(compose_ms):.2f} ms compose and {np.median(encode_ms):.2f} ms encode "
@@ -273,7 +273,7 @@ def main(argv=None, canvases=None) -> dict:
     return {"windows": n_out, "pose_mats": pose_mats, "window_ms": window_ms,
             "decode_ms": load.decode_ms, "points": int(pts.shape[0]), "ate": ate, "ba": ba,
             "compose_ms": compose_ms, "encode_ms": encode_ms, "frame_size": (H, W),
-            "avi_bytes": avi_bytes, "video": video_path, "extraction": extraction}
+            "video_bytes": video_bytes, "video": video_path, "extraction": extraction}
 
 
 BA_DOWNSAMPLE = 4                  # the keyframes' depth maps, as the JAX CLI

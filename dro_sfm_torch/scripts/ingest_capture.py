@@ -2,7 +2,7 @@
 
     python -m dro_sfm_torch.scripts.ingest_capture --capture /data/cap01 \
         --trajectory /data/cap01/traj.csv --scene cap01 --split-out /data/split.txt \
-        [--check] [--filter] [--preview-video /data/cap01/preview.avi] [--preset gazebo]
+        [--check] [--filter] [--preview-video /data/cap01/preview.mp4] [--preset gazebo]
 
 The port's counterpart of `tools/ingest_capture.py`, on the port's own image
 files (no OpenCV): a capture directory holds ``cam_left/*.jpg``,
@@ -15,8 +15,9 @@ data-consistency census (missing depths, unmatched frames, invalid poses),
 ``--filter`` runs the drop/split quality pass
 (`dro_sfm_torch.data.depth_filter`), ``--preset gazebo`` writes the
 RoboMaker sim intrinsics and applies the camera-to-tracker chain, and
-``--preview-video`` writes the rgb|depth-colormap inspection video as an
-MJPEG AVI (the JAX tool writes mp4, which the port has no encoder for).
+``--preview-video`` writes the rgb|depth-colormap inspection video as the JAX
+tool's OpenCV writer does (mp4v; `VideoWriter`: ``.mp4``, ``.m4v``, ``.mov``
+or ``.avi``).
 """
 from __future__ import annotations
 
@@ -151,15 +152,12 @@ def preview_canvas(rgb: np.ndarray, depth_mm, fname: str) -> np.ndarray:
 
 
 def preview_video(capture: str, kept, out_path: str, fps: int = 10) -> int:
-    """rgb|depth-colormap inspection video (MJPEG AVI); returns its frames."""
+    """rgb|depth-colormap inspection video (mp4v); returns its frames."""
     from dro_sfm_torch.utils.image_io import read_image_rgb
-    from dro_sfm_torch.utils.video_io import AviWriter
-    if not out_path.lower().endswith(".avi"):
-        raise NotImplementedError(f"{out_path}: the preview is an MJPEG .avi (the port has "
-                                  "no mp4 encoder, ROADMAP C)")
+    from dro_sfm_torch.utils.video_io import VideoWriter
     depth_dir = os.path.join(capture, "depth")
     n = 0
-    with AviWriter(out_path, fps) as writer:
+    with VideoWriter(out_path, fps) as writer:
         for fname in kept:
             path = os.path.join(capture, "cam_left", fname)
             if not os.path.exists(path):
@@ -192,7 +190,7 @@ def main(argv=None) -> dict:
     p.add_argument("--min-segment", type=int, default=3,
                    help="with --filter: drop kept segments shorter than this")
     p.add_argument("--preview-video", default="",
-                   help="write an rgb|depth inspection video (.avi) here")
+                   help="write an rgb|depth inspection video (.mp4) here")
     p.add_argument("--preset", choices=sorted(PRESETS), default="none",
                    help="capture rig preset: 'gazebo' writes the RoboMaker "
                         "sim intrinsics and applies the camera->GT-tracker "

@@ -1,13 +1,14 @@
 """Render a dataset's samples to a preview video or PNG frames.
 
     python -m dro_sfm_torch.scripts.preview_dataset --config configs/train_synthetic.yaml \
-        --split train --output preview.avi [--max-samples 50]
+        --split train --output preview.mp4 [--max-samples 50]
 
 The port's copy of `tools/preview_dataset.py`: each sample's target, its
 context frames and, where it has one, its ground-truth inverse depth, side
-by side in a labelled grid. ``--output`` ending in ``.avi`` writes an MJPEG
-AVI at 5 frames/s (the JAX tool writes mp4, which the port has no encoder
-for, ROADMAP C); any other path is a folder of PNG frames.
+by side in a labelled grid. ``--output`` ending in ``.mp4``, as in the JAX
+tool, writes mp4v video at 5 frames/s (`image_grid.write_video`), and so does
+one ending in ``.avi`` (an AVI of mp4v); any other path is a folder of PNG
+frames.
 """
 from __future__ import annotations
 
@@ -19,12 +20,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="dataset preview")
     p.add_argument("--config", required=True)
     p.add_argument("--split", default="train", choices=["train", "validation", "test"])
-    p.add_argument("--output", required=True, help=".avi or folder of pngs")
+    p.add_argument("--output", required=True, help=".mp4 (or .avi) or folder of pngs")
     p.add_argument("--max-samples", type=int, default=50)
     args = p.parse_args(argv)
-    if args.output.endswith(".mp4"):
-        raise NotImplementedError(f"{args.output}: the port writes an MJPEG .avi or PNG "
-                                  "frames (no mp4 encoder, ROADMAP C)")
 
     import numpy as np
 
@@ -56,7 +54,7 @@ def main(argv=None) -> int:
         frames.append(grid.canvas)
         if (i + 1) % 10 == 0:
             print(f"[{i + 1}/{n}]")
-    if args.output.endswith(".avi"):
+    if args.output.endswith((".mp4", ".avi")):
         write_video(args.output, frames, fps=5)
         print(f"wrote {args.output} ({len(frames)} samples)")
     else:

@@ -1,6 +1,6 @@
 """Render a point cloud and/or a trajectory to a PNG or a turntable video.
 
-    python -m dro_sfm_torch.scripts.vis --ply out/pointcloud.ply --output render.avi
+    python -m dro_sfm_torch.scripts.vis --ply out/pointcloud.ply --output render.mp4
     python -m dro_sfm_torch.scripts.vis --trajectory out/trajectory.json --output traj.png
 
 The port's counterpart of `scripts/vis.py`. The points of an ASCII ``.ply``
@@ -8,11 +8,12 @@ The port's counterpart of `scripts/vis.py`. The points of an ASCII ``.ply``
 draws them) are splatted on the device (`visualization.splat`: one pixel a
 point, z-buffered); the trajectory of a ``trajectory.json`` is drawn over
 them in red, its start as a green dot (`visualization.draw`). A ``.png``
-shows matplotlib's default view (elevation 30, azimuth -60); an ``.avi`` is
-an MJPEG turntable of ``--frames`` views at elevation 20 and 15 frames a
-second. Runs on the card unless ``--device cpu``. The JAX script draws with
-matplotlib and writes mp4; the port's own drawing is a recorded difference
-(ROADMAP C).
+shows matplotlib's default view (elevation 30, azimuth -60); any other path
+is a turntable of ``--frames`` views at elevation 20 and 15 frames a second,
+written as OpenCV's mp4v writer writes it (`VideoWriter`: ``.mp4``, ``.m4v``,
+``.mov`` or ``.avi``). Runs on the card unless ``--device cpu``. The JAX
+script draws with matplotlib; the port's own drawing is a recorded
+difference (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="dro_sfm_torch offline 3D rendering")
     p.add_argument("--ply", default=None)
     p.add_argument("--trajectory", default=None, help="trajectory json")
-    p.add_argument("--output", required=True, help=".png or .avi")
+    p.add_argument("--output", required=True, help=".png, or .mp4/.mov/.avi for a turntable")
     p.add_argument("--frames", type=int, default=60, help="turntable frames for video output")
     p.add_argument("--max-points", type=int, default=100000)
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
@@ -64,17 +65,16 @@ def main(argv=None) -> dict:
     frame's device milliseconds (host clock around the render and its copy
     to the host)."""
     args = parse_args(argv)
-    if not args.output.endswith((".png", ".avi")):
-        raise NotImplementedError(f"{args.output}: the port writes .png or an MJPEG .avi "
-                                  "(no mp4 encoder, ROADMAP C)")
     if not (args.ply or args.trajectory):
         raise ValueError("nothing to render: pass --ply and/or --trajectory")
+    from dro_sfm_torch.utils.video_io import VideoWriter
+    if not args.output.endswith(".png"):
+        VideoWriter.container(args.output)           # refuse a bad path before any render
     import numpy as np
     import torch
 
     from dro_sfm_torch.utils.device import resolve_device
     from dro_sfm_torch.utils.image_io import write_png
-    from dro_sfm_torch.utils.video_io import AviWriter
     from dro_sfm_torch.visualization.draw import circle_filled, polylines
     from dro_sfm_torch.visualization.splat import BACKGROUND, View, render_points
 
@@ -118,7 +118,7 @@ def main(argv=None) -> dict:
     if args.output.endswith(".png"):
         write_png(args.output, frames[0])
     else:
-        with AviWriter(args.output, 15) as writer:
+        with VideoWriter(args.output, 15) as writer:
             for img in frames:
                 writer.write(img)
     print(f"wrote {args.output} ({len(frames)} frame(s) of {size[1]}x{size[0]}, "

@@ -1,18 +1,33 @@
-"""Video and animation files without OpenCV, FFmpeg or Pillow: MJPEG AVI and
-GIF89a written, MPEG-4 Part 2 video in MP4, MOV and AVI read.
+"""Video and animation files without OpenCV, FFmpeg or Pillow: MPEG-4 Part 2
+(``mp4v``) video written to MP4, MOV and AVI and read from them, MJPEG AVI
+written and read, and GIF89a written.
 
-The card's machine has no video codec the port may use, so it writes the
-two containers itself, on the host:
+The card's machine has no video codec the port may use, so it writes and
+reads these files itself, on the host:
 
-* `AviWriter`: an AVI 1.0 file (RIFF ``AVI ``) of one ``vids`` stream in
-  ``MJPG``: ``avih``, ``strh``, ``strf`` (a BITMAPINFOHEADER), one ``00dc``
-  chunk a frame in the ``movi`` list and an ``idx1`` index. Each frame is a
-  baseline JPEG from the host codec (`image_io.encode_jpeg`, the bytes of
-  ``cv2.imencode``). The file is written beside its path and moved into
-  place by `close`; a frame that would take the RIFF past 1 GiB (AVI 1.0's
-  limit) raises before it is written, and a writer left by an exception
-  removes its file, so that no broken file is left.
-* `read_avi_mjpeg`: the frames (uint8 RGB) and rate of such a file.
+* `VideoWriter`: what ``cv2.VideoWriter(path, VideoWriter_fourcc(*"mp4v"),
+  fps, (w, h))`` writes, the container told by the extension as OpenCV
+  tells it (``.mp4``, ``.m4v`` and ``.mov`` an ISO BMFF file, ``.avi`` an
+  AVI), the frames cropped to even sides as OpenCV crops them. The video is
+  MPEG-4 Part 2 Simple Profile from `Mpeg4Encoder` (``csrc/mpeg4_encode.cpp``,
+  built by `dro_sfm_torch.hostlib`): an I-VOP every 12 frames and P-VOPs
+  between them at a fixed QP, each VOP rebuilt as the decoder rebuilds it.
+  `Mp4Writer` muxes ``ftyp``, ``mdat`` and a ``moov`` of one video track
+  whose ``mp4v`` sample entry's ``esds`` holds the VOL (object type 0x20),
+  with ``stts``, ``stss``, ``stsc``, ``stsz`` and ``stco`` (``co64`` past 4
+  GiB) and no edit list; in an AVI each I-VOP carries the VOS, VO and VOL
+  headers before it, as FFmpeg writes them without a global header.
+* `AviWriter`: an AVI 1.0 file (RIFF ``AVI ``) of one ``vids`` stream:
+  ``avih``, ``strh``, ``strf`` (a BITMAPINFOHEADER), one ``00dc`` chunk a
+  frame in the ``movi`` list and an ``idx1`` index (keyframe flags on the
+  JPEG frames and the I-VOPs). Its frames are baseline JPEGs from the host
+  codec (`image_io.encode_jpeg`, the bytes of ``cv2.imencode``), or
+  MPEG-4 packets (fourcc ``mp4v``) given by `VideoWriter`. A frame that would
+  take the RIFF past 1 GiB (AVI 1.0's limit) raises before it is written.
+  Every writer writes its file beside its path and moves it into place at
+  `close`; a writer left by an exception removes its file, so that no broken
+  file is left.
+* `read_avi_mjpeg`: the frames (uint8 RGB) and rate of an MJPEG AVI.
 * `VideoReader`: the frames of a video file as
   ``cv2.VideoCapture`` reads them (uint8 RGB, in decode order), as FFmpeg
   demuxes and decodes them. `demux` tells the container by its first bytes:
@@ -24,10 +39,11 @@ two containers itself, on the host:
   byte. `Mpeg4Decoder` decodes MPEG-4 Part 2 Simple Profile video in the
   host library ``csrc/mpeg4_video.cpp`` (built by `dro_sfm_torch.hostlib`),
   bit-equal to FFmpeg's luma and to OpenCV's RGB on the streams FFmpeg's
-  ``mpeg4`` encoder writes; MJPEG AVI frames go through the JPEG decoder
-  (libjpeg's upsampling, not FFmpeg's). Other codecs and containers, and
-  MPEG-4 tools beyond Simple Profile, raise `NotImplementedError`; a broken
-  file raises `ValueError`, and no frame is ever skipped.
+  ``mpeg4`` encoder and `Mpeg4Encoder` write; MJPEG AVI frames go through the
+  JPEG decoder (libjpeg's upsampling, not FFmpeg's). Other codecs and
+  containers, and MPEG-4 tools beyond Simple Profile, raise
+  `NotImplementedError`; a broken file raises `ValueError`, and no frame is
+  ever skipped.
 * `write_gif`: GIF89a with a NETSCAPE loop extension and, before each frame,
   a graphic control extension holding its duration (in hundredths of a
   second, ``int(ms / 10)`` as Pillow writes it). Each frame's palette
@@ -38,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 import struct
 import time
@@ -48,6 +65,8 @@ import numpy as np
 from dro_sfm_torch.utils import image_io
 
 AVI_LIMIT = 1 << 30            # AVI 1.0: a RIFF of at most 1 GiB
+GOP = 12                       # an I-VOP every GOP frames, as FFmpeg's under cv2.VideoWriter
+QP = 3                         # the fixed quantiser: FFmpeg's floor, where OpenCV's writer runs
 _AVIF_HASINDEX = 0x10
 _AVIIF_KEYFRAME = 0x10
 
@@ -65,19 +84,34 @@ def _rate(fps: float) -> Tuple[int, int]:
     return 1000, int(round(fps * 1000))
 
 
-class AviWriter:
-    """Write uint8 RGB frames [H,W,3] of one size to an MJPEG AVI at
-    ``path``; ``quality`` is the JPEG quality. ``encode_ms`` holds each
-    frame's encode milliseconds (host clock) and `bytes_written` the
-    file's size so far."""
+def timebase(fps: float) -> Tuple[int, int]:
+    """(resolution, increment) of an MPEG-4 stream at ``fps`` frames a
+    second: the VOL's vop_time_increment_resolution and the ticks a frame,
+    ``fps = resolution / increment`` (an MP4's timescale and sample delta)."""
+    scale, rate = _rate(fps)
+    g = math.gcd(scale, rate)
+    if rate // g > 65535:
+        raise ValueError(f"{fps} frames a second: an MPEG-4 time base of {rate // g}/"
+                         f"{scale // g} (the resolution is 16 bits)")
+    return rate // g, scale // g
 
-    def __init__(self, path: str, fps: float, quality: int = 95):
+
+class AviWriter:
+    """Write a video stream of frames of one size to an AVI at ``path``:
+    uint8 RGB frames [H,W,3] as MJPEG through `write` (``quality`` is the
+    JPEG quality), or, with ``fourcc`` ``b"mp4v"``, the packets that
+    `VideoWriter` gives `write_packet`. ``encode_ms`` holds each frame's
+    encode milliseconds (host clock) and `bytes_written` the file's size so
+    far."""
+
+    def __init__(self, path: str, fps: float, quality: int = 95, fourcc: bytes = b"MJPG"):
         self.path, self.fps, self.quality = str(path), float(fps), int(quality)
+        self.fourcc = fourcc
         self.scale, self.rate = _rate(self.fps)
         self.tmp = self.path + ".tmp"
         self.file = open(self.tmp, "wb")
         self.size = None                     # (height, width) of the first frame
-        self.index: List[Tuple[int, int]] = []   # (offset from "movi", length)
+        self.index: List[Tuple[int, int, bool]] = []   # (offset from "movi", length, key)
         self.movi_bytes = 4                  # the "movi" fourcc
         self.max_frame = 0
         self.encode_ms: List[float] = []
@@ -89,10 +123,11 @@ class AviWriter:
         usec = int(round(1e6 / self.fps))
         avih = struct.pack("<14I", usec, 0, 0, _AVIF_HASINDEX, frames, 0, 1, self.max_frame,
                            w, h, 0, 0, 0, 0)
-        strh = (b"vidsMJPG" + struct.pack("<IHHIIIIIIiI", 0, 0, 0, 0, self.scale, self.rate, 0,
-                                          frames, self.max_frame, -1, 0)
+        strh = (b"vids" + self.fourcc
+                + struct.pack("<IHHIIIIIIiI", 0, 0, 0, 0, self.scale, self.rate, 0, frames,
+                              self.max_frame, -1, 0)
                 + struct.pack("<4h", 0, 0, w, h))
-        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0, 0, 0)
+        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, self.fourcc, w * h * 3, 0, 0, 0, 0)
         strl = b"LIST" + struct.pack("<I", 4 + 8 + len(strh) + 8 + len(strf)) + b"strl" \
             + _chunk(b"strh", strh) + _chunk(b"strf", strf)
         hdrl = b"hdrl" + _chunk(b"avih", avih) + strl
@@ -106,24 +141,28 @@ class AviWriter:
         return self.header_bytes - 4 + self.movi_bytes + 8 + 16 * len(self.index)
 
     def write(self, frame: np.ndarray) -> None:
-        frame = np.asarray(frame)
-        if frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3:
-            raise ValueError(f"AviWriter takes uint8 RGB [H,W,3], not {frame.dtype} "
-                             f"{frame.shape}")
-        if self.size is None:
-            self.size = frame.shape[:2]
-        elif frame.shape[:2] != self.size:
-            raise ValueError(f"frame of size {frame.shape[:2]} in a video of {self.size}")
+        if self.fourcc != b"MJPG":
+            raise ValueError(f"{self.path}: frames of a {self.fourcc.decode()} AVI come from "
+                             f"VideoWriter")
+        frame = _check_frame(frame, "AviWriter")
         t0 = time.perf_counter()
         data = image_io.encode_jpeg(frame, self.quality)
         self.encode_ms.append(1e3 * (time.perf_counter() - t0))
+        self.write_packet(data, True, frame.shape[:2])
+
+    def write_packet(self, data: bytes, key: bool, size: Tuple[int, int]) -> None:
+        """One frame's packet, a keyframe or not, of a frame of ``size``."""
+        if self.size is None:
+            self.size = tuple(size)
+        elif tuple(size) != self.size:
+            raise ValueError(f"frame of size {tuple(size)} in a video of {self.size}")
         chunk = _chunk(b"00dc", data)
         # the RIFF after this frame, its index entry and the index header
         if self.bytes_written + len(chunk) + 16 - 8 > AVI_LIMIT:
             raise ValueError(f"{self.path}: frame {len(self.index)} would take the AVI past "
                              f"its 1 GiB limit (AVI 1.0); write a shorter or smaller video")
         self.file.write(chunk)
-        self.index.append((self.movi_bytes, len(data)))
+        self.index.append((self.movi_bytes, len(data), bool(key)))
         self.movi_bytes += len(chunk)
         self.max_frame = max(self.max_frame, len(data))
 
@@ -135,8 +174,8 @@ class AviWriter:
             self.abort()
             raise ValueError(f"{self.path}: a video without frames")
         self.file.write(b"idx1" + struct.pack("<I", 16 * len(self.index)))
-        self.file.write(b"".join(struct.pack("<4sIII", b"00dc", _AVIIF_KEYFRAME, off, n)
-                                 for off, n in self.index))
+        self.file.write(b"".join(struct.pack("<4sIII", b"00dc", _AVIIF_KEYFRAME if key else 0,
+                                             off, n) for off, n, key in self.index))
         self.file.seek(0)
         self.file.write(self._headers(*self.size, len(self.index)))
         self.file.close()
@@ -149,6 +188,221 @@ class AviWriter:
             self.file.close()
             self.file = None
             os.unlink(self.tmp)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, value, tb):
+        if kind is None:
+            self.close()
+        else:
+            self.abort()
+
+
+def _check_frame(frame, who: str) -> np.ndarray:
+    frame = np.asarray(frame)
+    if frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3:
+        raise ValueError(f"{who} takes uint8 RGB [H,W,3], not {frame.dtype} {frame.shape}")
+    return frame
+
+
+def _box(kind: bytes, *parts: bytes) -> bytes:
+    body = b"".join(parts)
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _full_box(kind: bytes, version: int, flags: int, *parts: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", version << 24 | flags), *parts)
+
+
+def _descriptor_bytes(tag: int, *parts: bytes) -> bytes:
+    """An MPEG-4 descriptor with its size in 4 bytes, as FFmpeg writes it."""
+    body = b"".join(parts)
+    n = len(body)
+    return bytes([tag, 0x80 | (n >> 21) & 0x7F, 0x80 | (n >> 14) & 0x7F, 0x80 | (n >> 7) & 0x7F,
+                  n & 0x7F]) + body
+
+
+_MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+
+
+class Mp4Writer:
+    """Mux MPEG-4 Part 2 packets into an ISO BMFF file at ``path``: ``brand``
+    ``b"isom"`` for MP4 and M4V, ``b"qt  "`` for QuickTime MOV. The samples
+    go into ``mdat`` as they come (behind a ``wide`` box that makes room for
+    a 64-bit ``mdat`` header); `close` writes the ``moov`` after it, with
+    ``config`` (the encoder's VOL) in the ``esds``. ``bytes_written`` is the
+    file's size so far."""
+
+    def __init__(self, path: str, fps: float, brand: bytes = b"isom"):
+        self.path, self.fps = str(path), float(fps)
+        self.res, self.inc = timebase(self.fps)
+        self.config = b""
+        self.tmp = self.path + ".tmp"
+        self.file = open(self.tmp, "wb")
+        compat = b"qt  " if brand == b"qt  " else b"isomiso2mp41"
+        ftyp = _box(b"ftyp", brand, struct.pack(">I", 0x200), compat)
+        self.mdat = len(ftyp)
+        self.file.write(ftyp + _box(b"wide") + struct.pack(">I4s", 0, b"mdat"))
+        self.bytes_written = self.mdat + 16
+        self.size = None
+        self.offsets: List[int] = []
+        self.sizes: List[int] = []
+        self.keys: List[int] = []
+
+    def write_packet(self, data: bytes, key: bool, size: Tuple[int, int]) -> None:
+        if self.size is None:
+            self.size = tuple(size)
+        elif tuple(size) != self.size:
+            raise ValueError(f"frame of size {tuple(size)} in a video of {self.size}")
+        if key:
+            self.keys.append(len(self.sizes) + 1)
+        self.offsets.append(self.bytes_written)
+        self.sizes.append(len(data))
+        self.file.write(data)
+        self.bytes_written += len(data)
+
+    def _moov(self) -> bytes:
+        h, w = self.size
+        n, big = len(self.sizes), self.offsets[-1] >= 1 << 32
+        duration = n * self.inc                              # in the track's timescale
+        movie = int(round(duration * 1000 / self.res))      # in the movie's (ms)
+        largest = max(self.sizes)                            # bits a second, average and peak
+        avg = min(int(sum(self.sizes) * 8 * self.res / duration), 0xFFFFFFFF)
+        peak = max(min(int(largest * 8 * self.fps), 0xFFFFFFFF), avg)
+        esds = _full_box(b"esds", 0, 0, _descriptor_bytes(
+            3, struct.pack(">HB", 1, 0),
+            _descriptor_bytes(4, struct.pack(">BB", 0x20, 0x11),     # MPEG-4 Visual, video
+                              min(largest, 0xFFFFFF).to_bytes(3, "big"),
+                              struct.pack(">II", peak, avg), _descriptor_bytes(5, self.config)),
+            _descriptor_bytes(6, b"\x02")))
+        mp4v = _box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(16),
+                    struct.pack(">HHIIIH", w, h, 0x480000, 0x480000, 0, 1), bytes(32),
+                    struct.pack(">Hh", 0x18, -1), esds)
+        stbl = _box(b"stbl",
+                    _full_box(b"stsd", 0, 0, struct.pack(">I", 1), mp4v),
+                    _full_box(b"stts", 0, 0, struct.pack(">III", 1, n, self.inc)),
+                    _full_box(b"stss", 0, 0, struct.pack(f">I{len(self.keys)}I", len(self.keys),
+                                                         *self.keys)),
+                    _full_box(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, 1, 1)),
+                    _full_box(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n, *self.sizes)),
+                    _full_box(b"co64" if big else b"stco", 0, 0,
+                              struct.pack(f">I{n}{'Q' if big else 'I'}", n, *self.offsets)))
+        minf = _box(b"minf", _full_box(b"vmhd", 0, 1, bytes(8)),
+                    _box(b"dinf", _full_box(b"dref", 0, 0, struct.pack(">I", 1),
+                                            _full_box(b"url ", 0, 1))), stbl)
+        mdia = _box(b"mdia",
+                    _full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, self.res, duration,
+                                                         0x55C4, 0)),        # language "und"
+                    _full_box(b"hdlr", 0, 0, struct.pack(">I4s12x", 0, b"vide"),
+                              b"VideoHandler\0"), minf)
+        tkhd = _full_box(b"tkhd", 0, 3, struct.pack(">IIIII8xhhhH", 0, 0, 1, 0, movie, 0, 0, 0,
+                                                    0), _MATRIX, struct.pack(">II", w << 16,
+                                                                             h << 16))
+        mvhd = _full_box(b"mvhd", 0, 0, struct.pack(">IIIIIH10x", 0, 0, 1000, movie, 0x10000,
+                                                    0x100), _MATRIX, bytes(24),
+                         struct.pack(">I", 2))
+        return _box(b"moov", mvhd, _box(b"trak", tkhd, mdia))
+
+    def close(self) -> None:
+        """Finish ``mdat``, write ``moov`` and move the file into place."""
+        if self.file is None:
+            return
+        if not self.sizes:
+            self.abort()
+            raise ValueError(f"{self.path}: a video without frames")
+        payload = self.bytes_written - self.mdat - 16
+        if payload + 8 < 1 << 32:                    # wide, then a 32-bit mdat header
+            self.file.seek(self.mdat + 8)
+            self.file.write(struct.pack(">I", payload + 8))
+        else:                                        # a 64-bit mdat header over both
+            self.file.seek(self.mdat)
+            self.file.write(struct.pack(">I4sQ", 1, b"mdat", payload + 16))
+        self.file.seek(0, os.SEEK_END)
+        moov = self._moov()
+        self.file.write(moov)
+        self.bytes_written += len(moov)
+        self.file.close()
+        self.file = None
+        os.replace(self.tmp, self.path)
+
+    def abort(self) -> None:
+        """Close and remove the unfinished file."""
+        if self.file is not None:
+            self.file.close()
+            self.file = None
+            os.unlink(self.tmp)
+
+
+class VideoWriter:
+    """Write uint8 RGB frames [H,W,3] of one size as ``mp4v`` video, as
+    ``cv2.VideoWriter(path, VideoWriter_fourcc(*"mp4v"), fps, (W, H))``
+    does: ``.mp4``, ``.m4v`` and ``.mov`` give ISO BMFF (`Mp4Writer`),
+    ``.avi`` an AVI (`AviWriter`, fourcc ``mp4v``); an odd last row or
+    column is dropped, as OpenCV drops it. `Mpeg4Encoder` codes an I-VOP
+    every `GOP` frames at quantiser `QP`. ``encode_ms`` holds each frame's
+    encode milliseconds (host clock), `bytes_written` the file's size so
+    far, and `reconstruction` the last frame as a reader will decode it.
+    The file is written beside ``path`` and moved into place by `close`; a
+    writer left by an exception removes it."""
+
+    CONTAINERS = {".mp4": b"isom", ".m4v": b"isom", ".mov": b"qt  ", ".avi": None}
+
+    def __init__(self, path: str, fps: float):
+        self.path, self.fps = str(path), float(fps)
+        brand = self.container(self.path)
+        self.mux = AviWriter(self.path, self.fps, fourcc=b"mp4v") if brand is None \
+            else Mp4Writer(self.path, self.fps, brand)
+        self.encoder = None
+        self.size = None
+        self.encode_ms: List[float] = []
+
+    @classmethod
+    def container(cls, path: str):
+        """The ISO BMFF brand of ``path``'s extension, None for an AVI; an
+        extension OpenCV's mp4v writer does not take raises ValueError."""
+        ext = os.path.splitext(str(path))[1].lower()
+        if ext not in cls.CONTAINERS:
+            raise ValueError(f"{path}: mp4v video goes into {', '.join(cls.CONTAINERS)} files")
+        return cls.CONTAINERS[ext]
+
+    @property
+    def bytes_written(self) -> int:
+        return self.mux.bytes_written
+
+    def write(self, frame: np.ndarray) -> None:
+        frame = _check_frame(frame, "VideoWriter")
+        if self.encoder is None:
+            self.size = frame.shape[:2]
+            self.encoder = Mpeg4Encoder(frame.shape[0] & ~1, frame.shape[1] & ~1, self.fps)
+            self.mux.config = self.encoder.config
+        elif frame.shape[:2] != self.size:
+            raise ValueError(f"frame of size {frame.shape[:2]} in a video of {self.size}")
+        h, w = self.encoder.shape
+        t0 = time.perf_counter()
+        packet, key = self.encoder.encode(frame[:h, :w])
+        if key and isinstance(self.mux, AviWriter):      # no global header in an AVI
+            packet = self.encoder.config + packet
+        self.encode_ms.append(1e3 * (time.perf_counter() - t0))
+        self.mux.write_packet(packet, key, (h, w))
+
+    def reconstruction(self, planes: bool = False):
+        """The last frame as `Mpeg4Decoder` and FFmpeg decode it: uint8 RGB
+        [h,w,3], or with ``planes`` the planes (Y, U, V)."""
+        return self.encoder.reconstruction(planes)
+
+    def close(self) -> None:
+        """Finish the container and move the file into place."""
+        if self.encoder is None:
+            self.mux.abort()
+            raise ValueError(f"{self.path}: a video without frames")
+        self.mux.close()
+        self.encoder.close()
+
+    def abort(self) -> None:
+        self.mux.abort()
+        if self.encoder is not None:
+            self.encoder.close()
 
     def __enter__(self):
         return self
@@ -513,7 +767,9 @@ def _mpeg4() -> ctypes.CDLL:
     lib.m4v_info.argtypes = [handle, i32p, i32p, err, size]
     lib.m4v_frame.argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, err, size]
     lib.m4v_stats.argtypes = [handle, ctypes.c_void_p, ctypes.c_int]
-    for fn in (lib.m4v_decode, lib.m4v_info, lib.m4v_frame, lib.m4v_stats):
+    lib.m4v_planes.argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, err,
+                               size]
+    for fn in (lib.m4v_decode, lib.m4v_info, lib.m4v_frame, lib.m4v_stats, lib.m4v_planes):
         fn.restype = ctypes.c_int
     return lib
 
@@ -581,9 +837,102 @@ class Mpeg4Decoder:
             self.what)
         return (out_rgb, out_y) if rgb and luma else out_rgb if rgb else out_y
 
+    def planes(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The last frame's planes: Y [H,W], U and V [(H+1)/2,(W+1)/2]."""
+        h, w = self.shape
+        out = (np.empty((h, w), np.uint8), np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8),
+               np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8))
+        err = ctypes.create_string_buffer(image_io._ERR_LEN)
+        image_io._check(self.lib.m4v_planes(self.handle, *(o.ctypes.data for o in out), err,
+                                            image_io._ERR_LEN), err, self.what)
+        return out
+
     def close(self) -> None:
         if self.handle:
             self.lib.m4v_free(self.handle)
+            self.handle = None
+
+    def __del__(self):
+        self.close()
+
+
+@functools.lru_cache(maxsize=None)
+def _mpeg4_encoder() -> ctypes.CDLL:
+    """The host MPEG-4 encoder, built at first use, its entry points typed."""
+    from dro_sfm_torch import hostlib
+    lib = ctypes.CDLL(str(hostlib.build("mpeg4_encode")))
+    handle, size, err, ptr = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_void_p
+    i32 = ctypes.c_int
+    lib.m4e_new.argtypes = [i32, i32, i32, i32, i32, i32, err, size]
+    lib.m4e_new.restype = handle
+    lib.m4e_free.argtypes = [handle]
+    lib.m4e_free.restype = None
+    lib.m4e_config.argtypes = [handle, ptr]
+    lib.m4e_config.restype = size
+    lib.m4e_encode.argtypes = [handle, ptr, size, ctypes.POINTER(size), ctypes.POINTER(i32),
+                               err, size]
+    lib.m4e_encode.restype = i32
+    lib.m4e_packet.argtypes = [handle, ptr]
+    lib.m4e_packet.restype = None
+    lib.m4e_recon.argtypes = [handle, ptr, ptr, ptr, ptr]
+    lib.m4e_recon.restype = i32
+    return lib
+
+
+class Mpeg4Encoder:
+    """MPEG-4 Part 2 Simple Profile video of ``height`` x ``width`` (both
+    even) at ``fps`` (``csrc/mpeg4_encode.cpp``): `encode` takes uint8 RGB
+    frames [H,W,3] in order and gives each one's packet (one VOP) and
+    whether it is an I-VOP (every `GOP` frames, quantiser `QP`); ``config`` holds the VOS,
+    VO and VOL headers; `reconstruction` is the last frame as the decoder
+    rebuilds it, bit for bit."""
+
+    def __init__(self, height: int, width: int, fps: float):
+        self.lib, self.handle = _mpeg4_encoder(), None
+        self.shape = (int(height), int(width))
+        res, inc = timebase(fps)
+        err = ctypes.create_string_buffer(image_io._ERR_LEN)
+        self.handle = self.lib.m4e_new(self.shape[1], self.shape[0], res, inc, GOP, QP,
+                                       err, image_io._ERR_LEN)
+        if not self.handle:
+            raise ValueError(f"MPEG-4 encoder: {err.value.decode(errors='replace')}")
+        buf = ctypes.create_string_buffer(self.lib.m4e_config(self.handle, None))
+        self.lib.m4e_config(self.handle, buf)
+        self.config = buf.raw
+
+    def encode(self, frame: np.ndarray) -> Tuple[bytes, bool]:
+        frame = _check_frame(frame, "Mpeg4Encoder")
+        if frame.shape[:2] != self.shape:
+            raise ValueError(f"frame of size {frame.shape[:2]} for an encoder of {self.shape}")
+        if frame.strides[1:] != (3, 1) or frame.strides[0] < 0:
+            frame = np.ascontiguousarray(frame)
+        size, key = ctypes.c_size_t(), ctypes.c_int()
+        err = ctypes.create_string_buffer(image_io._ERR_LEN)
+        image_io._check(self.lib.m4e_encode(self.handle, frame.ctypes.data, frame.strides[0],
+                                            ctypes.byref(size), ctypes.byref(key), err,
+                                            image_io._ERR_LEN), err, "MPEG-4 encoder")
+        out = ctypes.create_string_buffer(size.value)
+        self.lib.m4e_packet(self.handle, out)
+        return out.raw, bool(key.value)
+
+    def reconstruction(self, planes: bool = False):
+        """The last encoded frame as decoded: uint8 RGB [H,W,3] (the
+        decoder's conversion), or with ``planes`` (Y [H,W], U, V [H/2,W/2])."""
+        h, w = self.shape
+        if planes:
+            out = (np.empty((h, w), np.uint8), np.empty((h // 2, w // 2), np.uint8),
+                   np.empty((h // 2, w // 2), np.uint8))
+            ptrs = (None, *(o.ctypes.data for o in out))
+        else:
+            out = np.empty((h, w, 3), np.uint8)
+            ptrs = (out.ctypes.data, None, None, None)
+        if self.lib.m4e_recon(self.handle, *ptrs) != 0:
+            raise ValueError("MPEG-4 encoder: no frame encoded yet")
+        return out
+
+    def close(self) -> None:
+        if self.handle:
+            self.lib.m4e_free(self.handle)
             self.handle = None
 
     def __del__(self):

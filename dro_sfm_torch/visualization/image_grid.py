@@ -4,8 +4,8 @@ The port's counterpart of `dro_sfm_tpu/visualization/image_grid.py`:
 `ImageGrid` pastes equally sized panels (resized as ``cv2.resize`` does,
 `resize_bilinear_u8`) into a canvas, each label drawn by
 `dro_sfm_torch.visualization.draw`; `write_gif` and `write_video` write a
-sequence of frames as an animated GIF and as an MJPEG AVI
-(`dro_sfm_torch.utils.video_io`, where the JAX package writes mp4).
+sequence of frames as an animated GIF and as ``mp4v`` video, as the JAX
+package writes them (`dro_sfm_torch.utils.video_io`).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from dro_sfm_torch.utils.image_io import read_image_rgb, resize_bilinear_u8
-from dro_sfm_torch.utils.video_io import AviWriter
+from dro_sfm_torch.utils.video_io import VideoWriter
 from dro_sfm_torch.utils.video_io import write_gif as _write_gif
 from dro_sfm_torch.visualization.draw import put_text
 
@@ -60,8 +60,10 @@ def write_gif(path: str, frames: Sequence[np.ndarray], fps: int = 10) -> None:
 
 
 def write_video(path: str, frames: Sequence[np.ndarray], fps: int = 10) -> None:
-    """MJPEG AVI of RGB frames (uint8, or float in [0, 1])."""
-    with AviWriter(path, fps) as writer:
+    """mp4v video of RGB frames (uint8, or float in [0, 1]) at ``path``, as
+    OpenCV's writer gives it (`VideoWriter`: ``.mp4``, ``.m4v``, ``.mov`` or
+    ``.avi``)."""
+    with VideoWriter(path, fps) as writer:
         for f in frames:
             writer.write(as_rgb_u8(f))
 

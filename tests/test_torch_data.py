@@ -123,11 +123,14 @@ def test_jitter_changes_with_epoch():
 
 
 def test_not_ported_inputs_raise():
-    sample = {"rgb": np.zeros((16, 24, 3), np.float32),
-              "rgb_context": np.zeros((1, 16, 24, 3), np.float32),
+    rng = np.random.default_rng(0)
+    sample = {"rgb": rng.uniform(0, 1, (16, 24, 3)).astype(np.float32),
+              "rgb_context": rng.uniform(0, 1, (1, 16, 24, 3)).astype(np.float32),
               "intrinsics": np.eye(3, dtype=np.float32)}
-    with pytest.raises(NotImplementedError, match="float images are not resized"):
-        eval_transform(dict(sample), SHAPE)
+    got = eval_transform(dict(sample), SHAPE)             # float images resize as in JAX
+    want = jdata.transforms.eval_transform(dict(sample), SHAPE)
+    for k in ("rgb", "rgb_context", "intrinsics"):
+        np.testing.assert_allclose(got[k], want[k], atol=2.0 ** -24, rtol=0, err_msg=k)
     u8 = {"rgb": np.zeros((*SHAPE, 3), np.uint8),
           "rgb_context": np.zeros((1, *SHAPE, 3), np.uint8)}
     assert eval_transform(u8, SHAPE)["rgb"].dtype == np.float32

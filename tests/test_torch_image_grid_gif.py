@@ -3,7 +3,8 @@
 `ImageGrid` (panels resized as ``cv2.resize``, labels in OpenCV's font)
 equals the JAX grid pixel for pixel; `write_gif` and `write_video` give
 files Pillow and OpenCV read back (frame count, size; GIF frames of at
-most 256 colours exactly); `frames_from_folder` equals the JAX reader on
+most 256 colours exactly; the video is mp4v at the caller's path, as the
+JAX package's, and OpenCV decodes the frames the port's reader decodes); `frames_from_folder` equals the JAX reader on
 PNG and JPEG files. `images_to_gif` against the JAX package's (Pillow):
 unlabelled, unscaled frames of at most 256 colours decode exactly as the
 JAX file's, from paths, arrays, float arrays, a folder and a glob; with
@@ -22,6 +23,7 @@ from PIL import Image
 from dro_sfm_tpu.visualization import gif as jgif
 from dro_sfm_tpu.visualization import image_grid as jgrid
 from dro_sfm_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+from dro_sfm_torch.utils.video_io import VideoReader
 from dro_sfm_torch.visualization import gif as tgif
 from dro_sfm_torch.visualization import image_grid as tgrid
 
@@ -75,12 +77,16 @@ def test_gif_video_and_folder(tmp_path, frames):
     assert len(got) == len(want) == 3 and all(np.array_equal(a, b) for a, b in zip(got, small))
     assert Image.open(tmp_path / "t.gif").info["duration"] == \
         Image.open(tmp_path / "j.gif").info["duration"]
-    tgrid.write_video(str(tmp_path / "t.avi"), frames, fps=10)
+    tgrid.write_video(str(tmp_path / "t.mp4"), frames, fps=10)
     jgrid.write_video(str(tmp_path / "j.mp4"), frames, fps=10)
-    caps = [cv2.VideoCapture(str(tmp_path / n)) for n in ("t.avi", "j.mp4")]
+    caps = [cv2.VideoCapture(str(tmp_path / n)) for n in ("t.mp4", "j.mp4")]
     props = [(c.get(cv2.CAP_PROP_FRAME_COUNT), c.get(cv2.CAP_PROP_FRAME_WIDTH),
-              c.get(cv2.CAP_PROP_FRAME_HEIGHT)) for c in caps]
-    assert props[0] == props[1] == (3, 64, 48)
+              c.get(cv2.CAP_PROP_FRAME_HEIGHT), c.get(cv2.CAP_PROP_FPS),
+              int(c.get(cv2.CAP_PROP_FOURCC)).to_bytes(4, "little")) for c in caps]
+    assert props[0] == props[1] == (3, 64, 48, 10.0, b"FMP4")       # MPEG-4 Part 2
+    decoded = [caps[0].read()[1][..., ::-1] for _ in range(3)]
+    assert all(np.array_equal(a, b) for a, b in
+               zip(decoded, VideoReader(str(tmp_path / "t.mp4"))))
     (tmp_path / "f").mkdir()
     for i, f in enumerate(frames):
         cv2.imwrite(str(tmp_path / "f" / f"{i}.png"), f[..., ::-1])

@@ -122,8 +122,8 @@ def test_infer_video_matches_the_jax_package(scene, reference, capsys):
     result = infer_video.main(["--checkpoint", scene["ckpt"], "--input", scene["frames"],
                                "--output", out, "--gt-poses", scene["gt"], "--device", "cpu"])
     printed = capsys.readouterr().out
-    assert "ATE-RMSE" in printed and "depth_vis.avi" in printed
-    for name in ("trajectory.png", "depth_vis.avi", "panels/rgb_000000.png"):
+    assert "ATE-RMSE" in printed and "depth_vis.mp4" in printed
+    for name in ("trajectory.png", "depth_vis.mp4", "panels/rgb_000000.png"):
         assert os.path.getsize(os.path.join(out, name)) > 0
     assert result["windows"] == FRAMES - 2 and result["ate"] is not None
     depths = np.load(os.path.join(out, "depths.npy"))

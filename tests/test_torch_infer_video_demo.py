@@ -11,13 +11,14 @@ Both CLIs run with ``--gt-poses`` and ``--gt-depth``. Held:
   from the port's by rounding, at all but 2% of their pixels;
 * ``depths.npy`` within 1e-4 (relative L2 a map), ``trajectory.json`` and
   the OBJ's vertices within 1e-4 of the JAX CLI's;
-* ``depth_vis.avi`` has the frame count and size of the JAX CLI's
-  ``depth_vis.mp4`` (both read by ``cv2.VideoCapture``), and each of its
-  frames, decoded by the port, lies within 25 dB PSNR of the canvas the
-  composer returned (measured 27.3 dB: at 48x64 the panels are mostly
-  coloured text, which 4:2:0 chroma blurs);
+* ``depth_vis.mp4`` has the frame count, size, rate and fourcc (mp4v) of
+  the JAX CLI's (both read by ``cv2.VideoCapture``); each of its frames,
+  decoded by the port, equals OpenCV's decode and the reconstruction of
+  `Mpeg4Encoder` run again on the composer's canvases bit for bit, and lies
+  within 25 dB PSNR of its canvas (measured 27.5-27.7 dB: the panels are
+  mostly coloured text, which 4:2:0 chroma blurs);
 * ``trajectory.png`` is written, and the result holds the compose and
-  encode milliseconds a frame and the AVI's bytes;
+  encode milliseconds a frame and the video's bytes;
 * ``infer_pose --plot`` writes the trajectory figure beside the json, whose
   poses map to pixels on the drawn path.
 """
@@ -35,7 +36,7 @@ from dro_sfm_tpu.utils.depth import viz_inv_depth as jax_viz
 from dro_sfm_torch.data.synthetic import SyntheticConfig, SyntheticDataset
 from dro_sfm_torch.scripts import infer_pose, infer_video
 from dro_sfm_torch.utils.image_io import read_png, write_png
-from dro_sfm_torch.utils.video_io import read_avi_mjpeg
+from dro_sfm_torch.utils.video_io import Mpeg4Encoder, VideoReader
 from tests.test_torch_infer_cli import FRAMES, H, W, scene  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -122,19 +123,25 @@ def test_numbers_and_files(runs):
     assert (port / "trajectory.png").stat().st_size > 0
     assert result["windows"] == FRAMES - 2 and result["ate"] is not None
     assert len(result["compose_ms"]) == len(result["encode_ms"]) == FRAMES - 2
-    assert result["avi_bytes"] == (port / "depth_vis.avi").stat().st_size
+    assert result["video_bytes"] == (port / "depth_vis.mp4").stat().st_size
 
 
 def test_video(runs):
-    caps = [cv2.VideoCapture(str(runs["port"] / "depth_vis.avi")),
+    caps = [cv2.VideoCapture(str(runs["port"] / "depth_vis.mp4")),
             cv2.VideoCapture(str(runs["jax"] / "depth_vis.mp4"))]
     props = [(c.get(cv2.CAP_PROP_FRAME_COUNT), c.get(cv2.CAP_PROP_FRAME_WIDTH),
-              c.get(cv2.CAP_PROP_FRAME_HEIGHT)) for c in caps]
-    assert props[0] == props[1]
-    frames, fps = read_avi_mjpeg(str(runs["port"] / "depth_vis.avi"))
-    assert fps == 10.0 and len(frames) == len(runs["canvases"]) == FRAMES - 2
+              c.get(cv2.CAP_PROP_FRAME_HEIGHT), c.get(cv2.CAP_PROP_FPS),
+              int(c.get(cv2.CAP_PROP_FOURCC)).to_bytes(4, "little")) for c in caps]
+    assert props[0] == props[1] and props[0][3:] == (10.0, b"FMP4")    # MPEG-4 Part 2
+    reader = VideoReader(str(runs["port"] / "depth_vis.mp4"))
+    frames = list(reader)
+    assert reader.fps == 10.0 and len(frames) == len(runs["canvases"]) == FRAMES - 2
     assert frames[0].shape[:2] == runs["result"]["frame_size"] == (props[0][2], props[0][1])
+    encoder = Mpeg4Encoder(*frames[0].shape[:2], 10.0)
     for got, canvas in zip(frames, runs["canvases"]):
+        encoder.encode(canvas)
+        assert np.array_equal(got, encoder.reconstruction())
+        assert np.array_equal(got, caps[0].read()[1][..., ::-1])
         assert psnr(got, canvas) >= 25.0
 
 

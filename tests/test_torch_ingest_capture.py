@@ -8,9 +8,11 @@ tool (``tools/ingest_capture.py``, a subprocess) and the port
 (``dro_sfm_torch.scripts.ingest_capture``) run on copies of it with
 ``--check --filter`` and each preset: the pose txts must be equal byte for
 byte, the split files equal and the census lines equal. ``--preview-video``
-(the JAX tool's mp4, the port's MJPEG AVI) must give the same frame count
-and size, and each port frame must equal `preview_canvas` of the frame
-(the name drawn in OpenCV's font) after the port's JPEG round trip.
+(mp4v in an ``.mp4``, from OpenCV's writer in the JAX tool and the port's
+encoder here) must give the same frame count, size, rate and codec, and
+each port frame, decoded by the port and by OpenCV, must equal
+`Mpeg4Encoder`'s reconstruction of `preview_canvas` of the frame (the name
+drawn in OpenCV's font); an ``.avi`` holds the same frames.
 """
 import os
 import shutil
@@ -22,8 +24,8 @@ import numpy as np
 import pytest
 
 from dro_sfm_torch.scripts import ingest_capture
-from dro_sfm_torch.utils.image_io import decode_jpeg, encode_jpeg, read_image_rgb
-from dro_sfm_torch.utils.video_io import read_avi_mjpeg
+from dro_sfm_torch.utils.image_io import read_image_rgb
+from dro_sfm_torch.utils.video_io import Mpeg4Encoder, VideoReader
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -104,17 +106,21 @@ def test_preview_video(capture, tmp_path):
                           env={**os.environ, "JAX_PLATFORMS": "cpu"}).returncode == 0
     out = ingest_capture.main(["--capture", str(tdir), "--trajectory", str(tdir / "traj.csv"),
                                "--scene", "cap", "--split-out", str(tdir / "s.txt"),
-                               "--preview-video", str(tdir / "p.avi")])
-    caps = [cv2.VideoCapture(str(p)) for p in (jdir / "p.mp4", tdir / "p.avi")]
+                               "--preview-video", str(tdir / "p.mp4")])
+    caps = [cv2.VideoCapture(str(p)) for p in (jdir / "p.mp4", tdir / "p.mp4")]
     props = [(c.get(cv2.CAP_PROP_FRAME_COUNT), c.get(cv2.CAP_PROP_FRAME_WIDTH),
-              c.get(cv2.CAP_PROP_FRAME_HEIGHT)) for c in caps]
-    assert props[0] == props[1] == (13, 64, 24)
-    frames, _ = read_avi_mjpeg(str(tdir / "p.avi"))
+              c.get(cv2.CAP_PROP_FRAME_HEIGHT), c.get(cv2.CAP_PROP_FPS),
+              int(c.get(cv2.CAP_PROP_FOURCC)).to_bytes(4, "little")) for c in caps]
+    assert props[0] == props[1] == (13, 64, 24, 10.0, b"FMP4")       # MPEG-4 Part 2
+    frames = list(VideoReader(str(tdir / "p.mp4")))
+    encoder = Mpeg4Encoder(24, 64, 10)
+    assert len(frames) == len(out["kept"]) == 13
     for got, name in zip(frames, out["kept"]):
         dp = tdir / "depth" / name.replace(".jpg", ".png")
         depth = ingest_capture.read_depth_mm(str(dp)) if dp.exists() else None
-        want = ingest_capture.preview_canvas(read_image_rgb(str(tdir / "cam_left" / name)),
-                                             depth, name)
-        assert np.array_equal(got, decode_jpeg(encode_jpeg(want)))
-    with pytest.raises(NotImplementedError, match="avi"):
-        ingest_capture.preview_video(str(tdir), out["kept"], str(tdir / "p.mp4"))
+        encoder.encode(ingest_capture.preview_canvas(
+            read_image_rgb(str(tdir / "cam_left" / name)), depth, name))
+        assert np.array_equal(got, encoder.reconstruction())
+        assert np.array_equal(got, caps[1].read()[1][..., ::-1])
+    assert ingest_capture.preview_video(str(tdir), out["kept"], str(tdir / "p.avi")) == 13
+    assert all(np.array_equal(a, b) for a, b in zip(VideoReader(str(tdir / "p.avi")), frames))

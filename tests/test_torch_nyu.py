@@ -7,8 +7,9 @@ reader (`dro_sfm_torch.utils.hdf5`). ``NYU`` and ``NYUtest`` go through each
 package's ``setup_dataset`` from the same config, in validation mode and in
 training mode at the files' own shape with colour jitter on; every key of
 every sample must be equal bit for bit (the float jitter copies OpenCV's
-float vector arithmetic). At another shape the port raises
-(float images are not resized), where the JAX package resizes with OpenCV.
+float vector arithmetic). At another shape (32x48) both resize the float
+frames, the JAX package with OpenCV and the port with `resize_linear_f32`,
+and every key is still equal bit for bit.
 """
 import os
 
@@ -83,10 +84,17 @@ def test_samples_order_and_intrinsics(nyu_tree):
 
 
 @pytest.mark.parametrize("mode", ["train", "validation"])
-def test_other_shape_raises(nyu_tree, mode):
-    ds = build(setup_dataset, load_config, nyu_tree, "NYU", mode, shape=(32, 48))
-    with pytest.raises(NotImplementedError, match="float images are not resized"):
-        ds[0]
+def test_other_shape_matches_jax(nyu_tree, mode):
+    ours = build(setup_dataset, load_config, nyu_tree, "NYU", mode, shape=(32, 48))
+    ref = build(jax_setup, jax_load_config, nyu_tree, "NYU", mode, shape=(32, 48))
+    for i in range(len(ref)):
+        a, b = ours[i], ref[i]
+        assert sorted(a) == sorted(b) and a["rgb"].shape == (32, 48, 3)
+        for key, y in b.items():
+            if isinstance(y, np.ndarray):
+                assert a[key].dtype == y.dtype and np.array_equal(a[key], y), (i, key)
+            else:
+                assert a[key] == y, (i, key)
 
 
 @pytest.mark.parametrize("shape", [(48, 64), (480, 640)])

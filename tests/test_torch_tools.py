@@ -6,9 +6,11 @@ fabricated scenes of `tests/test_tools.py` (written with OpenCV).
 Split lists, statistics, point clouds and OBJ files must be equal byte for
 byte; the depth previews' JPEG bytes too (the port's encoder gives
 `cv2.imencode`'s bytes); the preview's PNG frames equal pixel for pixel;
-its MJPEG AVI (the JAX tool writes mp4) is read back with `read_avi_mjpeg`,
-one frame a sample of the canvases' size, each within 30 dB PSNR of the
-PNG frame (JPEG quality 95 on text and noise).
+its mp4v video, in an ``.mp4`` as the JAX tool writes it (OpenCV reads the
+same frame count, size, rate and codec from both) and in an ``.avi``, is
+read back by `VideoReader`, one frame a sample, each equal to
+`Mpeg4Encoder`'s reconstruction of the JAX tool's PNG frame bit for bit and
+within 30 dB PSNR of it.
 """
 import json
 import os
@@ -24,7 +26,7 @@ from dro_sfm_torch.scripts import export_gt_pointcloud as t_export
 from dro_sfm_torch.scripts import generate_splits as t_splits
 from dro_sfm_torch.scripts import pose_stats as t_stats
 from dro_sfm_torch.scripts import preview_dataset as t_preview
-from dro_sfm_torch.utils.video_io import read_avi_mjpeg
+from dro_sfm_torch.utils.video_io import Mpeg4Encoder, VideoReader
 from tests.test_tools import _make_scene
 from tools import debug_depth as j_debug
 from tools import export_gt_pointcloud as j_export
@@ -135,17 +137,35 @@ def test_preview_dataset(tmp_path, monkeypatch, output):
             got = cv2.imread(str(tmp_path / "frames" / f"{i:05d}.png"))[..., ::-1]
             assert np.array_equal(got, w), i
         return
-    frames, fps = read_avi_mjpeg(str(tmp_path / output))
-    assert fps == 5 and len(frames) == 3
+    check_preview_video(tmp_path / output, want)
+
+
+def check_preview_video(path, want):
+    reader = VideoReader(str(path))
+    frames = list(reader)
+    assert reader.fps == 5 and len(frames) == 3
+    encoder = Mpeg4Encoder(*want[0].shape[:2], 5)
     for f, w in zip(frames, want):
         assert f.shape == w.shape
+        encoder.encode(w)
+        assert np.array_equal(f, encoder.reconstruction())
         mse = np.mean((f.astype(np.float64) - w) ** 2)
         assert 10 * np.log10(255.0 ** 2 / mse) > 30.0
 
 
-def test_preview_dataset_refuses_mp4(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP C"):
-        t_preview.main(["--config", "x.yaml", "--output", str(tmp_path / "x.mp4")])
+def test_preview_dataset_writes_mp4_as_the_jax_tool(tmp_path, monkeypatch):
+    config = os.path.join(REPO, "configs", "train_synthetic.yaml")
+    common = ["--config", config, "--split", "validation", "--max-samples", "3"]
+    run_tool(monkeypatch, j_preview, [*common, "--output", str(tmp_path / "jax")])
+    want = [cv2.imread(str(tmp_path / "jax" / f"{i:05d}.png"))[..., ::-1] for i in range(3)]
+    run_tool(monkeypatch, j_preview, [*common, "--output", str(tmp_path / "jax.mp4")])
+    assert t_preview.main([*common, "--output", str(tmp_path / "port.mp4")]) == 3
+    caps = [cv2.VideoCapture(str(tmp_path / n)) for n in ("jax.mp4", "port.mp4")]
+    props = [(c.get(cv2.CAP_PROP_FRAME_COUNT), c.get(cv2.CAP_PROP_FRAME_WIDTH),
+              c.get(cv2.CAP_PROP_FRAME_HEIGHT), c.get(cv2.CAP_PROP_FPS),
+              int(c.get(cv2.CAP_PROP_FOURCC)).to_bytes(4, "little")) for c in caps]
+    assert props[0] == props[1] == (3, want[0].shape[1], want[0].shape[0], 5, b"FMP4")
+    check_preview_video(tmp_path / "port.mp4", want)
 
 
 def test_debug_depth(tmp_path, monkeypatch, capsys):

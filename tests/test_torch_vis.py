@@ -5,9 +5,10 @@ gives, and where points share a pixel the nearest wins (the lower index on
 a tie); the CPU render of the same cloud is the same bits run after run
 (the card's against the CPU's is held in ``chip_smoke.py`` phase ``demo``).
 `read_ply` reads back `write_ply`'s files; the CLI writes a ``.png``
-(points, the trajectory in red, its start in green) and an MJPEG turntable
-``.avi`` that OpenCV reads with its frame count and size, and refuses
-``.mp4``. Tolerance: none.
+(points, the trajectory in red, its start in green) and an mp4v turntable
+in ``.mp4`` and ``.avi``, as the JAX script's OpenCV writer writes it, that
+OpenCV reads with its frame count, size and rate, and refuses a container
+that its writer does not know. Tolerance: none.
 """
 import json
 
@@ -70,11 +71,17 @@ def test_cli_png_and_turntable(tmp_path):
     assert np.array_equal(img, out["frames"][0]) and out["points"] == 2000
     assert ((img[..., 0] > 200) & (img[..., 1] < 60)).any()          # the red trajectory
     assert ((img[..., 1] > 120) & (img[..., 0] < 60)).any()          # the green start
-    out = vis.main(["--ply", str(tmp_path / "c.ply"), "--output", str(tmp_path / "r.avi"),
-                    "--frames", "5", "--device", "cpu"])
-    cap = cv2.VideoCapture(str(tmp_path / "r.avi"))
-    assert (cap.get(cv2.CAP_PROP_FRAME_COUNT), cap.get(cv2.CAP_PROP_FRAME_WIDTH)) == (5, vis.SIZE)
-    assert not np.array_equal(out["frames"][0], out["frames"][2])   # the view turns
-    with pytest.raises(NotImplementedError, match="ROADMAP C"):
-        vis.main(["--ply", str(tmp_path / "c.ply"), "--output", str(tmp_path / "r.mp4"),
+    for name in ("r.mp4", "r.avi"):
+        out = vis.main(["--ply", str(tmp_path / "c.ply"), "--output", str(tmp_path / name),
+                        "--frames", "5", "--device", "cpu"])
+        cap = cv2.VideoCapture(str(tmp_path / name))
+        assert (cap.get(cv2.CAP_PROP_FRAME_COUNT), cap.get(cv2.CAP_PROP_FRAME_WIDTH),
+                cap.get(cv2.CAP_PROP_FPS)) == (5, vis.SIZE, 15)
+        assert int(cap.get(cv2.CAP_PROP_FOURCC)).to_bytes(4, "little") == b"FMP4"   # MPEG-4 Part 2
+        assert not np.array_equal(out["frames"][0], out["frames"][2])   # the view turns
+    with pytest.raises(ValueError, match="mp4v video goes into"):
+        vis.main(["--ply", str(tmp_path / "c.ply"), "--output", str(tmp_path / "r.mkv"),
+                  "--device", "cpu"])
+    with pytest.raises(ValueError, match="mp4v video goes into"):    # before reading the .ply
+        vis.main(["--ply", str(tmp_path / "missing.ply"), "--output", str(tmp_path / "r.jpg"),
                   "--device", "cpu"])
