@@ -120,10 +120,12 @@ result line):
    window, PNG decode ms per frame;
 24. datasets: training from dataset files. The host image codec
    (``csrc/image_codec.cpp``) built with the C++ compiler; the committed
-   JPEG fixtures (``dro_sfm_torch/testdata/jpeg``) decoded to OpenCV's
-   sha256; JPEG, PNG, row-filter and uint8 resize times on this host. A
-   ScanNet tree (the 480x640 JPEG views, millimetre depth and poses of the
-   renderer that drew them) trains ``configs/train_scannet_mf_gt_view3.yaml``
+   JPEG and BMP fixtures (``dro_sfm_torch/testdata/jpeg``: baseline,
+   progressive, arithmetic-coded and CMYK JPEG, BMP of each kind) decoded
+   to OpenCV's sha256; JPEG (by kind), PNG, row-filter and uint8 resize
+   times on this host. A ScanNet tree (the 480x640 JPEG views of
+   `SCENE_FRAMES`: baseline, progressive, arithmetic-coded progressive and
+   CMYK; millimetre depth and poses of the renderer that drew them) trains ``configs/train_scannet_mf_gt_view3.yaml``
    through `Trainer` (SupModelMF it12-h-out, B=8, 240x320, 2 epochs of 3
    steps, each validated on one B=4 ScannetTest batch with ground truth at
    480x640) and a KITTI drive of 375x1242 PNG frames with 16-bit ground
@@ -172,12 +174,13 @@ result line):
    ground-truth poses, which NYU's dumps lack (the JAX step raises as the
    port's does), so the steps are SelfSupModelMF's with the recipe's
    photometric settings;
-27. export: the serving export. Phase 4's it12-h-out weights at 192x640,
+27. export: the serving export. Phase 4's it12-h-out weights in an
+   it4-h-out net (`EXPORT_VERSION`, a cut depth) at 192x640,
    N=2, exported for "cuda" (`export_serving_artifact`) as a static B=1
    bf16 program, a dynamic-batch fp32 program and a static B=1 bf16
    program with ``sep_conv="pallas"``, each loaded back
    (`load_serving_artifact`); every request through a loaded program,
-   counts reset just before and read just after, launches K1 24 (and K5 48
+   counts reset just before and read just after, launches K1 8 (and K5 16
    with "pallas") and nothing else, and matches the live `make_infer_fn`
    within 1e-4 (max |depth delta| and |pose delta|, fp32 and bf16) at B=1,
    and at B=8 for the dynamic program; a gather-warp program (no
@@ -227,16 +230,19 @@ result line):
    K5/K6 axis 1 on the bands widened by 4 rows (20x80, depth B=8 and pose
    B*N=16), bf16 and fp32, against their plain versions at the bars of
    phases 3, 7 and 12, with the bf16 times; (a) 192x640 N=2 B=8, each case
-   of `SPATIAL_CASES`: SupModelMF it12-h-out on noise from `tame_weights`,
+   of `SPATIAL_CASES`, the multi-frame nets at `SPATIAL_VERSION` (it4-h-out,
+   a cut depth; the perceptual case at it12-h-out, where its bar was set):
+   SupModelMF on noise from `tame_weights`,
    ``sep_conv`` "split" and "pallas", fp32 and bf16; on rendered scenes,
    the photometric loss at the config defaults (the ``min`` with the
    automask), SelfSupModelMF bf16 with either GRU path, SemiSupModelMFPose
    bf16, the single-frame SelfSupModel fp32 (seed-0 ResNets, bands down to
    stride 32) and SelfSupModelMF fp32 with the perceptual term (0.1; the
    VGG net whole on every rank on gathered images): each rank's step on its
-   96 rows, counts reset just before and read just after (K1 24, K2 24, K3
-   18, and K5, K6-input, K6-weight 48 with "pallas"; none for
-   SelfSupModel), its exchanges by function (a host profile of that step),
+   96 rows, counts reset just before and read just after (`train_launches`:
+   K1 8, K2 8, K3 6, and K5, K6-input, K6-weight 16 with "pallas", at it4;
+   K1 24, K2 24, K3 18 at it12; none for SelfSupModel), its exchanges by function (a host profile of that step,
+   counted from its raw events by `span_table`),
    ms and host syncs by line of one more step (torch's sync debug mode;
    gloo's own copies are not ATen's and do not count), against one process
    on the whole batch (phase 25's `dist_verdict`: the fp32 loss within 1e-5
@@ -1898,6 +1904,21 @@ def phase_train_pallas_end_to_end():
         fail("end to end training sep_conv=pallas " + "; ".join(failed))
 
 
+def span_table(prof):
+    """{function: (calls, host ms)} of the ``collective:`` spans of a host
+    profile, from its raw events: what ``key_averages()`` gives for them,
+    without building the profile's Python event tree (which took 107 s of a
+    spatial rank's 254 over its nine profiled steps on an H100 host)."""
+    from dro_sfm_torch.parallel.collectives import SPAN
+    table = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name.startswith(SPAN) and e.device_type() == torch.autograd.DeviceType.CPU:
+            calls, ms = table.get(name[len(SPAN):], (0, 0.0))
+            table[name[len(SPAN):]] = (calls + 1, ms + e.duration_ns() / 1e6)
+    return table
+
+
 def device_us(e):
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
@@ -2576,8 +2597,9 @@ def host_ms(fn, reps=20):
 
 
 def check_fixtures():
-    """Decode every committed JPEG fixture with the port's codec and hold it
-    to OpenCV's sha256; returns the fixtures' table and the decoded views."""
+    """Decode every committed image fixture (baseline, progressive,
+    arithmetic-coded and CMYK JPEG; BMP of each kind) with the port's codec
+    and hold it to OpenCV's sha256; returns the fixtures' table."""
     import hashlib
 
     from dro_sfm_torch.utils.image_io import read_image_rgb
@@ -2601,9 +2623,16 @@ def depth_png_bytes(path, depth, scale):
     return Path(path).read_bytes()
 
 
+# The colour frame of each view in the scene trees: view 0 baseline 4:2:0,
+# view 1 progressive with restarts, view 2 progressive arithmetic-coded,
+# view 3 CMYK.
+SCENE_FRAMES = ("view0.jpg", "view1_progressive.jpg", "view2_arith_progressive.jpg",
+                "view3_cmyk.jpg")
+
+
 def write_scene_trees(root, meta):
     """ScanNet, BA-Net, DeMoN, Matterport, video and DGP trees under
-    ``root`` from the fixtures: the 4:2:0 views copied as colour frames,
+    ``root`` from the fixtures: `SCENE_FRAMES` copied as colour frames,
     each view's depth and camera-to-world pose from the renderer that drew
     it. Returns the ScanNet data root."""
     import numpy as np
@@ -2612,7 +2641,7 @@ def write_scene_trees(root, meta):
     data = SyntheticDataset(SyntheticConfig(**meta["render"]))
     planes, poses = data._scene(meta["scene"])
     depths = [data._render(planes, p)[1][..., 0] for p in poses]
-    jpgs = [(FIXTURES / f"view{i}.jpg").read_bytes() for i in range(len(poses))]
+    jpgs = [(FIXTURES / name).read_bytes() for name in SCENE_FRAMES]
     root.mkdir(parents=True)
     mm = [depth_png_bytes(root / f"mm{i}.png", d, 1000.0) for i, d in enumerate(depths)]
     K = data.K.astype(np.float64)
@@ -2852,7 +2881,8 @@ def check_batch(name, batch, placed, shape):
 
 def phase_datasets(counters, gpu):
     """Training from dataset files: the host codec built and held to
-    OpenCV's bytes on the committed JPEG fixtures; decode and resize times;
+    OpenCV's bytes on the committed JPEG and BMP fixtures; decode times by
+    JPEG kind and resize times;
     ScanNet (JPEG) and KITTI (PNG) trees trained through `Trainer` from
     their configs (this slice's path: launches checked per step and eval
     batch); one batch of every other reader through `make_loader` and
@@ -2890,7 +2920,11 @@ def phase_datasets(counters, gpu):
 
         # Decode and resize times on this host.
         jpg = (FIXTURES / "view0.jpg").read_bytes()
-        jpg444 = (FIXTURES / "view0_444.jpg").read_bytes()
+        kinds = {"4:2:0": "view0.jpg", "4:4:4": "view0_444.jpg",
+                 "progressive": "view1_progressive.jpg", "arithmetic": "view2_arith.jpg",
+                 "arithmetic progressive": "view2_arith_progressive.jpg",
+                 "CMYK": "view3_cmyk.jpg"}
+        blobs = {k: (FIXTURES / name).read_bytes() for k, name in kinds.items()}
         view = decode_jpeg(jpg)
         DATASETS_BUILD.mkdir(parents=True)
         write_png(str(DATASETS_BUILD / "view0.png"), view)
@@ -2902,8 +2936,7 @@ def phase_datasets(counters, gpu):
         rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(375, 1242 * 3 + 1)
         kframe = read_png(str(frame))
         times = {
-            "jpeg 480x640 4:2:0": host_ms(lambda: decode_jpeg(jpg)),
-            "jpeg 480x640 4:4:4": host_ms(lambda: decode_jpeg(jpg444)),
+            **{f"jpeg 480x640 {k}": host_ms(lambda b=b: decode_jpeg(b)) for k, b in blobs.items()},
             "png 480x640": host_ms(lambda: read_png(str(DATASETS_BUILD / "view0.png"))),
             "png 375x1242": host_ms(lambda: read_png(str(frame))),
             "unfilter 375x1242 C++": host_ms(lambda: png_unfilter(rows, 3)),
@@ -2913,8 +2946,9 @@ def phase_datasets(counters, gpu):
             "resize 375x1242->320x960": host_ms(
                 lambda: resize_bilinear_u8(kframe, (320, 960))),
         }
-        print(f"datasets codec: {built}; {len(meta['files'])} JPEG "
-              f"fixtures equal OpenCV {meta['opencv']}'s sha256; host ms (median): "
+        print(f"datasets codec: {built}; {len(meta['files'])} JPEG and BMP "
+              f"fixtures equal OpenCV {meta['opencv']}'s sha256 ({meta['opencv_libjpeg']}); "
+              f"scene frames {', '.join(SCENE_FRAMES)}; host ms (median): "
               + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
               + f"; KITTI frames rendered and written in {render_s:.1f} s; on {gpu}",
               flush=True)
@@ -3113,7 +3147,6 @@ def dist_rank(rank, world, store, job_path, out_dir):
                             world_size=world, timeout=datetime.timedelta(seconds=90))
     try:
         from dro_sfm_torch.models import layers
-        from dro_sfm_torch.parallel.collectives import SPAN
         from dro_sfm_torch.training.trainer import Trainer
         counters = counter_map()
         job = torch.load(job_path, map_location="cuda", weights_only=False)
@@ -3149,9 +3182,7 @@ def dist_rank(rank, world, store, job_path, out_dir):
         # The host's time inside each collective's span (gloo copies CUDA
         # tensors through the host, so it includes waiting for the kernels
         # queued before the collective).
-        spans = {e.key[len(SPAN):]: (e.count, e.cpu_time_total / 1e3)
-                 for e in prof.key_averages()
-                 if e.key.startswith(SPAN) and e.device_type == torch.autograd.DeviceType.CPU}
+        spans = span_table(prof)
         out["ms"] = times
         out["profile"] = (wall, spans)
         del net, step, state
@@ -3530,6 +3561,11 @@ def phase_nyu(counters, gpu):
 
 EXPORT_BUILD = ROOT / "build" / "export"
 EXPORT_REQUESTS = 10
+# The exported net's depth: phase 4's it12-h-out weights at 4 refinement
+# iterations (K1 8 a request), which carries every node kind of it12's
+# program; torch.export's and the load's seconds grow with the iterations
+# (at it12 they took 110 of the phase's 141 s on an H100 host).
+EXPORT_VERSION = "it4-h-out"
 # Artifact against the live network on the same card, max |delta| of depth
 # and of the pose matrices, fp32 and bf16: the JAX round-trip check's atol
 # (both run the same kernels on the same inputs in the same order; every
@@ -3569,13 +3605,15 @@ def alternated_ms(fns, req, reps=EXPORT_REQUESTS):
 
 
 def phase_export(DepthPoseNet, make_infer_fn, counters, state, gpu):
-    """The serving export on the card: phase 4's it12-h-out weights at
-    192x640, N=2, exported by `export_serving_artifact` for "cuda" as a
+    """The serving export on the card: phase 4's it12-h-out weights in an
+    `EXPORT_VERSION` net at 192x640, N=2, exported by
+    `export_serving_artifact` for "cuda" as a
     static B=1 bf16 program, a dynamic-batch fp32 program and a static B=1
     bf16 program with ``sep_conv="pallas"``, each loaded back by
     `load_serving_artifact` (the ops' registrations only). Each request
     through a loaded program, counts reset just before and read just after,
-    launches K1 24 (and K5 48 with "pallas") and nothing else, and matches
+    launches K1 two a refinement iteration (and K5 four with "pallas") and
+    nothing else, and matches
     the live `make_infer_fn` of the same net (max |depth delta| and max
     |pose delta| within `EXPORT_BAR`) at B=1, and B=8 for the dynamic
     program. Planted fault: a program of a gather-warp net (it2-h-out-seq2)
@@ -3588,14 +3626,14 @@ def phase_export(DepthPoseNet, make_infer_fn, counters, state, gpu):
     from dro_sfm_torch.models.depth_pose_net import VersionSpec
     gen = torch.Generator().manual_seed(1)
     requests = {b: make_request(gen, b) for b in (1, 8)}
-    spec = VersionSpec.parse("it12-h-out")
+    spec = VersionSpec.parse(EXPORT_VERSION)
     cases = (("static B=1 bf16", True, "split", False, (1,)),
              ("dynamic-batch fp32", False, "split", True, (1, 8)),
              ("static B=1 bf16 sep_conv=pallas", True, "pallas", False, (1,)))
     launches = {k: 0 for k in counters}
     try:
         for name, mp, sep, dynamic, batches in cases:
-            net = DepthPoseNet(version="it12-h-out", mixed_precision=mp, sep_conv=sep,
+            net = DepthPoseNet(version=EXPORT_VERSION, mixed_precision=mp, sep_conv=sep,
                                device="cuda")
             net.load_state_dict(state, strict=True)
             out = EXPORT_BUILD / name.replace(" ", "_").replace("=", "")
@@ -3607,7 +3645,9 @@ def phase_export(DepthPoseNet, make_infer_fn, counters, state, gpu):
             t0 = time.perf_counter()
             art = es.load_serving_artifact(str(out), "cuda")
             load_s = time.perf_counter() - t0
-            if meta["kernel_nodes"]["cuda"] != {"K1": 24, "K5": 48 if sep == "pallas" else 0}:
+            steps = 2 * spec.total_iters
+            if meta["kernel_nodes"]["cuda"] != {"K1": steps,
+                                                "K5": 2 * steps if sep == "pallas" else 0}:
                 fail(f"export {name}: kernel nodes {meta['kernel_nodes']}")
             live = make_infer_fn(net, device="cuda")
             for b in batches:
@@ -3627,8 +3667,8 @@ def phase_export(DepthPoseNet, make_infer_fn, counters, state, gpu):
                          f"delta| {d_depth:.3e}, max |pose delta| {d_pose:.3e}, bar "
                          f"{EXPORT_BAR:g}")
                 ms = alternated_ms({"artifact": art.call, "live": live}, req)
-                print(f"export {name} it12-h-out 192x640 N=2 B={b}: export {export_s:.1f} s, "
-                      f"load {load_s:.1f} s, {meta['bytes']} bytes; against live "
+                print(f"export {name} {EXPORT_VERSION} 192x640 N=2 B={b}: export "
+                      f"{export_s:.1f} s, load {load_s:.1f} s, {meta['bytes']} bytes; against live "
                       f"make_infer_fn max |depth delta| {d_depth:.3e}, max |pose delta| "
                       f"{d_pose:.3e} (bar {EXPORT_BAR:g}); launches a request {got}; "
                       f"ms a request (median of {EXPORT_REQUESTS}, in turns) artifact "
@@ -4111,6 +4151,13 @@ SPATIAL_B = 8                              # the global batch of (a)
 SPATIAL_TIMED = 1                          # timed steps a case and rank
 SPATIAL_TIMEOUT = 600                      # seconds the ranks may take
 SPATIAL_PERCEP = 0.1                       # the perceptual case's percep_loss_weight
+# The (a) cases' depth: 4 refinement iterations, a cut depth (at it12 a
+# rank's step took 3-5 s, and the phase 356 of the script's 1,038 s on an
+# H100), but for the perceptual case: its fp32 leaves are held to twice
+# fp32's own reach, a bar set at it12, and at it4 the split's refinement
+# leaves lie beyond it (1.22e-2 to 2.12e-2 against 1.11e-2 to 1.51e-2).
+SPATIAL_VERSION = "it4-h-out"
+SPATIAL_PERCEP_VERSION = "it12-h-out"
 # (a)'s cases: (task, sep_conv, bf16, perceptual term). SupModelMF on the
 # noise batch of `make_train_batch`, the other tasks on rendered scenes
 # (`make_scene_batch`), the photometric loss at the config defaults (the
@@ -4124,12 +4171,17 @@ SPATIAL_CASES = (("SupModelMF", "split", False, False), ("SupModelMF", "split", 
                  ("SelfSupModelMF", "split", False, True))
 
 
+def spatial_case_version(case):
+    return SPATIAL_PERCEP_VERSION if case[3] else SPATIAL_VERSION
+
+
 def spatial_case_config(task, sep_conv, mixed, percep):
     """`train_config` of an (a) case."""
     from dro_sfm_torch.losses.photometric import PhotometricLossConfig
     photometric = PhotometricLossConfig(percep_loss_weight=SPATIAL_PERCEP if percep else 0.0)
     return train_config(name=task, sep_conv=sep_conv, mixed_precision=mixed,
-                        photometric=photometric)
+                        photometric=photometric,
+                        version=spatial_case_version((task, sep_conv, mixed, percep)))
 
 
 def spatial_case_name(case):
@@ -4193,11 +4245,25 @@ def spatial_grads64(case, state, batch):
     return loss.item(), {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
 
 
+def train_launches(version, pallas):
+    """The launches of one train step of ``version``: K1 and K2 in every
+    refinement step, K3 in all but the first depth and pose step of each
+    outer iteration, and with "pallas" K5, K6-input and K6-weight twice a
+    step (`TRAIN_LAUNCHES_PALLAS` at it12)."""
+    from dro_sfm_torch.models.depth_pose_net import VersionSpec
+    spec = VersionSpec.parse(version)
+    steps = 2 * spec.total_iters
+    out = {"K1": steps, "K2": steps, "K3": steps - 2 * spec.outer_iters}
+    if pallas:
+        out.update({k: 2 * steps for k in ("K5", "K6-input", "K6-weight")})
+    return out
+
+
 def spatial_case_launches(case):
     """The launches a step of an (a) case must make."""
     if case[0] == "SelfSupModel":
         return {}
-    return TRAIN_LAUNCHES_PALLAS if case[1] == "pallas" else TRAIN_LAUNCHES
+    return train_launches(spatial_case_version(case), case[1] == "pallas")
 
 
 def spatial_trainer_config(tag, shards, config=TRAINER_CONFIG):
@@ -4238,7 +4304,6 @@ def spatial_rank(rank, world, store, job_path, out_dir):
                             world_size=world, timeout=datetime.timedelta(seconds=200))
     try:
         from dro_sfm_torch.parallel import spatial
-        from dro_sfm_torch.parallel.collectives import SPAN
         from dro_sfm_torch.parallel.mesh import make_layout
         from dro_sfm_torch.training.trainer import Trainer
         layout = make_layout(SPATIAL_S)
@@ -4246,32 +4311,46 @@ def spatial_rank(rank, world, store, job_path, out_dir):
         go = Path(job_path).with_name("go")
         while not go.exists():
             time.sleep(0.2)
+        stages, last = {}, [time.perf_counter()]
+
+        def lap(stage):
+            """Seconds since the last lap, summed by stage."""
+            now = time.perf_counter()
+            stages[stage] = stages.get(stage, 0.0) + now - last[0]
+            last[0] = now
+
         job = torch.load(job_path, map_location="cuda", weights_only=False)
         bands = {k: spatial.split_rows(v, layout) for k, v in job["batches"].items()}
-        out = {"rows": bands["noise"]["rgb"].shape[1], "steps": {}, "trainers": {}}
+        out = {"rows": bands["noise"]["rgb"].shape[1], "steps": {}, "trainers": {},
+               "stages": stages}
+        lap("job")
         for case in SPATIAL_CASES:
             state, _ = spatial_case_inputs(case, job)
             band = bands["noise" if case[0] == "SupModelMF" else "scenes"]
             gc.collect()                         # the last case's net and Adam
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            lap("inputs and gc")
             for c in counters.values():          # the split step's path starts here
                 c.reset()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
                 net, step, state, metrics, grads, after = dist_step(
                     spatial_case_config(*case), state, band, flip_generator_for(rank != 0))
             launches = {k: c.launches for k, c in counters.items()}   # and ends here
-            exchanges = {e.key[len(SPAN):]: e.count for e in prof.key_averages()
-                         if e.key.startswith(SPAN)}
+            lap("counted step")
+            exchanges = {k: calls for k, (calls, _) in span_table(prof).items()}
+            lap("profile tables")
             peak = torch.cuda.max_memory_allocated()
             flips, times = torch.Generator().manual_seed(5), []
             for _ in range(SPATIAL_TIMED):
                 ms, syncs = timed_syncs(lambda: step(state, band, flips))
                 times.append(ms)
+            lap("timed steps")
             out["steps"][case] = {"launches": launches, "peak": peak, "ms": times,
                                   "exchanges": exchanges, "syncs": syncs,
                                   "step": on_host(metrics, grads, after)}
             del net, step, state
+            lap("to the host")
             if not spatial_leaves_held(case):    # its leaves, held through a twin
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -4280,12 +4359,15 @@ def spatial_rank(rank, world, store, job_path, out_dir):
                     on_host(*dist_step(spatial_case_config(*spatial_twin(case)), start, band,
                                        flip_generator_for(rank != 0))[3:])
                     if case[2] else spatial_grads64(case, start, band))
+                lap("twins")
         # (c) the Trainers from the yaml configs, from the job's weights
         for tag, config in SPATIAL_TRAINERS.items():
             gc.collect()
             torch.cuda.empty_cache()
+            lap("inputs and gc")
             trainer = Trainer(spatial_trainer_config(tag, SPATIAL_S, config), device="cuda")
             trainer.net.load_state_dict(job["states"]["mf"], strict=True)
+            lap("Trainer()")
             train = trainer.train_step = CountedStep(trainer.train_step, counters, timed=True)
             evaluate = CountedStep(trainer.eval_step_for(False), counters)
             trainer._eval_steps[False] = evaluate
@@ -4300,6 +4382,7 @@ def spatial_rank(rank, world, store, job_path, out_dir):
                 "step_launches": train.launches, "eval_launches": evaluate.launches,
                 "saved": [p for _, p in trainer.checkpointer.saved]}
             del trainer, train, evaluate
+            lap("fit()")
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4511,7 +4594,9 @@ def spatial_verdicts(ranks, refs, own, reach, counters, gpu):
                 problems.append(f"rank {r} {name} peak {got['peak']} bytes, one process "
                                 f"{ref['peak']}")
             print(f"spatial (a) rank {r} of {SPATIAL_S} on one card (gloo), {name}, "
-                  f"{'it12-h-out ' if case[0] != 'SelfSupModel' else ''}192x640 B={SPATIAL_B} "
+                  f"{spatial_case_version(case) + ' ' if case[0] != 'SelfSupModel' else ''}"
+                  f"192x640 "
+                  f"B={SPATIAL_B} "
                   f"N={VIEWS}, {SERVE_H // SPATIAL_S} rows a rank, against one process: loss "
                   f"{got['step'][0]['loss']:.6f} vs {ref['step'][0]['loss']:.6f} (relative "
                   f"{rel:.2e}), {leaves}; launches {got['launches']}; exchanges a step "
@@ -4610,8 +4695,10 @@ def phase_spatial(counters, gpu):
     if hung or codes != [0] * SPATIAL_S:
         fail(f"spatial: ranks {hung} still ran after {SPATIAL_TIMEOUT} s, exit codes {codes}")
     ranks_s = time.perf_counter() - t_go
+    t0 = time.perf_counter()
     ranks = [torch.load(SPATIAL_BUILD / f"rank{r}.pt", weights_only=False)
              for r in range(SPATIAL_S)]
+    load_s = time.perf_counter() - t0
     if [r["rows"] for r in ranks] != [SERVE_H // SPATIAL_S] * SPATIAL_S:
         fail(f"spatial: rows a rank {[r['rows'] for r in ranks]}")
 
@@ -4657,7 +4744,9 @@ def phase_spatial(counters, gpu):
               f"bar 1e-5 relative + 1e-7 on every metric, as phase dist_trainer); on {gpu}",
               flush=True)
     print(f"spatial: references and (b) {refs_s:.1f} s, the ranks' run after go "
-          f"{ranks_s:.1f} s", flush=True)
+          f"{ranks_s:.1f} s; rank 0's seconds by stage: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in ranks[0]["stages"].items())
+          + f"; the ranks' results loaded in {load_s:.1f} s", flush=True)
     shutil.rmtree(SPATIAL_BUILD, ignore_errors=True)
     torch.cuda.empty_cache()
     steps = ranks[0]["steps"]

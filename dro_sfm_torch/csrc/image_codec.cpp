@@ -1,20 +1,39 @@
-// Host image codec of the port: a baseline JPEG decoder and the PNG row
-// filters, in plain C++ with a C interface (loaded with ctypes, which
-// releases the interpreter lock around each call).
+// Host image codec of the port: a JPEG decoder, the run-length BMP
+// unpacker and the PNG row filters, in plain C++ with a C interface (loaded
+// with ctypes, which releases the interpreter lock around each call).
 //
 // jpeg_info / jpeg_decode decode what cv2.imread(path, IMREAD_COLOR) gives
-// (in RGB order) for baseline and extended sequential Huffman JPEG files
-// with 8-bit samples and 1 or 3 components, as libjpeg-turbo decodes them
-// with its defaults:
-//   * the integer "islow" inverse DCT (jidctint.c), with its range limit;
+// (in RGB order), as libjpeg-turbo decodes it with its defaults, for 8-bit
+// JPEG files of 1, 3 or 4 components:
+//   * baseline and extended sequential (SOF0, SOF1, SOF9) and progressive
+//     (SOF2, SOF10) frames, Huffman-coded (jdhuff.c, jdphuff.c: DC first and
+//     refine, AC first and refine with end-of-band runs) or arithmetic-coded
+//     (jdarith.c: the QM decoder on jaricom.c's table, DC statistics
+//     conditioned by DAC's L and U, AC by Kx); every scan adds to
+//     coefficient buffers that span the image, decoded once after EOI;
+//   * the integer "islow" inverse DCT (jidctint.c), with its range limit,
+//     on each component's quantization table as its first scan found it;
 //   * fancy (triangle) upsampling for h2v1, h1v2 and h2v2 chroma
 //     (jdsample.c), box replication for other integral factors (4:1:1);
 //   * the fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16);
-//   * grayscale repeated to three channels.
-// Progressive, arithmetic-coded, lossless and 12-bit files, 4-component
-// files, and truncated or corrupt streams are refused with a message (where
-// libjpeg would warn and fill in, this decoder fails). The EXIF orientation
-// tag is reported by jpeg_info; the caller applies it.
+//     grayscale repeated to three channels; four components read as CMYK,
+//     or as YCCK (jdcolor.c:ycck_cmyk_convert) under an Adobe transform
+//     other than 0, then OpenCV's CMYK -> BGR (R = K - ((255 - C) * K >> 8)).
+// Lossless (SOF3, SOF11), hierarchical (SOF5-7, SOF13-15) and 12-bit files,
+// and a progressive file that libjpeg would decode with block smoothing
+// (jdcoefct.c:smoothing_ok: some of the first ten coefficients not sent to
+// full precision) are refused as not supported. Truncated or corrupt streams
+// are refused as broken: where libjpeg would warn and fill in, this decoder
+// fails (a scan that breaks the progression's order, which libjpeg decodes
+// with a warning, is decoded). The EXIF orientation tag is reported by
+// jpeg_info; the caller applies it.
+//
+// bmp_rle unpacks RLE8 and RLE4 BMP pixel data into palette indices as
+// OpenCV 5.0.0's grfmt_bmp.cpp does: encoded runs, absolute runs, end of
+// line, end of bitmap and delta escapes, the pixels an escape skips set to
+// index 0 (an RLE8 delta skips dy rows and dx pixels in reading order; RLE4
+// ends only the line at an end of bitmap and skips only dx pixels at a
+// delta), and a run past its row refused.
 //
 // gif_lzw packs palette indices as the LZW data of a GIF image (the
 // variable-length codes, a clear code first and whenever the table fills,
@@ -42,6 +61,7 @@
 // valid one that is not supported) with a message in err.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -65,6 +85,87 @@ const int kZigzag[64] = {
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// The QM coder's probability estimation (T.81 Table D.2, as jaricom.c packs
+// it): Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS.
+// Entry 113 is the fixed estimate of 0.5 for sign and refinement bits.
+constexpr uint32_t qm(uint32_t qe, uint32_t nlps, uint32_t nmps, uint32_t sw) {
+  return qe << 16 | nmps << 8 | sw << 7 | nlps;
+}
+const uint32_t kAritab[114] = {
+    qm(0x5a1d, 1, 1, 1),     qm(0x2586, 14, 2, 0),    qm(0x1114, 16, 3, 0),
+    qm(0x080b, 18, 4, 0),    qm(0x03d8, 20, 5, 0),    qm(0x01da, 23, 6, 0),
+    qm(0x00e5, 25, 7, 0),    qm(0x006f, 28, 8, 0),    qm(0x0036, 30, 9, 0),
+    qm(0x001a, 33, 10, 0),   qm(0x000d, 35, 11, 0),   qm(0x0006, 9, 12, 0),
+    qm(0x0003, 10, 13, 0),   qm(0x0001, 12, 13, 0),   qm(0x5a7f, 15, 15, 1),
+    qm(0x3f25, 36, 16, 0),   qm(0x2cf2, 38, 17, 0),   qm(0x207c, 39, 18, 0),
+    qm(0x17b9, 40, 19, 0),   qm(0x1182, 42, 20, 0),   qm(0x0cef, 43, 21, 0),
+    qm(0x09a1, 45, 22, 0),   qm(0x072f, 46, 23, 0),   qm(0x055c, 48, 24, 0),
+    qm(0x0406, 49, 25, 0),   qm(0x0303, 51, 26, 0),   qm(0x0240, 52, 27, 0),
+    qm(0x01b1, 54, 28, 0),   qm(0x0144, 56, 29, 0),   qm(0x00f5, 57, 30, 0),
+    qm(0x00b7, 59, 31, 0),   qm(0x008a, 60, 32, 0),   qm(0x0068, 62, 33, 0),
+    qm(0x004e, 63, 34, 0),   qm(0x003b, 32, 35, 0),   qm(0x002c, 33, 9, 0),
+    qm(0x5ae1, 37, 37, 1),   qm(0x484c, 64, 38, 0),   qm(0x3a0d, 65, 39, 0),
+    qm(0x2ef1, 67, 40, 0),   qm(0x261f, 68, 41, 0),   qm(0x1f33, 69, 42, 0),
+    qm(0x19a8, 70, 43, 0),   qm(0x1518, 72, 44, 0),   qm(0x1177, 73, 45, 0),
+    qm(0x0e74, 74, 46, 0),   qm(0x0bfb, 75, 47, 0),   qm(0x09f8, 77, 48, 0),
+    qm(0x0861, 78, 49, 0),   qm(0x0706, 79, 50, 0),   qm(0x05cd, 48, 51, 0),
+    qm(0x04de, 50, 52, 0),   qm(0x040f, 50, 53, 0),   qm(0x0363, 51, 54, 0),
+    qm(0x02d4, 52, 55, 0),   qm(0x025c, 53, 56, 0),   qm(0x01f8, 54, 57, 0),
+    qm(0x01a4, 55, 58, 0),   qm(0x0160, 56, 59, 0),   qm(0x0125, 57, 60, 0),
+    qm(0x00f6, 58, 61, 0),   qm(0x00cb, 59, 62, 0),   qm(0x00ab, 61, 63, 0),
+    qm(0x008f, 61, 32, 0),   qm(0x5b12, 65, 65, 1),   qm(0x4d04, 80, 66, 0),
+    qm(0x412c, 81, 67, 0),   qm(0x37d8, 82, 68, 0),   qm(0x2fe8, 83, 69, 0),
+    qm(0x293c, 84, 70, 0),   qm(0x2379, 86, 71, 0),   qm(0x1edf, 87, 72, 0),
+    qm(0x1aa9, 87, 73, 0),   qm(0x174e, 72, 74, 0),   qm(0x1424, 72, 75, 0),
+    qm(0x119c, 74, 76, 0),   qm(0x0f6b, 74, 77, 0),   qm(0x0d51, 75, 78, 0),
+    qm(0x0bb6, 77, 79, 0),   qm(0x0a40, 77, 48, 0),   qm(0x5832, 80, 81, 1),
+    qm(0x4d1c, 88, 82, 0),   qm(0x438e, 89, 83, 0),   qm(0x3bdd, 90, 84, 0),
+    qm(0x34ee, 91, 85, 0),   qm(0x2eae, 92, 86, 0),   qm(0x299a, 93, 87, 0),
+    qm(0x2516, 86, 71, 0),   qm(0x5570, 88, 89, 1),   qm(0x4ca9, 95, 90, 0),
+    qm(0x44d9, 96, 91, 0),   qm(0x3e22, 97, 92, 0),   qm(0x3824, 99, 93, 0),
+    qm(0x32b4, 99, 94, 0),   qm(0x2e17, 93, 86, 0),   qm(0x56a8, 95, 96, 1),
+    qm(0x4f46, 101, 97, 0),  qm(0x47e5, 102, 98, 0),  qm(0x41cf, 103, 99, 0),
+    qm(0x3c3d, 104, 100, 0), qm(0x375e, 99, 93, 0),   qm(0x5231, 105, 102, 0),
+    qm(0x4c0f, 106, 103, 0), qm(0x4639, 107, 104, 0), qm(0x415e, 103, 99, 0),
+    qm(0x5627, 105, 106, 1), qm(0x50e7, 108, 107, 0), qm(0x4b85, 109, 103, 0),
+    qm(0x5597, 110, 109, 0), qm(0x504f, 111, 107, 0), qm(0x5a10, 110, 111, 1),
+    qm(0x5522, 112, 109, 0), qm(0x59eb, 112, 111, 1), qm(0x5a1d, 113, 113, 0)};
+
+// The Annex K Huffman tables (also the encoder's): 16 code counts, then the
+// symbols. libjpeg-turbo's decoder installs them as tables 0 and 1 where a
+// file defines none (Motion JPEG frames carry no DHT).
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 constexpr int kLookBits = 9;
 
@@ -104,7 +205,11 @@ struct Component {
   int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
   int bw = 0, bh = 0;      // blocks allocated (whole MCUs)
   int dw = 0, dh = 0;      // downsampled width and height in samples
-  int pred = 0;
+  int pred = 0;            // DC prediction (arithmetic: modulo 2^16)
+  int dc_context = 0;      // arithmetic DC conditioning of this scan
+  bool latched = false;    // q holds the table the component's first scan found
+  uint16_t q[64] = {};     // zeros until then: libjpeg's output is then flat
+  int coef_bits[64];       // progressive: the Al of each coefficient's last scan
   std::vector<int16_t> coef;  // [bh][bw][64], natural order
 };
 
@@ -181,6 +286,80 @@ struct BitReader {
   }
 };
 
+// The QM decoder of jdarith.c: C holds the interval's base and the bits
+// read ahead (ct of them), A the interval's size. Past a marker it reads
+// zeros, as the standard has it; the stream's end is a truncation.
+struct ArithReader {
+  const uint8_t* data;
+  size_t size;
+  size_t pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;              // -16: two bytes to read first
+  bool hit_marker = false;
+  size_t marker_at = 0;      // the marker's first 0xFF
+  size_t after_marker = 0;   // the byte after its code
+  int marker_code = 0;
+
+  int next_byte() {
+    if (hit_marker) return 0;
+    if (pos >= size) fail("truncated JPEG file");
+    int d = data[pos++];
+    if (d != 0xFF) return d;
+    size_t first = pos - 1;
+    do {
+      if (pos >= size) fail("truncated JPEG file");
+      d = data[pos++];
+    } while (d == 0xFF);
+    if (d == 0) return 0xFF;  // a stuffed zero
+    hit_marker = true;
+    marker_at = first;
+    after_marker = pos;
+    marker_code = d;
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the two first bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t e = kAritab[sv & 0x7F];
+    int64_t qe = e >> 16;
+    int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS after all
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  void restart(size_t at) {
+    pos = at;
+    c = a = 0;
+    ct = -16;
+    hit_marker = false;
+  }
+};
+
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
 struct Jpeg {
@@ -190,14 +369,29 @@ struct Jpeg {
   uint16_t qt[4][64];  // natural order
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
+  uint8_t arith_L[16], arith_U[16], arith_K[16];  // DAC: DC conditioning, AC Kx
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Component comp[4];
   int restart_interval = 0;
-  bool frame = false, jfif = false, adobe = false;
+  bool frame = false, progressive = false, arithmetic = false, jfif = false, adobe = false;
+  bool scanned = false;
   int adobe_transform = -1;
   int orientation = 1;
 
-  Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {}
+  // The scan being decoded.
+  Component* sc[4] = {};
+  int ns = 0, ss = 0, se = 63, ah = 0, al = 0;
+  int eobrun = 0;                                  // progressive Huffman
+  uint8_t dc_stats[16][64], ac_stats[16][256];     // arithmetic statistics
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};
+
+  Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {
+    for (int i = 0; i < 16; ++i) {
+      arith_L[i] = 0;
+      arith_U[i] = 1;
+      arith_K[i] = 5;
+    }
+  }
 
   int byte() {
     if (pos >= size) fail("truncated JPEG file");
@@ -275,20 +469,40 @@ struct Jpeg {
     }
   }
 
+  // DAC (jdmarker.c:get_dac): L and U of a DC table, Kx of an AC table.
+  void read_dac(size_t end) {
+    while (pos < end) {
+      if (pos + 2 > end) fail("corrupt JPEG: bad DAC segment length");
+      int index = byte(), val = byte();
+      if (index >= 32) fail("corrupt JPEG: bad DAC table index " + std::to_string(index));
+      if (index >= 16) {
+        arith_K[index - 16] = uint8_t(val);
+      } else {
+        arith_L[index] = uint8_t(val & 15);
+        arith_U[index] = uint8_t(val >> 4);
+        if (arith_L[index] > arith_U[index])
+          fail("corrupt JPEG: bad DAC value " + std::to_string(val));
+      }
+    }
+  }
+
   void read_sof(int marker) {
     if (frame) fail("corrupt JPEG: two frame headers");
-    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA || marker == 0xCE)
-      unsupported("progressive JPEG is not supported (baseline and extended sequential only)");
-    if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
-      unsupported("lossless JPEG is not supported");
-    if (marker >= 0xC9) unsupported("arithmetic-coded JPEG is not supported");
+    if (marker == 0xC3 || marker == 0xCB)
+      unsupported("lossless JPEG is not supported (OpenCV's IMREAD_COLOR does not decode it)");
+    if ((marker >= 0xC5 && marker <= 0xC8) || marker >= 0xCD)
+      unsupported("hierarchical (differential) JPEG is not supported (nor by libjpeg)");
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arithmetic = marker >= 0xC9;
     int precision = byte();
-    if (precision != 8) unsupported("JPEG with " + std::to_string(precision) + "-bit samples is not supported");
+    if (precision != 8)
+      unsupported("JPEG with " + std::to_string(precision) +
+                  "-bit samples is not supported (OpenCV's IMREAD_COLOR does not decode it)");
     height = word();
     width = word();
     ncomp = byte();
     if (height <= 0 || width <= 0) fail("corrupt JPEG: empty image (or height set by DNL)");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       unsupported("JPEG with " + std::to_string(ncomp) + " components is not supported");
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
@@ -301,6 +515,7 @@ struct Jpeg {
         fail("corrupt JPEG: bad component sampling factors");
       if (c.h > hmax) hmax = c.h;
       if (c.v > vmax) vmax = c.v;
+      for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
     }
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
@@ -329,20 +544,20 @@ struct Jpeg {
       size_t len = size_t(word());
       if (len < 2 || pos + len - 2 > size) fail("truncated JPEG file");
       size_t start = pos, end = pos + len - 2;
-      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
         read_sof(m);
         if (!decode) return;
       } else if (m == 0xC4) {
         read_dht(end);
       } else if (m == 0xCC) {
-        unsupported("arithmetic-coded JPEG is not supported");
+        read_dac(end);
       } else if (m == 0xDB) {
         read_dqt(end);
       } else if (m == 0xDD) {
         restart_interval = word();
       } else if (m == 0xDA) {
         if (!frame) fail("corrupt JPEG: scan before the frame header");
-        read_scan(end);
+        read_scan(start, end);
         continue;  // pos is after the scan's entropy-coded data
       } else if (m == 0xE0) {
         if (len >= 7 && std::memcmp(data + start, "JFIF\0", 5) == 0) jfif = true;
@@ -360,9 +575,28 @@ struct Jpeg {
     }
   }
 
-  bool scanned = false;
+  // jdcoefct.c:smoothing_ok after the last scan: libjpeg-turbo smooths the
+  // blocks of a progressive file whose DC is known for every component but
+  // some of coefficients 1-9 (zigzag) of one of them lack low bits.
+  bool block_smoothing() const {
+    if (!progressive) return false;
+    static const int kFirst[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};  // natural order
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      if (!c.latched) return false;
+      for (int k : kFirst)
+        if (c.q[k] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
 
-  void decode_block(BitReader& br, Component& c, int16_t* blk) {
+  // --- Huffman: sequential (jdhuff.c) and progressive (jdphuff.c) blocks.
+
+  void huff_sequential(BitReader& br, Component& c, int16_t* blk) {
     std::memset(blk, 0, 64 * sizeof(int16_t));
     const Huffman& hd = dc[c.td];
     const Huffman& ha = ac[c.ta];
@@ -386,10 +620,243 @@ struct Jpeg {
     }
   }
 
-  void read_scan(size_t header_end) {
-    int ns = byte();
-    if (ns < 1 || ns > ncomp) fail("corrupt JPEG: bad scan header");
-    Component* sc[4];
+  void huff_dc_first(BitReader& br, Component& c, int16_t* blk) {
+    int s = br.decode(dc[c.td]);
+    if (s) s = extend(br.get(s), s);
+    if ((c.pred >= 0 && s > INT_MAX - c.pred) || (c.pred < 0 && s < INT_MIN - c.pred))
+      fail("corrupt JPEG data: DC coefficient out of range");
+    c.pred += s;
+    blk[0] = int16_t(unsigned(c.pred) << al);
+  }
+
+  void huff_dc_refine(BitReader& br, int16_t* blk) {
+    if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  void huff_ac_first(BitReader& br, Component& c, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& ha = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int s = br.decode(ha);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        if (k > se) fail("corrupt JPEG data: coefficient index past the band");
+        blk[kZigzag[k]] = int16_t(unsigned(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // A correction bit for each coefficient already nonzero.
+  void refine_nonzero(BitReader& br, int16_t& coef, int p1, int m1) {
+    if (br.get(1) && (coef & p1) == 0) coef = int16_t(coef + (coef >= 0 ? p1 : m1));
+  }
+
+  void huff_ac_refine(BitReader& br, Component& c, int16_t* blk) {
+    const int p1 = 1 << al, m1 = int(~0u << al);
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& ha = ac[c.ta];
+      for (; k <= se; ++k) {
+        int s = br.decode(ha);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          if (s != 1) fail("corrupt JPEG data: bad Huffman code in a refinement scan");
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        // Skip r zero coefficients, refining the nonzero ones passed.
+        for (; k <= se; ++k) {
+          int16_t& coef = blk[kZigzag[k]];
+          if (coef) {
+            refine_nonzero(br, coef, p1, m1);
+          } else if (--r < 0) {
+            break;
+          }
+        }
+        if (s) {
+          if (k > se) fail("corrupt JPEG data: coefficient index past the band");
+          blk[kZigzag[k]] = int16_t(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef) refine_nonzero(br, coef, p1, m1);
+      }
+      --eobrun;
+    }
+  }
+
+  // --- Arithmetic (jdarith.c).
+
+  // A nonzero value after its sign (F.21-F.24): the magnitude category,
+  // then its bits. st is the category's first bin, x1 where its further
+  // bins start (DC: X1 = 20; AC: 189 or 217 by Kx); *top is the category's
+  // leading bit (0 for a magnitude of 1), which conditions the next DC.
+  int arith_value(ArithReader& ar, uint8_t* st, int sign, bool is_dc, uint8_t* x1, int* top) {
+    int m = ar.decode(st);
+    if (m && (is_dc || ar.decode(st))) {
+      if (!is_dc) m <<= 1;
+      st = x1;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("corrupt JPEG data: arithmetic magnitude overflow");
+        ++st;
+      }
+    }
+    *top = m;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  // The DC difference of one block (F.19), the prediction and the context.
+  void arith_dc_diff(ArithReader& ar, Component& c) {
+    uint8_t* stats = dc_stats[c.td];
+    uint8_t* st = stats + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+      return;
+    }
+    int sign = ar.decode(st + 1), m;
+    int v = arith_value(ar, st + 2 + sign, sign, true, stats + 20, &m);
+    if (m < ((1 << arith_L[c.td]) >> 1))
+      c.dc_context = 0;
+    else if (m > ((1 << arith_U[c.td]) >> 1))
+      c.dc_context = 12 + sign * 4;
+    else
+      c.dc_context = 4 + sign * 4;
+    c.pred = (c.pred + v) & 0xFFFF;
+  }
+
+  // AC coefficients ss..se of one block (F.20): value of each nonzero one.
+  template <typename Put>
+  void arith_ac_band(ArithReader& ar, Component& c, Put put) {
+    uint8_t* stats = ac_stats[c.ta];
+    for (int k = std::max(ss, 1); k <= se; ++k) {  // a sequential scan: 1..63
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;  // end of block
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) fail("corrupt JPEG data: arithmetic coefficient index past the band");
+      }
+      int sign = ar.decode(fixed_bin), m;
+      put(k, arith_value(ar, st + 2, sign, false, stats + (k <= arith_K[c.ta] ? 189 : 217), &m));
+    }
+  }
+
+  void arith_sequential(ArithReader& ar, Component& c, int16_t* blk) {
+    std::memset(blk, 0, 64 * sizeof(int16_t));
+    arith_dc_diff(ar, c);
+    blk[0] = int16_t(c.pred);
+    arith_ac_band(ar, c, [&](int k, int v) { blk[kZigzag[k]] = int16_t(v); });
+  }
+
+  void arith_dc_first(ArithReader& ar, Component& c, int16_t* blk) {
+    arith_dc_diff(ar, c);
+    blk[0] = int16_t(unsigned(c.pred) << al);
+  }
+
+  void arith_dc_refine(ArithReader& ar, int16_t* blk) {
+    if (ar.decode(fixed_bin)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  void arith_ac_first(ArithReader& ar, Component& c, int16_t* blk) {
+    arith_ac_band(ar, c, [&](int k, int v) { blk[kZigzag[k]] = int16_t(unsigned(v) << al); });
+  }
+
+  void arith_ac_refine(ArithReader& ar, Component& c, int16_t* blk) {
+    const int p1 = 1 << al, m1 = int(~0u << al);
+    uint8_t* stats = ac_stats[c.ta];
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kZigzag[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // end of block
+      for (;;) {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef) {  // nonzero before: a correction bit
+          if (ar.decode(st + 2)) coef = int16_t(coef + (coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {  // newly nonzero
+          coef = int16_t(ar.decode(fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) fail("corrupt JPEG data: arithmetic coefficient index past the band");
+      }
+    }
+  }
+
+  // Reset the statistics of the scan's components (start and restart).
+  void arith_reset_stats() {
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      if (!progressive || (ss == 0 && ah == 0)) {
+        std::memset(dc_stats[c.td], 0, sizeof(dc_stats[0]));
+        c.pred = 0;
+        c.dc_context = 0;
+      }
+      if (!progressive || ss) std::memset(ac_stats[c.ta], 0, sizeof(ac_stats[0]));
+    }
+  }
+
+  void decode_block(BitReader& br, ArithReader& ar, Component& c, int16_t* blk) {
+    if (arithmetic) {
+      if (!progressive) arith_sequential(ar, c, blk);
+      else if (ss == 0) (ah == 0) ? arith_dc_first(ar, c, blk) : arith_dc_refine(ar, blk);
+      else (ah == 0) ? arith_ac_first(ar, c, blk) : arith_ac_refine(ar, c, blk);
+    } else {
+      if (!progressive) huff_sequential(br, c, blk);
+      else if (ss == 0) (ah == 0) ? huff_dc_first(br, c, blk) : huff_dc_refine(br, blk);
+      else (ah == 0) ? huff_ac_first(br, c, blk) : huff_ac_refine(br, c, blk);
+    }
+  }
+
+  // The scan's parameters against the frame (jdphuff.c and jdarith.c
+  // start_pass): a bad progression stops libjpeg; a scan out of the
+  // progression's order only warns, and is decoded.
+  void check_scan() {
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        fail("corrupt JPEG: a sequential scan with spectral selection or successive "
+             "approximation");
+      return;
+    }
+    bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad)
+      fail("corrupt JPEG: bad progression parameters Ss=" + std::to_string(ss) + " Se=" +
+           std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" + std::to_string(al));
+    for (int i = 0; i < ns; ++i)
+      for (int k = ss; k <= se; ++k) sc[i]->coef_bits[k] = al;
+  }
+
+  void read_scan(size_t start, size_t header_end) {
+    ns = byte();
+    if (ns < 1 || ns > ncomp || header_end - start != size_t(4 + 2 * ns))
+      fail("corrupt JPEG: bad scan header");
     for (int i = 0; i < ns; ++i) {
       int id = byte();
       int t = byte();
@@ -397,22 +864,44 @@ struct Jpeg {
       for (int j = 0; j < ncomp; ++j)
         if (comp[j].id == id) found = &comp[j];
       if (!found) fail("corrupt JPEG: scan names an unknown component");
+      for (int j = 0; j < i; ++j)
+        if (sc[j] == found) fail("corrupt JPEG: scan names a component twice");
       found->td = t >> 4;
       found->ta = t & 15;
-      if (found->td > 3 || found->ta > 3 || !dc[found->td].defined || !ac[found->ta].defined)
-        fail("corrupt JPEG: scan uses an undefined Huffman table");
-      if (!qt_defined[found->tq]) fail("corrupt JPEG: undefined quantization table");
       sc[i] = found;
     }
-    int ss = byte(), se = byte(), ahl = byte();
-    if (ss != 0 || se != 63 || ahl != 0)
-      unsupported("progressive JPEG is not supported (baseline and extended sequential only)");
+    ss = byte();
+    se = byte();
+    int ahl = byte();
+    ah = ahl >> 4;
+    al = ahl & 15;
     pos = header_end;
+    check_scan();
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      bool needs_dc = !progressive || (ss == 0 && ah == 0), needs_ac = !progressive || ss;
+      if (arithmetic) {
+        if (c.td > 15 || c.ta > 15) fail("corrupt JPEG: bad arithmetic table index");
+      } else {
+        if ((needs_dc && (c.td > 3 || !use_huffman(dc[c.td], c.td, true))) ||
+            (needs_ac && (c.ta > 3 || !use_huffman(ac[c.ta], c.ta, false))))
+          fail("corrupt JPEG: scan uses an undefined Huffman table");
+      }
+      if (!c.latched) {  // jdinput.c:latch_quant_tables
+        if (!qt_defined[c.tq]) fail("corrupt JPEG: undefined quantization table");
+        std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+        c.latched = true;
+      }
+      c.pred = 0;
+      c.dc_context = 0;
+    }
     for (int i = 0; i < ncomp; ++i)
       if (comp[i].coef.empty()) comp[i].coef.assign(size_t(comp[i].bw) * comp[i].bh * 64, 0);
-    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+    eobrun = 0;
 
     BitReader br{data, size, pos};
+    ArithReader ar{data, size, pos};
+    if (arithmetic) arith_reset_stats();
     long units_x, units_y;
     if (ns == 1) {  // non-interleaved: one block per unit
       units_x = (sc[0]->dw + 7) / 8;
@@ -425,35 +914,70 @@ struct Jpeg {
     int next_rst = 0;
     for (long u = 0; u < total; ++u) {
       if (restart_interval && todo_restart == 0) {
-        // The segment ends; a RSTn marker follows.
-        br.reset();
-        pos = br.pos;
-        if (pos + 1 >= size || data[pos] != 0xFF || data[pos + 1] != 0xD0 + next_rst)
-          fail("corrupt JPEG data: missing restart marker");
-        pos += 2;
-        br.pos = pos;
+        restart(br, ar, next_rst);
         next_rst = (next_rst + 1) & 7;
         todo_restart = restart_interval;
-        for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
       }
       long uy = u / units_x, ux = u % units_x;
       if (ns == 1) {
         Component& c = *sc[0];
-        decode_block(br, c, &c.coef[(size_t(uy) * c.bw + ux) * 64]);
+        decode_block(br, ar, c, &c.coef[(size_t(uy) * c.bw + ux) * 64]);
       } else {
         for (int i = 0; i < ns; ++i) {
           Component& c = *sc[i];
           for (int by = 0; by < c.v; ++by)
             for (int bx = 0; bx < c.h; ++bx) {
               size_t row = size_t(uy) * c.v + by, col = size_t(ux) * c.h + bx;
-              decode_block(br, c, &c.coef[(row * c.bw + col) * 64]);
+              decode_block(br, ar, c, &c.coef[(row * c.bw + col) * 64]);
             }
         }
       }
       --todo_restart;
     }
-    pos = br.pos;
+    pos = arithmetic ? (ar.hit_marker ? ar.marker_at : ar.pos) : br.pos;
     scanned = true;
+  }
+
+  // A Huffman table a scan names: libjpeg-turbo installs the standard one
+  // as table 0 or 1 where the file defined none.
+  bool use_huffman(Huffman& h, int index, bool is_dc) {
+    if (!h.defined && index < 2) {
+      if (is_dc)
+        h.build(index ? kDcChromaBits : kDcLumaBits, kDcVals, 12);
+      else
+        h.build(index ? kAcChromaBits : kAcLumaBits, index ? kAcChromaVals : kAcLumaVals, 162);
+    }
+    return h.defined;
+  }
+
+  // The segment ends; a RSTn marker follows. The decoder's state restarts.
+  void restart(BitReader& br, ArithReader& ar, int next_rst) {
+    int code;
+    if (arithmetic) {
+      // The arithmetic decoder may stop short of its segment's last bytes.
+      if (!ar.hit_marker) {
+        size_t p = ar.pos;
+        while (p + 1 < size && !(data[p] == 0xFF && data[p + 1] != 0 && data[p + 1] != 0xFF))
+          ++p;
+        if (p != ar.pos) fail("corrupt JPEG data: extraneous bytes before a restart marker");
+        ar.marker_at = p;
+        ar.after_marker = p + 2;
+        ar.marker_code = p + 1 < size ? data[p + 1] : -1;
+      }
+      code = ar.marker_code;
+      if (code != 0xD0 + next_rst) fail("corrupt JPEG data: missing restart marker");
+      ar.restart(ar.after_marker);
+      arith_reset_stats();
+      return;
+    }
+    br.reset();
+    pos = br.pos;
+    if (pos + 1 >= size || data[pos] != 0xFF || data[pos + 1] != 0xD0 + next_rst)
+      fail("corrupt JPEG data: missing restart marker");
+    pos += 2;
+    br.pos = pos;
+    eobrun = 0;
+    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
   }
 };
 
@@ -581,10 +1105,10 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) 
 }
 
 // A component's samples, [dh][dw] (the blocks' padding cut off).
-std::vector<uint8_t> component_plane(const Jpeg& j, const Component& c) {
+std::vector<uint8_t> component_plane(const Component& c) {
   int pw = c.bw * 8;
   std::vector<uint8_t> full(size_t(pw) * c.bh * 8);
-  const uint16_t* q = j.qt[c.tq];
+  const uint16_t* q = c.q;
   for (int by = 0; by < c.bh; ++by)
     for (int bx = 0; bx < c.bw; ++bx)
       idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], q, &full[size_t(by) * 8 * pw + bx * 8], pw);
@@ -643,23 +1167,46 @@ constexpr int32_t kOneHalf = int32_t(1) << (kScaleBits - 1);
 inline int32_t fix(double x) { return int32_t(x * (1 << kScaleBits) + 0.5); }
 inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
 
-void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, size_t n, uint8_t* out) {
+struct YccTables {
   int cr_r[256], cb_b[256];
   int32_t cr_g[256], cb_g[256];
-  for (int i = 0, x = -128; i < 256; ++i, ++x) {
-    cr_r[i] = int((int64_t(fix(1.40200)) * x + kOneHalf) >> kScaleBits);
-    cb_b[i] = int((int64_t(fix(1.77200)) * x + kOneHalf) >> kScaleBits);
-    cr_g[i] = -fix(0.71414) * x;
-    cb_g[i] = -fix(0.34414) * x + kOneHalf;
+  YccTables() {
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      cr_r[i] = int((int64_t(fix(1.40200)) * x + kOneHalf) >> kScaleBits);
+      cb_b[i] = int((int64_t(fix(1.77200)) * x + kOneHalf) >> kScaleBits);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + kOneHalf;
+    }
   }
+};
+
+void ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, size_t n, uint8_t* out) {
+  static const YccTables t;
   for (size_t i = 0; i < n; ++i) {
     int Y = y[i], b = cb[i], r = cr[i];
-    out[3 * i] = clamp255(Y + cr_r[r]);
-    out[3 * i + 1] = clamp255(Y + int((cb_g[b] + cr_g[r]) >> kScaleBits));
-    out[3 * i + 2] = clamp255(Y + cb_b[b]);
+    out[3 * i] = clamp255(Y + t.cr_r[r]);
+    out[3 * i + 1] = clamp255(Y + int((t.cb_g[b] + t.cr_g[r]) >> kScaleBits));
+    out[3 * i + 2] = clamp255(Y + t.cb_b[b]);
   }
 }
 
+// Four planes to RGB: YCCK -> CMYK (jdcolor.c:ycck_cmyk_convert, K passed
+// through) where ycck, then OpenCV's icvCvt_CMYK2BGR_8u_C4C3R.
+void cmyk_to_rgb(const std::vector<uint8_t>* p, size_t n, bool ycck, uint8_t* out) {
+  static const YccTables t;
+  for (size_t i = 0; i < n; ++i) {
+    int c = p[0][i], m = p[1][i], y = p[2][i], k = p[3][i];
+    if (ycck) {
+      int Y = c, cb = m, cr = y;
+      c = clamp255(255 - (Y + t.cr_r[cr]));
+      m = clamp255(255 - (Y + int((t.cb_g[cb] + t.cr_g[cr]) >> kScaleBits)));
+      y = clamp255(255 - (Y + t.cb_b[cb]));
+    }
+    out[3 * i] = uint8_t(k - ((255 - c) * k >> 8));
+    out[3 * i + 1] = uint8_t(k - ((255 - m) * k >> 8));
+    out[3 * i + 2] = uint8_t(k - ((255 - y) * k >> 8));
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Baseline JPEG encoder (libjpeg-turbo's compression path, see the header).
@@ -674,39 +1221,6 @@ const uint8_t kStdChromaQuant[64] = {
     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
-
-// The Annex K Huffman tables: 16 code counts, then the symbols.
-const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
-const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
-const uint8_t kAcLumaVals[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
-    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
-    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
-    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
-    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
-    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
-    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
-    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
-    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
-    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
-    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
-    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
-const uint8_t kAcChromaVals[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
-    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
-    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
-    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
-    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
-    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
-    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
-    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
-    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
-    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
-    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 struct HuffCode {
   uint16_t code[256] = {};
@@ -1072,10 +1586,11 @@ int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size,
     j.parse(true);
     size_t n = size_t(j.width) * j.height;
     if (out_size != 3 * n) fail("output buffer of the wrong size");
-    for (int i = 0; i < j.ncomp; ++i)
-      if (j.comp[i].coef.empty()) fail("corrupt JPEG: a component has no scan");
+    if (j.block_smoothing())
+      unsupported("progressive JPEG whose scans leave low bits of the first coefficients "
+                  "unsent: libjpeg decodes it with block smoothing, which is not supported");
     if (j.ncomp == 1) {
-      std::vector<uint8_t> g = component_plane(j, j.comp[0]);
+      std::vector<uint8_t> g = component_plane(j.comp[0]);
       const int dw = j.comp[0].dw;
       for (int y = 0; y < j.height; ++y)
         for (int x = 0; x < j.width; ++x) {
@@ -1085,11 +1600,17 @@ int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size,
         }
       return 0;
     }
-    std::vector<uint8_t> p[3];
-    for (int i = 0; i < 3; ++i) p[i] = upsample(j, j.comp[i], component_plane(j, j.comp[i]));
-    bool rgb = (j.adobe && j.adobe_transform == 0) ||
-               (!j.jfif && !j.adobe && j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
-                j.comp[2].id == 'B');
+    std::vector<uint8_t> p[4];
+    for (int i = 0; i < j.ncomp; ++i) p[i] = upsample(j, j.comp[i], component_plane(j.comp[i]));
+    if (j.ncomp == 4) {  // jdapimin.c: Adobe transform 0 is CMYK, any other YCCK
+      cmyk_to_rgb(p, n, j.adobe && j.adobe_transform != 0, out);
+      return 0;
+    }
+    // jdapimin.c: JFIF means YCbCr; else Adobe transform 0 means RGB; else
+    // the component ids 'R', 'G', 'B' do.
+    bool rgb = !j.jfif && (j.adobe ? j.adobe_transform == 0
+                                   : j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
+                                         j.comp[2].id == 'B');
     if (rgb) {
       for (size_t i = 0; i < n; ++i)
         for (int k = 0; k < 3; ++k) out[3 * i + k] = p[k][i];
@@ -1101,6 +1622,82 @@ int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size,
     return report(e, err, errlen);
   } catch (const std::bad_alloc&) {
     return report(CodecError{"out of memory decoding JPEG", false}, err, errlen);
+  }
+}
+
+// RLE8 (bits 8) or RLE4 (bits 4) BMP pixel data -> out[height][width]
+// palette indices in the stream's row order (grfmt_bmp.cpp, see the header).
+int bmp_rle(const uint8_t* data, size_t size, int bits, int width, int height, uint8_t* out,
+            char* err, size_t errlen) {
+  try {
+    if ((bits != 4 && bits != 8) || width <= 0 || height <= 0) fail("bad RLE BMP parameters");
+    size_t pos = 0;
+    auto byte = [&]() -> int {
+      if (pos >= size) fail("truncated RLE BMP data");
+      return data[pos++];
+    };
+    long x = 0, y = 0;
+    // FillUniColor: count pixels of index 0 from (x, y) on, wrapping rows.
+    auto fill = [&](long count, int index) {
+      do {
+        long end = std::min<long>(x + count, width);
+        count -= end - x;
+        if (end > x) std::memset(out + size_t(y) * width + x, index, size_t(end - x));
+        x = end;
+        if (x >= width) {
+          x = 0;
+          if (++y >= height) break;
+        }
+      } while (count > 0);
+    };
+    bool wrapped = false;  // RLE8: the last run ended its row (line_end_flag)
+    for (;;) {
+      int len = byte(), code = byte();
+      if (len) {  // encoded run
+        if (x + len > width) fail("RLE BMP run past the end of its row");
+        if (bits == 8) {
+          long y0 = y;
+          fill(len, code);
+          wrapped = y != y0;
+          if (y >= height) break;
+        } else {
+          for (int i = 0; i < len; ++i)  // two colours, alternating
+            out[size_t(y) * width + x + i] = uint8_t(i & 1 ? code & 15 : code >> 4);
+          x += len;
+        }
+      } else if (code > 2) {  // absolute run, padded to 16 bits
+        if (x + code > width) fail("RLE BMP run past the end of its row");
+        int nbytes = bits == 8 ? (code + 1) & ~1 : (((code + 1) >> 1) + 1) & ~1;
+        if (pos + nbytes > size) fail("truncated RLE BMP data");
+        for (int i = 0; i < code; ++i) {
+          int v = bits == 8 ? data[pos + i]
+                            : (i & 1 ? data[pos + i / 2] & 15 : data[pos + i / 2] >> 4);
+          out[size_t(y) * width + x + i] = uint8_t(v);
+        }
+        pos += nbytes;
+        x += code;
+        wrapped = false;
+      } else {  // 0: end of line, 1: end of bitmap, 2: delta
+        long dx = width - x, dy = height - y;
+        if (bits == 8 && code == 0 && wrapped && dx == width) {
+          wrapped = false;  // the run before already moved to this row
+          continue;
+        }
+        if (code == 2) {
+          dx = byte();
+          dy = byte();
+        }
+        if (y >= height) break;
+        // RLE4 (as OpenCV 5.0.0 reads it): end of bitmap ends the line
+        // only, and a delta's dy is read but not applied.
+        fill(dx + (code && bits == 8 ? dy * width : 0), 0);
+        wrapped = false;
+        if (y >= height) break;
+      }
+    }
+    return 0;
+  } catch (const CodecError& e) {
+    return report(e, err, errlen);
   }
 }
 

@@ -16,14 +16,21 @@ writes images itself:
   on the two diagonals before its own), one numpy step a diagonal.
 * `write_png`: the same colour types, each row filtered with the filter
   whose output has the least sum of absolute values (libpng's heuristic).
-* `decode_jpeg`: baseline and extended sequential JPEG through the host
-  codec, bit-equal to ``cv2.imread(..., IMREAD_COLOR)`` (libjpeg-turbo's
-  islow IDCT, fancy upsampling and colour tables), with the EXIF
-  orientation applied as OpenCV applies it. Progressive, arithmetic-coded,
-  12-bit and CMYK files raise `NotImplementedError`; truncated or corrupt
-  ones raise `ValueError` (libjpeg would warn and fill in).
-* `decode_bmp`: uncompressed 24- and 32-bit and palette (8-bit) BMP, bottom-up
-  and top-down, in numpy.
+* `decode_jpeg`: JPEG through the host codec, bit-equal to
+  ``cv2.imread(..., IMREAD_COLOR)`` (libjpeg-turbo's islow IDCT, fancy
+  upsampling and colour tables): baseline, extended sequential and
+  progressive, Huffman- or arithmetic-coded, 1, 3 or 4 components (CMYK
+  and YCCK through OpenCV's CMYK -> BGR), with the EXIF orientation applied
+  as OpenCV applies it. Lossless, 12-bit and hierarchical files, which
+  OpenCV's IMREAD_COLOR does not decode either, and a progressive file that
+  libjpeg would decode with block smoothing, raise `NotImplementedError`;
+  truncated or corrupt ones raise `ValueError` (libjpeg would warn and
+  fill in).
+* `decode_bmp`: BMP as OpenCV 5.0.0 reads it: OS/2 and Windows headers
+  (40 bytes to V5), bottom-up and top-down, 1-, 4- and 8-bit palettes,
+  16-bit 5-5-5 and 5-6-5, 24- and 32-bit (bit fields of a V3-V5 header
+  applied), in numpy; RLE8 and RLE4 unpacked by ``bmp_rle`` of the host
+  codec. What OpenCV refuses raises `NotImplementedError`.
 * `read_image_rgb`: a frame as uint8 RGB [H,W,3], as ``cv2.imread(path,
   IMREAD_COLOR)[..., ::-1]`` gives it (16-bit samples keep their high
   byte); the format is chosen by the file's first bytes, as OpenCV chooses
@@ -80,7 +87,9 @@ def _codec() -> ctypes.CDLL:
                                 ctypes.POINTER(ctypes.c_size_t), err, size]
     lib.gif_lzw.argtypes = [out, size, ctypes.c_int, out, size, ctypes.POINTER(ctypes.c_size_t),
                             err, size]
-    for fn in (lib.jpeg_info, lib.jpeg_decode, lib.png_unfilter, lib.jpeg_encode, lib.gif_lzw):
+    lib.bmp_rle.argtypes = [buf, size, ctypes.c_int, ctypes.c_int, ctypes.c_int, out, err, size]
+    for fn in (lib.jpeg_info, lib.jpeg_decode, lib.png_unfilter, lib.jpeg_encode, lib.gif_lzw,
+               lib.bmp_rle):
         fn.restype = ctypes.c_int
     return lib
 
@@ -328,42 +337,127 @@ def encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
     return out[:written.value].tobytes()
 
 
+# BI_BITFIELDS masks (red, green, blue) that OpenCV takes for 16-bit pixels
+_MASKS_16 = {(0x7C00, 0x3E0, 0x1F): 15, (0xF800, 0x7E0, 0x1F): 16}
+# (bits, compression) of a Windows header that OpenCV reads: BI_RGB 0,
+# BI_RLE8 1, BI_RLE4 2, BI_BITFIELDS 3
+_BMP_KINDS = {(1, 0), (4, 0), (8, 0), (24, 0), (32, 0), (16, 0), (16, 3), (32, 3), (4, 2),
+              (8, 1)}
+
+
+def bmp_rle(pixels: bytes, bits: int, width: int, height: int, what: str = "BMP") -> np.ndarray:
+    """Palette indices [height, width] (uint8, rows in the stream's order) of
+    RLE8 (``bits`` 8) or RLE4 (4) pixel data, unpacked in the host codec as
+    OpenCV unpacks it: the pixels an escape skips take index 0."""
+    out = np.empty((height, width), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _check(_codec().bmp_rle(pixels, len(pixels), bits, width, height, out.ctypes.data, err,
+                            _ERR_LEN), err, what)
+    return out
+
+
 def decode_bmp(data: bytes, what: str = "BMP") -> np.ndarray:
-    """uint8 RGB [H,W,3] of an uncompressed 24-bit, 32-bit (alpha dropped)
-    or 8-bit palette BMP with a Windows info header (40 bytes or longer);
-    palette indices past the palette read black, as in OpenCV."""
-    if len(data) < 54 or data[:2] != b"BM":
+    """uint8 RGB [H,W,3] of a BMP file, as OpenCV's ``grfmt_bmp.cpp`` reads
+    it with ``IMREAD_COLOR``:
+
+    * a Windows info header of 36 bytes or more (40, V4's 108, V5's 124),
+      bottom-up or top-down: 1-, 4- and 8-bit palettes (``biClrUsed``
+      entries, or all; indices past them read black), 16-bit 5-5-5, 24-bit,
+      32-bit (the fourth byte dropped); ``BI_BITFIELDS`` at 16 bits with the
+      5-5-5 or 5-6-5 masks, which are read after the header, as OpenCV reads
+      them whatever the header's size; at 32 bits with the masks of a header
+      of 56 bytes or more (V3, V4, V5) applied where none is zero
+      (`_bit_fields`), and otherwise ignored; RLE8 and RLE4 (`bmp_rle`);
+    * the OS/2 core header (12 bytes: 16-bit sizes, 3-byte palette
+      entries, all ``1 << bits`` of them): 1-, 4-, 8-, 24- and 32-bit.
+
+    A 5-bit channel is shifted to the top of its byte (its low bits zero),
+    as OpenCV converts it. What OpenCV refuses raises `NotImplementedError`;
+    a truncated or broken file `ValueError`."""
+    if len(data) < 26 or data[:2] != b"BM":
         raise ValueError(f"{what}: not a BMP file")
     offset, hsize = struct.unpack_from("<II", data, 10)
-    if hsize < 40:
-        raise NotImplementedError(f"{what}: BMP with a {hsize}-byte header (OS/2)")
-    w, h, _, bpp, compression, _, _, _, ncolors = struct.unpack_from("<iiHHIIiiI", data, 18)
-    if compression == 3 and bpp == 32:       # BI_BITFIELDS: the standard masks only
-        masks = struct.unpack_from("<III", data, 54)      # after the 40-byte core
-        if masks != (0xFF0000, 0xFF00, 0xFF):
-            raise NotImplementedError(f"{what}: BMP with bit-field masks {masks}")
-    elif compression != 0:
-        raise NotImplementedError(f"{what}: compressed BMP (compression {compression})")
-    if bpp not in (8, 24, 32):
-        raise NotImplementedError(f"{what}: {bpp}-bit BMP")
-    top_down, h = h < 0, abs(h)
+    if len(data) < 14 + hsize:
+        raise ValueError(f"{what}: truncated BMP header")
+    if hsize >= 36:
+        w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
+        ncolors = struct.unpack_from("<I", data, 46)[0]
+        if (bits, compression) not in _BMP_KINDS:
+            raise NotImplementedError(f"{what}: {bits}-bit BMP with compression {compression} "
+                                      f"(OpenCV does not read it either)")
+        entry, top_down, h = 4, h < 0, abs(h)
+    elif hsize == 12:                                         # OS/2 core header
+        w, h, _, bits = struct.unpack_from("<HHHH", data, 18)
+        compression, ncolors, entry, top_down = 0, 1 << bits, 3, False
+        if bits not in (1, 4, 8, 24, 32):
+            raise NotImplementedError(f"{what}: {bits}-bit OS/2 BMP "
+                                      f"(OpenCV does not read it either)")
+    else:
+        raise NotImplementedError(f"{what}: BMP with a {hsize}-byte header "
+                                  f"(OpenCV does not read it either)")
     if w <= 0 or h == 0:
         raise ValueError(f"{what}: BMP of size {w}x{h}")
-    stride = (w * bpp + 31) // 32 * 4
+    palette = None
+    if bits <= 8:
+        n = ncolors or 1 << bits
+        if n > 256:
+            raise ValueError(f"{what}: BMP palette of {n} colours")
+        if 14 + hsize + entry * n > len(data):
+            raise ValueError(f"{what}: truncated BMP palette")
+        palette = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(data, np.uint8, entry * n, 14 + hsize).reshape(n, entry)
+        palette[:n] = entries[:, 2::-1]
+    elif bits == 16:
+        if compression == 3:
+            if 14 + hsize + 12 > len(data):
+                raise ValueError(f"{what}: truncated BMP bit-field masks")
+            masks = struct.unpack_from("<III", data, 14 + hsize)
+            if masks not in _MASKS_16:
+                raise NotImplementedError(f"{what}: 16-bit BMP with bit-field masks "
+                                          f"{tuple(hex(m) for m in masks)} (OpenCV reads only "
+                                          f"5-5-5 and 5-6-5)")
+            bits = _MASKS_16[masks]
+        else:
+            bits = 15
+    if compression in (1, 2):
+        index = bmp_rle(data[offset:], bits, w, h, what)
+        return palette[index if top_down else index[::-1]]
+    stride = (w * (16 if bits == 15 else bits) + 31) // 32 * 4
     if offset + stride * h > len(data):
         raise ValueError(f"{what}: truncated BMP")
     rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
     if not top_down:
         rows = rows[::-1]
-    if bpp == 8:
-        n = ncolors or 256
-        if n > 256 or 14 + hsize + 4 * n > offset:
-            raise ValueError(f"{what}: BMP palette of {n} colours")
-        palette = np.zeros((256, 3), np.uint8)
-        palette[:n] = np.frombuffer(data, np.uint8, 4 * n, 14 + hsize).reshape(n, 4)[:, 2::-1]
+    if bits == 8:
         return palette[rows[:, :w]]
-    ch = bpp // 8
-    return np.ascontiguousarray(rows[:, :w * ch].reshape(h, w, ch)[..., 2::-1])
+    if bits < 8:
+        index = np.unpackbits(rows, axis=1).reshape(h, -1, bits)[:, :w]
+        return palette[(index << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(
+            -1, dtype=np.uint8)]
+    if bits in (15, 16):
+        t = rows[:, :2 * w].copy().view("<u2").astype(np.uint16)
+        green = (t >> 2) & 0xF8 if bits == 15 else (t >> 3) & 0xFC
+        red = (t >> 7) & 0xF8 if bits == 15 else (t >> 8) & 0xF8
+        return np.stack([red, green, (t << 3) & 0xF8], -1).astype(np.uint8)
+    ch = bits // 8
+    pixels = rows[:, :w * ch].reshape(h, w, ch)
+    if bits == 32 and compression == 3 and hsize >= 56:
+        masks = struct.unpack_from("<III", data, 54)          # red, green, blue
+        if all(masks):
+            return _bit_fields(pixels.copy().view("<u4")[..., 0], masks)
+    return np.ascontiguousarray(pixels[..., 2::-1])
+
+
+def _bit_fields(pixels: np.ndarray, masks) -> np.ndarray:
+    """RGB of 32-bit pixels [H, W] under the masks of a V3-or-later header,
+    as OpenCV 5 scales them: each field shifted down to bit 0 and multiplied
+    by 255 / (its mask shifted down) in float32, truncated."""
+    out = []
+    for m in masks:
+        shift = (m & -m).bit_length() - 1
+        field = ((pixels & np.uint32(m)) >> np.uint32(shift)).astype(np.float32)
+        out.append(field * (np.float32(255) / np.float32(m >> shift)))
+    return np.stack(out, -1).astype(np.uint8)
 
 
 def read_image_rgb(path: str) -> np.ndarray:

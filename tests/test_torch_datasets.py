@@ -2,7 +2,10 @@
 
 Each tree is written with OpenCV as `tests/test_datasets.py` and
 `tests/test_dgp.py` write theirs: JPEG colour frames (PNG for KITTI, a BMP
-and a PNG among the video frames), 16-bit PNG depth (millimetres for
+and a PNG among the video frames; ScanNet's and the video folders' JPEG
+frames cycle through baseline, progressive with restarts, arithmetic-coded
+from the system's libjpeg and CMYK from Pillow, and an RLE8 BMP joins the
+video frames), 16-bit PNG depth (millimetres for
 ScanNet and Matterport, at half the image size so that the nearest resize to
 the image runs; KITTI's ``groundtruth`` at /256), ``.npy`` depth (DeMoN),
 lidar point clouds (DGP), poses, intrinsics and split files. Every dataset
@@ -20,11 +23,13 @@ import os
 import cv2
 import numpy as np
 import pytest
+from PIL import Image
 
 from dro_sfm_tpu.data import setup_dataset as jax_setup
 from dro_sfm_tpu.utils.config import load_config as jax_load_config
 from dro_sfm_torch.data import setup_dataset
 from dro_sfm_torch.utils.config import load_config
+from tools.torch_image_kinds import bmp_file, libjpeg_write, rle_encode
 
 H, W = 48, 64
 JITTER = [0.2, 0.2, 0.2, 0.05]
@@ -38,9 +43,29 @@ def frame(seed, h=H, w=W):
     return np.clip(base + rng.integers(-40, 41, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
-def write_jpg(path, seed, h=H, w=W):
+JPEG_KINDS = ("baseline", "progressive", "arithmetic", "cmyk")
+
+
+def write_jpg(path, seed, h=H, w=W, kind="baseline"):
+    """``frame(seed)`` as a JPEG file of ``kind`` (`JPEG_KINDS`)."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    cv2.imwrite(str(path), frame(seed, h, w), [cv2.IMWRITE_JPEG_QUALITY, 90])
+    bgr = frame(seed, h, w)
+    if kind == "arithmetic":
+        path.write_bytes(libjpeg_write(bgr[..., ::-1], "-arith", "-quality", "90",
+                                       "-restart", "3"))
+    elif kind == "cmyk":
+        Image.fromarray(bgr[..., ::-1]).convert("CMYK").save(path, "JPEG", quality=90)
+    else:
+        extra = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, 2] \
+            if kind == "progressive" else []
+        cv2.imwrite(str(path), bgr, [cv2.IMWRITE_JPEG_QUALITY, 90] + extra)
+
+
+def write_rle8_bmp(path, seed):
+    """``frame(seed)`` quantized to 256 colours as an RLE8 BMP."""
+    img = Image.fromarray(frame(seed)[..., ::-1]).quantize(256)
+    pal = np.array(img.getpalette(), np.uint8).reshape(-1, 3)[:256]
+    path.write_bytes(bmp_file(W, H, 8, rle_encode(np.array(img), 8), compression=1, palette=pal))
 
 
 def write_depth_mm(path, seed, h=H // 2, w=W // 2):
@@ -64,7 +89,7 @@ def scannet_tree(tmp, n=22):
     scene = "scene0000_00"
     names = [f"{i:06d}.jpg" for i in range(0, 5 * n, 5)]
     for i, name in enumerate(names):
-        write_jpg(root / scene / "color" / name, i)
+        write_jpg(root / scene / "color" / name, i, kind=JPEG_KINDS[i % len(JPEG_KINDS)])
         write_depth_mm(root / scene / "depth" / name.replace(".jpg", ".png"), i)
         write_pose(root / scene / "pose" / name.replace(".jpg", ".txt"), i)
     os.makedirs(root / scene / "intrinsic")
@@ -159,9 +184,10 @@ def video_tree(tmp):
     for seq, n in (("seq0", 7), ("seq1", 5)):
         for i in range(n):
             path = root / seq / f"{i:06d}.jpg"
-            write_jpg(path, i + 10 * len(seq))
+            write_jpg(path, i + 10 * len(seq), kind=JPEG_KINDS[i % len(JPEG_KINDS)])
     cv2.imwrite(str(root / "seq1" / "000005.png"), frame(77))
     cv2.imwrite(str(root / "seq1" / "000006.bmp"), frame(78))
+    write_rle8_bmp(root / "seq1" / "000007.bmp", 79)
     return str(root)
 
 

@@ -17,7 +17,7 @@ over them match the JAX package's to the same bar.
 ``infer_video --ba`` refines the keyframes as the JAX CLI does: its keyframe
 poses and ``ba_scales.npy`` against the JAX package's `optimize_dense_ba`
 fed the port's own depth maps and chained poses with the CLI's ``K_ba``
-and edges (1e-4). What the port does not read (an FLV file, a progressive
+and edges (1e-4). What the port does not read (an FLV file, a lossless
 JPEG) raises `NotImplementedError`, a corrupt MP4 file `ValueError`.
 """
 import json
@@ -41,6 +41,7 @@ from dro_sfm_torch.scripts import infer, infer_pose, infer_video
 from dro_sfm_torch.utils.depth import load_depth
 from dro_sfm_torch.utils.image_io import write_png
 from tests.test_torch_modules import fill_variables
+from tools.torch_image_kinds import lossless_gray
 
 torch.set_num_threads(4)
 H, W, FRAMES = 48, 64, 5
@@ -347,8 +348,7 @@ def test_what_is_not_ported_raises(scene, tmp_path):
     jpg_dir = tmp_path / "jpg"
     jpg_dir.mkdir()
     for i in range(3):
-        cv2.imwrite(str(jpg_dir / f"{i}.jpg"), np.zeros((H, W, 3), np.uint8),
-                    [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        (jpg_dir / f"{i}.jpg").write_bytes(lossless_gray(np.zeros((H, W), np.uint8)))
     flv = tmp_path / "clip.flv"
     flv.write_bytes(b"FLV\x01\x05\x00\x00\x00\x09" + bytes(64))
     corrupt = tmp_path / "clip.mp4"
@@ -356,7 +356,7 @@ def test_what_is_not_ported_raises(scene, tmp_path):
     cases = [
         (infer_video.main, ["--input", str(flv), "--output", str(tmp_path)], "FLV.*ROADMAP C"),
         (infer_video.main, ["--input", str(jpg_dir), "--output", str(tmp_path)],
-         "progressive"),
+         "lossless"),
     ]
     for main, args, item in cases:
         with pytest.raises(NotImplementedError, match=item):

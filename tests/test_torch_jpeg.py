@@ -7,11 +7,14 @@ OpenCV writes from seeded images: qualities 50, 75 and 95, every
 and without restart intervals, grayscale, and sizes from 1x1 to 480x640
 (sizes that are not whole MCUs among them). The EXIF orientation tag is
 applied as OpenCV applies it (all eight values, both byte orders).
-Progressive files raise `NotImplementedError`; truncated, garbage and
-corrupt ones (Huffman tables with too many short codes among them) raise
-`ValueError`. ``png_unfilter`` equals the numpy
-`_unfilter` on all five row filters, and `decode_bmp` equals OpenCV on 8-,
-24- and 32-bit files, bottom-up and top-down, and Pillow's palette files.
+Lossless and 12-bit files, which OpenCV's IMREAD_COLOR does not decode
+either, raise `NotImplementedError`; truncated, garbage and corrupt ones
+(Huffman tables with too many short codes among them) raise `ValueError`.
+``png_unfilter`` equals the numpy `_unfilter` on all five row filters, and
+`decode_bmp` equals OpenCV on 8-, 24- and 32-bit files, bottom-up and
+top-down, and Pillow's palette files. The other kinds (progressive,
+arithmetic-coded, CMYK JPEG; OS/2, 1-, 4-, 16-bit, bit-field and RLE BMP)
+are in `test_torch_image_formats.py`.
 """
 import struct
 
@@ -27,6 +30,7 @@ from dro_sfm_torch.utils.image_io import (
     decode_bmp,
     read_image_rgb,
 )
+from tools.torch_image_kinds import exif_segment, image, jpeg_12bit, lossless_gray
 
 SAMPLING = {"411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411,
             "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
@@ -34,15 +38,6 @@ SAMPLING = {"411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411,
             "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
             "444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444}
 SIZES = [(1, 1), (7, 13), (17, 33), (48, 64), (480, 640)]
-
-
-def image(h, w, seed=0):
-    """Smooth colour ramps with noise on top: both flat and busy blocks."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    base = np.stack([yy * 255 // max(h - 1, 1), xx * 255 // max(w - 1, 1),
-                     (3 * xx + 5 * yy) % 256], -1)
-    return np.clip(base + rng.integers(-60, 61, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
 def encode(img, *params):
@@ -79,15 +74,6 @@ def test_grayscale_and_restarts(size, tmp_path):
     assert np.array_equal(read_image_rgb(str(path)), cv2.imread(str(path))[..., ::-1])
 
 
-def exif_segment(orientation, little_endian):
-    e = "<" if little_endian else ">"
-    tiff = ((b"II*\x00" if little_endian else b"MM\x00*") + struct.pack(e + "I", 8)
-            + struct.pack(e + "H", 1) + struct.pack(e + "HHIHH", 0x0112, 3, 1, orientation, 0)
-            + struct.pack(e + "I", 0))
-    body = b"Exif\x00\x00" + tiff
-    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
-
-
 @pytest.mark.parametrize("orientation", range(1, 9))
 def test_exif_orientation_as_opencv(tmp_path, orientation):
     data = encode(image(20, 30), cv2.IMWRITE_JPEG_QUALITY, 90)
@@ -103,8 +89,11 @@ def test_exif_orientation_as_opencv(tmp_path, orientation):
 def test_what_is_refused_raises(tmp_path):
     img = image(48, 64)
     data = encode(img, cv2.IMWRITE_JPEG_QUALITY, 90)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        decode_jpeg(encode(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
+    for refused, kind in ((lossless_gray(img[..., 1]), "lossless"),
+                          (jpeg_12bit(np.full((6, 8), 1000)), "12-bit")):
+        assert cv2.imdecode(np.frombuffer(refused, np.uint8), cv2.IMREAD_COLOR) is None
+        with pytest.raises(NotImplementedError, match=kind):
+            decode_jpeg(refused)
     for cut in (len(data) // 2, len(data) - 2, 200):
         with pytest.raises(ValueError, match="truncated|corrupt"):
             decode_jpeg(data[:cut])
@@ -191,9 +180,10 @@ def test_bmp_palette_from_pillow(tmp_path):
     path = tmp_path / "p.bmp"
     img.save(path)
     assert np.array_equal(read_image_rgb(str(path)), cv2.imread(str(path))[..., ::-1])
-    with pytest.raises(NotImplementedError, match="compressed"):
-        data = bytearray(path.read_bytes())
-        data[30:34] = struct.pack("<I", 1)                   # BI_RLE8
+    data = bytearray(path.read_bytes())
+    data[30:34] = struct.pack("<I", 4)                       # BI_JPEG, which OpenCV refuses
+    assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(NotImplementedError, match="compression 4"):
         decode_bmp(bytes(data))
 
 
@@ -206,7 +196,7 @@ def test_committed_fixtures_decode_to_opencvs_bytes():
     from pathlib import Path
     folder = Path(__file__).resolve().parents[1] / "dro_sfm_torch" / "testdata" / "jpeg"
     table = json.loads((folder / "fixtures.json").read_text())["files"]
-    assert len(table) == 6
+    assert len(table) == 19
     for name, entry in table.items():
         path = str(folder / name)
         for img in (read_image_rgb(path), cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]):
