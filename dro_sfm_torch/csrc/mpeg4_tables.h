@@ -2,8 +2,9 @@
 // (mpeg4_encode.cpp) share, so that the encoder rebuilds each VOP with the
 // decoder's own arithmetic: the VLC tables as (code, length) pairs, the
 // scans and the DC scalers; the integer "simple" IDCT; the half-pel
-// prediction from a reference read clamped to its whole macroblocks; and the
-// YUV 4:2:0 to RGB conversion of swscale. Plain C++17, header only.
+// prediction from a reference read clamped to its whole macroblocks; and,
+// from yuv_rgb.h, the YUV 4:2:0 to RGB conversion of swscale. Plain C++17,
+// header only.
 
 #pragma once
 
@@ -11,6 +12,8 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+
+#include "yuv_rgb.h"
 
 namespace mpeg4 {
 
@@ -266,31 +269,6 @@ inline bool predict_block(const uint8_t* src, int stride, int ew, int eh, int x,
   return outside;
 }
 
-// ------------------------------------------------------------------ colour
-
-// Planes Y (stride ys) and U, V (stride cs, one sample a 2x2 luma block) to
-// RGB [height, width, 3] as swscale converts yuv420p to bgr24 at the same
-// size (BT.601, limited range, its SSSE3 path: each term 16-bit fixed
-// point), in RGB order.
-inline void yuv420_to_rgb(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t* V, int cs,
-                          int width, int height, uint8_t* rgb) {
-  const int yc = 9539, vr = 13075, ub = 16525, ug = -3209, vg = -6660;
-  for (int r = 0; r < height; r++) {
-    const uint8_t* y = Y + (size_t)r * ys;
-    const uint8_t* u = U + (size_t)(r >> 1) * cs;
-    const uint8_t* v = V + (size_t)(r >> 1) * cs;
-    uint8_t* o = rgb + (size_t)r * width * 3;
-    for (int c = 0; c < width; c++) {
-      int cu = 8 * u[c >> 1] - 1024, cv = 8 * v[c >> 1] - 1024;
-      int yy = ((8 * y[c] - 128) * yc) >> 16;
-      int rr = (cv * vr) >> 16;
-      int gg = ((cu * ug) >> 16) + ((cv * vg) >> 16);
-      int bb = (cu * ub) >> 16;
-      o[3 * c] = clip8(yy + rr);
-      o[3 * c + 1] = clip8(yy + gg);
-      o[3 * c + 2] = clip8(yy + bb);
-    }
-  }
-}
+using yuv::yuv420_to_rgb;
 
 }  // namespace mpeg4

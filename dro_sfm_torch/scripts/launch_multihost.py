@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import selectors
 import signal
 import socket
 import subprocess
@@ -78,17 +79,29 @@ def stop(procs, grace: float = 30.0) -> None:
             p.wait()
 
 
-def wait_all(procs, poll: float = 0.2) -> int:
-    """0 when every process exits with 0; else, as soon as one fails, its
-    code (128 + N for a process ended by signal N)."""
-    while True:
-        codes = [p.poll() for p in procs]
-        failed = [c for c in codes if c not in (None, 0)]
-        if failed:
-            return failed[0] if failed[0] > 0 else 128 - failed[0]
-        if all(c == 0 for c in codes):
-            return 0
-        time.sleep(poll)
+def wait_all(procs) -> int:
+    """0 when every process exits with 0; else, as soon as one fails, the
+    code of the process that ended first (128 + N for a process ended by
+    signal N). The launcher blocks on a pidfd a process (Linux 5.3+), so it
+    wakes at each exit and tells the first of two close ends from the
+    second; ends seen at one wake count in rank order."""
+    fds = [os.pidfd_open(p.pid) for p in procs]
+    try:
+        with selectors.DefaultSelector() as sel:
+            for rank, fd in enumerate(fds):
+                sel.register(fd, selectors.EVENT_READ, rank)
+            left = len(procs)
+            while left:
+                for rank in sorted(key.data for key, _ in sel.select()):
+                    code = procs[rank].wait()
+                    sel.unregister(fds[rank])
+                    left -= 1
+                    if code != 0:
+                        return code if code > 0 else 128 - code
+        return 0
+    finally:
+        for fd in fds:
+            os.close(fd)
 
 
 def main(argv=None) -> int:

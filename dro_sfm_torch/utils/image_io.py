@@ -49,9 +49,9 @@ writes images itself:
 * `encode_jpeg`: baseline JPEG as ``cv2.imencode(".jpg", bgr,
   [IMWRITE_JPEG_QUALITY, q])`` writes it, through the host codec.
 
-Video files are written (MJPEG AVI) and read (MPEG-4 Part 2 in MP4, MOV or
-AVI, and MJPEG AVI) by `dro_sfm_torch.utils.video_io`; H.264 and the other
-codecs are not decoded (ROADMAP C).
+Video files are written (MJPEG AVI) and read (MPEG-4 Part 2 and H.264
+Constrained Baseline in MP4, MOV or AVI, and MJPEG AVI) by
+`dro_sfm_torch.utils.video_io`; the other codecs are not decoded (ROADMAP C).
 """
 from __future__ import annotations
 

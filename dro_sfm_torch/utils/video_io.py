@@ -1,6 +1,7 @@
 """Video and animation files without OpenCV, FFmpeg or Pillow: MPEG-4 Part 2
-(``mp4v``) video written to MP4, MOV and AVI and read from them, MJPEG AVI
-written and read, and GIF89a written.
+(``mp4v``) video written to MP4, MOV and AVI and read from them, H.264
+Constrained Baseline video read from them, MJPEG AVI written and read, and
+GIF89a written.
 
 The card's machine has no video codec the port may use, so it writes and
 reads these files itself, on the host:
@@ -32,18 +33,23 @@ reads these files itself, on the host:
   ``cv2.VideoCapture`` reads them (uint8 RGB, in decode order), as FFmpeg
   demuxes and decodes them. `demux` tells the container by its first bytes:
   `demux_mp4` reads an ISO BMFF file's first video track (its ``mp4v``
-  sample entry's ``esds`` VOL, its samples from ``stsz``, ``stsc``,
-  ``stco``/``co64``, ``stts`` and the edit list), `demux_avi` the
-  ``##dc``/``##db`` chunks of an AVI's first video stream across its RIFF
-  ``AVI `` and ``AVIX`` segments; each packet equals FFmpeg's byte for
-  byte. `Mpeg4Decoder` decodes MPEG-4 Part 2 Simple Profile video in the
-  host library ``csrc/mpeg4_video.cpp`` (built by `dro_sfm_torch.hostlib`),
-  bit-equal to FFmpeg's luma and to OpenCV's RGB on the streams FFmpeg's
-  ``mpeg4`` encoder and `Mpeg4Encoder` write; MJPEG AVI frames go through the
-  JPEG decoder (libjpeg's upsampling, not FFmpeg's). Other codecs and
-  containers, and MPEG-4 tools beyond Simple Profile, raise
-  `NotImplementedError`; a broken file raises `ValueError`, and no frame is
-  ever skipped.
+  sample entry's ``esds`` VOL or its ``avc1``/``avc3`` sample entry's
+  ``avcC``, its samples from ``stsz``, ``stsc``, ``stco``/``co64``,
+  ``stts`` and the edit list), `demux_avi` the ``##dc``/``##db`` chunks of
+  an AVI's first video stream across its RIFF ``AVI `` and ``AVIX``
+  segments; each packet equals FFmpeg's byte for byte (an MP4's H.264
+  samples NAL unit by NAL unit: FFmpeg gives them in Annex B form).
+  `Mpeg4Decoder` decodes MPEG-4 Part 2 Simple Profile
+  video in the host library ``csrc/mpeg4_video.cpp``, bit-equal to FFmpeg's
+  luma and to OpenCV's RGB on the streams FFmpeg's ``mpeg4`` encoder and
+  `Mpeg4Encoder` write; `H264Decoder` decodes H.264 Constrained Baseline
+  (CAVLC I and P slices, the deblocking filter) in ``csrc/h264_video.cpp``,
+  bit-equal to FFmpeg's luma and to OpenCV's RGB on libx264's streams (both
+  libraries built by `dro_sfm_torch.hostlib`); MJPEG AVI frames go through
+  the JPEG decoder (libjpeg's upsampling, not FFmpeg's). Other codecs and
+  containers, and tools beyond those profiles, raise `NotImplementedError`
+  naming them; a broken file raises `ValueError`, and no frame is ever
+  skipped.
 * `write_gif`: GIF89a with a NETSCAPE loop extension and, before each frame,
   a graphic control extension holding its duration (in hundredths of a
   second, ``int(ms / 10)`` as Pillow writes it). Each frame's palette
@@ -426,10 +432,11 @@ def _riff_chunks(data: bytes, start: int, end: int):
 
 # ------------------------------------------------------------ video input
 
-# fourccs of MPEG-4 Part 2 video in AVI (strf's compression or strh's handler)
+# fourccs of MPEG-4 Part 2 and of H.264 video in AVI (strf's compression or
+# strh's handler, upper-cased)
 MPEG4_FOURCCS = (b"FMP4", b"MP4V", b"XVID", b"DIVX", b"DX50")
-_OTHER_CODECS = {b"H264": "H.264", b"X264": "H.264", b"AVC1": "H.264", b"AVC3": "H.264",
-                 b"HEV1": "H.265", b"HVC1": "H.265", b"HEVC": "H.265", b"DIV3": "MS MPEG-4 v3",
+H264_FOURCCS = (b"H264", b"X264", b"AVC1")
+_OTHER_CODECS = {b"HEV1": "H.265", b"HVC1": "H.265", b"HEVC": "H.265", b"DIV3": "MS MPEG-4 v3",
                  b"MP43": "MS MPEG-4 v3", b"MP42": "MS MPEG-4 v2", b"WMV1": "WMV",
                  b"WMV2": "WMV", b"WMV3": "WMV", b"AV01": "AV1", b"VP80": "VP8",
                  b"VP09": "VP9", b"S263": "H.263", b"H263": "H.263", b"MJPA": "Motion JPEG"}
@@ -446,14 +453,15 @@ def _other_codec(fourcc: bytes, path: str):
     what = f"{name} ({fourcc.decode(errors='replace')!r})" if name else \
         f"the codec {fourcc.decode(errors='replace')!r}"
     return NotImplementedError(f"{path}: {what} video; the port decodes MPEG-4 Part 2 "
-                               f"(mp4v) and MJPEG only (ROADMAP C)")
+                               f"(mp4v), H.264 Constrained Baseline (avc1, avc3, H264) and "
+                               f"MJPEG only (ROADMAP C)")
 
 
 class Demuxed:
-    """One video stream of a file: ``codec`` ("mpeg4" or "mjpeg"), the
-    decoder configuration ``config`` (the VOL of an MP4's ``esds``, else
-    empty), ``fps``, and its packets in decode order as (offset, size) in
-    the file, read by `packet`."""
+    """One video stream of a file: ``codec`` ("mpeg4", "h264" or "mjpeg"),
+    the decoder configuration ``config`` (the VOL of an MP4's ``esds`` or
+    the body of its ``avcC``, else empty), ``fps``, and its packets in
+    decode order as (offset, size) in the file, read by `packet`."""
 
     def __init__(self, path, data, codec, config, spans, fps):
         self.path, self.data, self.codec = path, data, codec
@@ -562,7 +570,8 @@ def _full_box_table(data, s, e, fmt, path, what):
 
 def demux_mp4(path: str, data) -> Demuxed:
     """The first video track of an ISO BMFF file (MP4, MOV, M4V): its
-    ``mp4v`` sample entry's VOL and its samples from ``stsz``, ``stsc``,
+    ``mp4v`` sample entry's VOL or its ``avc1``/``avc3`` sample entry's
+    ``avcC`` and its samples from ``stsz``, ``stsc``,
     ``stco``/``co64`` and ``stts``, with its edit list applied where FFmpeg's
     demuxer gives every sample as it is: an empty edit shifts time only, and
     the one edit of the media must start at media time 0 and reach past the
@@ -599,10 +608,16 @@ def demux_mp4(path: str, data) -> Demuxed:
         size, fourcc = struct.unpack_from(">I4s", data, ss + 8)
         if ss + 8 + size > se or size < 86:
             raise ValueError(f"{path}: truncated stsd box")
-        if fourcc != b"mp4v":
+        if fourcc == b"mp4v":
+            codec = "mpeg4"
+            config = _esds_config(data, *_need(data, ss + 8 + 86, ss + 8 + size, b"esds", path),
+                                  path)
+        elif fourcc in (b"avc1", b"avc3"):
+            codec = "h264"
+            avcc = _need(data, ss + 8 + 86, ss + 8 + size, b"avcC", path)
+            config = bytes(data[avcc[0]:avcc[1]])
+        else:
             raise _other_codec(fourcc, path)
-        esds = _need(data, ss + 8 + 86, ss + 8 + size, b"esds", path)
-        config = _esds_config(data, *esds, path)
         s, e = _need(data, *stbl, b"stsz", path)
         fixed, count = struct.unpack_from(">II", data, s + 4)
         if count > len(data):
@@ -660,7 +675,7 @@ def demux_mp4(path: str, data) -> Demuxed:
                     f"{path}: an MP4 edit list that ends the video before its last sample "
                     f"(FFmpeg demuxes the samples past it and drops their frames); the port "
                     f"applies an edit that keeps every sample only (ROADMAP C)")
-        return Demuxed(path, data, "mpeg4", config, spans, fps)
+        return Demuxed(path, data, codec, config, spans, fps)
     raise ValueError(f"{path}: an MP4 without a video track")
 
 
@@ -678,7 +693,7 @@ def demux_avi(path: str, data) -> Demuxed:
     """The first video stream of an AVI (RIFF ``AVI `` and the OpenDML
     ``AVIX`` segments after it): its packets are the ``##dc``/``##db``
     chunks of ``movi`` in file order (empty ones skipped), MPEG-4 Part 2
-    (`MPEG4_FOURCCS`) or MJPEG."""
+    (`MPEG4_FOURCCS`), H.264 in Annex B (`H264_FOURCCS`) or MJPEG."""
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{path}: not an AVI file")
     stream, codec, fps, spans, index = None, None, None, [], 0
@@ -709,6 +724,8 @@ def demux_avi(path: str, data) -> Demuxed:
                             tags = (comp.upper(), handler.upper())
                             if any(t in MPEG4_FOURCCS for t in tags):
                                 codec = "mpeg4"
+                            elif any(t in H264_FOURCCS for t in tags):
+                                codec = "h264"
                             elif b"MJPG" in tags:
                                 codec = "mjpeg"
                             else:
@@ -753,44 +770,45 @@ def demux(path: str) -> Demuxed:
 
 
 @functools.lru_cache(maxsize=None)
-def _mpeg4() -> ctypes.CDLL:
-    """The host MPEG-4 decoder, built at first use, its entry points typed."""
+def _decoder_lib(name: str, prefix: str) -> ctypes.CDLL:
+    """The host video decoder ``name`` (`hostlib.SOURCES`), built at first
+    use, its entry points ``<prefix>_*`` typed."""
     from dro_sfm_torch import hostlib
-    lib = ctypes.CDLL(str(hostlib.build("mpeg4_video")))
+    lib = ctypes.CDLL(str(hostlib.build(name)))
     handle, size, err = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p
     i32p = ctypes.POINTER(ctypes.c_int)
-    lib.m4v_new.argtypes = []
-    lib.m4v_new.restype = handle
-    lib.m4v_free.argtypes = [handle]
-    lib.m4v_free.restype = None
-    lib.m4v_decode.argtypes = [handle, ctypes.c_char_p, size, err, size]
-    lib.m4v_info.argtypes = [handle, i32p, i32p, err, size]
-    lib.m4v_frame.argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, err, size]
-    lib.m4v_stats.argtypes = [handle, ctypes.c_void_p, ctypes.c_int]
-    lib.m4v_planes.argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, err,
-                               size]
-    for fn in (lib.m4v_decode, lib.m4v_info, lib.m4v_frame, lib.m4v_stats, lib.m4v_planes):
-        fn.restype = ctypes.c_int
+    fn = {k: getattr(lib, f"{prefix}_{k}") for k in ("new", "free", "decode", "info", "frame",
+                                                    "stats", "planes")}
+    fn["new"].argtypes, fn["new"].restype = [], handle
+    fn["free"].argtypes, fn["free"].restype = [handle], None
+    fn["decode"].argtypes = [handle, ctypes.c_char_p, size, err, size]
+    fn["info"].argtypes = [handle, i32p, i32p, err, size]
+    fn["frame"].argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, err, size]
+    fn["stats"].argtypes = [handle, ctypes.c_void_p, ctypes.c_int]
+    fn["planes"].argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, err, size]
+    for k in ("decode", "info", "frame", "stats", "planes"):
+        fn[k].restype = ctypes.c_int
+    lib.fn = fn
     return lib
 
 
-class Mpeg4Decoder:
-    """MPEG-4 Part 2 video (``csrc/mpeg4_video.cpp``): `decode` takes the
-    packets in decode order, each giving at most one frame, and keeps the
-    reference frame between calls; ``config`` holds headers to read first
-    (an MP4's VOL)."""
+class _HostVideoDecoder:
+    """A host video decoder (`_decoder_lib`): `decode` takes the packets in
+    decode order, each giving at most one frame, and keeps its references
+    between calls."""
 
-    def __init__(self, config: bytes = b"", what: str = "MPEG-4"):
-        self.lib, self.what = _mpeg4(), what
-        self.handle = self.lib.m4v_new()
-        if config:
-            self.decode(config)
+    LIB = PREFIX = ""
+    STATS: Tuple[str, ...] = ()
+
+    def __init__(self, what: str):
+        self.lib, self.what = _decoder_lib(self.LIB, self.PREFIX), what
+        self.fn = self.lib.fn
+        self.handle = self.fn["new"]()
 
     def decode(self, packet: bytes) -> bool:
         """Decode one packet; True when it held a frame."""
         err = ctypes.create_string_buffer(image_io._ERR_LEN)
-        code = self.lib.m4v_decode(self.handle, bytes(packet), len(packet), err,
-                                   image_io._ERR_LEN)
+        code = self.fn["decode"](self.handle, bytes(packet), len(packet), err, image_io._ERR_LEN)
         if code == 1:
             return False
         image_io._check(code, err, self.what)
@@ -799,29 +817,22 @@ class Mpeg4Decoder:
     @property
     def shape(self) -> Tuple[int, int]:
         h, w = ctypes.c_int(), ctypes.c_int()
-        self.lib.m4v_info(self.handle, ctypes.byref(h), ctypes.byref(w), None, 0)
+        self.fn["info"](self.handle, ctypes.byref(h), ctypes.byref(w), None, 0)
         return h.value, w.value
 
     @property
     def encoder(self) -> str:
-        """The user data that names the encoder ("Lavc62.28.101"), if any."""
+        """The user data that names the encoder, if any."""
         h, w = ctypes.c_int(), ctypes.c_int()
         buf = ctypes.create_string_buffer(64)
-        self.lib.m4v_info(self.handle, ctypes.byref(h), ctypes.byref(w), buf, 64)
+        self.fn["info"](self.handle, ctypes.byref(h), ctypes.byref(w), buf, 64)
         return buf.value.decode(errors="replace")
-
-    STATS = ("i_vops", "p_vops", "intra_mbs", "inter_mbs", "skipped_mbs", "p_intra_mbs",
-             "ac_pred_mbs", "dquant_mbs", "escape1", "escape2", "escape3",
-             "outside_predictions", "half_pel_predictions", "rounding_vops", "ac_rescales")
 
     @property
     def stats(self) -> dict:
-        """What the decoded VOPs held, by `STATS` name: VOPs and macroblocks
-        by type, TCOEF escapes by type, predictions read partly outside the
-        VOP (unrestricted vectors), half-pel predictions, VOPs with
-        rounding_type 1, AC predictions rescaled to another QP."""
+        """What the decoded pictures held, by `STATS` name."""
         out = np.zeros(len(self.STATS), np.int64)
-        self.lib.m4v_stats(self.handle, out.ctypes.data, len(out))
+        self.fn["stats"](self.handle, out.ctypes.data, len(out))
         return dict(zip(self.STATS, out.tolist()))
 
     def frame(self, rgb: bool = True, luma: bool = False):
@@ -831,7 +842,7 @@ class Mpeg4Decoder:
         out_rgb = np.empty((h, w, 3), np.uint8) if rgb else None
         out_y = np.empty((h, w), np.uint8) if luma else None
         err = ctypes.create_string_buffer(image_io._ERR_LEN)
-        image_io._check(self.lib.m4v_frame(
+        image_io._check(self.fn["frame"](
             self.handle, None if out_rgb is None else out_rgb.ctypes.data,
             None if out_y is None else out_y.ctypes.data, err, image_io._ERR_LEN), err,
             self.what)
@@ -843,17 +854,71 @@ class Mpeg4Decoder:
         out = (np.empty((h, w), np.uint8), np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8),
                np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8))
         err = ctypes.create_string_buffer(image_io._ERR_LEN)
-        image_io._check(self.lib.m4v_planes(self.handle, *(o.ctypes.data for o in out), err,
-                                            image_io._ERR_LEN), err, self.what)
+        image_io._check(self.fn["planes"](self.handle, *(o.ctypes.data for o in out), err,
+                                          image_io._ERR_LEN), err, self.what)
         return out
 
     def close(self) -> None:
-        if self.handle:
-            self.lib.m4v_free(self.handle)
+        if getattr(self, "handle", None):
+            self.fn["free"](self.handle)
             self.handle = None
 
     def __del__(self):
         self.close()
+
+
+class Mpeg4Decoder(_HostVideoDecoder):
+    """MPEG-4 Part 2 video (``csrc/mpeg4_video.cpp``); ``config`` holds
+    headers to read first (an MP4's VOL). `encoder` is the user data that
+    names the encoder ("Lavc62.28.101"); `stats` counts VOPs and
+    macroblocks by type, TCOEF escapes by type, predictions read partly
+    outside the VOP (unrestricted vectors), half-pel predictions, VOPs with
+    rounding_type 1, AC predictions rescaled to another QP."""
+
+    LIB, PREFIX = "mpeg4_video", "m4v"
+    STATS = ("i_vops", "p_vops", "intra_mbs", "inter_mbs", "skipped_mbs", "p_intra_mbs",
+             "ac_pred_mbs", "dquant_mbs", "escape1", "escape2", "escape3",
+             "outside_predictions", "half_pel_predictions", "rounding_vops", "ac_rescales")
+
+    def __init__(self, config: bytes = b"", what: str = "MPEG-4"):
+        super().__init__(what)
+        if config:
+            self.decode(config)
+
+
+class H264Decoder(_HostVideoDecoder):
+    """H.264 Constrained Baseline video (``csrc/h264_video.cpp``): each
+    packet is one access unit; ``config`` is an MP4's ``avcC`` body (the NAL
+    length size and the SPS and PPS), without which packets are Annex B.
+    `encoder` is the SEI user data that names the encoder ("x264 - core
+    164 r3095 baee400"); `stats` counts (`STATS`) IDR pictures, pictures
+    with P slices, slices, pictures of several slices, I_NxN, I_16x16,
+    intra macroblocks of P slices, inter, skipped and P_8x8 macroblocks,
+    sub-partitions below 8x8, partitions with ref_idx above 0, macroblocks
+    with a nonzero mb_qp_delta, level codes with level_prefix 14 or more,
+    luma predictions at a fractional position, predictions read partly
+    outside the picture, luma edge segments filtered with bS 4 and with bS
+    1-3, slices with deblocking offsets and with the filter off, pictures
+    with constrained intra prediction, cropped pictures."""
+
+    LIB, PREFIX = "h264_video", "h264"
+    STATS = ("idr_pictures", "p_pictures", "slices", "multi_slice_pictures", "i4x4_mbs",
+             "i16x16_mbs", "p_intra_mbs", "inter_mbs", "skipped_mbs", "p8x8_mbs",
+             "small_partitions", "ref_idx_above_0", "qp_delta_mbs", "level_escapes",
+             "fractional_predictions", "outside_predictions", "bs4_edges", "bs1_3_edges",
+             "deblock_offset_slices", "deblock_off_slices", "constrained_intra_pictures",
+             "cropped_pictures")
+
+    def __init__(self, config: bytes = b"", what: str = "H.264"):
+        super().__init__(what)
+        if config:
+            fn = self.lib.h264_config
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                           ctypes.c_size_t]
+            fn.restype = ctypes.c_int
+            err = ctypes.create_string_buffer(image_io._ERR_LEN)
+            image_io._check(fn(self.handle, bytes(config), len(config), err, image_io._ERR_LEN),
+                            err, what)
 
 
 @functools.lru_cache(maxsize=None)
@@ -941,11 +1006,14 @@ class Mpeg4Encoder:
 
 class VideoReader:
     """The frames of a video file in decode order (`demux`): MPEG-4 Part 2
-    through `Mpeg4Decoder`, MJPEG AVI through the JPEG decoder. Iterating
-    gives uint8 RGB [H,W,3]; with ``luma`` the luma planes [H,W] (MPEG-4
-    only). ``fps`` is the stream's rate and ``decode_ms`` holds each frame's
-    decode milliseconds (host clock, the packet's read included). A packet
-    that fails to decode raises; none is skipped."""
+    through `Mpeg4Decoder`, H.264 through `H264Decoder`, MJPEG AVI through
+    the JPEG decoder. Iterating gives uint8 RGB [H,W,3]; with ``luma`` the
+    luma planes [H,W] (MPEG-4 and H.264). ``fps`` is the stream's rate and
+    ``decode_ms`` holds each frame's decode milliseconds (host clock, the
+    packet's read included). A packet that fails to decode raises; none is
+    skipped."""
+
+    DECODERS = {"mpeg4": Mpeg4Decoder, "h264": H264Decoder}
 
     def __init__(self, path: str):
         self.path = str(path)
@@ -963,14 +1031,14 @@ class VideoReader:
         s = self.stream
         if s.codec == "mjpeg":
             if luma:
-                raise ValueError(f"{self.path}: luma planes of MPEG-4 video only")
+                raise ValueError(f"{self.path}: luma planes of MPEG-4 and H.264 video only")
             for i in range(len(s)):
                 t0 = time.perf_counter()
                 img = image_io.decode_jpeg(s.packet(i), self.path)
                 self.decode_ms.append(1e3 * (time.perf_counter() - t0))
                 yield img
             return
-        dec = Mpeg4Decoder(s.config, self.path)
+        dec = self.DECODERS[s.codec](s.config, self.path)
         try:
             for i in range(len(s)):
                 t0 = time.perf_counter()

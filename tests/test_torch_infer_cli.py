@@ -154,7 +154,6 @@ def test_infer_video_on_a_video_file_matches_the_jax_package(scene, reference, c
     write byte-equal JPEG frames; the port's depths and trajectory over them
     match the JAX package's windows over the JAX frames (1e-4, the bars of
     `test_infer_video_matches_the_jax_package`)."""
-    import importlib.util
     tmp = scene["tmp"] / "from_video"
     tmp.mkdir()
     video = str(tmp / "clip.mp4")
@@ -162,6 +161,26 @@ def test_infer_video_on_a_video_file_matches_the_jax_package(scene, reference, c
     for f in sorted(os.listdir(scene["frames"])):
         writer.write(cv2.imread(os.path.join(scene["frames"], f), cv2.IMREAD_COLOR))
     writer.release()
+    video_file_matches_the_jax_package(scene, reference, capsys, tmp, video)
+
+
+def test_infer_video_on_an_h264_file_matches_the_jax_package(scene, reference, capsys):
+    """The same with the scene's frames as an H.264 Constrained Baseline
+    .mp4 from libx264 (`tools/torch_make_video_fixtures.py:write_h264`),
+    which FFmpeg decodes for the JAX CLI and the port's host decoder for
+    its own."""
+    from tools.torch_make_video_fixtures import write_h264
+    tmp = scene["tmp"] / "from_h264"
+    tmp.mkdir()
+    video = str(tmp / "clip.mp4")
+    frames = [cv2.imread(os.path.join(scene["frames"], f), cv2.IMREAD_COLOR)[..., ::-1]
+              for f in sorted(os.listdir(scene["frames"]))]
+    write_h264(video, frames, ["profile=baseline", "x264-params=ref=2:partitions=all"])
+    video_file_matches_the_jax_package(scene, reference, capsys, tmp, video)
+
+
+def video_file_matches_the_jax_package(scene, reference, capsys, tmp, video):
+    import importlib.util
     path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts", "infer_video.py")
     spec = importlib.util.spec_from_file_location("jax_infer_video_cli", path)
     module = importlib.util.module_from_spec(spec)

@@ -20,8 +20,8 @@ another QP (each counted by the decoder's `stats` and asserted here). What
 the port refuses raises `NotImplementedError` naming it: streams of FFmpeg's
 own encoder for MPEG quantisation, B-VOPs, quarter sample, interlace, data
 partitioning, resync markers and four motion vectors (committed), bit edits
-of a fixture's VOL, VO or VOP header for the other tools and an ``avc1``
-sample entry, and the first bytes of other containers. Truncated packets
+of a fixture's VOL, VO or VOP header for the other tools and an ``av01``
+sample entry (H.264's ``avc1`` is decoded: `tests/test_torch_h264.py`), and the first bytes of other containers. Truncated packets
 and 200 seeded random byte flips raise `ValueError` (or, where a flip turns
 a header into a refused tool, `NotImplementedError`) or decode, and never
 take the process down: they run in a subprocess.
@@ -299,7 +299,7 @@ def test_short_video_header_is_refused(tmp_path):
         dec.decode(b"\x00\x00\x82\x1a\x0f\x00")
 
 
-@pytest.mark.parametrize("fourcc,what", [(b"avc1", "H.264"), (b"hvc1", "H.265"),
+@pytest.mark.parametrize("fourcc,what", [(b"av01", "AV1"), (b"hvc1", "H.265"),
                                          (b"s263", "H.263")])
 def test_other_sample_entries_are_refused(tmp_path, fourcc, what):
     data = (FIXTURES / "walk_640x480.mp4").read_bytes()
@@ -309,7 +309,7 @@ def test_other_sample_entries_are_refused(tmp_path, fourcc, what):
         demux(str(edited))
 
 
-@pytest.mark.parametrize("fourcc,what", [(b"H264", "H.264"), (b"DIV3", "MS MPEG-4 v3"),
+@pytest.mark.parametrize("fourcc,what", [(b"VP80", "VP8"), (b"DIV3", "MS MPEG-4 v3"),
                                          (b"WMV2", "WMV"), (b"ABCD", "ABCD")])
 def test_other_avi_codecs_are_refused(tmp_path, fourcc, what):
     data = (FIXTURES / "walk_640x480.avi").read_bytes()

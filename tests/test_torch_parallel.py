@@ -18,12 +18,14 @@ gradient and the summed parameter gradients within 1e-5.
 
 The launcher: its arguments, two ranks of a small program under it and
 under ``torchrun`` (gloo, TCP on localhost), and a failing rank ending the
-run with its exit code.
+run with its exit code; `wait_all` returning the code of the rank that
+ended first when two ranks end 0.1 s apart.
 """
 import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import flax.linen as nn
@@ -277,3 +279,36 @@ def test_the_launcher_ends_with_a_failing_rank(tmp_path):
                                  "2", "--backend", "gloo", "--"], "fail")
     assert res.returncode == 3, res.stderr[-3000:]
     assert not list(tmp_path.glob("rank*.txt"))
+
+
+# A child that exits with code argv[1]: at the wall-clock time argv[3], or,
+# given a pid in argv[2], 0.1 s after that process has ended.
+EXIT_AFTER = ("import os, select, sys, time\n"
+              "if int(sys.argv[2]):\n"
+              "    select.select([os.pidfd_open(int(sys.argv[2]))], [], [])\n"
+              "    time.sleep(0.1)\n"
+              "else:\n"
+              "    time.sleep(max(0.0, float(sys.argv[3]) - time.time()))\n"
+              "sys.exit(int(sys.argv[1]))")
+
+
+@pytest.mark.parametrize("codes,first,want", [
+    ((7, 5), 1, 5),                   # rank 1 fails first, rank 0 0.1 s later
+    ((9, 6), 0, 9),                   # rank 0 fails first
+    ((0, 4), 0, 4),                   # a rank ending with 0 does not end the wait
+    ((0, 0), 0, 0),
+], ids=["second_rank_first", "first_rank_first", "success_then_failure", "both_succeed"])
+def test_wait_all_returns_the_rank_that_ended_first(codes, first, want):
+    """The two ranks end in a known order 0.1 s apart (the later one waits
+    for the first's exit): the launcher returns the code of the one that
+    ended first, not the first in rank order."""
+    procs = [None, None]
+    start = time.time() + 2.0                    # past both children's start-up
+    procs[first] = subprocess.Popen([sys.executable, "-c", EXIT_AFTER, str(codes[first]), "0",
+                                     str(start)])
+    procs[1 - first] = subprocess.Popen([sys.executable, "-c", EXIT_AFTER,
+                                         str(codes[1 - first]), str(procs[first].pid), "0"])
+    try:
+        assert launch_multihost.wait_all(procs) == want
+    finally:
+        launch_multihost.stop(procs)

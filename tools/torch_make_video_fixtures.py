@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Write the MPEG-4 Part 2 video fixtures of the port's decoder checks.
+"""Write the video fixtures of the port's decoder checks: MPEG-4 Part 2 and
+H.264.
 
-    python3 tools/torch_make_video_fixtures.py      # needs OpenCV with FFmpeg
+    python3 tools/torch_make_video_fixtures.py              # both; needs OpenCV with FFmpeg
+    python3 tools/torch_make_video_fixtures.py --only h264  # needs cc, libavformat, libx264
 
 Renders camera walks with the port's synthetic renderer (``SyntheticDataset``,
 three planes): the camera pans and slides sideways, so that motion vectors
@@ -36,12 +38,44 @@ count, the fps, what the port's decoder counted in the stream
 (`Mpeg4Decoder.stats`), the OpenCV and libavcodec versions, and the sha256
 of the port's own decode of all frames here (luma and RGB), so that another
 machine's build of the decoder is held to the same bits without OpenCV.
+
+The H.264 fixtures (`H264_FILES`, under ``dro_sfm_torch/testdata/h264/``
+with their own ``fixtures.json``) are the same renders written by libx264
+through the system's libavcodec and libavformat (`tools/torch_h264_writer.c`,
+compiled into ``build/`` at first use, its encoder flushed so that every
+frame is written): the walk at 640x480 as ``.mp4``, ``.mov`` and ``.avi``
+(Annex B, fourcc ``H264``), the walk with an IDR picture every 8 frames
+as ``.mp4`` and ``.avi`` (the decoder's reset at a later IDR; in the AVI
+the SPS and PPS come again before each IDR picture), 200x136 with several
+slices and reference
+frames (cropping and edge macroblocks), 1280x720 (the decode rate), noise in
+4 slices (intra macroblocks in P slices, large levels), noise at QP 1 (the
+level_prefix escapes), 16 reference frames with every partition,
+constrained intra prediction, the deblocking offsets -3:3 and 3:-3, the
+filter off, and the VUI colour matrices OpenCV converts by (BT.709 with
+``range=pc``, FCC, SMPTE 240M, BT.2020). The refusal fixtures
+(`H264_REFUSALS`, 64x48, 6 frames each: an MP4 of 4 frames ends its edit
+before its last sample) are tools the port's decoder refuses: CABAC, B
+slices (an AVI: the MP4 of a stream with B-frames has an edit list the
+demuxer refuses first), the 8x8 transform, interlace, weighted prediction, 4:4:4 and 10-bit;
+OpenCV reads every one. For an H.264 file ``fixtures.json`` holds the
+sha256 of each packet as the file stores it (`sample_form`: OpenCV gives
+an MP4's samples in the Annex B form of FFmpeg's ``h264_mp4toannexb``, an
+AVI's as they are), of each luma plane and of each RGB frame. OpenCV 5.0.0
+converts to RGB with the table of the VUI's matrix_coefficients, and its
+luma (``CAP_PROP_CONVERT_RGB`` 0) of a stream of another matrix than
+BT.601 is not the decoded plane: the luma of such a fixture is taken from a
+copy whose SPS names no matrix (`without_colour_matrix`), the same pictures.
 """
+import argparse
 import hashlib
 import json
+import os
 import re
 import struct
+import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import cv2
@@ -51,7 +85,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from dro_sfm_torch.data.synthetic import SyntheticConfig, SyntheticDataset  # noqa: E402
-from dro_sfm_torch.utils.video_io import Mpeg4Decoder, VideoReader, demux  # noqa: E402
+from dro_sfm_torch.utils.video_io import (H264Decoder, Mpeg4Decoder, VideoReader,  # noqa: E402
+                                          demux)
 
 OUT = ROOT / "dro_sfm_torch" / "testdata" / "video"
 FPS = 30
@@ -79,6 +114,58 @@ AIC = ("aic_176x144.avi", 144, 176, 8,
        {"flags": "+aic", "scplx_mask": "0.9", "tcplx_mask": "0.5", "g": "2"})
 STATIC_ROWS = 1 / 8          # the frozen band at the bottom, a share of the height
 LIMIT = 1 << 20              # bytes of the whole folder
+
+H264_OUT = ROOT / "dro_sfm_torch" / "testdata" / "h264"
+H264_WRITER = ROOT / "tools" / "torch_h264_writer.c"
+BASELINE = "profile=baseline"
+# name: (height, width, frames, content, the encoder's options)
+H264_FILES = {
+    "walk_640x480.mp4": (480, 640, 24, "walk", [BASELINE]),
+    "walk_640x480.mov": (480, 640, 24, "walk", [BASELINE]),
+    "walk_640x480.avi": (480, 640, 24, "walk", [BASELINE]),
+    "idr8_640x480.mp4": (480, 640, 24, "walk", [BASELINE, "x264-params=keyint=8"]),
+    "idr8_640x480.avi": (480, 640, 24, "walk", [BASELINE, "x264-params=keyint=8"]),
+    "odd_200x136.mp4": (136, 200, 24, "walk",
+                        [BASELINE, "x264-params=ref=3:slices=2:partitions=all"]),
+    "walk_1280x720.mp4": (720, 1280, 24, "walk", [BASELINE]),
+    "noise_slices_160x128.mp4": (128, 160, 8, "noise", [BASELINE, "x264-params=slices=4:qp=8"]),
+    "noise_qp1_96x64.mp4": (64, 96, 6, "noise", [BASELINE, "x264-params=qp=1"]),
+    "ref16_200x136.mp4": (136, 200, 24, "walk",
+                          [BASELINE, "x264-params=ref=16:partitions=all:keyint=30"]),
+    "constrained_intra_160x128.mp4": (128, 160, 8, "noise",
+                                      [BASELINE, "x264-params=constrained-intra=1:qp=20"]),
+    "deblock_m3p3_200x136.mp4": (136, 200, 12, "walk", [BASELINE, "x264-params=deblock=-3,3"]),
+    "deblock_p3m3_200x136.mp4": (136, 200, 12, "walk", [BASELINE, "x264-params=deblock=3,-3"]),
+    "no_deblock_200x136.mp4": (136, 200, 12, "walk", [BASELINE, "x264-params=no-deblock=1"]),
+    "colour_bt709_pc_64x48.mp4": (48, 64, 6, "walk",
+                                  [BASELINE, "x264-params=colormatrix=bt709:range=pc"]),
+    "colour_fcc_64x48.mp4": (48, 64, 6, "walk", [BASELINE, "x264-params=colormatrix=fcc"]),
+    "colour_smpte240m_64x48.mp4": (48, 64, 6, "walk",
+                                   [BASELINE, "x264-params=colormatrix=smpte240m"]),
+    "colour_bt2020_64x48.mp4": (48, 64, 6, "walk", [BASELINE, "x264-params=colormatrix=bt2020nc"]),
+}
+# name: (pixel format, the encoder's options, what the port's NotImplementedError names)
+H264_REFUSALS = {
+    "refuse_cabac.mp4": ("yuv420p", ["profile=main", "x264-params=bframes=0:weightp=0"],
+                         "CABAC"),
+    "refuse_bframes.avi": ("yuv420p", ["profile=main",
+                                       "x264-params=cabac=0:bframes=2:b-adapt=0:weightp=0"],
+                           "B slices"),
+    "refuse_8x8dct.mp4": ("yuv420p", ["profile=high",
+                                      "x264-params=cabac=0:8x8dct=1:bframes=0:weightp=0"],
+                          "8x8 transform"),
+    "refuse_interlaced.mp4": ("yuv420p", ["profile=main",
+                                          "x264-params=cabac=0:interlaced=1:bframes=0:weightp=0"],
+                              "interlaced"),
+    "refuse_weighted.mp4": ("yuv420p", ["profile=main", "x264-params=cabac=0:bframes=0:weightp=2"],
+                            "weighted prediction"),
+    "refuse_444.mp4": ("yuv444p", ["profile=high444", "x264-params=cabac=0:bframes=0:weightp=0"],
+                       "chroma format 3"),
+    "refuse_10bit.mp4": ("yuv420p10le", ["profile=high10",
+                                         "x264-params=cabac=0:bframes=0:weightp=0"],
+                         "bit depth 10"),
+}
+H264_LIMIT = 3 << 19         # bytes of the H.264 folder
 
 
 def walk(h, w, n):
@@ -290,7 +377,252 @@ def port_digests(path):
         dec.encoder
 
 
-def main() -> None:
+def h264_writer() -> str:
+    """`tools/torch_h264_writer.c` built against the system's libavformat,
+    libavcodec and libavutil into ``build/``, named by the source's hash;
+    built in a temporary file and moved into place."""
+    digest = hashlib.sha256(H264_WRITER.read_bytes()).hexdigest()[:12]
+    out = ROOT / "build" / f"torch_h264_writer_{digest}"
+    if not out.is_file():
+        out.parent.mkdir(exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=out.parent)
+        os.close(fd)
+        subprocess.run(["cc", "-O2", "-o", tmp, str(H264_WRITER), "-lavformat", "-lavcodec",
+                        "-lavutil"], check=True)
+        os.replace(tmp, out)
+    return str(out)
+
+
+def write_h264(path, frames, options, pixfmt="yuv420p"):
+    """uint8 RGB ``frames`` as an H.264 file at ``path`` (its container by
+    extension) from libx264 with ``options`` (name=value AVOptions), the
+    frames converted to ``pixfmt`` by OpenCV (BT.601, limited range; 4:4:4
+    and 10-bit from the same conversion)."""
+    h, w = frames[0].shape[:2]
+    raw = []
+    for f in frames:
+        bgr = np.ascontiguousarray(f[..., ::-1])
+        if pixfmt == "yuv444p":
+            ycrcb = cv2.cvtColor(bgr, cv2.COLOR_BGR2YCrCb)
+            raw.append(np.ascontiguousarray(ycrcb[..., [0, 2, 1]].transpose(2, 0, 1)).tobytes())
+        else:
+            yuv = cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV_I420)
+            raw.append((yuv.astype("<u2") << 2).tobytes() if pixfmt == "yuv420p10le"
+                       else yuv.tobytes())
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "frames.raw"
+        src.write_bytes(b"".join(raw))
+        res = subprocess.run([h264_writer(), str(src), str(path), str(w), str(h),
+                              str(len(frames)), str(FPS), pixfmt, *options],
+                             capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{path}: the H.264 writer failed: {res.stderr[-2000:]}")
+
+
+class _Bits:
+    def __init__(self, data):
+        self.data, self.pos = data, 0
+
+    def u(self, n):
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | ((self.data[self.pos >> 3] >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+    def ue(self):
+        zeros = 0
+        while not self.u(1):
+            zeros += 1
+        return (1 << zeros) - 1 + self.u(zeros)
+
+
+def _unescape(nal: bytes):
+    """The RBSP of a NAL unit and, for each RBSP byte, its offset in the NAL."""
+    rbsp, where, zeros = bytearray(), [], 0
+    for i, b in enumerate(nal):
+        if zeros >= 2 and b == 3:
+            zeros = 0
+            continue
+        rbsp.append(b)
+        where.append(i)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(rbsp), where
+
+
+def without_colour_matrix(data: bytes) -> bytes:
+    """An MP4 of a Baseline stream whose ``avcC`` SPS has a VUI colour
+    description, its matrix_coefficients set to 2 (unspecified): the same
+    pictures, which OpenCV then gives as their decoded luma planes."""
+    pos = data.find(b"avcC") + 4
+    n = int.from_bytes(data[pos + 6:pos + 8], "big")
+    start = pos + 8
+    rbsp, where = _unescape(data[start + 1:start + n])
+    r = _Bits(rbsp)
+    if r.u(8) != 66:
+        raise ValueError("not a Baseline SPS")
+    r.u(16)
+    r.ue()
+    r.ue()
+    if r.ue() == 0:
+        r.ue()
+    r.ue()
+    r.u(1)
+    r.ue()
+    r.ue()
+    if not r.u(1):
+        raise ValueError("not frame_mbs_only")
+    r.u(1)
+    if r.u(1):
+        for _ in range(4):
+            r.ue()
+    if not r.u(1):
+        raise ValueError("no VUI")
+    if r.u(1) and r.u(8) == 255:          # aspect_ratio_idc 255: an extended SAR
+        r.u(32)
+    if r.u(1):
+        r.u(1)
+    if not r.u(1):
+        raise ValueError("no video signal type")
+    r.u(4)                                # video_format, video_full_range_flag
+    if not r.u(1):
+        raise ValueError("no colour description")
+    r.u(16)
+    byte, bit = divmod(r.pos, 8)
+    out = bytearray(data)
+    edited = bytearray(rbsp)
+    word = int.from_bytes(edited[byte:byte + 2].ljust(2, b"\0"), "big")
+    word = (word & ~(0xFF << (8 - bit))) | (2 << (8 - bit))
+    edited[byte:byte + 2] = word.to_bytes(2, "big")[:len(edited[byte:byte + 2])]
+    for k in range(byte, min(byte + 2, len(rbsp))):
+        out[start + 1 + where[k]] = edited[k]
+    if _unescape(bytes(out[start + 1:start + n]))[0] != bytes(edited):
+        raise ValueError("the edit would change the SPS's emulation prevention")
+    return bytes(out)
+
+
+def avcc(config: bytes):
+    """The NAL length size and the parameter sets (SPS then PPS) of an
+    ``avcC`` body."""
+    size, sets, pos, count = (config[4] & 3) + 1, [], 6, config[5] & 31
+    for kind in (7, 8):
+        for _ in range(count):
+            n = int.from_bytes(config[pos:pos + 2], "big")
+            sets.append(bytes(config[pos + 2:pos + 2 + n]))
+            pos += 2 + n
+        if kind == 7:
+            count, pos = config[pos], pos + 1
+    return size, sets
+
+
+def annexb_nals(packet: bytes):
+    """The NAL units of an Annex B packet, split at its start codes (a
+    CAVLC NAL unit never ends in a zero byte)."""
+    return [nal.rstrip(b"\0") for nal in packet.split(b"\0\0\1")[1:]]
+
+
+def sample_form(packet: bytes) -> bytes:
+    """An MP4 sample (4-byte NAL lengths) from FFmpeg's Annex B form of it:
+    the packet split at its start codes, the SPS and PPS that
+    ``h264_mp4toannexb`` puts before an IDR picture dropped (libavformat's
+    MP4 samples of libx264 hold none)."""
+    return b"".join(len(nal).to_bytes(4, "big") + nal for nal in annexb_nals(packet)
+                    if nal[0] & 31 not in (7, 8))
+
+
+def opencv_h264_digests(path, colour=False):
+    """`opencv_digests` of an H.264 file, an MP4's packets in `sample_form`;
+    with ``colour`` the luma planes of `without_colour_matrix`'s copy."""
+    cv, fps = opencv_digests(path)
+    if Path(path).suffix != ".avi":
+        packets, _ = capture(path, [(cv2.CAP_PROP_FORMAT, -1)])
+        cv["packets"] = [hashlib.sha256(sample_form(p.tobytes())).hexdigest() for p in packets]
+    if colour:
+        with tempfile.TemporaryDirectory() as tmp:
+            plain = Path(tmp) / Path(path).name
+            plain.write_bytes(without_colour_matrix(Path(path).read_bytes()))
+            luma, _ = capture(plain, [(cv2.CAP_PROP_CONVERT_RGB, 0)])
+        cv["luma"] = [sha(y if y.ndim == 2 else y[..., 0]) for y in luma]
+    return cv, fps
+
+
+def port_h264_digests(path):
+    """`port_digests` through `H264Decoder`."""
+    stream = demux(str(path))
+    if stream.config and avcc(stream.config)[0] != 4:
+        raise RuntimeError(f"{path}: NAL lengths of other than 4 bytes (`sample_form`)")
+    dec = H264Decoder(stream.config)
+    luma, rgb = hashlib.sha256(), hashlib.sha256()
+    frames = {"packets": [], "luma": [], "rgb": []}
+    for p in stream.packets():
+        frames["packets"].append(hashlib.sha256(p).hexdigest())
+        if dec.decode(p):
+            img, y = dec.frame(rgb=True, luma=True)
+            luma.update(y.tobytes())
+            rgb.update(img.tobytes())
+            frames["luma"].append(sha(y))
+            frames["rgb"].append(sha(img))
+    return {"luma_all": luma.hexdigest(), "rgb_all": rgb.hexdigest()}, frames, dec.stats, \
+        dec.encoder
+
+
+def h264_main() -> None:
+    H264_OUT.mkdir(parents=True, exist_ok=True)
+    build = cv2.getBuildInformation()
+    avcodec = re.search(r"avcodec:\s+YES \(([^)]*)\)", build)
+    table = {}
+    for name, (h, w, n, content, options) in H264_FILES.items():
+        path = H264_OUT / name
+        write_h264(path, (walk if content == "walk" else noise)(h, w, n), options)
+        colour = name.startswith("colour_")
+        cv, fps = opencv_h264_digests(path, colour)
+        port, own, stats, encoder = port_h264_digests(path)
+        same = {k: own[k] == cv[k] for k in cv}
+        if len(cv["rgb"]) != n or len(cv["packets"]) != n or not all(same.values()):
+            raise RuntimeError(f"{name}: OpenCV reads {len(cv['rgb'])} frames and "
+                               f"{len(cv['packets'])} packets of {n}; port equal: {same}")
+        table[name] = {"height": h, "width": w, "frames": n, "options": options, "fps": fps,
+                       "bytes": path.stat().st_size, "encoder": encoder, "colour": colour,
+                       "stats": stats, "opencv": cv, "port": port}
+        print(f"{name}: {n} frames {w}x{h}, {path.stat().st_size} bytes, {options}; port equal "
+              f"to OpenCV: {same}; {stats}")
+    refusals = {}
+    for name, (pixfmt, options, what) in H264_REFUSALS.items():
+        path = H264_OUT / name
+        write_h264(path, walk(48, 64, 6), options, pixfmt)
+        read = len(capture(path)[0])
+        if read != 6:
+            raise RuntimeError(f"OpenCV reads {read} frames of {path}")
+        try:
+            sum(1 for _ in VideoReader(str(path)))
+            raise RuntimeError(f"the port decodes {name}, which it should refuse")
+        except NotImplementedError as e:
+            if what not in str(e):
+                raise RuntimeError(f"{name}: {e}, want {what!r}")
+        refusals[name] = {"pixfmt": pixfmt, "options": options, "raises": what,
+                          "bytes": path.stat().st_size}
+        print(f"{name}: {path.stat().st_size} bytes, OpenCV reads 6 frames, the port raises "
+              f"NotImplementedError naming {what!r}")
+    libs = subprocess.run(["cc", "-E", "-dM", "-include", "libavcodec/version.h", "-include",
+                           "libavformat/version.h", "-x", "c", "/dev/null"],
+                          capture_output=True, text=True, check=True).stdout
+    ver = {k: re.search(rf"#define {k} (\d+)", libs).group(1) for k in
+           ("LIBAVCODEC_VERSION_MAJOR", "LIBAVCODEC_VERSION_MINOR", "LIBAVFORMAT_VERSION_MAJOR")}
+    meta = {"opencv": cv2.__version__, "libavcodec": avcodec.group(1) if avcodec else None,
+            "writer": f"libx264 through libavcodec {ver['LIBAVCODEC_VERSION_MAJOR']}."
+                      f"{ver['LIBAVCODEC_VERSION_MINOR']}, libavformat "
+                      f"{ver['LIBAVFORMAT_VERSION_MAJOR']}",
+            "renderer": "SyntheticConfig(height, width, num_planes=3, seed=0), scene 0",
+            "fps": FPS, "files": table, "refusals": refusals}
+    (H264_OUT / "fixtures.json").write_text(json.dumps(meta, indent=1) + "\n")
+    size = sum(p.stat().st_size for p in H264_OUT.iterdir())
+    if size > H264_LIMIT:
+        raise RuntimeError(f"{H264_OUT} holds {size} bytes, over {H264_LIMIT}")
+    print(f"wrote {len(table)} H.264 videos, {len(refusals)} refusals and fixtures.json to "
+          f"{H264_OUT}: {size / 1024:.0f} KiB")
+
+
+def mpeg4_main() -> None:
     OUT.mkdir(parents=True, exist_ok=True)
     build = cv2.getBuildInformation()
     avcodec = re.search(r"avcodec:\s+YES \(([^)]*)\)", build)
@@ -365,6 +697,17 @@ def main() -> None:
     if size > LIMIT:
         raise RuntimeError(f"{OUT} holds {size} bytes, over {LIMIT}")
     print(f"wrote {len(table)} videos and fixtures.json to {OUT}: {size / 1024:.0f} KiB")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", choices=("mpeg4", "h264"), default=None,
+                        help="write one codec's fixtures (default: both)")
+    only = parser.parse_args().only
+    if only in (None, "mpeg4"):
+        mpeg4_main()
+    if only in (None, "h264"):
+        h264_main()
 
 
 if __name__ == "__main__":
