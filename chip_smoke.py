@@ -323,15 +323,21 @@ result line):
    (the same launch check), its depths and poses against the same windows
    through the plain warp within 1e-5 relative L2 (phase ``apps``' bar).
    Prints the extraction's decode, encode and whole ms a frame and ms a
-   window. Then H.264: the host decoder ``csrc/h264_video.cpp`` built the
-   same way; every committed H.264 clip (``dro_sfm_torch/testdata/h264``:
-   MP4, MOV and AVI, an IDR picture every 8 frames, cropped, several
-   slices and references, every partition, constrained intra, deblocking
-   offsets and off, four VUI matrices) held to the sha256 of OpenCV's
-   packets (an MP4's as stored), luma and RGB, bar 0 levels, each refused stream raising naming its tool; decode
-   ms a frame at 640x480 and 1280x720; ``infer_video`` on
-   ``walk_640x480.mp4`` of H.264 (24 frames extracted, the windows over the
-   first 12: 10, for the script's time) at
+   window. Then H.264: the host decoder ``csrc/h264_video.cpp`` and its
+   headers built the same way; every committed H.264 clip
+   (``dro_sfm_torch/testdata/h264``: Constrained Baseline in MP4, MOV and
+   AVI, an IDR picture every 8 frames, cropped, several slices and
+   references, every partition, constrained intra, deblocking offsets and
+   off, four VUI matrices; libx264's High defaults in MP4, MOV and AVI at
+   640x480 and 1280x720, with IDR pictures every 8 frames, on a fade, with
+   temporal direct, cabac_init_idc 1 and 2, noise in CABAC slices, JVT
+   and custom scaling lists; Main and High tools under CAVLC) held to the
+   sha256 of OpenCV's packets (an MP4's as stored), luma and RGB in output
+   order (B slices reordered, the frames an MP4's edit list trims left
+   out), bar 0 levels, each refused stream raising naming its tool; decode
+   ms a frame at 640x480 and 1280x720 of both profiles; ``infer_video`` on
+   ``high_640x480.mp4`` (libx264's defaults: 23 frames extracted, the
+   windows over the first 12: 10, for the script's time) at
    `start_weights`, counts reset just before and read just after: K1 24 a
    window and nothing else, the plain warp's distance printed only; at
    `tame_weights` (the same launch check) held to the plain warp within
@@ -5454,18 +5460,21 @@ VIDEO_FIXTURES = ROOT / "dro_sfm_torch" / "testdata" / "video"
 VIDEO_CLIP = "walk_640x480.mp4"                 # 36 frames: 34 windows
 VIDEO_RATES = ("walk_640x480.mp4", "walk_1280x720.mp4")
 H264_FIXTURES = ROOT / "dro_sfm_torch" / "testdata" / "h264"
-# 24 frames; the runs take its first 12 (10 windows), for the script's time
-H264_CLIP, H264_CLIP_FRAMES, H264_RUN_FRAMES = "walk_640x480.mp4", 24, 12
+# Constrained Baseline and High (libx264's defaults) at both sizes
+H264_RATES = (*VIDEO_RATES, "high_640x480.mp4", "high_1280x720.mp4")
+# libx264's defaults: 24 packets, 23 frames shown (the MP4's edit list); the
+# runs take the first 12 (10 windows), for the script's time
+H264_CLIP, H264_CLIP_FRAMES, H264_RUN_FRAMES = "high_640x480.mp4", 23, 12
 
 
 def video_fixtures(folder, library, decoder, rates_of):
     """Every committed video of ``folder`` through the card's host build of
     ``library`` (`hostlib.SOURCES`) and its ``decoder`` class: packets (an
     MP4's H.264 samples as stored, OpenCV's NAL units with 4-byte lengths),
-    luma planes and RGB frames against the sha256 of OpenCV's
-    (``fixtures.json``), each refused stream
-    raising; the median decode ms a frame (`VideoReader`, RGB) of the
-    ``rates_of`` clips."""
+    luma planes and RGB frames in output order, those an MP4's edit list
+    trims left out, against the sha256 of OpenCV's (``fixtures.json``),
+    each refused stream raising; the median decode ms a frame
+    (`VideoReader`, RGB) of the ``rates_of`` clips."""
     import hashlib
 
     import numpy as np
@@ -5487,12 +5496,13 @@ def video_fixtures(folder, library, decoder, rates_of):
         dec = decoder(stream.config)
         got = {"packets": [hashlib.sha256(p).hexdigest() for p in stream.packets()],
                "luma": [], "rgb": []}
-        for p in stream.packets():
-            if not dec.decode(p):
-                fail(f"video: a packet of {name} gave no frame")
-            img, y = dec.frame(rgb=True, luma=True)
-            got["luma"].append(sha(y))
-            got["rgb"].append(sha(img))
+        for p in [*stream.packets(), None]:
+            for k, (img, y) in dec.output(p, rgb=True, luma=True):
+                if stream.shown[k]:
+                    got["luma"].append(sha(y))
+                    got["rgb"].append(sha(img))
+        if len(got["rgb"]) != entry["frames"]:
+            fail(f"video: {name} gave {len(got['rgb'])} frames, want {entry['frames']}")
         bad = [k for k in got if got[k] != entry["opencv"][k]]
         if bad or stream.fps != entry["fps"] or dec.stats != entry["stats"]:
             fail(f"video: {name} differs from OpenCV's {bad} (fps {stream.fps}, want "
@@ -5636,7 +5646,7 @@ def phase_video(counters, gpu):
     t_start = time.perf_counter()
     shutil.rmtree(VIDEO_BUILD, ignore_errors=True)
     rates = video_fixtures(VIDEO_FIXTURES, "mpeg4_video", Mpeg4Decoder, VIDEO_RATES)
-    rates.update(video_fixtures(H264_FIXTURES, "h264_video", H264Decoder, VIDEO_RATES))
+    rates.update(video_fixtures(H264_FIXTURES, "h264_video", H264Decoder, H264_RATES))
 
     VIDEO_BUILD.mkdir(parents=True)
     video_encode()

@@ -27,10 +27,12 @@
 // truncated or corrupt stream fails (-1): every bit read and every motion
 // vector is bounds-checked.
 //
-// Every entry point returns 0 on success (m4v_decode: 0 a frame, 1 none:
-// headers only, or a VOP not coded, which FFmpeg drops too), else -1 (a
-// broken stream) or -2 (a valid one that is not supported) with a message in
-// err. The decoder keeps the reference frame between calls.
+// Every entry point returns 0 on success (m4v_decode: the number of frames
+// the packet made ready, 1, or 0 for headers only or a VOP not coded, which
+// FFmpeg drops too; m4v_flush: 0, as no VOP waits), else -1 (a broken
+// stream) or -2 (a valid one that is not supported) with a message in err.
+// The decoder keeps the reference frame between calls; the frame a packet
+// made ready is taken (m4v_next) before the next packet.
 
 #include <algorithm>
 #include <cstdint>
@@ -182,6 +184,8 @@ struct Decoder {
   std::vector<uint8_t> cur[3], ref[3];
   int stride[3] = {0, 0, 0};
   bool have_ref = false, have_frame = false;
+  int64_t packets = 0, ready_packet = 0;  // m4v_decode calls; the ready frame's
+  bool ready = false;
   // what the decoded VOPs held (m4v_stats): I-VOPs, P-VOPs, intra, inter
   // and skipped macroblocks, intra macroblocks of P-VOPs, AC-predicted and
   // DQUANT macroblocks, TCOEF escapes of types 1, 2 and 3, predictions read
@@ -719,16 +723,51 @@ void* m4v_new() { return new Decoder(); }
 
 void m4v_free(void* h) { delete static_cast<Decoder*>(h); }
 
-// Decode one packet (headers and at most one VOP): 0 when it gave a frame,
-// 1 when it held headers only or a VOP not coded.
+// Decode one packet (headers and at most one VOP): the number of frames it
+// made ready, 1 when it gave a frame, 0 when it held headers only or a VOP
+// not coded.
 int m4v_decode(void* h, const uint8_t* data, size_t size, char* err, size_t err_len) {
+  Decoder* d = static_cast<Decoder*>(h);
   try {
-    return static_cast<Decoder*>(h)->decode(data, size);
+    int64_t packet = d->packets++;
+    d->ready = false;
+    if (d->decode(data, size) != 0) return 0;
+    d->ready = true;
+    d->ready_packet = packet;
+    return 1;
   } catch (const CodecError& e) {
     return report(e, err, err_len);
   } catch (const std::bad_alloc&) {
     return report(CodecError{"out of memory", false}, err, err_len);
   }
+}
+
+// Headers to read before the packets (an MP4's VOL): not a packet, and
+// without a VOP.
+int m4v_config(void* h, const uint8_t* data, size_t size, char* err, size_t err_len) {
+  try {
+    if (static_cast<Decoder*>(h)->decode(data, size) == 0)
+      return report(CodecError{"a decoder configuration holding a VOP", false}, err, err_len);
+    return 0;
+  } catch (const CodecError& e) {
+    return report(e, err, err_len);
+  } catch (const std::bad_alloc&) {
+    return report(CodecError{"out of memory", false}, err, err_len);
+  }
+}
+
+// The end of the stream: no VOP waits for output (no B-VOPs), so none.
+int m4v_flush(void*, char*, size_t) { return 0; }
+
+// Take the frame the last packet made ready (m4v_frame and m4v_planes read
+// it); *packet is the m4v_decode call (0, 1, ...) that gave it. Returns 1
+// when none is ready.
+int m4v_next(void* h, int64_t* packet) {
+  Decoder* d = static_cast<Decoder*>(h);
+  if (!d->ready) return 1;
+  d->ready = false;
+  *packet = d->ready_packet;
+  return 0;
 }
 
 // The VOL's size, 0 x 0 before one; the encoder's user data, if any.
@@ -747,8 +786,8 @@ int m4v_stats(void* h, int64_t* out, int n) {
   return Decoder::N_STATS;
 }
 
-// The last decoded frame: uint8 RGB [H, W, 3] and luma [H, W] (either may
-// be null); -1 before the first frame.
+// The frame taken last (the last decoded one): uint8 RGB [H, W, 3] and luma
+// [H, W] (either may be null); -1 before the first frame.
 int m4v_frame(void* h, uint8_t* rgb, uint8_t* luma, char* err, size_t err_len) {
   const Decoder* d = static_cast<Decoder*>(h);
   if (!d->have_ref) return report(CodecError{"no decoded frame", false}, err, err_len);
@@ -756,8 +795,8 @@ int m4v_frame(void* h, uint8_t* rgb, uint8_t* luma, char* err, size_t err_len) {
   return 0;
 }
 
-// The last decoded frame's planes: Y [H, W], U and V [(H + 1) / 2, (W + 1) / 2];
-// -1 before the first frame.
+// The planes of the frame taken last: Y [H, W], U and V [(H + 1) / 2,
+// (W + 1) / 2]; -1 before the first frame.
 int m4v_planes(void* h, uint8_t* y, uint8_t* u, uint8_t* v, char* err, size_t err_len) {
   const Decoder* d = static_cast<Decoder*>(h);
   if (!d->have_ref) return report(CodecError{"no decoded frame", false}, err, err_len);

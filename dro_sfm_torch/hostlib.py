@@ -3,8 +3,9 @@ decoder and encoder and the H.264 video decoder).
 
 ``csrc/image_codec.cpp``, ``csrc/mpeg4_video.cpp``, ``csrc/mpeg4_encode.cpp``
 and ``csrc/h264_video.cpp`` are plain C++ with a C interface; the two MPEG-4
-sources include ``csrc/mpeg4_tables.h``, and the video decoders share the
-RGB conversion of ``csrc/yuv_rgb.h``. Each is compiled with the host C++ compiler (``$CXX``, else
+sources include ``csrc/mpeg4_tables.h``, the H.264 decoder its CABAC engine
+``csrc/h264_cabac.h`` and tables ``csrc/h264_tables.h``, and the video
+decoders share the RGB conversion of ``csrc/yuv_rgb.h``. Each is compiled with the host C++ compiler (``$CXX``, else
 ``c++`` or ``g++``) into a shared library at first use, under
 ``build/host`` beside the package (listed in ``.gitignore``); its user
 loads it with ``ctypes`` (`dro_sfm_torch.utils.image_io`,

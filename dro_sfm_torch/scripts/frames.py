@@ -6,7 +6,7 @@ as the JAX CLIs load them (RGB, resized as ``cv2.resize(INTER_LINEAR)`` to
 the model's shape when they are not at it, float32 in [0, 1]). A video file
 (``VIDEO_EXT``) is split into such a folder by `extract_frames`, as the JAX
 CLI's ``parse_video`` splits it; the port decodes MP4, MOV and AVI of
-MPEG-4 Part 2 or H.264 Constrained Baseline video and MJPEG AVI
+MPEG-4 Part 2 or H.264 (Constrained Baseline, Main, High) video and MJPEG AVI
 (`dro_sfm_torch.utils.video_io`), and raises on the other containers of
 ``VIDEO_EXT`` (ROADMAP C).
 """

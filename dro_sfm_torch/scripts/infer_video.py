@@ -7,15 +7,16 @@ trajectory, point cloud and the annotated demo video.
 
 The port's counterpart of `scripts/infer_video.py`: a video file
 (``--input clip.mp4``: MP4, MOV or AVI of MPEG-4 Part 2 video, as OpenCV's
-``mp4v`` writes it, or of H.264 Constrained Baseline video, as phones,
-webcams and libx264 write it, or MJPEG AVI) is first split, as the JAX CLI's
+``mp4v`` writes it, or of H.264 Constrained Baseline, Main or High video
+(8-bit 4:2:0 progressive), as phones, webcams and libx264 at its defaults
+write it, or MJPEG AVI) is first split, as the JAX CLI's
 ``parse_video`` splits it, into ``<output>/input_frames/{i:06d}.jpg``: every
 ``--sample-rate``-th frame, decoded on the host
 (`dro_sfm_torch.utils.video_io.VideoReader`) and written as JPEG at quality
 95 (``cv2.imwrite``'s bytes); that folder, in name order and cut at
 ``--max-frames``, is the input. Other codecs and containers (H.265, FLV,
 MPEG, WMV), MPEG-4 tools beyond Simple Profile and H.264 tools beyond
-Constrained Baseline (CABAC, B slices: ROADMAP A22) raise
+those (interlace, 4:2:2 and 4:4:4, bit depth above 8: ROADMAP A22) raise
 `NotImplementedError`, a broken file `ValueError` (ROADMAP C). Then 3-frame windows ``i-1,
 i, i+1`` for ``i = 1 ... n-2`` over the folder of frames (PNG, JPEG, BMP), the
 poses chained with monocular scale propagation, each depth filtered

@@ -1,7 +1,7 @@
 """Video and animation files without OpenCV, FFmpeg or Pillow: MPEG-4 Part 2
 (``mp4v``) video written to MP4, MOV and AVI and read from them, H.264
-Constrained Baseline video read from them, MJPEG AVI written and read, and
-GIF89a written.
+Constrained Baseline, Main and High video read from them, MJPEG AVI written
+and read, and GIF89a written.
 
 The card's machine has no video codec the port may use, so it writes and
 reads these files itself, on the host:
@@ -30,21 +30,24 @@ reads these files itself, on the host:
   file is left.
 * `read_avi_mjpeg`: the frames (uint8 RGB) and rate of an MJPEG AVI.
 * `VideoReader`: the frames of a video file as
-  ``cv2.VideoCapture`` reads them (uint8 RGB, in decode order), as FFmpeg
+  ``cv2.VideoCapture`` reads them (uint8 RGB, in output order), as FFmpeg
   demuxes and decodes them. `demux` tells the container by its first bytes:
   `demux_mp4` reads an ISO BMFF file's first video track (its ``mp4v``
   sample entry's ``esds`` VOL or its ``avc1``/``avc3`` sample entry's
   ``avcC``, its samples from ``stsz``, ``stsc``, ``stco``/``co64``,
-  ``stts`` and the edit list), `demux_avi` the ``##dc``/``##db`` chunks of
+  ``stts``, and ``ctts`` and the edit list for the frames it shows),
+  `demux_avi` the ``##dc``/``##db`` chunks of
   an AVI's first video stream across its RIFF ``AVI `` and ``AVIX``
   segments; each packet equals FFmpeg's byte for byte (an MP4's H.264
   samples NAL unit by NAL unit: FFmpeg gives them in Annex B form).
   `Mpeg4Decoder` decodes MPEG-4 Part 2 Simple Profile
   video in the host library ``csrc/mpeg4_video.cpp``, bit-equal to FFmpeg's
   luma and to OpenCV's RGB on the streams FFmpeg's ``mpeg4`` encoder and
-  `Mpeg4Encoder` write; `H264Decoder` decodes H.264 Constrained Baseline
-  (CAVLC I and P slices, the deblocking filter) in ``csrc/h264_video.cpp``,
-  bit-equal to FFmpeg's luma and to OpenCV's RGB on libx264's streams (both
+  `Mpeg4Encoder` write; `H264Decoder` decodes H.264 Constrained Baseline,
+  Main and High, 8-bit 4:2:0 progressive (CAVLC and CABAC I, P and B
+  slices, the 8x8 transform, weighted prediction, scaling lists, output
+  reordered in POC order) in ``csrc/h264_video.cpp``, bit-equal to FFmpeg's
+  luma and to OpenCV's RGB on libx264's streams (both
   libraries built by `dro_sfm_torch.hostlib`); MJPEG AVI frames go through
   the JPEG decoder (libjpeg's upsampling, not FFmpeg's). Other codecs and
   containers, and tools beyond those profiles, raise `NotImplementedError`
@@ -64,7 +67,7 @@ import math
 import os
 import struct
 import time
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -460,12 +463,16 @@ def _other_codec(fourcc: bytes, path: str):
 class Demuxed:
     """One video stream of a file: ``codec`` ("mpeg4", "h264" or "mjpeg"),
     the decoder configuration ``config`` (the VOL of an MP4's ``esds`` or
-    the body of its ``avcC``, else empty), ``fps``, and its packets in
-    decode order as (offset, size) in the file, read by `packet`."""
+    the body of its ``avcC``, else empty), ``fps``, its packets in decode
+    order as (offset, size) in the file, read by `packet`, and ``shown``:
+    whether each packet's frame is output (an MP4's edit list trims the
+    frames whose composition time it does not cover; every packet is still
+    decoded, as a trimmed frame may be a reference)."""
 
-    def __init__(self, path, data, codec, config, spans, fps):
+    def __init__(self, path, data, codec, config, spans, fps, shown=None):
         self.path, self.data, self.codec = path, data, codec
         self.config, self.spans, self.fps = config, spans, fps
+        self.shown = [True] * len(spans) if shown is None else shown
 
     def __len__(self) -> int:
         return len(self.spans)
@@ -571,12 +578,9 @@ def _full_box_table(data, s, e, fmt, path, what):
 def demux_mp4(path: str, data) -> Demuxed:
     """The first video track of an ISO BMFF file (MP4, MOV, M4V): its
     ``mp4v`` sample entry's VOL or its ``avc1``/``avc3`` sample entry's
-    ``avcC`` and its samples from ``stsz``, ``stsc``,
-    ``stco``/``co64`` and ``stts``, with its edit list applied where FFmpeg's
-    demuxer gives every sample as it is: an empty edit shifts time only, and
-    the one edit of the media must start at media time 0 and reach past the
-    last sample's start; an edit list that trims, repeats or changes the
-    rate raises, as does a fragmented file."""
+    ``avcC``, its samples from ``stsz``, ``stsc``, ``stco``/``co64`` and
+    ``stts``, and the frames its edit list shows (`_edit_list`). A
+    fragmented file raises."""
     moov = None
     for kind, s, e in _boxes(data, 0, len(data), path):
         if kind == b"moof":
@@ -658,25 +662,66 @@ def demux_mp4(path: str, data) -> Demuxed:
         if len(times) < count:
             raise ValueError(f"{path}: stts times {len(times)} of {count} samples")
         fps = scale * count / t if t else 0.0
-        edts = _child(data, ts, te, b"edts", path)
-        elst = _child(data, *edts, b"elst", path) if edts else None
-        if elst is not None:
-            v1 = data[elst[0]] == 1
-            edits = _full_box_table(data, *elst, ">QqHH" if v1 else ">IiHH", path, "elst")
-            edits = [ed for ed in edits if ed[1] != -1]          # empty edits: a delay
-            if len(edits) > 1 or any(ed[2:] != (1, 0) for ed in edits) or \
-                    any(ed[1] != 0 for ed in edits):
-                raise NotImplementedError(
-                    f"{path}: an MP4 edit list {edits} that trims or repeats the video; "
-                    f"the port applies one edit from media time 0 only (ROADMAP C)")
-            end = edits[0][0] * scale / movie_scale if edits and movie_scale else t
-            if sum(1 for x in times[:count] if x < end) < count:
-                raise NotImplementedError(
-                    f"{path}: an MP4 edit list that ends the video before its last sample "
-                    f"(FFmpeg demuxes the samples past it and drops their frames); the port "
-                    f"applies an edit that keeps every sample only (ROADMAP C)")
-        return Demuxed(path, data, codec, config, spans, fps)
+        shown = _edit_list(data, ts, te, stbl, times, scale, movie_scale, path)
+        return Demuxed(path, data, codec, config, spans[:len(shown)], fps, shown)
     raise ValueError(f"{path}: an MP4 without a video track")
+
+
+def _edit_list(data, ts, te, stbl, times, scale, movie_scale, path):
+    """Whether each sample's frame is shown, as FFmpeg's mov demuxer applies
+    the track's edit list: with one edit from media time m lasting d (empty
+    edits only shift the timeline), a frame is output when its composition
+    time (its ``stts`` time plus its ``ctts`` offset, version 0 or 1: signed)
+    lies in [m, m + d). FFmpeg reads no sample after the first key frame
+    whose composition time plus duration reaches m + d (the second such one
+    when there is a ``ctts``: B pictures may follow), so the list ends
+    there. Several edits, a rate other than 1, and an edit that starts past
+    a later key frame (FFmpeg then skips the samples before it) raise
+    `NotImplementedError`."""
+    count = len(times)
+    offsets = [0] * count
+    ctts = _child(data, *stbl, b"ctts", path)
+    if ctts is not None:
+        k = 0
+        for n, off in _full_box_table(data, *ctts, ">Ii", path, "ctts"):
+            for _ in range(min(n, count - k)):
+                offsets[k] = off
+                k += 1
+        if k < count:
+            raise ValueError(f"{path}: ctts offsets for {k} of {count} samples")
+    edts = _child(data, ts, te, b"edts", path)
+    elst = _child(data, *edts, b"elst", path) if edts else None
+    if elst is None:
+        return [True] * count
+    v1 = data[elst[0]] == 1
+    edits = _full_box_table(data, *elst, ">QqHH" if v1 else ">IiHH", path, "elst")
+    edits = [ed for ed in edits if ed[1] != -1]          # empty edits: a delay
+    if len(edits) > 1 or any(ed[2:] != (1, 0) for ed in edits):
+        raise NotImplementedError(
+            f"{path}: an MP4 edit list {edits} that repeats the video or changes its rate; "
+            f"the port applies one edit of rate 1 only (ROADMAP C)")
+    if not edits:
+        return [True] * count
+    duration, start = edits[0][0], edits[0][1]
+    end = start + (duration * scale + movie_scale // 2) // movie_scale if duration and \
+        movie_scale else None
+    cts = [t + o for t, o in zip(times, offsets)]
+    stss = _child(data, *stbl, b"stss", path)
+    keys = sorted({n - 1 for (n,) in _full_box_table(data, *stss, ">I", path, "stss")}) \
+        if stss is not None else list(range(count))
+    if any(k > 0 and times[k] <= start for k in keys):
+        raise NotImplementedError(
+            f"{path}: an MP4 edit list that starts past a later key frame (FFmpeg does not "
+            f"read the samples before it); the port applies an edit that starts in the "
+            f"first key frame's group only (ROADMAP C)")
+    keep = count
+    if end is not None:                  # a sample's duration; the last one's is the edit's
+        durations = [b - a for a, b in zip(times, times[1:])] + [end - start]
+        past = [k for k in keys if k < count and cts[k] + durations[k] >= end]
+        wait = 1 if ctts is not None else 0
+        if len(past) > wait:
+            keep = past[wait] + 1
+    return [start <= c and (end is None or c < end) for c in cts[:keep]]
 
 
 def _movi_packets(data, start: int, end: int, ids):
@@ -777,16 +822,18 @@ def _decoder_lib(name: str, prefix: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(hostlib.build(name)))
     handle, size, err = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p
     i32p = ctypes.POINTER(ctypes.c_int)
-    fn = {k: getattr(lib, f"{prefix}_{k}") for k in ("new", "free", "decode", "info", "frame",
-                                                    "stats", "planes")}
+    fn = {k: getattr(lib, f"{prefix}_{k}") for k in ("new", "free", "decode", "flush", "next",
+                                                    "info", "frame", "stats", "planes")}
     fn["new"].argtypes, fn["new"].restype = [], handle
     fn["free"].argtypes, fn["free"].restype = [handle], None
     fn["decode"].argtypes = [handle, ctypes.c_char_p, size, err, size]
+    fn["flush"].argtypes = [handle, err, size]
+    fn["next"].argtypes = [handle, ctypes.POINTER(ctypes.c_int64)]
     fn["info"].argtypes = [handle, i32p, i32p, err, size]
     fn["frame"].argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, err, size]
     fn["stats"].argtypes = [handle, ctypes.c_void_p, ctypes.c_int]
     fn["planes"].argtypes = [handle, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, err, size]
-    for k in ("decode", "info", "frame", "stats", "planes"):
+    for k in ("decode", "flush", "next", "info", "frame", "stats", "planes"):
         fn[k].restype = ctypes.c_int
     lib.fn = fn
     return lib
@@ -794,8 +841,12 @@ def _decoder_lib(name: str, prefix: str) -> ctypes.CDLL:
 
 class _HostVideoDecoder:
     """A host video decoder (`_decoder_lib`): `decode` takes the packets in
-    decode order, each giving at most one frame, and keeps its references
-    between calls."""
+    decode order and returns how many frames each made ready for output
+    (none, one or several: a decoder that reorders holds pictures back),
+    `flush` makes ready the frames still held at the end of the stream;
+    `next` takes the next ready frame in output order, which `frame` and
+    `planes` then read. The decoder keeps its references between calls;
+    `output` does the three for one packet."""
 
     LIB = PREFIX = ""
     STATS: Tuple[str, ...] = ()
@@ -805,14 +856,44 @@ class _HostVideoDecoder:
         self.fn = self.lib.fn
         self.handle = self.fn["new"]()
 
-    def decode(self, packet: bytes) -> bool:
-        """Decode one packet; True when it held a frame."""
+    def configure(self, config: bytes) -> None:
+        """Read the stream's configuration (an MP4's VOL or ``avcC`` body),
+        which is not a packet."""
+        fn = getattr(self.lib, f"{self.PREFIX}_config")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                       ctypes.c_size_t]
+        fn.restype = ctypes.c_int
+        err = ctypes.create_string_buffer(image_io._ERR_LEN)
+        image_io._check(fn(self.handle, bytes(config), len(config), err, image_io._ERR_LEN), err,
+                        self.what)
+
+    def decode(self, packet: bytes) -> int:
+        """Decode one packet; the number of frames it made ready."""
         err = ctypes.create_string_buffer(image_io._ERR_LEN)
         code = self.fn["decode"](self.handle, bytes(packet), len(packet), err, image_io._ERR_LEN)
-        if code == 1:
-            return False
-        image_io._check(code, err, self.what)
-        return True
+        image_io._check(min(code, 0), err, self.what)
+        return code
+
+    def flush(self) -> int:
+        """The end of the stream: the number of frames it made ready."""
+        err = ctypes.create_string_buffer(image_io._ERR_LEN)
+        code = self.fn["flush"](self.handle, err, image_io._ERR_LEN)
+        image_io._check(min(code, 0), err, self.what)
+        return code
+
+    def next(self) -> int:
+        """Take the next ready frame: the index (0, 1, ...) of the `decode`
+        call whose packet holds it."""
+        packet = ctypes.c_int64()
+        if self.fn["next"](self.handle, ctypes.byref(packet)) != 0:
+            raise ValueError(f"{self.what}: no frame ready for output")
+        return packet.value
+
+    def output(self, packet: Optional[bytes] = None, rgb: bool = True, luma: bool = False):
+        """Decode ``packet`` (`flush` when it is None) and give each frame it
+        made ready, in output order, as (the index of its packet, `frame`)."""
+        for _ in range(self.decode(packet) if packet is not None else self.flush()):
+            yield self.next(), self.frame(rgb=rgb, luma=luma)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -836,8 +917,8 @@ class _HostVideoDecoder:
         return dict(zip(self.STATS, out.tolist()))
 
     def frame(self, rgb: bool = True, luma: bool = False):
-        """The last frame: uint8 RGB [H,W,3] as ``cv2.VideoCapture`` gives it
-        (flipped to RGB), its luma plane [H,W], or both as a pair."""
+        """The frame taken last: uint8 RGB [H,W,3] as ``cv2.VideoCapture``
+        gives it (flipped to RGB), its luma plane [H,W], or both as a pair."""
         h, w = self.shape
         out_rgb = np.empty((h, w, 3), np.uint8) if rgb else None
         out_y = np.empty((h, w), np.uint8) if luma else None
@@ -849,7 +930,8 @@ class _HostVideoDecoder:
         return (out_rgb, out_y) if rgb and luma else out_rgb if rgb else out_y
 
     def planes(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """The last frame's planes: Y [H,W], U and V [(H+1)/2,(W+1)/2]."""
+        """The planes of the frame taken last: Y [H,W], U and V
+        [(H+1)/2,(W+1)/2]."""
         h, w = self.shape
         out = (np.empty((h, w), np.uint8), np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8),
                np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8))
@@ -883,23 +965,33 @@ class Mpeg4Decoder(_HostVideoDecoder):
     def __init__(self, config: bytes = b"", what: str = "MPEG-4"):
         super().__init__(what)
         if config:
-            self.decode(config)
+            self.configure(config)
 
 
 class H264Decoder(_HostVideoDecoder):
-    """H.264 Constrained Baseline video (``csrc/h264_video.cpp``): each
-    packet is one access unit; ``config`` is an MP4's ``avcC`` body (the NAL
-    length size and the SPS and PPS), without which packets are Annex B.
+    """H.264 video of the Constrained Baseline, Main and High profiles, 8-bit
+    4:2:0 progressive (``csrc/h264_video.cpp``): each packet is one access
+    unit; ``config`` is an MP4's ``avcC`` body (the NAL length size and the
+    SPS and PPS), without which packets are Annex B. Frames come out in POC
+    order as FFmpeg gives them: a packet of a stream with B slices may make
+    none, one or several frames ready, and `flush` gives the last ones.
     `encoder` is the SEI user data that names the encoder ("x264 - core
     164 r3095 baee400"); `stats` counts (`STATS`) IDR pictures, pictures
-    with P slices, slices, pictures of several slices, I_NxN, I_16x16,
-    intra macroblocks of P slices, inter, skipped and P_8x8 macroblocks,
-    sub-partitions below 8x8, partitions with ref_idx above 0, macroblocks
-    with a nonzero mb_qp_delta, level codes with level_prefix 14 or more,
-    luma predictions at a fractional position, predictions read partly
-    outside the picture, luma edge segments filtered with bS 4 and with bS
-    1-3, slices with deblocking offsets and with the filter off, pictures
-    with constrained intra prediction, cropped pictures."""
+    with P slices, slices, pictures of several slices, I_NxN of 4x4,
+    I_16x16, intra macroblocks of P slices, inter, skipped and P_8x8
+    macroblocks, sub-partitions below 8x8, partitions with ref_idx above 0,
+    macroblocks with a nonzero mb_qp_delta, level codes with level_prefix
+    14 or more, luma predictions at a fractional position, predictions read
+    partly outside the picture, luma edge segments filtered with bS 4 and
+    with bS 1-3, slices with deblocking offsets and with the filter off,
+    pictures with constrained intra prediction, cropped pictures; pictures
+    with B slices, CABAC I slices and CABAC P and B slices by
+    cabac_init_idc, macroblocks of spatial and of temporal direct
+    prediction, bi-predicted partitions, macroblocks of the 8x8 transform,
+    I_NxN of intra 8x8, partitions of explicit weights and of implicit
+    weights other than 32/32, reference list modifications, MMCO
+    operations, pictures under scaling lists, frames output after a frame
+    decoded later."""
 
     LIB, PREFIX = "h264_video", "h264"
     STATS = ("idr_pictures", "p_pictures", "slices", "multi_slice_pictures", "i4x4_mbs",
@@ -907,18 +999,16 @@ class H264Decoder(_HostVideoDecoder):
              "small_partitions", "ref_idx_above_0", "qp_delta_mbs", "level_escapes",
              "fractional_predictions", "outside_predictions", "bs4_edges", "bs1_3_edges",
              "deblock_offset_slices", "deblock_off_slices", "constrained_intra_pictures",
-             "cropped_pictures")
+             "cropped_pictures", "b_pictures", "cabac_i_slices", "cabac_idc0_slices",
+             "cabac_idc1_slices", "cabac_idc2_slices", "spatial_direct_mbs",
+             "temporal_direct_mbs", "bipred_partitions", "transform_8x8_mbs", "i8x8_mbs",
+             "explicit_weighted_partitions", "implicit_weighted_partitions",
+             "list_modifications", "mmco_ops", "scaling_list_pictures", "reordered_frames")
 
     def __init__(self, config: bytes = b"", what: str = "H.264"):
         super().__init__(what)
         if config:
-            fn = self.lib.h264_config
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
-                           ctypes.c_size_t]
-            fn.restype = ctypes.c_int
-            err = ctypes.create_string_buffer(image_io._ERR_LEN)
-            image_io._check(fn(self.handle, bytes(config), len(config), err, image_io._ERR_LEN),
-                            err, what)
+            self.configure(config)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1005,13 +1095,16 @@ class Mpeg4Encoder:
 
 
 class VideoReader:
-    """The frames of a video file in decode order (`demux`): MPEG-4 Part 2
-    through `Mpeg4Decoder`, H.264 through `H264Decoder`, MJPEG AVI through
-    the JPEG decoder. Iterating gives uint8 RGB [H,W,3]; with ``luma`` the
-    luma planes [H,W] (MPEG-4 and H.264). ``fps`` is the stream's rate and
-    ``decode_ms`` holds each frame's decode milliseconds (host clock, the
-    packet's read included). A packet that fails to decode raises; none is
-    skipped."""
+    """The frames of a video file in output order, as ``cv2.VideoCapture``
+    gives them (`demux`): MPEG-4 Part 2 through `Mpeg4Decoder`, H.264
+    through `H264Decoder` (display order: B slices reordered), MJPEG AVI
+    through the JPEG decoder; the frames an MP4's edit list trims are
+    decoded and not given (`Demuxed.shown`). Iterating gives uint8 RGB
+    [H,W,3]; with ``luma`` the luma planes [H,W] (MPEG-4 and H.264). ``fps``
+    is the stream's rate, ``len`` the number of frames iteration gives and
+    ``decode_ms`` each given frame's decode milliseconds (host clock: the
+    packets decoded since the frame before it, their reads included). A
+    packet that fails to decode raises; none is skipped."""
 
     DECODERS = {"mpeg4": Mpeg4Decoder, "h264": H264Decoder}
 
@@ -1022,7 +1115,7 @@ class VideoReader:
         self.decode_ms: List[float] = []
 
     def __len__(self) -> int:
-        return len(self.stream)
+        return sum(self.stream.shown)
 
     def __iter__(self):
         return self.frames()
@@ -1039,13 +1132,21 @@ class VideoReader:
                 yield img
             return
         dec = self.DECODERS[s.codec](s.config, self.path)
+        spent = 0.0
         try:
-            for i in range(len(s)):
+            for i in range(len(s) + 1):
                 t0 = time.perf_counter()
-                if dec.decode(s.packet(i)):
+                ready = dec.decode(s.packet(i)) if i < len(s) else dec.flush()
+                for _ in range(ready):
+                    if not s.shown[dec.next()]:
+                        continue
                     img = dec.frame(rgb=not luma, luma=luma)
-                    self.decode_ms.append(1e3 * (time.perf_counter() - t0))
+                    now = time.perf_counter()
+                    self.decode_ms.append(1e3 * (spent + now - t0))
+                    spent = 0.0
                     yield img
+                    t0 = time.perf_counter()
+                spent += time.perf_counter() - t0
         finally:
             dec.close()
 

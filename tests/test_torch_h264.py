@@ -14,21 +14,28 @@ port's demuxers (`demux_mp4`, `demux_avi`) and its H.264 decoder
   levels; for the fixtures of another VUI matrix than BT.601, whose luma
   OpenCV converts, FFmpeg's luma of a copy whose SPS names no matrix
   (`without_colour_matrix`: the same pictures);
-* every RGB frame equals OpenCV's BGR flipped, bar 0 levels;
+* every RGB frame equals OpenCV's BGR flipped, bar 0 levels, the frames in
+  OpenCV's order and number: B slices come out in display order, and an
+  MP4's edit list trims the frames it does not cover (23 of the 24 of the
+  libx264-default walks at 25 fps);
 * the digests in ``fixtures.json`` equal OpenCV's, and the port's own decode
   equals the digests recorded with it.
 
-The decoder's `stats` show the fixtures reach every tool it counts; the
-``idr8`` fixtures hold three IDR pictures and the walks wrap frame_num. The
-refused streams of libx264 (CABAC, B slices, the 8x8 transform, interlace,
-weighted prediction, 4:4:4, 10-bit) raise `NotImplementedError` naming the
-tool; the Constrained Baseline tools libx264 never writes are streams
-built here bit by bit (`Stream`): each decodes in FFmpeg (OpenCV reads
-it; slice groups aside, which FFmpeg does not implement either) and raises
-in the port naming the tool, and the plain ones (one IDR; IDR, P, P, IDR,
-P; frame_num and pic_order_cnt_lsb wrapping) decode equal to FFmpeg. Broken ``avcC``, SPS, PPS and truncated access
-units raise `ValueError`; fuzzed and cut packets raise or decode, and never
-take the process down (a subprocess).
+The decoder's `stats` show the fixtures reach every tool it counts (the
+Baseline tools; CABAC of every cabac_init_idc, B slices with spatial and
+temporal direct prediction, the 8x8 transform and intra 8x8, explicit and
+implicit weights, list modification, MMCO, scaling lists, reordered
+output); the ``idr8`` fixtures hold three IDR pictures and the walks wrap
+frame_num. The refused streams of libx264 (interlace, 4:4:4, 10-bit) raise
+`NotImplementedError` naming the tool; the tools libx264 never writes are
+streams built here bit by bit (`Stream`): each decodes in FFmpeg (OpenCV
+reads it; slice groups aside, which FFmpeg does not implement either) and
+raises in the port naming the tool, and the plain ones (one IDR; IDR, P, P,
+IDR, P; frame_num and pic_order_cnt_lsb wrapping; MMCO op 1, list
+modification, scaling lists without residual) decode equal to FFmpeg.
+Broken ``avcC``, SPS, PPS and truncated access units raise `ValueError`;
+fuzzed and cut packets, CAVLC and CABAC, P and B, raise or decode, and
+never take the process down (a subprocess).
 """
 import hashlib
 import json
@@ -101,7 +108,7 @@ def test_packets_equal_ffmpeg(name):
     stream = demux(str(path))
     got = list(stream.packets())
     assert stream.codec == "h264"
-    assert len(got) == len(want) == META["files"][name]["frames"]
+    assert len(got) == len(want) == META["files"][name]["packets"]
     if not stream.config:
         assert all(g == w.tobytes() for g, w in zip(got, want))
     else:
@@ -159,12 +166,14 @@ def test_committed_digests(name, tmp_path):
     assert [hashlib.sha256(p).hexdigest() for p in stream.packets()] == \
         entry["opencv"]["packets"]
     dec = H264Decoder(stream.config)
-    luma, rgb = hashlib.sha256(), hashlib.sha256()
-    for p in stream.packets():
-        assert dec.decode(p)
-        img, y = dec.frame(rgb=True, luma=True)
-        luma.update(y.tobytes())
-        rgb.update(img.tobytes())
+    luma, rgb, shown = hashlib.sha256(), hashlib.sha256(), 0
+    for p in [*stream.packets(), None]:
+        for k, (img, y) in dec.output(p, rgb=True, luma=True):
+            if stream.shown[k]:
+                luma.update(y.tobytes())
+                rgb.update(img.tobytes())
+                shown += 1
+    assert shown == entry["frames"] == len(VideoReader(str(path)))
     assert luma.hexdigest() == entry["port"]["luma_all"]
     assert rgb.hexdigest() == entry["port"]["rgb_all"]
     assert dec.stats == entry["stats"] and dec.encoder == entry["encoder"]
@@ -189,21 +198,51 @@ def test_fixtures_cover_the_decoder():
     assert stats["walk_640x480.mp4"]["idr_pictures"] == 1 and len(stream) > 16
     assert all(e["encoder"].startswith("x264 - core") for e in META["files"].values())
     assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 3 << 19
+    # libx264's defaults: OpenCV yields the 23 frames the MP4's edit list keeps, all 24 of the AVI
+    for name in ("high_640x480.mp4", "high_640x480.mov", "high_640x480.avi"):
+        entry = META["files"][name]
+        assert entry["packets"] == 24 and entry["frames"] == (24 if name.endswith("avi") else 23)
+        assert entry["options"] == ["profile=high"]
+    high = stats["high_640x480.mp4"]
+    for k in ("b_pictures", "cabac_idc0_slices", "spatial_direct_mbs", "bipred_partitions",
+              "transform_8x8_mbs", "i8x8_mbs", "explicit_weighted_partitions",
+              "implicit_weighted_partitions", "list_modifications", "mmco_ops",
+              "reordered_frames"):
+        assert high[k] > 0, k
+    assert stats["high_temporal_direct_176x144.mp4"]["temporal_direct_mbs"] > 0
+    assert stats["high_cabac_idc1_176x144.mp4"]["cabac_idc1_slices"] > 0
+    assert stats["high_cabac_idc2_176x144.mp4"]["cabac_idc2_slices"] > 0
+    assert stats["high_noise_qp1_slices_160x128.mp4"]["multi_slice_pictures"] == 4
+    assert stats["high_fade_176x144.mp4"]["explicit_weighted_partitions"] > 100
+    assert stats["high_idr8_320x240.mp4"]["idr_pictures"] == 3
+    for name in ("high_cqm_jvt_176x144.mp4", "high_cqm_custom_176x144.mp4"):
+        assert stats[name]["scaling_list_pictures"] == META["files"][name]["packets"]
+    cavlc = {"main_bframes_cavlc_64x48.avi": "b_pictures", "main_weighted_cavlc_64x48.mp4":
+             "explicit_weighted_partitions", "high_8x8dct_cavlc_64x48.mp4": "transform_8x8_mbs"}
+    for name, k in cavlc.items():
+        assert stats[name][k] > 0 and sum(stats[name][f"cabac_{c}_slices"] for c in
+                                          ("i", "idc0", "idc1", "idc2")) == 0, name
 
 
-@pytest.mark.parametrize("name", ["odd_200x136.mp4", "idr8_640x480.mp4"])
+@pytest.mark.parametrize("name", ["odd_200x136.mp4", "idr8_640x480.mp4",
+                                  "high_idr8_320x240.mp4"])
 def test_length_prefixed_and_annexb_decode_alike(name):
     """An MP4's samples with its avcC, and FFmpeg's Annex B form of them
     without it (the SPS and PPS again before each IDR picture), decode to
-    the same frames; a decoder without the avcC cannot read the samples."""
+    the same frames, made ready by the same packets; a decoder without the
+    avcC cannot read the samples."""
     path = FIXTURES / name
     stream = demux(str(path))
     packets, _ = capture(path, [(cv2.CAP_PROP_FORMAT, -1)])
     a, b = H264Decoder(stream.config), H264Decoder()
-    for sample, annexb in zip(stream.packets(), (p.tobytes() for p in packets)):
-        assert a.decode(sample) and b.decode(annexb)
-        assert np.array_equal(a.frame(), b.frame())
-        assert all(np.array_equal(x, y) for x, y in zip(a.planes(), b.planes()))
+    for sample, annexb in [*zip(stream.packets(), (p.tobytes() for p in packets)),
+                           (None, None)]:
+        ready = a.decode(sample) if sample is not None else a.flush()
+        assert ready == (b.decode(annexb) if annexb is not None else b.flush())
+        for _ in range(ready):
+            assert a.next() == b.next()
+            assert np.array_equal(a.frame(), b.frame())
+            assert all(np.array_equal(x, y) for x, y in zip(a.planes(), b.planes()))
     with pytest.raises(ValueError, match="Annex B start code"):
         H264Decoder().decode(stream.packet(0))
 
@@ -213,6 +252,7 @@ def test_refused_encoder_streams(name):
     path = FIXTURES / name
     frames, _ = capture(path)
     assert len(frames) == 6                                   # FFmpeg reads them
+    assert META["refusals"][name]["raises"] in ("interlaced", "chroma format 3", "bit depth 10")
     with pytest.raises(NotImplementedError, match=META["refusals"][name]["raises"]):
         list(VideoReader(str(path)))
 
@@ -236,6 +276,48 @@ def test_avc3_sample_entry_reads_as_avc1(tmp_path):
     got = list(VideoReader(str(edited)))
     assert len(got) == len(want) == 24
     assert all(np.array_equal(g, w[..., ::-1]) for g, w in zip(got, want))
+
+
+def _box(data: bytes, kind: bytes) -> int:
+    """The offset of the one ``kind`` box's body (past its size and type)."""
+    at = data.find(kind)
+    assert at > 0 and data.find(kind, at + 1) < 0
+    return at + 4
+
+
+@pytest.mark.parametrize("shift,shown", [(0, 23), (1024, 22)], ids=["positive", "negative"])
+def test_ctts_version_1(tmp_path, shift, shown):
+    """A ``ctts`` of version 1 (signed offsets): the same offsets, or each
+    lowered by the first one's, so that the edit list's media time now
+    falls on the third frame in display order (a composition time is the
+    decode time plus the offset, negative or not); the port shows OpenCV's
+    frames of the file."""
+    data = bytearray((FIXTURES / "high_640x480.mp4").read_bytes())
+    pos = _box(data, b"ctts")
+    data[pos] = 1
+    count = int.from_bytes(data[pos + 4:pos + 8], "big")
+    for i in range(count):
+        at = pos + 8 + 8 * i + 4
+        off = int.from_bytes(data[at:at + 4], "big", signed=True) - shift
+        data[at:at + 4] = off.to_bytes(4, "big", signed=True)
+    edited = tmp_path / "clip.mp4"
+    edited.write_bytes(bytes(data))
+    want, _ = capture(edited)
+    reader = VideoReader(str(edited))
+    got = list(reader)
+    assert len(got) == len(want) == len(reader) == shown
+    assert all(np.array_equal(g, w[..., ::-1]) for g, w in zip(got, want))
+
+
+def test_edit_list_of_another_rate_is_refused(tmp_path):
+    data = bytearray((FIXTURES / "high_640x480.mp4").read_bytes())
+    pos = _box(data, b"elst")
+    assert data[pos] == 0 and int.from_bytes(data[pos + 4:pos + 8], "big") == 1
+    data[pos + 16:pos + 18] = (2).to_bytes(2, "big")          # media_rate_integer 2
+    edited = tmp_path / "clip.mp4"
+    edited.write_bytes(bytes(data))
+    with pytest.raises(NotImplementedError, match="rate"):
+        demux(str(edited))
 
 
 # ---------------------------------------------------------------- streams built bit by bit
@@ -275,7 +357,8 @@ class Stream:
         self.bits = []
         return b"\0\0\0\1" + bytes([header]) + bytes(out)
 
-    def sps(self, poc_type=2, width_mbs=4, crop_left=0, matrix=None, profile=66, high=()):
+    def sps(self, poc_type=2, width_mbs=4, crop_left=0, matrix=None, profile=66, high=(),
+            direct_8x8=1):
         self.u(8, profile).u(8, 0xC0 if profile == 66 else 0).u(8, 30).ue(0)
         if profile == 100:
             self.ue(1).ue(0).ue(0).u(1, "lossless" in high).u(1, "scaling" in high)
@@ -286,7 +369,7 @@ class Stream:
             self.ue(0)
         elif poc_type == 1:
             self.u(1, 1).se(0).se(0).ue(0)
-        self.ue(1).u(1, 0).ue(width_mbs - 1).ue(2).u(1, 1).u(1, 1)
+        self.ue(1).u(1, 0).ue(width_mbs - 1).ue(2).u(1, 1).u(1, direct_8x8)
         self.u(1, crop_left > 0)
         if crop_left:
             self.ue(crop_left).ue(0).ue(0).ue(0)
@@ -296,11 +379,11 @@ class Stream:
             self.u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0).u(1, 0)
         return self.nal(0x67)
 
-    def pps(self, slice_groups=0, redundant=0):
+    def pps(self, slice_groups=0, redundant=0, bipred=0):
         self.ue(0).ue(0).u(1, 0).u(1, 0).ue(slice_groups)
         if slice_groups:
             self.ue(0).ue(0)                # interleaved, run length 1 a group
-        self.ue(0).ue(0).u(1, 0).u(2, 0).se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, redundant)
+        self.ue(0).ue(0).u(1, 0).u(2, bipred).se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, redundant)
         self.redundant = bool(redundant)
         return self.nal(0x68)
 
@@ -344,11 +427,33 @@ class Stream:
         if modification:                    # abs_diff_pic_num_minus1 0, then the end
             self.ue(0).ue(0).ue(3)
         if nal & 0x60:
-            self.u(1, mmco)
-            if mmco:                        # mark the picture before unused, then the end
+            self.u(1, mmco > 0)
+            if mmco == 1:                   # mark the picture before unused, then the end
                 self.ue(1).ue(0).ue(0)
+            elif mmco:                      # the operation alone, then the end
+                self.ue(mmco).ue(0)
         self.se(0).ue(0).se(0).se(0).ue(self.MBS)
         return self.nal(nal)
+
+    def b(self, frame_num=2, weights=False, sub8x4=False):
+        """A non-reference B picture (POC after the P picture before it) of
+        B_Skip macroblocks (spatial direct), or with a first B_8x8 of four
+        B_L0_8x4 sub-macroblocks without residual."""
+        self.ue(0).ue(6).ue(0).u(4, frame_num)
+        self.u(1, 1).u(1, 0).u(1, 0).u(1, 0)     # spatial direct, no override or modification
+        if weights:                              # denominators 0, no weight sent
+            self.ue(0).ue(0).u(1, 0).u(1, 0).u(1, 0).u(1, 0)
+        self.se(0).ue(0).se(0).se(0)
+        if sub8x4:                               # B_8x8, sub_mb_type 4 x4, zero mvds, cbp 0
+            self.ue(0).ue(22)
+            for _ in range(4):
+                self.ue(4)
+            for _ in range(16):
+                self.se(0)
+            self.ue(0).ue(self.MBS - 1)
+        else:
+            self.ue(self.MBS)
+        return self.nal(0x01)
 
 
 def built(case: str):
@@ -367,10 +472,23 @@ def built(case: str):
         return [s.sps(poc_type=1) + head[1] + s.idr(), s.p(1)], "pic_order_cnt_type 1"
     if case == "long_term":
         return [b"".join(head) + s.idr(long_term=1), s.p(1)], "long-term reference"
-    if case == "mmco":
-        return [b"".join(head) + s.idr(), s.p(1), s.p(2, mmco=1)], "memory management"
-    if case == "list_modification":
-        return [b"".join(head) + s.idr(), s.p(1), s.p(2, modification=1)], "list modification"
+    if case == "mmco":                      # MMCO op 1 marks the P picture before unused
+        return [b"".join(head) + s.idr(), s.p(1), s.p(2, mmco=1), s.p(3)], None
+    if case == "list_modification":         # idc 0: the P picture before goes first
+        return [b"".join(head) + s.idr(), s.p(1), s.p(2, modification=1)], None
+    if case == "b_skip":
+        return [b"".join(head) + s.idr(), s.p(1), s.b(2)], None
+    if case == "explicit_bipred":
+        return [head[0] + s.pps(bipred=1) + s.idr(), s.p(1), s.b(2, weights=True)], \
+            "explicit weighted bi-prediction"
+    if case == "mmco5":
+        return [b"".join(head) + s.idr(), s.p(1), s.p(2, mmco=5)], \
+            "memory management control operation 5"
+    if case == "b_sub8x8":
+        return [b"".join(head) + s.idr(), s.p(1), s.b(2, sub8x4=True)], "smaller than 8x8"
+    if case == "direct_8x8_inference_0":
+        return [s.sps(direct_8x8=0) + head[1] + s.idr(), s.p(1), s.b(2)], \
+            "direct_8x8_inference_flag 0"
     if case == "frame_num_gap":
         return [b"".join(head) + s.idr(), s.p(2)], "gaps in frame_num"
     if case == "deblock_idc_2":
@@ -403,37 +521,45 @@ def built(case: str):
         return [s.sps(matrix=8) + head[1] + s.idr()], "matrix_coefficients 8"
     if case == "lossless":
         return [s.sps(profile=100, high=("lossless",)) + head[1] + s.idr()], "lossless"
-    if case == "scaling":
-        return [s.sps(profile=100, high=("scaling",)) + head[1] + s.idr()], "scaling matrices"
+    if case == "scaling":                   # the SPS's lists by fall-back rule A
+        return [s.sps(profile=100, high=("scaling",)) + head[1] + s.idr()], None
     if case == "data_partitioning":
         return [b"".join(head) + s.idr(), b"\0\0\0\1\x22\x80"], "data partitioning"
     raise KeyError(case)
 
 
-# Constrained Baseline tools that libx264 never writes, and tools outside it
-# that no fixture above reaches; FFmpeg decodes each built stream.
-BUILT = ["poc_type_1", "long_term", "mmco", "list_modification", "frame_num_gap",
-         "deblock_idc_2", "pcm", "poc_out_of_order", "size_change", "crop_left",
-         "no_idr_first", "sp_slice", "two_pictures", "aso", "fmo", "redundant", "ycgco",
-         "lossless", "scaling", "data_partitioning"]
+# Tools that libx264 never writes, and tools that no fixture above reaches;
+# FFmpeg decodes each built stream.
+BUILT = ["poc_type_1", "long_term", "frame_num_gap", "deblock_idc_2", "pcm", "poc_out_of_order",
+         "size_change", "crop_left", "no_idr_first", "sp_slice", "two_pictures", "aso", "fmo",
+         "redundant", "ycgco", "lossless", "data_partitioning", "explicit_bipred", "mmco5",
+         "b_sub8x8", "direct_8x8_inference_0"]
 FFMPEG_SKIPS = {"fmo"}                      # FFmpeg does not implement slice groups either
 
 
-@pytest.mark.parametrize("case,idrs", [("plain", 1), ("later_idr", 2), ("wrap", 2)])
+@pytest.mark.parametrize("case,idrs", [("plain", 1), ("later_idr", 2), ("wrap", 2), ("mmco", 1),
+                                       ("list_modification", 1), ("scaling", 1), ("b_skip", 1)])
 def test_a_built_stream_decodes_as_ffmpeg(tmp_path, case, idrs):
     packets, _ = built(case)
     path = tmp_path / f"{case}.h264"
     path.write_bytes(b"".join(packets))
     want, _ = capture(path)
     dec, got = H264Decoder(), []
-    for p in packets:
-        assert dec.decode(p)
+    for i, p in enumerate(packets):
+        assert dec.decode(p) == 1                 # no reordering: each picture at once
+        assert dec.next() == i
         got.append(dec.frame())
+    assert dec.flush() == 0
     assert len(got) == len(want) == len(packets)
     assert all(np.array_equal(g, w[..., ::-1]) for g, w in zip(got, want))
-    assert dec.stats["idr_pictures"] == idrs and dec.stats["p_pictures"] == len(packets) - idrs
+    assert dec.stats["idr_pictures"] == idrs
+    assert dec.stats["p_pictures"] + dec.stats["b_pictures"] == len(packets) - idrs
+    assert dec.stats["b_pictures"] == (case == "b_skip")
     assert dec.stats["skipped_mbs"] == (len(packets) - idrs) * Stream.MBS
     assert dec.stats["i16x16_mbs"] == idrs * Stream.MBS
+    assert dec.stats["mmco_ops"] == (case == "mmco")
+    assert dec.stats["list_modifications"] == (case == "list_modification")
+    assert dec.stats["scaling_list_pictures"] == (case == "scaling")
 
 
 @pytest.mark.parametrize("case", BUILT)
@@ -496,14 +622,17 @@ def test_a_failed_access_unit_leaves_the_last_frame():
     stream = demux(str(FIXTURES / "odd_200x136.mp4"))
     dec, ref = H264Decoder(stream.config), H264Decoder(stream.config)
     for p in list(stream.packets())[:3]:
-        dec.decode(p)
-        ref.decode(p)
+        for _ in dec.output(p):
+            pass
+        for _ in ref.output(p):
+            pass
     before = dec.frame()
     with pytest.raises(ValueError):
         dec.decode(stream.packet(3)[:len(stream.packet(3)) // 2])
     assert np.array_equal(dec.frame(), before)
-    for p in list(stream.packets())[3:6]:
-        assert dec.decode(p) and ref.decode(p)
+    for i, p in enumerate(list(stream.packets())[3:6]):
+        assert dec.decode(p) == ref.decode(p) == 1
+        assert dec.next() == ref.next() + 1 == 4 + i   # the failed call counts as a packet
         assert np.array_equal(dec.frame(), ref.frame())
 
 
@@ -521,9 +650,10 @@ out = {"ok": 0, "ValueError": 0, "NotImplementedError": 0, "truncated": 0}
 def run(config, seq):
     try:
         dec = H264Decoder(config)
-        for p in seq:
-            if p and dec.decode(p):
-                dec.frame(rgb=True, luma=True)
+        for p in [*seq, None]:
+            if p is None or p:
+                for _ in dec.output(p, rgb=True, luma=True):
+                    pass
         out["ok"] += 1
     except ValueError:
         out["ValueError"] += 1
@@ -535,7 +665,7 @@ for k in range(cases):
     config, seq = packets[k % len(packets)]
     seq = [bytearray(p) for p in seq]
     config = bytearray(config)
-    target = seq[int(rng.integers(0, len(seq)))] if rng.random() < 0.9 else config
+    target = seq[int(rng.integers(0, len(seq)))] if rng.random() < 0.9 or not config else config
     for _ in range(int(rng.integers(1, 5))):
         j = int(rng.integers(0, len(target)))
         target[j] ^= int(rng.integers(1, 256))
@@ -552,11 +682,15 @@ print(json.dumps(out))
 
 
 def test_fuzzed_and_truncated_packets_never_crash():
-    names = ",".join(str(FIXTURES / n) for n in ("noise_qp1_96x64.mp4", "odd_200x136.mp4",
-                                                 "colour_fcc_64x48.mp4"))
+    """CAVLC and CABAC, P and B packets, the 8x8 transform and weighted
+    prediction among them."""
+    names = ",".join(str(FIXTURES / n) for n in (
+        "noise_qp1_96x64.mp4", "odd_200x136.mp4", "colour_fcc_64x48.mp4",
+        "high_cabac_idc1_176x144.mp4", "main_bframes_cavlc_64x48.avi",
+        "high_noise_qp1_slices_160x128.mp4"))
     res = subprocess.run([sys.executable, "-c", FUZZ, names, "300", "0"], capture_output=True,
                          text=True, cwd=ROOT, timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["ok"] + out["ValueError"] + out["NotImplementedError"] == 300 + out["truncated"]
-    assert out["ValueError"] > 0 and out["truncated"] == 3 * (6 + 24 + 6)
+    assert out["ValueError"] > 0 and out["truncated"] == 3 * (6 + 24 + 6 + 12 + 6 + 4)

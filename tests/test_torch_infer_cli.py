@@ -179,6 +179,20 @@ def test_infer_video_on_an_h264_file_matches_the_jax_package(scene, reference, c
     video_file_matches_the_jax_package(scene, reference, capsys, tmp, video)
 
 
+def test_infer_video_on_an_h264_high_file_matches_the_jax_package(scene, reference, capsys):
+    """The same with libx264's defaults (High profile: CABAC, B-pyramid,
+    the 8x8 transform, weighted prediction) in an .mp4, whose frames the
+    port's decoder reorders into display order as FFmpeg does."""
+    from tools.torch_make_video_fixtures import write_h264
+    tmp = scene["tmp"] / "from_h264_high"
+    tmp.mkdir()
+    video = str(tmp / "clip.mp4")
+    frames = [cv2.imread(os.path.join(scene["frames"], f), cv2.IMREAD_COLOR)[..., ::-1]
+              for f in sorted(os.listdir(scene["frames"]))]
+    write_h264(video, frames, ["profile=high"])
+    video_file_matches_the_jax_package(scene, reference, capsys, tmp, video)
+
+
 def video_file_matches_the_jax_package(scene, reference, capsys, tmp, video):
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts", "infer_video.py")

@@ -336,11 +336,19 @@ def test_fragmented_and_edited_mp4(tmp_path):
     with pytest.raises(NotImplementedError, match="fragmented"):
         demux(str(path))
     elst = data.find(b"elst")
-    for offset, value, what in ((16, 512, "trims"), (12, 600, "before its last sample")):
-        path.write_bytes(data[:elst + offset] + value.to_bytes(4, "big")
-                         + data[elst + offset + 4:])
-        with pytest.raises(NotImplementedError, match=what):
-            demux(str(path))
+    # an edit from a later media time trims the first frame: FFmpeg decodes it and drops it
+    path.write_bytes(data[:elst + 16] + (512).to_bytes(4, "big") + data[elst + 20:])
+    want, _ = capture(path)
+    got = list(VideoReader(str(path)))
+    assert len(got) == len(want) == len(VideoReader(str(path))) == 35
+    assert all(np.array_equal(g, w[..., ::-1]) for g, w in zip(got, want))
+    # an edit that ends before a later I-VOP: FFmpeg reads no sample past that I-VOP
+    path.write_bytes(data[:elst + 12] + (600).to_bytes(4, "big") + data[elst + 16:])
+    packets, _ = capture(path, [(cv2.CAP_PROP_FORMAT, -1)])
+    want, _ = capture(path)
+    got = list(VideoReader(str(path)))
+    assert len(demux(str(path))) == len(packets) == 25 and len(got) == len(want) == 18
+    assert all(np.array_equal(g, w[..., ::-1]) for g, w in zip(got, want))
     # an edit that reaches past the last sample's start keeps every sample, as FFmpeg does
     path.write_bytes(data[:elst + 12] + (1167).to_bytes(4, "big") + data[elst + 16:])
     packets, _ = capture(path, [(cv2.CAP_PROP_FORMAT, -1)])

@@ -53,12 +53,18 @@ frames (cropping and edge macroblocks), 1280x720 (the decode rate), noise in
 level_prefix escapes), 16 reference frames with every partition,
 constrained intra prediction, the deblocking offsets -3:3 and 3:-3, the
 filter off, and the VUI colour matrices OpenCV converts by (BT.709 with
-``range=pc``, FCC, SMPTE 240M, BT.2020). The refusal fixtures
-(`H264_REFUSALS`, 64x48, 6 frames each: an MP4 of 4 frames ends its edit
-before its last sample) are tools the port's decoder refuses: CABAC, B
-slices (an AVI: the MP4 of a stream with B-frames has an edit list the
-demuxer refuses first), the 8x8 transform, interlace, weighted prediction, 4:4:4 and 10-bit;
-OpenCV reads every one. For an H.264 file ``fixtures.json`` holds the
+``range=pc``, FCC, SMPTE 240M, BT.2020); then libx264's defaults (High
+profile: CABAC, B-pyramid, the 8x8 transform, weighted P, implicit
+weighted B, list modification, MMCO) on the walk at 640x480 as ``.mp4``,
+``.mov`` and ``.avi`` and at 1280x720, all at 25 fps (the MP4's edit list
+trims the last frame in display order: OpenCV yields 23 of 24), with an
+IDR picture every 8 frames (reordering across IDR pictures), on a fade
+(explicit weights), with temporal direct prediction, cabac_init_idc 1
+and 2, noise at QP 1 in 4 CABAC slices, the JVT and custom scaling lists;
+and single Main and High tools under CAVLC (B slices, the 8x8 transform,
+weighted P) and CABAC alone. The refusal fixtures (`H264_REFUSALS`, 64x48,
+6 frames each) are tools the port's decoder refuses: interlace, 4:4:4 and
+10-bit; OpenCV reads every one. For an H.264 file ``fixtures.json`` holds the
 sha256 of each packet as the file stores it (`sample_form`: OpenCV gives
 an MP4's samples in the Annex B form of FFmpeg's ``h264_mp4toannexb``, an
 AVI's as they are), of each luma plane and of each RGB frame. OpenCV 5.0.0
@@ -118,6 +124,15 @@ LIMIT = 1 << 20              # bytes of the whole folder
 H264_OUT = ROOT / "dro_sfm_torch" / "testdata" / "h264"
 H264_WRITER = ROOT / "tools" / "torch_h264_writer.c"
 BASELINE = "profile=baseline"
+HIGH = "profile=high"
+# custom scaling lists (x264's cqm4iy, cqm4ic, cqm4py, cqm4pc, cqm8i, cqm8p; zig-zag order)
+CQM = ":".join([
+    "cqm4iy=" + ",".join(str(6 + 2 * k) for k in range(16)),
+    "cqm4ic=" + ",".join(str(10 + k) for k in range(16)),
+    "cqm4py=" + ",".join(str(12 + 3 * (k // 4)) for k in range(16)),
+    "cqm4pc=" + ",".join(str(16 + (k % 5)) for k in range(16)),
+    "cqm8i=" + ",".join(str(8 + k // 2) for k in range(64)),
+    "cqm8p=" + ",".join(str(12 + k // 3) for k in range(64))])
 # name: (height, width, frames, content, the encoder's options)
 H264_FILES = {
     "walk_640x480.mp4": (480, 640, 24, "walk", [BASELINE]),
@@ -143,22 +158,39 @@ H264_FILES = {
     "colour_smpte240m_64x48.mp4": (48, 64, 6, "walk",
                                    [BASELINE, "x264-params=colormatrix=smpte240m"]),
     "colour_bt2020_64x48.mp4": (48, 64, 6, "walk", [BASELINE, "x264-params=colormatrix=bt2020nc"]),
+    # libx264 at its defaults: High profile, CABAC, B-pyramid, the 8x8 transform, weighted P
+    # and implicit weighted B (at 25 fps the MP4's edit list trims the last frame, as FFmpeg
+    # applies it)
+    "high_640x480.mp4": (480, 640, 24, "walk", [HIGH]),
+    "high_640x480.mov": (480, 640, 24, "walk", [HIGH]),
+    "high_640x480.avi": (480, 640, 24, "walk", [HIGH]),
+    "high_1280x720.mp4": (720, 1280, 24, "walk", [HIGH]),
+    "high_idr8_320x240.mp4": (240, 320, 24, "walk", [HIGH, "x264-params=keyint=8"]),
+    "high_fade_176x144.mp4": (144, 176, 30, "fade", [HIGH]),
+    "high_temporal_direct_176x144.mp4": (144, 176, 24, "walk", [HIGH, "x264-params=direct=temporal"]),
+    "high_cabac_idc1_176x144.mp4": (144, 176, 12, "walk", [HIGH, "x264-params=cabac-idc=1"]),
+    "high_cabac_idc2_176x144.mp4": (144, 176, 12, "walk", [HIGH, "x264-params=cabac-idc=2"]),
+    "high_noise_qp1_slices_160x128.mp4": (128, 160, 4, "noise", [HIGH, "x264-params=qp=1:slices=4"]),
+    "high_cqm_jvt_176x144.mp4": (144, 176, 12, "walk", [HIGH, "x264-params=cqm=jvt"]),
+    "high_cqm_custom_176x144.mp4": (144, 176, 12, "walk", [HIGH, "x264-params=" + CQM]),
+    # single tools of Main and High with CAVLC (refused before the port decoded them)
+    "main_cabac_64x48.mp4": (48, 64, 6, "walk", ["profile=main",
+                                                  "x264-params=bframes=0:weightp=0"]),
+    "main_bframes_cavlc_64x48.avi": (48, 64, 6, "walk", [
+        "profile=main", "x264-params=cabac=0:bframes=2:b-adapt=0:weightp=0"]),
+    "high_8x8dct_cavlc_64x48.mp4": (48, 64, 6, "walk", [
+        "profile=high", "x264-params=cabac=0:8x8dct=1:bframes=0:weightp=0"]),
+    "main_weighted_cavlc_64x48.mp4": (48, 64, 6, "walk", [
+        "profile=main", "x264-params=cabac=0:bframes=0:weightp=2"]),
 }
+# the rate of the fixtures not written at FPS
+H264_RATES = {name: 25 for name in H264_FILES if name.startswith("high_640x480") or
+              name.startswith(("high_1280x720", "high_idr8"))}
 # name: (pixel format, the encoder's options, what the port's NotImplementedError names)
 H264_REFUSALS = {
-    "refuse_cabac.mp4": ("yuv420p", ["profile=main", "x264-params=bframes=0:weightp=0"],
-                         "CABAC"),
-    "refuse_bframes.avi": ("yuv420p", ["profile=main",
-                                       "x264-params=cabac=0:bframes=2:b-adapt=0:weightp=0"],
-                           "B slices"),
-    "refuse_8x8dct.mp4": ("yuv420p", ["profile=high",
-                                      "x264-params=cabac=0:8x8dct=1:bframes=0:weightp=0"],
-                          "8x8 transform"),
     "refuse_interlaced.mp4": ("yuv420p", ["profile=main",
                                           "x264-params=cabac=0:interlaced=1:bframes=0:weightp=0"],
                               "interlaced"),
-    "refuse_weighted.mp4": ("yuv420p", ["profile=main", "x264-params=cabac=0:bframes=0:weightp=2"],
-                            "weighted prediction"),
     "refuse_444.mp4": ("yuv444p", ["profile=high444", "x264-params=cabac=0:bframes=0:weightp=0"],
                        "chroma format 3"),
     "refuse_10bit.mp4": ("yuv420p10le", ["profile=high10",
@@ -185,6 +217,13 @@ def walk(h, w, n):
     for f in frames[1:]:
         f[band:] = frames[0][band:]
     return frames
+
+
+def fade(h, w, n):
+    """`walk` fading to a fifth of its brightness: libx264's weighted P
+    prediction, list modification and MMCO pay."""
+    return [(f * (1 - 0.8 * i / max(n - 1, 1))).astype(np.uint8)
+            for i, f in enumerate(walk(h, w, n))]
 
 
 def noise(h, w, n):
@@ -393,7 +432,7 @@ def h264_writer() -> str:
     return str(out)
 
 
-def write_h264(path, frames, options, pixfmt="yuv420p"):
+def write_h264(path, frames, options, pixfmt="yuv420p", fps=FPS):
     """uint8 RGB ``frames`` as an H.264 file at ``path`` (its container by
     extension) from libx264 with ``options`` (name=value AVOptions), the
     frames converted to ``pixfmt`` by OpenCV (BT.601, limited range; 4:4:4
@@ -413,7 +452,7 @@ def write_h264(path, frames, options, pixfmt="yuv420p"):
         src = Path(tmp) / "frames.raw"
         src.write_bytes(b"".join(raw))
         res = subprocess.run([h264_writer(), str(src), str(path), str(w), str(h),
-                              str(len(frames)), str(FPS), pixfmt, *options],
+                              str(len(frames)), str(fps), pixfmt, *options],
                              capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"{path}: the H.264 writer failed: {res.stderr[-2000:]}")
@@ -547,21 +586,22 @@ def opencv_h264_digests(path, colour=False):
 
 
 def port_h264_digests(path):
-    """`port_digests` through `H264Decoder`."""
+    """`port_digests` through `H264Decoder`: the frames in output order,
+    those the MP4's edit list trims left out (`Demuxed.shown`)."""
     stream = demux(str(path))
     if stream.config and avcc(stream.config)[0] != 4:
         raise RuntimeError(f"{path}: NAL lengths of other than 4 bytes (`sample_form`)")
     dec = H264Decoder(stream.config)
     luma, rgb = hashlib.sha256(), hashlib.sha256()
-    frames = {"packets": [], "luma": [], "rgb": []}
-    for p in stream.packets():
-        frames["packets"].append(hashlib.sha256(p).hexdigest())
-        if dec.decode(p):
-            img, y = dec.frame(rgb=True, luma=True)
-            luma.update(y.tobytes())
-            rgb.update(img.tobytes())
-            frames["luma"].append(sha(y))
-            frames["rgb"].append(sha(img))
+    frames = {"packets": [hashlib.sha256(p).hexdigest() for p in stream.packets()],
+              "luma": [], "rgb": []}
+    for p in [*stream.packets(), None]:
+        for k, (img, y) in dec.output(p, rgb=True, luma=True):
+            if stream.shown[k]:
+                luma.update(y.tobytes())
+                rgb.update(img.tobytes())
+                frames["luma"].append(sha(y))
+                frames["rgb"].append(sha(img))
     return {"luma_all": luma.hexdigest(), "rgb_all": rgb.hexdigest()}, frames, dec.stats, \
         dec.encoder
 
@@ -571,21 +611,24 @@ def h264_main() -> None:
     build = cv2.getBuildInformation()
     avcodec = re.search(r"avcodec:\s+YES \(([^)]*)\)", build)
     table = {}
+    render = {"walk": walk, "noise": noise, "fade": fade}
     for name, (h, w, n, content, options) in H264_FILES.items():
         path = H264_OUT / name
-        write_h264(path, (walk if content == "walk" else noise)(h, w, n), options)
+        write_h264(path, render[content](h, w, n), options, fps=H264_RATES.get(name, FPS))
         colour = name.startswith("colour_")
         cv, fps = opencv_h264_digests(path, colour)
         port, own, stats, encoder = port_h264_digests(path)
         same = {k: own[k] == cv[k] for k in cv}
-        if len(cv["rgb"]) != n or len(cv["packets"]) != n or not all(same.values()):
-            raise RuntimeError(f"{name}: OpenCV reads {len(cv['rgb'])} frames and "
+        frames = len(cv["rgb"])
+        if len(cv["packets"]) != n or not 0 < frames <= n or not all(same.values()):
+            raise RuntimeError(f"{name}: OpenCV reads {frames} frames and "
                                f"{len(cv['packets'])} packets of {n}; port equal: {same}")
-        table[name] = {"height": h, "width": w, "frames": n, "options": options, "fps": fps,
-                       "bytes": path.stat().st_size, "encoder": encoder, "colour": colour,
-                       "stats": stats, "opencv": cv, "port": port}
-        print(f"{name}: {n} frames {w}x{h}, {path.stat().st_size} bytes, {options}; port equal "
-              f"to OpenCV: {same}; {stats}")
+        table[name] = {"height": h, "width": w, "packets": n, "frames": frames,
+                       "options": options, "fps": fps, "bytes": path.stat().st_size,
+                       "encoder": encoder, "colour": colour, "stats": stats, "opencv": cv,
+                       "port": port}
+        print(f"{name}: {n} packets, {frames} frames {w}x{h}, {path.stat().st_size} bytes, "
+              f"{options}; port equal to OpenCV: {same}; {stats}")
     refusals = {}
     for name, (pixfmt, options, what) in H264_REFUSALS.items():
         path = H264_OUT / name
