@@ -467,12 +467,16 @@ class Demuxed:
     order as (offset, size) in the file, read by `packet`, and ``shown``:
     whether each packet's frame is output (an MP4's edit list trims the
     frames whose composition time it does not cover; every packet is still
-    decoded, as a trimmed frame may be a reference)."""
+    decoded, as a trimmed frame may be a reference), and ``tag``, the
+    fourcc the container gives the codec (an AVI's biCompression, an MP4's
+    sample entry), which FFmpeg's MPEG-4 decoder reads as a hint of the
+    encoder."""
 
-    def __init__(self, path, data, codec, config, spans, fps, shown=None):
+    def __init__(self, path, data, codec, config, spans, fps, shown=None, tag=b""):
         self.path, self.data, self.codec = path, data, codec
         self.config, self.spans, self.fps = config, spans, fps
         self.shown = [True] * len(spans) if shown is None else shown
+        self.tag = bytes(tag)
 
     def __len__(self) -> int:
         return len(self.spans)
@@ -663,7 +667,7 @@ def demux_mp4(path: str, data) -> Demuxed:
             raise ValueError(f"{path}: stts times {len(times)} of {count} samples")
         fps = scale * count / t if t else 0.0
         shown = _edit_list(data, ts, te, stbl, times, scale, movie_scale, path)
-        return Demuxed(path, data, codec, config, spans[:len(shown)], fps, shown)
+        return Demuxed(path, data, codec, config, spans[:len(shown)], fps, shown, fourcc)
     raise ValueError(f"{path}: an MP4 without a video track")
 
 
@@ -741,7 +745,7 @@ def demux_avi(path: str, data) -> Demuxed:
     (`MPEG4_FOURCCS`), H.264 in Annex B (`H264_FOURCCS`) or MJPEG."""
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{path}: not an AVI file")
-    stream, codec, fps, spans, index = None, None, None, [], 0
+    stream, codec, fps, spans, index, tag = None, None, None, [], 0, b""
     pos = 0
     while pos + 12 <= len(data):
         size = struct.unpack_from("<I", data, pos + 4)[0]
@@ -778,7 +782,7 @@ def demux_avi(path: str, data) -> Demuxed:
                                                    path)
                             scale, rate = struct.unpack_from("<2I", data, strh + 20)
                             fps = rate / scale if scale else 0.0
-                            stream = index
+                            stream, tag = index, comp
                     index += 1
             elif kind == b"movi" and stream is not None:
                 ids = (b"%02ddc" % stream, b"%02ddb" % stream)
@@ -786,7 +790,7 @@ def demux_avi(path: str, data) -> Demuxed:
         pos = pos + 8 + size + (size & 1)
     if stream is None:
         raise ValueError(f"{path}: an AVI without a video stream header")
-    return Demuxed(path, data, codec, b"", spans, fps)
+    return Demuxed(path, data, codec, b"", spans, fps, tag=tag)
 
 
 def demux(path: str) -> Demuxed:
@@ -855,6 +859,11 @@ class _HostVideoDecoder:
         self.lib, self.what = _decoder_lib(self.LIB, self.PREFIX), what
         self.fn = self.lib.fn
         self.handle = self.fn["new"]()
+
+    @classmethod
+    def for_stream(cls, stream: "Demuxed") -> "_HostVideoDecoder":
+        """A decoder of the demuxed ``stream``, its configuration read."""
+        return cls(stream.config, stream.path)
 
     def configure(self, config: bytes) -> None:
         """Read the stream's configuration (an MP4's VOL or ``avcC`` body),
@@ -950,22 +959,43 @@ class _HostVideoDecoder:
 
 
 class Mpeg4Decoder(_HostVideoDecoder):
-    """MPEG-4 Part 2 video (``csrc/mpeg4_video.cpp``); ``config`` holds
-    headers to read first (an MP4's VOL). `encoder` is the user data that
-    names the encoder ("Lavc62.28.101"); `stats` counts VOPs and
+    """MPEG-4 Part 2 video, Simple and Advanced Simple Profile
+    (``csrc/mpeg4_video.cpp``); ``config`` holds headers to read first (an
+    MP4's VOL), ``tag`` the container's fourcc (`Demuxed.tag`). A stream
+    with B-VOPs gives its frames in display order, one packet behind, and
+    `flush` the last. `encoder` is the user data that names the encoder
+    ("Lavc62.28.101", "XviD0069"); `stats` (`STATS`) counts I- and P-VOPs,
     macroblocks by type, TCOEF escapes by type, predictions read partly
     outside the VOP (unrestricted vectors), half-pel predictions, VOPs with
-    rounding_type 1, AC predictions rescaled to another QP."""
+    rounding_type 1, AC predictions rescaled to another QP; B-VOPs, B
+    macroblocks by mode (direct, interpolated, backward, forward, skipped
+    with their co-located one), DBQUANT macroblocks, four-vector
+    macroblocks, quarter-sample predictions, VOPs under MPEG quantisation,
+    video packets after a VOP's first, data-partitioned VOPs, VOPs decoded
+    from the rest of a packed packet, VOPs not coded, VOPs through the XviD
+    IDCT; GMC S-VOPs, macroblocks predicted by the global motion."""
 
     LIB, PREFIX = "mpeg4_video", "m4v"
     STATS = ("i_vops", "p_vops", "intra_mbs", "inter_mbs", "skipped_mbs", "p_intra_mbs",
              "ac_pred_mbs", "dquant_mbs", "escape1", "escape2", "escape3",
-             "outside_predictions", "half_pel_predictions", "rounding_vops", "ac_rescales")
+             "outside_predictions", "half_pel_predictions", "rounding_vops", "ac_rescales",
+             "b_vops", "b_direct_mbs", "b_interpolated_mbs", "b_backward_mbs", "b_forward_mbs",
+             "b_skipped_mbs", "dbquant_mbs", "four_mv_mbs", "quarter_sample_predictions",
+             "mpeg_quant_vops", "video_packets", "partitioned_vops", "packed_vops",
+             "not_coded_vops", "xvid_idct_vops", "s_vops", "gmc_mbs")
 
-    def __init__(self, config: bytes = b"", what: str = "MPEG-4"):
+    def __init__(self, config: bytes = b"", what: str = "MPEG-4", tag: bytes = b""):
         super().__init__(what)
+        if len(tag) == 4:
+            fn = self.lib.m4v_tag
+            fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_char_p], None
+            fn(self.handle, bytes(tag).upper())
         if config:
             self.configure(config)
+
+    @classmethod
+    def for_stream(cls, stream: "Demuxed") -> "Mpeg4Decoder":
+        return cls(stream.config, stream.path, stream.tag)
 
 
 class H264Decoder(_HostVideoDecoder):
@@ -1131,7 +1161,7 @@ class VideoReader:
                 self.decode_ms.append(1e3 * (time.perf_counter() - t0))
                 yield img
             return
-        dec = self.DECODERS[s.codec](s.config, self.path)
+        dec = self.DECODERS[s.codec].for_stream(s)
         spent = 0.0
         try:
             for i in range(len(s) + 1):

@@ -166,16 +166,16 @@ def test_infer_video_on_a_video_file_matches_the_jax_package(scene, reference, c
 
 def test_infer_video_on_an_h264_file_matches_the_jax_package(scene, reference, capsys):
     """The same with the scene's frames as an H.264 Constrained Baseline
-    .mp4 from libx264 (`tools/torch_make_video_fixtures.py:write_h264`),
+    .mp4 from libx264 (`tools/torch_make_video_fixtures.py:write_libav`),
     which FFmpeg decodes for the JAX CLI and the port's host decoder for
     its own."""
-    from tools.torch_make_video_fixtures import write_h264
+    from tools.torch_make_video_fixtures import write_libav
     tmp = scene["tmp"] / "from_h264"
     tmp.mkdir()
     video = str(tmp / "clip.mp4")
     frames = [cv2.imread(os.path.join(scene["frames"], f), cv2.IMREAD_COLOR)[..., ::-1]
               for f in sorted(os.listdir(scene["frames"]))]
-    write_h264(video, frames, ["profile=baseline", "x264-params=ref=2:partitions=all"])
+    write_libav(video, frames, ["profile=baseline", "x264-params=ref=2:partitions=all"])
     video_file_matches_the_jax_package(scene, reference, capsys, tmp, video)
 
 
@@ -183,13 +183,30 @@ def test_infer_video_on_an_h264_high_file_matches_the_jax_package(scene, referen
     """The same with libx264's defaults (High profile: CABAC, B-pyramid,
     the 8x8 transform, weighted prediction) in an .mp4, whose frames the
     port's decoder reorders into display order as FFmpeg does."""
-    from tools.torch_make_video_fixtures import write_h264
+    from tools.torch_make_video_fixtures import write_libav
     tmp = scene["tmp"] / "from_h264_high"
     tmp.mkdir()
     video = str(tmp / "clip.mp4")
     frames = [cv2.imread(os.path.join(scene["frames"], f), cv2.IMREAD_COLOR)[..., ::-1]
               for f in sorted(os.listdir(scene["frames"]))]
-    write_h264(video, frames, ["profile=high"])
+    write_libav(video, frames, ["profile=high"])
+    video_file_matches_the_jax_package(scene, reference, capsys, tmp, video)
+
+
+def test_infer_video_on_an_xvid_avi_matches_the_jax_package(scene, reference, capsys):
+    """The same with the scene's frames as an XviD .avi from libxvid with
+    B-frames and four vectors (packed B-frames, XviD's IDCT), which FFmpeg
+    decodes for the JAX CLI and the port's MPEG-4 decoder for its own. The
+    libxvid wrapper does not flush XviD's last B-frames: two more copies of
+    the last frame make the file hold the scene's five."""
+    from tools.torch_make_video_fixtures import write_libav
+    tmp = scene["tmp"] / "from_xvid"
+    tmp.mkdir()
+    video = str(tmp / "clip.avi")
+    frames = [cv2.imread(os.path.join(scene["frames"], f), cv2.IMREAD_COLOR)[..., ::-1]
+              for f in sorted(os.listdir(scene["frames"]))]
+    write_libav(video, frames + frames[-1:] * 2,
+                ["encoder=libxvid", "tag=XVID", "bf=2", "flags=+mv4"])
     video_file_matches_the_jax_package(scene, reference, capsys, tmp, video)
 
 

@@ -16,15 +16,24 @@ The committed fixtures (``dro_sfm_torch/testdata/video``, written by
 The fixtures cover P-VOPs with motion vectors out of the frame, skipped
 macroblocks, a size that is no multiple of 16, all three TCOEF escapes, AC
 prediction with the alternate scans, DQUANT and AC predictions rescaled to
-another QP (each counted by the decoder's `stats` and asserted here). What
-the port refuses raises `NotImplementedError` naming it: streams of FFmpeg's
-own encoder for MPEG quantisation, B-VOPs, quarter sample, interlace, data
-partitioning, resync markers and four motion vectors (committed), bit edits
-of a fixture's VOL, VO or VOP header for the other tools and an ``av01``
-sample entry (H.264's ``avc1`` is decoded: `tests/test_torch_h264.py`), and the first bytes of other containers. Truncated packets
-and 200 seeded random byte flips raise `ValueError` (or, where a flip turns
-a header into a refused tool, `NotImplementedError`) or decode, and never
-take the process down: they run in a subprocess.
+another QP; and Advanced Simple Profile as FFmpeg's encoder and XviD write
+it: B-VOPs (direct, interpolated, backward and forward macroblocks, DBQUANT,
+those skipped with their co-located one), packed in AVI and reordered by an
+MP4's ``ctts`` and edit list, four vectors, quarter sample, MPEG
+quantisation with the default and custom matrices, video packets, data
+partitioning, GMC S-VOPs and XviD's IDCT (each counted by the decoder's
+`stats` and asserted here). What the port refuses raises
+`NotImplementedError` naming it: interlace (a stream of FFmpeg's encoder),
+XviD and DivX builds for which FFmpeg turns on bug workarounds (copies of
+XviD clips with their user data edited, committed), bit edits of a
+fixture's VOL, VO, VOP header or user data for the other tools (RVLC, GMC
+of another number of warping points, static sprites, a fourcc that names
+XviD without its user data) and an ``av01`` sample entry (H.264's ``avc1``
+is decoded: `tests/test_torch_h264.py`), and the first bytes of other
+containers. Truncated packets and 200 seeded random byte flips raise
+`ValueError` (or, where a flip turns a header into a refused tool,
+`NotImplementedError`) or decode, and never take the process down: they run
+in a subprocess.
 """
 import hashlib
 import json
@@ -71,7 +80,7 @@ def test_packets_equal_ffmpeg(name):
     want, fps = capture(path, [(cv2.CAP_PROP_FORMAT, -1)])
     stream = demux(str(path))
     got = list(stream.packets())
-    assert len(got) == len(want) == META["files"][name]["frames"]
+    assert len(got) == len(want) == META["files"][name]["packets"]
     assert all(g == w.tobytes() for g, w in zip(got, want))
     assert stream.fps == fps == META["files"][name]["fps"]
 
@@ -112,13 +121,16 @@ def test_committed_digests(name):
     assert [sha(y if y.ndim == 2 else y[..., 0]) for y in luma] == entry["opencv"]["luma"]
     assert [sha(f[..., ::-1]) for f in bgr] == entry["opencv"]["rgb"]
     stream = demux(str(path))
-    dec = Mpeg4Decoder(stream.config)
+    dec = Mpeg4Decoder.for_stream(stream)
     luma, rgb = hashlib.sha256(), hashlib.sha256()
-    for p in stream.packets():
-        assert dec.decode(p)
-        img, y = dec.frame(rgb=True, luma=True)
-        luma.update(y.tobytes())
-        rgb.update(img.tobytes())
+    frames = 0
+    for p in [*stream.packets(), None]:
+        for k, (img, y) in dec.output(p, rgb=True, luma=True):
+            if stream.shown[k]:
+                frames += 1
+                luma.update(y.tobytes())
+                rgb.update(img.tobytes())
+    assert frames == entry["frames"]
     assert luma.hexdigest() == entry["port"]["luma_all"]
     assert rgb.hexdigest() == entry["port"]["rgb_all"]
     assert dec.stats == entry["stats"] and dec.encoder == entry["encoder"]
@@ -127,14 +139,23 @@ def test_committed_digests(name):
 def test_fixtures_cover_the_decoder():
     stats = {n: e["stats"] for n, e in META["files"].items()}
     total = {k: sum(s[k] for s in stats.values()) for k in Mpeg4Decoder.STATS}
-    for k in ("i_vops", "p_vops", "skipped_mbs", "p_intra_mbs", "ac_pred_mbs", "dquant_mbs",
-              "escape1", "escape2", "escape3", "outside_predictions", "half_pel_predictions",
-              "rounding_vops", "ac_rescales"):
-        assert total[k] > 0, k
+    assert set(Mpeg4Decoder.STATS) == set(total)
+    for k in Mpeg4Decoder.STATS:
+        if k != "not_coded_vops":      # XviD's N-VOPs are replaced by a packed B-VOP
+            assert total[k] > 0, k
     assert stats["noise_160x128.avi"]["escape3"] > 0
-    assert all(e["encoder"].startswith("Lavc") for e in META["files"].values())
+    encoders = {e["encoder"][:4] for e in META["files"].values()}
+    assert encoders == {"Lavc", "XviD"}
+    for name, e in META["files"].items():
+        # FFmpeg runs its XviD IDCT exactly where the user data names XviD
+        vops = sum(e["stats"][k] for k in ("i_vops", "p_vops", "b_vops", "s_vops"))
+        assert e["stats"]["xvid_idct_vops"] == (vops if e["encoder"].startswith("XviD") else 0)
+    assert stats["xvid_bf2_176x144.avi"]["packed_vops"] > 0
+    assert stats["xvid_bf2_176x144.mp4"]["packed_vops"] == 0
+    assert stats["xvid_640x480.avi"]["four_mv_mbs"] > 0
+    assert stats["asp_176x144.avi"]["dbquant_mbs"] > 0
     size = sum(p.stat().st_size for p in FIXTURES.iterdir())
-    assert size < 1 << 20
+    assert size < 3 << 19
 
 
 def test_decode_order_and_reference_kept():
@@ -158,7 +179,7 @@ def test_decode_order_and_reference_kept():
 def test_refused_encoder_streams(name):
     path = FIXTURES / name
     frames, _ = capture(path)
-    assert len(frames) == 4                                   # FFmpeg reads them
+    assert len(frames) == META["refusals"][name]["frames"] > 0   # FFmpeg reads them
     with pytest.raises(NotImplementedError, match=META["refusals"][name]["raises"]):
         list(VideoReader(str(path)))
 
@@ -176,12 +197,16 @@ class Bits:
 
 
 def vol_fields(data):
-    """The bit offset in ``data`` of each flag of its first VOL header."""
+    """The bit offset in ``data`` of each flag of its first VOL header (a
+    VOL without quantisation matrices; verid 2's fields and GMC's where the
+    VOL has them)."""
     start = data.find(b"\x00\x00\x01\x20")
     r = Bits(data, 8 * (start + 4))
     r.read(9)
+    verid = 1
     if r.read(1):
-        r.read(7)
+        verid = r.read(4)
+        r.read(3)
     if r.read(4) == 15:
         r.read(16)
     fields = {"vol_control_parameters": r.pos}
@@ -197,11 +222,30 @@ def vol_fields(data):
     if r.read(1):
         r.read(max(1, int(np.ceil(np.log2(res)))))
     r.read(29)
-    for name in ("interlaced", "obmc_disable", "sprite_enable", "not_8_bit", "quant_type",
-                 "complexity_estimation_disable", "resync_marker_disable", "data_partitioned",
-                 "scalability"):
+    names = ["interlaced", "obmc_disable", "sprite_enable"]
+    for name in names:
+        fields[name] = r.pos
+        sprite = r.read(1 if verid == 1 or name != "sprite_enable" else 2)
+    if sprite == 2:
+        fields["sprite_warping_points"] = r.pos
+        r.read(6)
+        fields["sprite_warping_accuracy"] = r.pos
+        r.read(2)
+        fields["sprite_brightness_change"] = r.pos
+        r.read(1)
+    names = ["not_8_bit", "quant_type", *(["quarter_sample"] if verid != 1 else []),
+             "complexity_estimation_disable", "resync_marker_disable", "data_partitioned"]
+    for name in names:
         fields[name] = r.pos
         r.read(1)
+    if Bits(data, fields["data_partitioned"]).read(1):
+        fields["reversible_vlc"] = r.pos
+        r.read(1)
+    if verid != 1:
+        fields["newpred_enable"] = r.pos
+        fields["reduced_resolution_vop_enable"] = r.pos + 1
+        r.read(2)
+    fields["scalability"] = r.pos
     return fields
 
 
@@ -230,36 +274,57 @@ VOL_EDITS = [
     ("walk_640x480.mp4", "shape", 2, 3, "non-rectangular"),
     ("walk_640x480.avi", "not_8_bit", 1, 1, "not_8_bit"),
     ("walk_640x480.mp4", "not_8_bit", 1, 1, "not_8_bit"),
-    ("walk_640x480.avi", "quant_type", 1, 1, "quant_type 1"),
+    # quant_type 1 is decoded: "100" reads as MPEG quantisation with the default matrices,
+    # and the next flag, complexity_estimation_disable, lands on data_partitioned (0)
+    ("walk_640x480.avi", "quant_type", 3, 0b100, "complexity estimation"),
     ("walk_640x480.avi", "interlaced", 1, 1, "interlaced"),
     ("walk_640x480.mov", "interlaced", 1, 1, "interlaced"),
-    ("walk_640x480.avi", "sprite_enable", 1, 1, "S-VOPs"),
-    ("walk_640x480.avi", "data_partitioned", 1, 1, "data partitioning"),
+    ("walk_640x480.avi", "sprite_enable", 1, 1, "static sprites"),
+    # data partitioning is decoded: "11" reads as it with reversible_vlc 1
+    ("walk_640x480.avi", "data_partitioned", 2, 0b11, "RVLC"),
     ("walk_640x480.avi", "obmc_disable", 1, 0, "OBMC"),
     ("walk_640x480.avi", "complexity_estimation_disable", 1, 0, "complexity estimation"),
     ("walk_640x480.avi", "scalability", 1, 1, "scalability"),
     ("walk_640x480.avi", "chroma_format", 2, 2, "chroma format"),
+    ("partitioned_64x48.avi", "reversible_vlc", 1, 1, "RVLC"),
+    ("xvid_gmc_176x144.avi", "sprite_warping_points", 6, 2, "GMC with 2 warping points"),
+    ("xvid_gmc_176x144.avi", "sprite_warping_points", 6, 0, "GMC with 0 warping points"),
+    ("xvid_gmc_176x144.avi", "sprite_brightness_change", 1, 1, "brightness_change"),
+    ("xvid_gmc_176x144.avi", "sprite_enable", 2, 1, "static sprites"),
+    ("xvid_qpel_176x144.avi", "newpred_enable", 1, 1, "newpred"),
+    ("xvid_qpel_176x144.avi", "reduced_resolution_vop_enable", 1, 1, "reduced resolution"),
 ]
 
 
 @pytest.mark.parametrize("name,field,n,value,what", VOL_EDITS,
-                         ids=[f"{e[0]}-{e[1]}" for e in VOL_EDITS])
+                         ids=[f"{e[0]}-{e[1]}" + (f"-{e[3]}" if "points" in e[1] else "")
+                              for e in VOL_EDITS])
 def test_vol_edits_are_refused(tmp_path, name, field, n, value, what):
     data = (FIXTURES / name).read_bytes()
     edited = tmp_path / name
     edited.write_bytes(set_bits(data, vol_fields(data)[field], n, value))
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(NotImplementedError, match=what) as e:
         list(VideoReader(str(edited)))
+    assert "quant_type" not in str(e.value) and "data partitioning (" not in str(e.value)
 
 
 @pytest.mark.parametrize("kind,what", [(2, "B-VOPs"), (3, "S-VOPs")])
 def test_vop_type_edits_are_refused(tmp_path, kind, what):
+    """The first P-VOP made an S-VOP in a VOL without GMC: refused. Made a
+    B-VOP: decoded as FFmpeg decodes it, which skips a B-VOP without a
+    forward reference (35 frames, equal to OpenCV's)."""
     data = (FIXTURES / "walk_640x480.mp4").read_bytes()
     pos = data.find(b"\x00\x00\x01\xb6")
     pos = data.find(b"\x00\x00\x01\xb6", pos + 4)          # the first P-VOP
     assert data[pos + 4] >> 6 == 1
     edited = tmp_path / "clip.mp4"
     edited.write_bytes(set_bits(data, 8 * (pos + 4), 2, kind))
+    if kind == 2:
+        want, _ = capture(edited)
+        got = list(VideoReader(str(edited)))
+        assert len(got) == len(want) == 35
+        assert all(np.array_equal(g, w[..., ::-1]) for g, w in zip(got, want))
+        return
     with pytest.raises(NotImplementedError, match=what):
         list(VideoReader(str(edited)))
 
@@ -383,7 +448,8 @@ def test_mjpeg_avi_reads_through_the_jpeg_decoder(tmp_path):
     assert [p.tobytes() for p in packets] == list(demux(str(path)).packets())
 
 
-@pytest.mark.parametrize("name", ["walk_640x480.mp4", "walk_640x480.avi"])
+@pytest.mark.parametrize("name", ["walk_640x480.mp4", "walk_640x480.avi", "xvid_bf2_176x144.mp4",
+                                  "xvid_bf2_176x144.avi"])
 def test_fuzzed_containers_raise_or_read(tmp_path, name):
     """200 seeded byte flips in the container's headers (an MP4's moov, an
     AVI's hdrl and index): the port reads the file or raises ValueError or
@@ -402,9 +468,10 @@ def test_fuzzed_containers_raise_or_read(tmp_path, name):
         path.write_bytes(edited)
         try:
             stream = demux(str(path))
-            dec = Mpeg4Decoder(stream.config)
+            dec = Mpeg4Decoder.for_stream(stream)
             for p in stream.packets():
                 dec.decode(p)
+            dec.flush()
             outcomes.add("read")
         except (ValueError, NotImplementedError) as e:
             outcomes.add(type(e).__name__)
@@ -428,6 +495,8 @@ def run(seq):
         for p in seq:
             if p and dec.decode(p):
                 dec.frame(rgb=True, luma=True)
+        if dec.flush():
+            dec.frame(rgb=True, luma=True)
         out["ok"] += 1
     except ValueError:
         out["ValueError"] += 1
@@ -455,12 +524,99 @@ print(json.dumps(out))
 """
 
 
+FUZZED = ("noise_160x128.avi", "aic_176x144.avi", "odd_200x136.mp4", "asp_176x144.avi",
+          "xvid_bf2_176x144.avi", "xvid_bf2_176x144.mp4", "xvid_gmc_176x144.avi",
+          "xvid_qpel_176x144.avi", "matrices_176x144.avi")
+
+
 def test_fuzzed_and_truncated_packets_never_crash():
-    names = ",".join(str(FIXTURES / n) for n in ("noise_160x128.avi", "aic_176x144.avi",
-                                                 "odd_200x136.mp4"))
-    res = subprocess.run([sys.executable, "-c", FUZZ, names, "200", "0"], capture_output=True,
+    names = ",".join(str(FIXTURES / n) for n in FUZZED)
+    res = subprocess.run([sys.executable, "-c", FUZZ, names, "300", "0"], capture_output=True,
                          text=True, cwd=ROOT, timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["ok"] + out["ValueError"] + out["NotImplementedError"] == 200 + out["truncated"]
-    assert out["ValueError"] > 0 and out["truncated"] == 3 * (9 + 9 + 37)
+    assert out["ok"] + out["ValueError"] + out["NotImplementedError"] == 300 + out["truncated"]
+    assert out["ValueError"] > 0
+    assert out["truncated"] == 3 * sum(META["files"][n]["packets"] + 1 for n in FUZZED)
+
+
+def test_packed_b_frames_come_out_as_ffmpeg_gives_them():
+    """XviD's packed AVI: a packet holding a P-VOP and the B-VOP after it,
+    then the B-VOP's packet, then an N-VOP. FFmpeg decodes the second VOP of
+    a packet with the next packet, in place of an N-VOP, and gives one frame
+    a packet (none for the first), the last at the flush; so does the port,
+    in the same display order."""
+    stream = demux(str(FIXTURES / "xvid_bf2_176x144.avi"))
+    packets = list(stream.packets())
+    vops = [p.count(b"\x00\x00\x01\xb6") for p in packets]
+    assert vops.count(2) >= 3 and min(len(p) for p in packets) <= 19     # packed, N-VOPs
+    dec = Mpeg4Decoder.for_stream(stream)
+    made = [dec.decode(p) for p in packets] + [dec.flush()]
+    assert made == [0] + [1] * (len(packets) - 1) + [1]
+    assert dec.stats["packed_vops"] == vops.count(2) * 2 and dec.stats["b_vops"] > 0
+    want, _ = capture(FIXTURES / "xvid_bf2_176x144.avi")
+    assert len(want) == sum(made) == META["files"]["xvid_bf2_176x144.avi"]["frames"]
+
+
+@pytest.mark.parametrize("name", ["bframes_176x144.mp4", "xvid_bf2_176x144.mp4"])
+def test_b_vops_in_mp4_come_out_in_display_order(name):
+    """B-VOPs in MP4 (FFmpeg's encoder's with a ``ctts`` box and an edit
+    list, libxvid's unpacked with an edit list): the packets in decode
+    order, the frames in display order, each attributed to its packet, equal
+    to OpenCV's."""
+    path = FIXTURES / name
+    data = path.read_bytes()
+    assert b"elst" in data and (b"ctts" in data) == name.startswith("bframes")
+    stream = demux(str(path))
+    dec = Mpeg4Decoder.for_stream(stream)
+    order = [k for p in [*stream.packets(), None] for k, _ in dec.output(p)]
+    types = [p[p.find(b"\x00\x00\x01\xb6") + 4] >> 6 for p in stream.packets()]
+    # each B-VOP comes out at once, each I- or P-VOP when the next one is decoded
+    want_order, waiting = [], None
+    for k, t in enumerate(types):
+        if t == 2:
+            want_order.append(k)
+        else:
+            want_order += [] if waiting is None else [waiting]
+            waiting = k
+    assert 2 in types and order == want_order + [waiting] != sorted(order)
+    want, _ = capture(path)
+    got = list(VideoReader(str(path)))
+    assert len(got) == len(want) == META["files"][path.name]["frames"]
+
+
+@pytest.mark.parametrize("name,old,new,what", [
+    ("walk_640x480_xvid.avi", b"Lavc62.28.101", b"xxxx62.28.101", "XviD build 0"),
+    ("xvid_bf2_176x144.avi", b"XviD0069", b"XviD0003", "XviD build 3"),
+    ("walk_640x480.avi", b"Lavc62.28.101", b"Lavc00.18.100", "libavcodec build 4708"),
+])
+def test_user_data_edits_that_name_old_builds_are_refused(tmp_path, name, old, new, what):
+    """FFmpeg reads the encoder from the user data (and, without one, from an
+    AVI's fourcc: XVID implies XviD build 0) and turns on bug workarounds for
+    old builds; the port refuses those streams naming the build."""
+    data = (FIXTURES / name).read_bytes()
+    assert data.count(old) >= 1
+    edited = tmp_path / name
+    edited.write_bytes(data.replace(old, new))
+    assert len(capture(edited)[0]) > 0
+    with pytest.raises(NotImplementedError, match=what):
+        list(VideoReader(str(edited)))
+
+
+def test_user_data_removed_decodes_with_the_simple_idct(tmp_path):
+    """Lavc's user data removed from an FMP4 AVI: no encoder named, no
+    workaround, FFmpeg's simple IDCT, equal to OpenCV; the XviD IDCT would
+    differ."""
+    data = (FIXTURES / "walk_640x480.avi").read_bytes()
+    edited = tmp_path / "clip.avi"
+    edited.write_bytes(data.replace(b"Lavc62.28.101", b"xxxx62.28.101"))
+    want, _ = capture(edited, [(cv2.CAP_PROP_CONVERT_RGB, 0)])
+    got = list(VideoReader(str(edited)).frames(luma=True))
+    assert len(got) == len(want) == 36
+    assert all(np.array_equal(g, w if w.ndim == 2 else w[..., 0]) for g, w in zip(got, want))
+    stream = demux(str(FIXTURES / "xvid_qpel_176x144.avi"))
+    assert stream.tag == b"XVID"
+    dec = Mpeg4Decoder.for_stream(stream)
+    for p in stream.packets():
+        dec.decode(p)
+    assert dec.encoder == "XviD0069" and dec.stats["xvid_idct_vops"] == len(stream)

@@ -1,6 +1,7 @@
-/* Write H.264 video files with libx264 through the system's libavcodec and
- * libavformat, with any of the encoder's options: the fixtures of the port's
- * H.264 decoder (tools/torch_make_video_fixtures.py).
+/* Write video files with libx264 (or another encoder, encoder=NAME: mpeg4,
+ * libxvid) through the system's libavcodec and libavformat, with any of the
+ * encoder's options: the fixtures of the port's H.264 and MPEG-4 Part 2
+ * decoders (tools/torch_make_video_fixtures.py).
  *
  *   cc -O2 -o build/torch_h264_writer tools/torch_h264_writer.c \
  *       -lavformat -lavcodec -lavutil
@@ -10,10 +11,11 @@
  * in order (yuv420p, yuv444p, yuv420p10le: 16-bit little-endian samples).
  * The container follows the output's extension (.mp4, .mov, .avi); an AVI
  * stream carries Annex B packets with the fourcc H264 unless tag=XXXX.
- * Every other name=value is an AVOption of the encoder or its private
+ * intra_matrix=v0,...,v63 and inter_matrix=... set the quantisation matrices
+ * (raster order), which have no AVOption. Every other name=value is an AVOption of the encoder or its private
  * options (x264-params=..., profile=..., preset=..., color_range=pc, g=...).
  * The encoder is flushed at the end, so that every frame is written.
- * Built against libavformat/libavcodec 59 and libx264 164; the committed
+ * Built against libavformat/libavcodec 59, libx264 164 and libxvidcore 4; the committed
  * fixtures name the versions that wrote them. */
 #include <stdio.h>
 #include <stdlib.h>
@@ -48,8 +50,11 @@ int main(int argc, char **argv) {
 
   AVFormatContext *fmt = NULL;
   if (avformat_alloc_output_context2(&fmt, NULL, NULL, argv[2]) < 0) die("unknown container");
-  const AVCodec *codec = avcodec_find_encoder_by_name("libx264");
-  if (!codec) die("no libx264 encoder in this libavcodec");
+  const char *encoder = "libx264";
+  for (int i = 8; i < argc; ++i)
+    if (!strncmp(argv[i], "encoder=", 8)) encoder = argv[i] + 8;
+  const AVCodec *codec = avcodec_find_encoder_by_name(encoder);
+  if (!codec) die("no such encoder in this libavcodec");
   AVCodecContext *ctx = avcodec_alloc_context3(codec);
   ctx->width = width;
   ctx->height = height;
@@ -66,12 +71,24 @@ int main(int argc, char **argv) {
       tag = eq + 1;
       continue;
     }
+    if (!strcmp(argv[i], "encoder")) continue;
+    if (!strcmp(argv[i], "intra_matrix") || !strcmp(argv[i], "inter_matrix")) {
+      uint16_t *m = av_mallocz(64 * sizeof *m);
+      char *p = eq + 1;
+      for (int k = 0; k < 64; ++k) {
+        m[k] = (uint16_t)strtol(p, &p, 10);
+        if (m[k] == 0 || m[k] > 255 || (k < 63 && *p++ != ',')) die("a matrix takes 64 values 1-255");
+      }
+      if (!strcmp(argv[i], "intra_matrix")) ctx->intra_matrix = m;
+      else ctx->inter_matrix = m;
+      continue;
+    }
     if (av_opt_set(ctx, argv[i], eq + 1, AV_OPT_SEARCH_CHILDREN) < 0) {
       fprintf(stderr, "torch_h264_writer: the option %s=%s\n", argv[i], eq + 1);
       die("an option the encoder does not take");
     }
   }
-  if (avcodec_open2(ctx, codec, NULL) < 0) die("libx264 does not open with these options");
+  if (avcodec_open2(ctx, codec, NULL) < 0) die("the encoder does not open with these options");
   AVStream *st = avformat_new_stream(fmt, NULL);
   if (avcodec_parameters_from_context(st->codecpar, ctx) < 0) die("codec parameters");
   st->time_base = ctx->time_base;

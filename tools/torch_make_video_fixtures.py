@@ -26,10 +26,26 @@ encoder never predicts AC coefficients or changes the QP inside a VOP. So
 (`encode_mpeg4`, into an AVI of fourcc ``FMP4`` written here) with ``flags
 +aic`` and luminance masking: AC prediction, the alternate scans, DQUANT and
 AC predictions rescaled to another QP (each checked here). The same route
-writes the refusal fixtures ``refuse_*.avi`` (64x48, 4 frames), each a
-feature the port's decoder refuses (`REFUSALS`: MPEG quantisation, B-VOPs,
-quarter sample, interlace, data partitioning, resync markers, four motion
-vectors); OpenCV reads every one of them.
+writes one clip a tool of FFmpeg's encoder (`TOOLS`, 64x48, 4 frames: MPEG
+quantisation, B-VOPs, quarter sample, data partitioning, resync markers,
+four motion vectors), ``asp_176x144.avi`` with them together (B-VOPs with
+direct prediction from four quarter-sample vectors, video packets in
+partitioned P-VOPs), and the refusal fixture ``refuse_interlaced.avi``
+(`REFUSALS`). The system's libavcodec writes the rest through
+`tools/torch_h264_writer.c` (`write_libav`): ``matrices_176x144.avi``
+(FFmpeg's ``mpeg4`` with MPEG quantisation under custom matrices, which
+have no AVOption), ``bframes_176x144.mp4`` (its B-VOPs in MP4: a ``ctts``
+box and an edit list) and XviD's clips from ``libxvid`` (`LIBAV_FILES`, fourcc
+``XVID`` in AVI): B-VOPs (``bf`` 2) packed in AVI (XviD's "DivX...p" user
+data: FFmpeg decodes a packet's second VOP with the next packet) and
+unpacked in MP4, quarter sample, four vectors, MPEG quantisation and GMC
+(S-VOPs of three warping points); ``xvid_640x480.avi`` (``bf`` 2 and four
+vectors, packed, 36 frames of the walk), the clip ``infer_video`` runs on
+the card, and ``xvid_1280x720.mp4`` for the decode rate. XviD's user data
+makes FFmpeg run its XviD IDCT (checked here). Two copies of XviD clips
+with their user data edited are refusals: one names XviD build 12 and one
+only DivX 5.03, builds for which FFmpeg turns on bug workarounds. OpenCV
+reads every refusal.
 
 Beside them goes ``fixtures.json``: for every file the sha256 of each raw
 packet (``CAP_PROP_FORMAT`` -1), of each luma plane (``CAP_PROP_CONVERT_RGB``
@@ -106,20 +122,69 @@ FILES = {
     "noise_160x128.avi": (128, 160, 8, "mp4v", "noise"),
     "walk_1280x720.mp4": (720, 1280, 24, "mp4v", "walk"),
 }
+# FFmpeg's encoder through OpenCV's libavcodec: name: (height, width, frames, content, the
+# encoder's options, the decoder's counts that must not be 0)
+TOOLS = {
+    "mpeg_quant_64x48.avi": (48, 64, 4, "stripes", {"mpeg_quant": "1"}, ["mpeg_quant_vops"]),
+    "bframes_64x48.avi": (48, 64, 4, "stripes", {"bf": "2"},
+                          ["b_vops", "b_direct_mbs", "b_interpolated_mbs"]),
+    "qpel_64x48.avi": (48, 64, 4, "stripes", {"flags": "+qpel"},
+                       ["quarter_sample_predictions"]),
+    "partitioned_64x48.avi": (48, 64, 4, "stripes", {"data_partitioning": "1"},
+                              ["partitioned_vops"]),
+    "resync_64x48.avi": (48, 64, 4, "stripes", {"ps": "100"}, ["video_packets"]),
+    "mv4_64x48.avi": (48, 64, 4, "blocks", {"flags": "+mv4"}, ["four_mv_mbs"]),
+    "aic_176x144.avi": (144, 176, 8, "stripes",
+                        {"flags": "+aic", "scplx_mask": "0.9", "tcplx_mask": "0.5", "g": "2"},
+                        ["ac_pred_mbs", "dquant_mbs", "ac_rescales"]),
+    "asp_176x144.avi": (144, 176, 12, "blocks",
+                        {"bf": "2", "flags": "+qpel+mv4", "mpeg_quant": "1", "ps": "400",
+                         "data_partitioning": "1", "g": "6", "scplx_mask": "0.5"},
+                        ["b_vops", "b_direct_mbs", "four_mv_mbs", "quarter_sample_predictions",
+                         "video_packets", "partitioned_vops", "dbquant_mbs"]),
+}
 # name: (the encoder's options, what the port's NotImplementedError names)
 REFUSALS = {
-    "refuse_mpeg_quant.avi": ({"mpeg_quant": "1"}, "quant_type 1"),
-    "refuse_bframes.avi": ({"bf": "2"}, "B-VOPs"),
-    "refuse_qpel.avi": ({"flags": "+qpel"}, "quarter_sample"),
     "refuse_interlaced.avi": ({"flags": "+ildct"}, "interlaced"),
-    "refuse_partitioned.avi": ({"data_partitioning": "1"}, "data partitioning"),
-    "refuse_resync.avi": ({"ps": "100"}, "resync markers"),
-    "refuse_mv4.avi": ({"flags": "+mv4"}, "four motion vectors"),
 }
-AIC = ("aic_176x144.avi", 144, 176, 8,
-       {"flags": "+aic", "scplx_mask": "0.9", "tcplx_mask": "0.5", "g": "2"})
+# custom matrices (raster order) for FFmpeg's mpeg4 encoder through the system's libavcodec
+INTRA_MATRIX = ",".join(str(8 + (r + c) * 2 + (r * c) % 5) for r in range(8) for c in range(8))
+INTER_MATRIX = ",".join(str(16 + 3 * r + c) for r in range(8) for c in range(8))
+# the system's libavcodec (`write_libav`): name: (height, width, frames given to the encoder,
+# content, options, the decoder's counts that must not be 0)
+XVID = ["encoder=libxvid", "tag=XVID"]
+LIBAV_FILES = {
+    "matrices_176x144.avi": (144, 176, 12, "walk", [
+        "encoder=mpeg4", "tag=FMP4", "mpeg_quant=1", "bf=1", "intra_matrix=" + INTRA_MATRIX,
+        "inter_matrix=" + INTER_MATRIX], ["mpeg_quant_vops", "b_vops"]),
+    "bframes_176x144.mp4": (144, 176, 12, "walk", ["encoder=mpeg4", "bf=2"],
+                            ["b_vops", "b_direct_mbs", "b_backward_mbs"]),
+    "xvid_bf2_176x144.avi": (144, 176, 12, "walk", [*XVID, "bf=2"],
+                             ["b_vops", "packed_vops", "b_direct_mbs", "xvid_idct_vops"]),
+    "xvid_bf2_176x144.mp4": (144, 176, 12, "walk", ["encoder=libxvid", "bf=2"],
+                             ["b_vops", "b_direct_mbs", "xvid_idct_vops"]),
+    "xvid_qpel_176x144.avi": (144, 176, 12, "walk", [*XVID, "flags=+qpel"],
+                              ["quarter_sample_predictions"]),
+    "xvid_mv4_176x144.avi": (144, 176, 12, "blocks", [*XVID, "flags=+mv4"], ["four_mv_mbs"]),
+    "xvid_mpeg_quant_176x144.avi": (144, 176, 12, "walk", [*XVID, "mpeg_quant=1"],
+                                    ["mpeg_quant_vops"]),
+    "xvid_gmc_176x144.avi": (144, 176, 12, "walk", [*XVID, "gmc=1"], ["s_vops", "gmc_mbs"]),
+    # FFmpeg's libxvid wrapper does not flush XviD's last B-frames: 38 frames give 36
+    "xvid_640x480.avi": (480, 640, 38, "walk", [*XVID, "bf=2", "flags=+mv4", "b=1000k"],
+                         ["b_vops", "packed_vops", "four_mv_mbs", "b_direct_mbs"]),
+    "xvid_1280x720.mp4": (720, 1280, 26, "walk", ["encoder=libxvid", "bf=2", "flags=+mv4",
+                                                   "b=2000k"], ["b_vops", "b_direct_mbs"]),
+}
+# copies of XviD clips with their user data edited: name: (source, (old, new) bytes, what
+# the port's NotImplementedError names)
+EDITED_REFUSALS = {
+    "refuse_xvid_build12.avi": ("xvid_mv4_176x144.avi", (b"XviD0069", b"XviD0012"),
+                                "XviD build 12"),
+    "refuse_divx503.avi": ("xvid_bf2_176x144.avi", (b"XviD0069", b"xxxx0069"),
+                           "DivX 503 build 1393"),
+}
 STATIC_ROWS = 1 / 8          # the frozen band at the bottom, a share of the height
-LIMIT = 1 << 20              # bytes of the whole folder
+LIMIT = 3 << 19              # bytes of the whole folder
 
 H264_OUT = ROOT / "dro_sfm_torch" / "testdata" / "h264"
 H264_WRITER = ROOT / "tools" / "torch_h264_writer.c"
@@ -397,26 +462,27 @@ def opencv_digests(path):
 
 
 def port_digests(path):
-    """The port's decode of ``path``: the sha256 of all its luma planes and
-    of all its RGB frames, each list of frames in order, its per-frame
-    digests, and the decoder's counts."""
+    """The port's decode of ``path`` through `Mpeg4Decoder`, its frames in
+    display order (those an MP4's edit list trims left out): the sha256 of
+    all its luma planes and of all its RGB frames, the per-frame digests,
+    the decoder's counts and the encoder it names."""
     stream = demux(str(path))
-    dec = Mpeg4Decoder(stream.config)
+    dec = Mpeg4Decoder.for_stream(stream)
     luma, rgb = hashlib.sha256(), hashlib.sha256()
-    frames = {"packets": [], "luma": [], "rgb": []}
-    for p in stream.packets():
-        frames["packets"].append(hashlib.sha256(p).hexdigest())
-        if dec.decode(p):
-            img, y = dec.frame(rgb=True, luma=True)
-            luma.update(y.tobytes())
-            rgb.update(img.tobytes())
-            frames["luma"].append(sha(y))
-            frames["rgb"].append(sha(img))
+    frames = {"packets": [hashlib.sha256(p).hexdigest() for p in stream.packets()],
+              "luma": [], "rgb": []}
+    for p in [*stream.packets(), None]:
+        for k, (img, y) in dec.output(p, rgb=True, luma=True):
+            if stream.shown[k]:
+                luma.update(y.tobytes())
+                rgb.update(img.tobytes())
+                frames["luma"].append(sha(y))
+                frames["rgb"].append(sha(img))
     return {"luma_all": luma.hexdigest(), "rgb_all": rgb.hexdigest()}, frames, dec.stats, \
         dec.encoder
 
 
-def h264_writer() -> str:
+def libav_writer() -> str:
     """`tools/torch_h264_writer.c` built against the system's libavformat,
     libavcodec and libavutil into ``build/``, named by the source's hash;
     built in a temporary file and moved into place."""
@@ -432,9 +498,10 @@ def h264_writer() -> str:
     return str(out)
 
 
-def write_h264(path, frames, options, pixfmt="yuv420p", fps=FPS):
-    """uint8 RGB ``frames`` as an H.264 file at ``path`` (its container by
-    extension) from libx264 with ``options`` (name=value AVOptions), the
+def write_libav(path, frames, options, pixfmt="yuv420p", fps=FPS):
+    """uint8 RGB ``frames`` as a video file at ``path`` (its container by
+    extension) from libx264, or the encoder an ``encoder=`` option names,
+    with ``options`` (name=value AVOptions, `tools/torch_h264_writer.c`), the
     frames converted to ``pixfmt`` by OpenCV (BT.601, limited range; 4:4:4
     and 10-bit from the same conversion)."""
     h, w = frames[0].shape[:2]
@@ -451,11 +518,11 @@ def write_h264(path, frames, options, pixfmt="yuv420p", fps=FPS):
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / "frames.raw"
         src.write_bytes(b"".join(raw))
-        res = subprocess.run([h264_writer(), str(src), str(path), str(w), str(h),
+        res = subprocess.run([libav_writer(), str(src), str(path), str(w), str(h),
                               str(len(frames)), str(fps), pixfmt, *options],
                              capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"{path}: the H.264 writer failed: {res.stderr[-2000:]}")
+        raise RuntimeError(f"{path}: the writer failed: {res.stderr[-2000:]}")
 
 
 class _Bits:
@@ -614,7 +681,7 @@ def h264_main() -> None:
     render = {"walk": walk, "noise": noise, "fade": fade}
     for name, (h, w, n, content, options) in H264_FILES.items():
         path = H264_OUT / name
-        write_h264(path, render[content](h, w, n), options, fps=H264_RATES.get(name, FPS))
+        write_libav(path, render[content](h, w, n), options, fps=H264_RATES.get(name, FPS))
         colour = name.startswith("colour_")
         cv, fps = opencv_h264_digests(path, colour)
         port, own, stats, encoder = port_h264_digests(path)
@@ -632,7 +699,7 @@ def h264_main() -> None:
     refusals = {}
     for name, (pixfmt, options, what) in H264_REFUSALS.items():
         path = H264_OUT / name
-        write_h264(path, walk(48, 64, 6), options, pixfmt)
+        write_libav(path, walk(48, 64, 6), options, pixfmt)
         read = len(capture(path)[0])
         if read != 6:
             raise RuntimeError(f"OpenCV reads {read} frames of {path}")
@@ -665,81 +732,104 @@ def h264_main() -> None:
           f"{H264_OUT}: {size / 1024:.0f} KiB")
 
 
+def refused(path, what):
+    """Check that OpenCV reads ``path`` and the port raises naming ``what``;
+    OpenCV's frame count."""
+    read = len(capture(path)[0])
+    if read == 0:
+        raise RuntimeError(f"OpenCV reads no frame of {path}")
+    try:
+        sum(1 for _ in VideoReader(str(path)))
+        raise RuntimeError(f"the port decodes {path.name}, which it should refuse")
+    except NotImplementedError as e:
+        if what not in str(e):
+            raise RuntimeError(f"{path.name}: {e}, want {what!r}")
+    print(f"{path.name}: {path.stat().st_size} bytes, OpenCV reads {read} frames, the port "
+          f"raises NotImplementedError naming {what!r}")
+    return read
+
+
+def mpeg4_entry(path, h, w, n, writer, options, need=()):
+    """The ``fixtures.json`` entry of a written MPEG-4 file: OpenCV's and the
+    port's digests, which must agree, and the port's counts, of which those
+    in ``need`` must not be 0."""
+    cv, fps = opencv_digests(path)
+    port, own, stats, encoder = port_digests(path)
+    same = {k: own[k] == cv[k] for k in cv}
+    frames = len(cv["rgb"])
+    missing = [k for k in need if not stats[k]]
+    print(f"{path.name}: {len(cv['packets'])} packets, {frames} frames {w}x{h}, "
+          f"{path.stat().st_size} bytes, {encoder}; port equal to OpenCV: {same}; "
+          f"{ {k: v for k, v in stats.items() if v} }")
+    if not all(same.values()) or missing or not 0 < frames <= n:
+        raise RuntimeError(f"{path.name}: {frames} frames of {n}; none of {missing}")
+    return {"height": h, "width": w, "packets": len(cv["packets"]), "frames": frames,
+            "writer": writer, "options": options, "fps": fps, "bytes": path.stat().st_size,
+            "encoder": encoder, "stats": stats, "opencv": cv, "port": port}
+
+
 def mpeg4_main() -> None:
     OUT.mkdir(parents=True, exist_ok=True)
     build = cv2.getBuildInformation()
     avcodec = re.search(r"avcodec:\s+YES \(([^)]*)\)", build)
+    render = {"walk": walk, "noise": noise, "stripes": stripes, "blocks": blocks_moving}
     table = {}
     for name, (h, w, n, fourcc, content) in FILES.items():
         path = OUT / name
-        frames = (walk if content == "walk" else noise)(h, w, n)
         writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), FPS, (w, h))
         if not writer.isOpened():
             raise RuntimeError(f"cv2.VideoWriter cannot write {path}")
-        for f in frames:
+        for f in render[content](h, w, n):
             writer.write(np.ascontiguousarray(f[..., ::-1]))
         writer.release()
-        cv, fps = opencv_digests(path)
-        port, own, stats, encoder = port_digests(path)
-        if len(cv["rgb"]) != n or len(cv["packets"]) != n:
-            raise RuntimeError(f"{name}: OpenCV reads {len(cv['rgb'])} frames and "
-                               f"{len(cv['packets'])} packets of {n}")
-        same = {k: own[k] == cv[k] for k in cv}
-        table[name] = {"height": h, "width": w, "frames": n, "fourcc": fourcc, "fps": fps,
-                       "bytes": path.stat().st_size, "encoder": encoder, "stats": stats,
-                       "opencv": cv, "port": port}
-        print(f"{name}: {n} frames {w}x{h}, {path.stat().st_size} bytes, {encoder}; port "
-              f"equal to OpenCV: {same}; {stats}")
-        if content == "noise":
-            missing = [k for k in ("escape1", "escape2", "escape3") if not stats[k]]
-            if missing:
-                raise RuntimeError(f"{name}: no TCOEF {missing} in the stream")
-            print(f"{name}: TCOEF escapes of types 1, 2 and 3: {stats['escape1']}, "
-                  f"{stats['escape2']}, {stats['escape3']}")
-    name, h, w, n, options = AIC
-    path = OUT / name
-    write_avi(path, encode_mpeg4(stripes(h, w, n), options), h, w)
-    cv, fps = opencv_digests(path)
-    port, own, stats, encoder = port_digests(path)
-    same = {k: own[k] == cv[k] for k in cv}
-    table[name] = {"height": h, "width": w, "frames": n, "fourcc": "FMP4", "fps": fps,
-                   "bytes": path.stat().st_size, "encoder": encoder, "options": options,
-                   "stats": stats, "opencv": cv, "port": port}
-    print(f"{name}: {n} frames {w}x{h}, {path.stat().st_size} bytes, {options}; port equal to "
-          f"OpenCV: {same}; {stats}")
-    missing = [k for k in ("ac_pred_mbs", "dquant_mbs", "ac_rescales") if not stats[k]]
-    if missing or len(cv["rgb"]) != n:
-        raise RuntimeError(f"{name}: {len(cv['rgb'])} frames; none of {missing}")
+        need = ("escape1", "escape2", "escape3") if content == "noise" else ()
+        table[name] = mpeg4_entry(path, h, w, n, f"cv2.VideoWriter {fourcc}", {}, need)
+        if table[name]["packets"] != n or table[name]["frames"] != n:
+            raise RuntimeError(f"{name}: OpenCV reads {table[name]['frames']} frames")
+    for name, (h, w, n, content, options, need) in TOOLS.items():
+        path = OUT / name
+        write_avi(path, encode_mpeg4(render[content](h, w, n), options), h, w)
+        table[name] = mpeg4_entry(path, h, w, n, "mpeg4 (OpenCV's libavcodec)", options, need)
+    for name, (h, w, n, content, options, need) in LIBAV_FILES.items():
+        path = OUT / name
+        write_libav(path, render[content](h, w, n), options)
+        table[name] = mpeg4_entry(path, h, w, n, "the system's libavcodec", options,
+                                  need)
+        if table[name]["encoder"].startswith("XviD") and not table[name]["stats"][
+                "xvid_idct_vops"]:
+            raise RuntimeError(f"{name}: XviD's user data, and not its IDCT")
     refusals = {}
     for name, (options, what) in REFUSALS.items():
         path = OUT / name
-        frames = (blocks_moving if "mv4" in name else stripes)(48, 64, 4)
-        write_avi(path, encode_mpeg4(frames, options), 48, 64)
-        cap = cv2.VideoCapture(str(path))
-        read = 0
-        while cap.read()[0]:
-            read += 1
-        if read != 4:
-            raise RuntimeError(f"OpenCV reads {read} frames of {path}")
-        try:
-            sum(1 for _ in VideoReader(str(path)))
-            raise RuntimeError(f"the port decodes {name}, which it should refuse")
-        except NotImplementedError as e:
-            if what not in str(e):
-                raise RuntimeError(f"{name}: {e}, want {what!r}")
-        refusals[name] = {"options": options, "raises": what, "bytes": path.stat().st_size}
-        print(f"{name}: {path.stat().st_size} bytes, OpenCV reads 4 frames, the port raises "
-              f"NotImplementedError naming {what!r}")
+        write_avi(path, encode_mpeg4(stripes(48, 64, 4), options), 48, 64)
+        refusals[name] = {"options": options, "raises": what, "frames": refused(path, what),
+                          "bytes": path.stat().st_size}
+    for name, (source, (old, new), what) in EDITED_REFUSALS.items():
+        data = (OUT / source).read_bytes()
+        if data.count(old) != 1:
+            raise RuntimeError(f"{source} holds {old!r} {data.count(old)} times")
+        path = OUT / name
+        path.write_bytes(data.replace(old, new))
+        refusals[name] = {"source": source, "user_data": [old.decode(), new.decode()],
+                          "raises": what, "frames": refused(path, what),
+                          "bytes": path.stat().st_size}
     reader = VideoReader(str(OUT / "walk_640x480.mp4"))
     assert sum(1 for _ in reader) == FILES["walk_640x480.mp4"][2]
+    libs = subprocess.run(["cc", "-E", "-dM", "-include", "libavcodec/version.h", "-x", "c",
+                           "/dev/null"], capture_output=True, text=True, check=True).stdout
+    ver = {k: re.search(rf"#define {k} (\d+)", libs).group(1) for k in
+           ("LIBAVCODEC_VERSION_MAJOR", "LIBAVCODEC_VERSION_MINOR")}
     meta = {"opencv": cv2.__version__, "libavcodec": avcodec.group(1) if avcodec else None,
+            "system_libavcodec": f"{ver['LIBAVCODEC_VERSION_MAJOR']}."
+                                 f"{ver['LIBAVCODEC_VERSION_MINOR']} with libxvidcore 4",
             "renderer": "SyntheticConfig(height, width, num_planes=3, seed=0), scene 0",
             "fps": FPS, "files": table, "refusals": refusals}
     (OUT / "fixtures.json").write_text(json.dumps(meta, indent=1) + "\n")
     size = sum(p.stat().st_size for p in OUT.iterdir())
     if size > LIMIT:
         raise RuntimeError(f"{OUT} holds {size} bytes, over {LIMIT}")
-    print(f"wrote {len(table)} videos and fixtures.json to {OUT}: {size / 1024:.0f} KiB")
+    print(f"wrote {len(table)} videos, {len(refusals)} refusals and fixtures.json to {OUT}: "
+          f"{size / 1024:.0f} KiB")
 
 
 def main() -> None:
