@@ -352,7 +352,25 @@ result line):
    `start_weights`, counts reset just before and read just after: K1 24 a
    window and nothing else, the plain warp's distance printed only; at
    `tame_weights` (the same launch check) held to the plain warp within
-   1e-5.
+   1e-5. Then HEVC: the host decoder ``csrc/hevc_video.cpp`` and its
+   headers built the same way; every committed HEVC clip
+   (``dro_sfm_torch/testdata/hevc``: libx265's Main defaults in MP4, MOV
+   (``hvc1``) and AVI at 640x480 and at 1280x720 (CABAC with wavefronts,
+   cu_qp_delta, sign hiding, TMVP, weighted P, B-pyramid, deblocking and
+   SAO); the presets ultrafast and veryslow, open GOPs with RASL pictures,
+   RADL pictures, 4 slices, no wavefronts, CTUs of 16 and 32, a cropped
+   size, noise at QP 4, chroma QP and deblocking offsets, deblocking and SAO
+   off, explicit weighted bi-prediction, default and custom scaling lists,
+   transform skip, constrained intra, lossless, four VUI matrices and full
+   range) held to the sha256 of OpenCV's packets (an MP4's as stored), luma
+   and RGB in output order, bar 0 levels, the decoder's counts too, each
+   refused stream (Main 10, 4:2:2, 4:4:4, field coding) raising naming its
+   tool; decode ms a frame at 640x480 and 1280x720; ``infer_video`` on
+   ``main_640x480.mp4`` (23 frames extracted, the windows over the first
+   12: 10, for the script's time) at `start_weights`, counts reset just
+   before and read just after: K1 24 a window and nothing else, the plain
+   warp's distance printed only; at `tame_weights` (the same launch check)
+   held to the plain warp within 1e-5.
 
 ``--only`` runs a subset of the phases after the build and prints no result
 line. The last three lines of standard output are the ``kernels`` JSON line
@@ -5524,12 +5542,18 @@ H264_RATES = (*VIDEO_RATES, "high_640x480.mp4", "high_1280x720.mp4")
 # libx264's defaults: 24 packets, 23 frames shown (the MP4's edit list); the
 # runs take the first 12 (10 windows), for the script's time
 H264_CLIP, H264_CLIP_FRAMES, H264_RUN_FRAMES = "high_640x480.mp4", 23, 12
+HEVC_FIXTURES = ROOT / "dro_sfm_torch" / "testdata" / "hevc"
+# libx265's defaults (Main) at both sizes
+HEVC_RATES = ("main_640x480.mp4", "main_1280x720.mp4")
+# libx265's defaults: 24 packets, 23 frames shown (the MP4's edit list); the
+# runs take the first 12 (10 windows), for the script's time
+HEVC_CLIP, HEVC_CLIP_FRAMES, HEVC_RUN_FRAMES = "main_640x480.mp4", 23, 12
 
 
 def video_fixtures(folder, library, decoder, rates_of):
     """Every committed video of ``folder`` through the card's host build of
     ``library`` (`hostlib.SOURCES`) and its ``decoder`` class: packets (an
-    MP4's H.264 samples as stored, OpenCV's NAL units with 4-byte lengths),
+    MP4's H.264 and HEVC samples as stored, OpenCV's NAL units with 4-byte lengths),
     luma planes and RGB frames in output order, those an MP4's edit list
     trims left out, against the sha256 of OpenCV's (``fixtures.json``),
     each refused stream raising; the median decode ms a frame
@@ -5698,11 +5722,12 @@ def phase_video(counters, gpu):
     from dro_sfm_torch.inference import save_model
     from dro_sfm_torch.scripts import infer_video
     from dro_sfm_torch.training.trainer import model_config_from
-    from dro_sfm_torch.utils.video_io import H264Decoder, Mpeg4Decoder
+    from dro_sfm_torch.utils.video_io import H264Decoder, HevcDecoder, Mpeg4Decoder
     t_start = time.perf_counter()
     shutil.rmtree(VIDEO_BUILD, ignore_errors=True)
     rates = video_fixtures(VIDEO_FIXTURES, "mpeg4_video", Mpeg4Decoder, MPEG4_RATES)
     rates.update(video_fixtures(H264_FIXTURES, "h264_video", H264Decoder, H264_RATES))
+    rates.update(video_fixtures(HEVC_FIXTURES, "hevc_video", HevcDecoder, HEVC_RATES))
 
     VIDEO_BUILD.mkdir(parents=True)
     video_encode()
@@ -5745,16 +5770,18 @@ def phase_video(counters, gpu):
         return res, counted, secs, far, rel, counted_t
 
     # 1) Simple Profile (mp4v), 2) XviD's packed AVI (B-VOPs, four vectors),
-    # 3) H.264 High: each clip at both weight draws, the windows over its
-    # first frames, for the script's time
+    # 3) H.264 High, 4) HEVC Main (libx265's defaults): each clip at both
+    # weight draws, the windows over its first frames, for the script's time
     runs = {"mp4v": (VIDEO_CLIP, held_to_plain("walk", VIDEO_FIXTURES / VIDEO_CLIP,
                                                VIDEO_CLIP_FRAMES, VIDEO_RUN_FRAMES)),
             "XviD": (XVID_CLIP, held_to_plain("xvid", VIDEO_FIXTURES / XVID_CLIP,
                                               XVID_CLIP_FRAMES, XVID_RUN_FRAMES)),
             "H.264": (H264_CLIP, held_to_plain("h264", H264_FIXTURES / H264_CLIP,
-                                               H264_CLIP_FRAMES, H264_RUN_FRAMES))}
+                                               H264_CLIP_FRAMES, H264_RUN_FRAMES)),
+            "HEVC": (HEVC_CLIP, held_to_plain("hevc", HEVC_FIXTURES / HEVC_CLIP,
+                                              HEVC_CLIP_FRAMES, HEVC_RUN_FRAMES))}
 
-    # 4) the CLI on the walk's extracted frames: the same bits
+    # 5) the CLI on the walk's extracted frames: the same bits
     walk = runs["mp4v"][1][0]
     again = infer_video.main(["--checkpoint", ckpt, "--input",
                               str(VIDEO_BUILD / "walk" / "input_frames"), "--output",

@@ -1,11 +1,13 @@
 """Build the port's host C++ libraries (the image codec, the MPEG-4 video
-decoder and encoder and the H.264 video decoder).
+decoder and encoder and the H.264 and HEVC video decoders).
 
-``csrc/image_codec.cpp``, ``csrc/mpeg4_video.cpp``, ``csrc/mpeg4_encode.cpp``
-and ``csrc/h264_video.cpp`` are plain C++ with a C interface; the two MPEG-4
-sources include ``csrc/mpeg4_tables.h``, the H.264 decoder its CABAC engine
-``csrc/h264_cabac.h`` and tables ``csrc/h264_tables.h``, and the video
-decoders share the RGB conversion of ``csrc/yuv_rgb.h``. Each is compiled with the host C++ compiler (``$CXX``, else
+``csrc/image_codec.cpp``, ``csrc/mpeg4_video.cpp``, ``csrc/mpeg4_encode.cpp``,
+``csrc/h264_video.cpp`` and ``csrc/hevc_video.cpp`` are plain C++ with a C
+interface; the two MPEG-4 sources include ``csrc/mpeg4_tables.h``, the H.264
+decoder its CABAC engine ``csrc/h264_cabac.h`` and tables
+``csrc/h264_tables.h``, the HEVC decoder the same engine and its own tables
+``csrc/hevc_tables.h``, and the video decoders share the RGB conversion of
+``csrc/yuv_rgb.h``. Each is compiled with the host C++ compiler (``$CXX``, else
 ``c++`` or ``g++``) into a shared library at first use, under
 ``build/host`` beside the package (listed in ``.gitignore``); its user
 loads it with ``ctypes`` (`dro_sfm_torch.utils.image_io`,
@@ -27,7 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"image_codec": CSRC / "image_codec.cpp", "mpeg4_video": CSRC / "mpeg4_video.cpp",
-           "mpeg4_encode": CSRC / "mpeg4_encode.cpp", "h264_video": CSRC / "h264_video.cpp"}
+           "mpeg4_encode": CSRC / "mpeg4_encode.cpp", "h264_video": CSRC / "h264_video.cpp",
+           "hevc_video": CSRC / "hevc_video.cpp"}
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 

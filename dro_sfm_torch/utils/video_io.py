@@ -1,7 +1,7 @@
 """Video and animation files without OpenCV, FFmpeg or Pillow: MPEG-4 Part 2
 (``mp4v``) video written to MP4, MOV and AVI and read from them, H.264
-Constrained Baseline, Main and High video read from them, MJPEG AVI written
-and read, and GIF89a written.
+Constrained Baseline, Main and High and HEVC Main video read from them,
+MJPEG AVI written and read, and GIF89a written.
 
 The card's machine has no video codec the port may use, so it writes and
 reads these files itself, on the host:
@@ -33,13 +33,14 @@ reads these files itself, on the host:
   ``cv2.VideoCapture`` reads them (uint8 RGB, in output order), as FFmpeg
   demuxes and decodes them. `demux` tells the container by its first bytes:
   `demux_mp4` reads an ISO BMFF file's first video track (its ``mp4v``
-  sample entry's ``esds`` VOL or its ``avc1``/``avc3`` sample entry's
-  ``avcC``, its samples from ``stsz``, ``stsc``, ``stco``/``co64``,
+  sample entry's ``esds`` VOL, its ``avc1``/``avc3`` sample entry's
+  ``avcC`` or its ``hev1``/``hvc1`` sample entry's ``hvcC``, its samples
+  from ``stsz``, ``stsc``, ``stco``/``co64``,
   ``stts``, and ``ctts`` and the edit list for the frames it shows),
   `demux_avi` the ``##dc``/``##db`` chunks of
   an AVI's first video stream across its RIFF ``AVI `` and ``AVIX``
-  segments; each packet equals FFmpeg's byte for byte (an MP4's H.264
-  samples NAL unit by NAL unit: FFmpeg gives them in Annex B form).
+  segments; each packet equals FFmpeg's byte for byte (an MP4's H.264 and
+  HEVC samples NAL unit by NAL unit: FFmpeg gives them in Annex B form).
   `Mpeg4Decoder` decodes MPEG-4 Part 2 Simple Profile
   video in the host library ``csrc/mpeg4_video.cpp``, bit-equal to FFmpeg's
   luma and to OpenCV's RGB on the streams FFmpeg's ``mpeg4`` encoder and
@@ -47,8 +48,13 @@ reads these files itself, on the host:
   Main and High, 8-bit 4:2:0 progressive (CAVLC and CABAC I, P and B
   slices, the 8x8 transform, weighted prediction, scaling lists, output
   reordered in POC order) in ``csrc/h264_video.cpp``, bit-equal to FFmpeg's
-  luma and to OpenCV's RGB on libx264's streams (both
-  libraries built by `dro_sfm_torch.hostlib`); MJPEG AVI frames go through
+  luma and to OpenCV's RGB on libx264's streams; `HevcDecoder` decodes HEVC
+  Main, 8-bit 4:2:0 progressive (CABAC with wavefronts, the coding
+  quadtree, intra and inter prediction, weighted prediction, scaling
+  lists, deblocking and SAO, open GOPs, output reordered in POC order) in
+  ``csrc/hevc_video.cpp``, bit-equal to FFmpeg's luma and to OpenCV's RGB on
+  libx265's streams (the libraries built by `dro_sfm_torch.hostlib`);
+  MJPEG AVI frames go through
   the JPEG decoder (libjpeg's upsampling, not FFmpeg's). Other codecs and
   containers, and tools beyond those profiles, raise `NotImplementedError`
   naming them; a broken file raises `ValueError`, and no frame is ever
@@ -435,11 +441,12 @@ def _riff_chunks(data: bytes, start: int, end: int):
 
 # ------------------------------------------------------------ video input
 
-# fourccs of MPEG-4 Part 2 and of H.264 video in AVI (strf's compression or
-# strh's handler, upper-cased)
+# fourccs of MPEG-4 Part 2, H.264 and HEVC video in AVI (strf's compression
+# or strh's handler, upper-cased): those FFmpeg's AVI demuxer reads as each
 MPEG4_FOURCCS = (b"FMP4", b"MP4V", b"XVID", b"DIVX", b"DX50")
 H264_FOURCCS = (b"H264", b"X264", b"AVC1")
-_OTHER_CODECS = {b"HEV1": "H.265", b"HVC1": "H.265", b"HEVC": "H.265", b"DIV3": "MS MPEG-4 v3",
+HEVC_FOURCCS = (b"HEVC", b"H265", b"HVC1", b"HEV1")
+_OTHER_CODECS = {b"X265": "H.265", b"DIV3": "MS MPEG-4 v3",
                  b"MP43": "MS MPEG-4 v3", b"MP42": "MS MPEG-4 v2", b"WMV1": "WMV",
                  b"WMV2": "WMV", b"WMV3": "WMV", b"AV01": "AV1", b"VP80": "VP8",
                  b"VP09": "VP9", b"S263": "H.263", b"H263": "H.263", b"MJPA": "Motion JPEG"}
@@ -456,14 +463,16 @@ def _other_codec(fourcc: bytes, path: str):
     what = f"{name} ({fourcc.decode(errors='replace')!r})" if name else \
         f"the codec {fourcc.decode(errors='replace')!r}"
     return NotImplementedError(f"{path}: {what} video; the port decodes MPEG-4 Part 2 "
-                               f"(mp4v), H.264 Constrained Baseline (avc1, avc3, H264) and "
-                               f"MJPEG only (ROADMAP C)")
+                               f"Simple and Advanced Simple (mp4v, XVID), H.264 Constrained "
+                               f"Baseline, Main and High (avc1, avc3, H264), HEVC Main (hev1, "
+                               f"hvc1, HEVC) and MJPEG only (ROADMAP C)")
 
 
 class Demuxed:
-    """One video stream of a file: ``codec`` ("mpeg4", "h264" or "mjpeg"),
-    the decoder configuration ``config`` (the VOL of an MP4's ``esds`` or
-    the body of its ``avcC``, else empty), ``fps``, its packets in decode
+    """One video stream of a file: ``codec`` ("mpeg4", "h264", "hevc" or
+    "mjpeg"), the decoder configuration ``config`` (the VOL of an MP4's
+    ``esds`` or the body of its ``avcC`` or ``hvcC``, else empty), ``fps``,
+    its packets in decode
     order as (offset, size) in the file, read by `packet`, and ``shown``:
     whether each packet's frame is output (an MP4's edit list trims the
     frames whose composition time it does not cover; every packet is still
@@ -581,8 +590,8 @@ def _full_box_table(data, s, e, fmt, path, what):
 
 def demux_mp4(path: str, data) -> Demuxed:
     """The first video track of an ISO BMFF file (MP4, MOV, M4V): its
-    ``mp4v`` sample entry's VOL or its ``avc1``/``avc3`` sample entry's
-    ``avcC``, its samples from ``stsz``, ``stsc``, ``stco``/``co64`` and
+    ``mp4v`` sample entry's VOL, its ``avc1``/``avc3`` sample entry's
+    ``avcC`` or its ``hev1``/``hvc1`` sample entry's ``hvcC``, its samples from ``stsz``, ``stsc``, ``stco``/``co64`` and
     ``stts``, and the frames its edit list shows (`_edit_list`). A
     fragmented file raises."""
     moov = None
@@ -624,6 +633,10 @@ def demux_mp4(path: str, data) -> Demuxed:
             codec = "h264"
             avcc = _need(data, ss + 8 + 86, ss + 8 + size, b"avcC", path)
             config = bytes(data[avcc[0]:avcc[1]])
+        elif fourcc in (b"hev1", b"hvc1"):
+            codec = "hevc"
+            hvcc = _need(data, ss + 8 + 86, ss + 8 + size, b"hvcC", path)
+            config = bytes(data[hvcc[0]:hvcc[1]])
         else:
             raise _other_codec(fourcc, path)
         s, e = _need(data, *stbl, b"stsz", path)
@@ -742,7 +755,8 @@ def demux_avi(path: str, data) -> Demuxed:
     """The first video stream of an AVI (RIFF ``AVI `` and the OpenDML
     ``AVIX`` segments after it): its packets are the ``##dc``/``##db``
     chunks of ``movi`` in file order (empty ones skipped), MPEG-4 Part 2
-    (`MPEG4_FOURCCS`), H.264 in Annex B (`H264_FOURCCS`) or MJPEG."""
+    (`MPEG4_FOURCCS`), H.264 or HEVC in Annex B (`H264_FOURCCS`,
+    `HEVC_FOURCCS`) or MJPEG."""
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise ValueError(f"{path}: not an AVI file")
     stream, codec, fps, spans, index, tag = None, None, None, [], 0, b""
@@ -775,6 +789,8 @@ def demux_avi(path: str, data) -> Demuxed:
                                 codec = "mpeg4"
                             elif any(t in H264_FOURCCS for t in tags):
                                 codec = "h264"
+                            elif any(t in HEVC_FOURCCS for t in tags):
+                                codec = "hevc"
                             elif b"MJPG" in tags:
                                 codec = "mjpeg"
                             else:
@@ -1041,6 +1057,51 @@ class H264Decoder(_HostVideoDecoder):
             self.configure(config)
 
 
+class HevcDecoder(_HostVideoDecoder):
+    """HEVC video of the Main profile, 8-bit 4:2:0 progressive
+    (``csrc/hevc_video.cpp``): each packet is one access unit; ``config`` is
+    an MP4's ``hvcC`` body (the NAL length size and the VPS, SPS, PPS and
+    SEI it holds), without which packets are Annex B. Frames come out in POC
+    order as FFmpeg gives them (a packet may make none, one or several frames
+    ready, `flush` gives the last ones); the RASL pictures of a stream's
+    first CRA picture are not decoded, as FFmpeg skips them. `encoder` is
+    the SEI user data that names the encoder ("x265 (build 199) - 3.5+1:
+    ..."); `stats` counts (`STATS`) IDR, CRA, RADL and RASL pictures, RASL
+    pictures skipped, pictures with P and with B slices, slices, pictures
+    of several slices, pictures under wavefronts, CTUs, intra CUs of
+    2Nx2N and of NxN, skipped CUs, merged and AMVP prediction units, AMP
+    prediction units, bi-predicted ones, temporal, combined bi-predictive
+    and zero merge candidates taken, transquant-bypass CUs, transform-skip
+    blocks, sub-blocks of a hidden sign, CUs of a nonzero cu_qp_delta,
+    coeff_abs_level_remaining prefixes of 8 or more, luma blocks of planar,
+    DC and angular prediction, strongly smoothed references, pictures under
+    constrained intra, CTB components of SAO band and edge offsets, SAO
+    merges, luma edge segments filtered at bS 2 and at bS 1, slices with the
+    deblocking filter off and with its offsets, slices with chroma QP
+    offsets, prediction units of explicit weights, pictures under scaling
+    lists, list modifications, transform tree splits, 4x4 DST and 32x32 DCT
+    blocks, cropped pictures, pictures not output, frames output after a
+    frame decoded later."""
+
+    LIB, PREFIX = "hevc_video", "hevc"
+    STATS = ("idr_pictures", "cra_pictures", "radl_pictures", "rasl_pictures",
+             "rasl_skipped", "p_pictures", "b_pictures", "slices", "multi_slice_pictures",
+             "wpp_pictures", "ctus", "intra_cus", "intra_nxn_cus", "skipped_cus", "merge_pus",
+             "amvp_pus", "amp_pus", "bipred_pus", "temporal_candidates", "combined_candidates",
+             "zero_candidates", "bypass_cus", "transform_skip_blocks", "sign_hidden",
+             "qp_delta_cus", "long_levels", "planar_blocks", "dc_blocks", "angular_blocks",
+             "strong_smoothing", "constrained_intra_pictures", "sao_band", "sao_edge",
+             "sao_merges", "bs2_edges", "bs1_edges", "deblock_off_slices",
+             "deblock_offset_slices", "chroma_qp_offset_slices", "explicit_weighted_pus",
+             "scaling_list_pictures", "list_modifications", "tu_splits", "dst_blocks",
+             "dct32_blocks", "cropped_pictures", "not_output_pictures", "reordered_frames")
+
+    def __init__(self, config: bytes = b"", what: str = "HEVC"):
+        super().__init__(what)
+        if config:
+            self.configure(config)
+
+
 @functools.lru_cache(maxsize=None)
 def _mpeg4_encoder() -> ctypes.CDLL:
     """The host MPEG-4 encoder, built at first use, its entry points typed."""
@@ -1127,16 +1188,17 @@ class Mpeg4Encoder:
 class VideoReader:
     """The frames of a video file in output order, as ``cv2.VideoCapture``
     gives them (`demux`): MPEG-4 Part 2 through `Mpeg4Decoder`, H.264
-    through `H264Decoder` (display order: B slices reordered), MJPEG AVI
-    through the JPEG decoder; the frames an MP4's edit list trims are
-    decoded and not given (`Demuxed.shown`). Iterating gives uint8 RGB
-    [H,W,3]; with ``luma`` the luma planes [H,W] (MPEG-4 and H.264). ``fps``
+    through `H264Decoder` and HEVC through `HevcDecoder` (display order: B
+    pictures reordered), MJPEG AVI through the JPEG decoder; the frames an
+    MP4's edit list trims are decoded and not given (`Demuxed.shown`).
+    Iterating gives uint8 RGB [H,W,3]; with ``luma`` the luma planes [H,W]
+    (MPEG-4, H.264 and HEVC). ``fps``
     is the stream's rate, ``len`` the number of frames iteration gives and
     ``decode_ms`` each given frame's decode milliseconds (host clock: the
     packets decoded since the frame before it, their reads included). A
     packet that fails to decode raises; none is skipped."""
 
-    DECODERS = {"mpeg4": Mpeg4Decoder, "h264": H264Decoder}
+    DECODERS = {"mpeg4": Mpeg4Decoder, "h264": H264Decoder, "hevc": HevcDecoder}
 
     def __init__(self, path: str):
         self.path = str(path)
@@ -1154,7 +1216,8 @@ class VideoReader:
         s = self.stream
         if s.codec == "mjpeg":
             if luma:
-                raise ValueError(f"{self.path}: luma planes of MPEG-4 and H.264 video only")
+                raise ValueError(f"{self.path}: luma planes of MPEG-4, H.264 and HEVC video "
+                                 f"only")
             for i in range(len(s)):
                 t0 = time.perf_counter()
                 img = image_io.decode_jpeg(s.packet(i), self.path)

@@ -364,7 +364,7 @@ def test_short_video_header_is_refused(tmp_path):
         dec.decode(b"\x00\x00\x82\x1a\x0f\x00")
 
 
-@pytest.mark.parametrize("fourcc,what", [(b"av01", "AV1"), (b"hvc1", "H.265"),
+@pytest.mark.parametrize("fourcc,what", [(b"av01", "AV1"), (b"vp09", "VP9"),
                                          (b"s263", "H.263")])
 def test_other_sample_entries_are_refused(tmp_path, fourcc, what):
     data = (FIXTURES / "walk_640x480.mp4").read_bytes()

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Write the video fixtures of the port's decoder checks: MPEG-4 Part 2 and
-H.264.
+"""Write the video fixtures of the port's decoder checks: MPEG-4 Part 2,
+H.264 and HEVC.
 
-    python3 tools/torch_make_video_fixtures.py              # both; needs OpenCV with FFmpeg
+    python3 tools/torch_make_video_fixtures.py              # all; needs OpenCV with FFmpeg
     python3 tools/torch_make_video_fixtures.py --only h264  # needs cc, libavformat, libx264
+    python3 tools/torch_make_video_fixtures.py --only hevc  # needs cc, libavformat, libx265
 
 Renders camera walks with the port's synthetic renderer (``SyntheticDataset``,
 three planes): the camera pans and slides sideways, so that motion vectors
@@ -88,6 +89,36 @@ converts to RGB with the table of the VUI's matrix_coefficients, and its
 luma (``CAP_PROP_CONVERT_RGB`` 0) of a stream of another matrix than
 BT.601 is not the decoded plane: the luma of such a fixture is taken from a
 copy whose SPS names no matrix (`without_colour_matrix`), the same pictures.
+
+The HEVC fixtures (`HEVC_FILES`, under ``dro_sfm_torch/testdata/hevc/``
+with their own ``fixtures.json``) are the same renders written by libx265
+through the same writer (``encoder=libx265``): libx265's defaults (Main
+profile, CTU 64, wavefronts, AQ with cu_qp_delta, sign hiding, TMVP, weighted
+P, 4 B-frames in a pyramid, deblocking and SAO) on the walk at 640x480 as
+``.mp4`` (sample entry ``hev1``), ``.mov`` (``tag=hvc1``, as Apple writes)
+and ``.avi`` (fourcc ``HEVC``, Annex B) and at 1280x720, at 25 fps (the
+MP4's edit list trims the last frame in display order); then, at 64x48 to
+320x240, the presets ultrafast and veryslow (AMP, rect, 5 references), an
+open GOP (``keyint=8``: CRA pictures with RASL pictures, in MP4 and in an
+AVI of fourcc ``H265``), IDR_W_RADL with RADL pictures, 4 slices, no
+wavefronts, CTUs of 16 and 32, a size that is no multiple of 8 (the
+conformance window), noise at QP 4 (long coeff_abs_level_remaining), the
+chroma QP offsets, the deblocking offsets both ways, deblocking and SAO off,
+explicit weighted bi-prediction on a fade, the default scaling lists and a
+custom list file written here (`hevc_scaling_list`), transform skip,
+constrained intra, lossless (cu_transquant_bypass), and the VUI colour
+matrices (BT.709 in full range, BT.601 in full range, FCC, SMPTE 240M,
+BT.2020). Most small clips carry libx265's MD5 picture hash SEI
+(``hash=1``): the tests hold every decoded picture's three planes to it.
+OpenCV 5.0.0 converts an HEVC frame by its VUI matrix and range, and its
+luma of such a stream is converted too: the luma of a colour fixture is
+taken from a copy whose SPS names no matrix and limited range
+(`without_hevc_colour`). For an MP4, ``fixtures.json`` holds the sha256 of
+the file's samples, each checked here to be OpenCV's packet once put in the
+Annex B form of FFmpeg's ``hevc_mp4toannexb`` (`hevc_annexb`: 4-byte start
+codes, the ``hvcC``'s NAL units before the first IRAP slice of a packet).
+The refusal fixtures (`HEVC_REFUSALS`) are Main 10, 4:2:2, 4:4:4 and field
+coding (``interlace=tff``, which OpenCV's swscale cannot convert).
 """
 import argparse
 import hashlib
@@ -107,8 +138,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from dro_sfm_torch.data.synthetic import SyntheticConfig, SyntheticDataset  # noqa: E402
-from dro_sfm_torch.utils.video_io import (H264Decoder, Mpeg4Decoder, VideoReader,  # noqa: E402
-                                          demux)
+from dro_sfm_torch.utils.video_io import (H264Decoder, HevcDecoder, Mpeg4Decoder,  # noqa: E402
+                                          VideoReader, demux)
 
 OUT = ROOT / "dro_sfm_torch" / "testdata" / "video"
 FPS = 30
@@ -263,6 +294,65 @@ H264_REFUSALS = {
                          "bit depth 10"),
 }
 H264_LIMIT = 3 << 19         # bytes of the H.264 folder
+
+
+HEVC_OUT = ROOT / "dro_sfm_torch" / "testdata" / "hevc"
+X265 = "encoder=libx265"
+
+
+def x265(params=""):
+    """libx265 with ``params`` (x265-params) and its MD5 picture hash SEI."""
+    return [X265, "x265-params=hash=1" + (":" + params if params else "")]
+
+
+CUSTOM_LIST = "scaling-list=CUSTOM"   # replaced by the path of `hevc_scaling_list`'s file
+# name: (height, width, frames, content, the encoder's options)
+HEVC_FILES = {
+    # libx265 at its defaults (at 25 fps the MP4's edit list trims the last frame)
+    "main_640x480.mp4": (480, 640, 24, "walk", [X265]),
+    "main_640x480.mov": (480, 640, 24, "walk", [X265, "tag=hvc1"]),
+    "main_640x480.avi": (480, 640, 24, "walk", [X265, "tag=HEVC"]),
+    "main_1280x720.mp4": (720, 1280, 24, "walk", [X265]),
+    # presets and structures
+    "ultrafast_176x144.mp4": (144, 176, 12, "walk", [*x265(), "preset=ultrafast"]),
+    "veryslow_176x144.mp4": (144, 176, 12, "walk", [*x265(), "preset=veryslow"]),
+    "open_gop_176x144.mp4": (144, 176, 24, "walk", x265("keyint=8")),
+    "open_gop_176x144.avi": (144, 176, 24, "walk", [*x265("keyint=8"), "tag=H265"]),
+    "radl_176x144.mp4": (144, 176, 24, "walk", x265(
+        "keyint=9:min-keyint=9:open-gop=0:radl=2:bframes=2:b-adapt=0:scenecut=0:b-pyramid=0")),
+    "slices4_176x144.mp4": (144, 176, 12, "walk", x265("slices=4")),
+    "no_wpp_176x144.mp4": (144, 176, 12, "walk", x265("wpp=0")),
+    "ctu16_176x144.mp4": (144, 176, 12, "walk", x265("ctu=16")),
+    "ctu32_320x240.mp4": (240, 320, 12, "walk", x265("ctu=32")),
+    "crop_202x138.mp4": (138, 202, 8, "walk", [X265]),
+    "noise_qp4_96x64.mp4": (64, 96, 6, "noise", x265("qp=4")),
+    # options
+    "chroma_qp_offsets_176x144.mp4": (144, 176, 12, "walk", x265("cbqpoffs=-3:crqpoffs=4")),
+    "deblock_m2p3_176x144.mp4": (144, 176, 12, "walk", x265("deblock=-2,3")),
+    "deblock_p3m2_176x144.mp4": (144, 176, 12, "walk", x265("deblock=3,-2")),
+    "no_deblock_no_sao_176x144.mp4": (144, 176, 12, "walk", x265("no-deblock=1:no-sao=1")),
+    "weightb_fade_176x144.mp4": (144, 176, 30, "fade", x265("weightb=1")),
+    "scaling_default_176x144.mp4": (144, 176, 12, "walk", x265("scaling-list=default")),
+    "scaling_custom_176x144.mp4": (144, 176, 12, "walk", x265(CUSTOM_LIST)),
+    "tskip_stripes_176x144.mp4": (144, 176, 8, "stripes", x265("tskip=1:qp=20")),
+    "constrained_intra_176x144.mp4": (144, 176, 12, "walk", x265("constrained-intra=1")),
+    "lossless_96x64.mp4": (64, 96, 6, "walk", x265("lossless=1")),
+    # the VUI colour matrices and range OpenCV converts by
+    "colour_bt709_full_64x48.mp4": (48, 64, 6, "walk", x265("colormatrix=bt709:range=full")),
+    "colour_bt601_full_64x48.mp4": (48, 64, 6, "walk", x265("range=full")),
+    "colour_fcc_64x48.mp4": (48, 64, 6, "walk", x265("colormatrix=fcc")),
+    "colour_smpte240m_64x48.mp4": (48, 64, 6, "walk", x265("colormatrix=smpte240m")),
+    "colour_bt2020_64x48.mp4": (48, 64, 6, "walk", x265("colormatrix=bt2020nc")),
+}
+HEVC_RATES = {name: 25 for name in HEVC_FILES if name.startswith("main_")}
+# name: (pixel format, the encoder's options, what the port's NotImplementedError names)
+HEVC_REFUSALS = {
+    "refuse_main10.mp4": ("yuv420p10le", [X265], "bit depth 10"),
+    "refuse_422.mp4": ("yuv422p", [X265], "chroma format 2"),
+    "refuse_444.mp4": ("yuv444p", [X265], "chroma format 3"),
+    "refuse_interlaced.mp4": ("yuv420p", [X265, "x265-params=interlace=tff"], "field coding"),
+}
+HEVC_LIMIT = 3 << 19         # bytes of the HEVC folder
 
 
 def walk(h, w, n):
@@ -502,15 +592,19 @@ def write_libav(path, frames, options, pixfmt="yuv420p", fps=FPS):
     """uint8 RGB ``frames`` as a video file at ``path`` (its container by
     extension) from libx264, or the encoder an ``encoder=`` option names,
     with ``options`` (name=value AVOptions, `tools/torch_h264_writer.c`), the
-    frames converted to ``pixfmt`` by OpenCV (BT.601, limited range; 4:4:4
-    and 10-bit from the same conversion)."""
+    frames converted to ``pixfmt`` by OpenCV (BT.601, limited range; 4:4:4,
+    4:2:2 and 10-bit from the same conversion)."""
     h, w = frames[0].shape[:2]
     raw = []
     for f in frames:
         bgr = np.ascontiguousarray(f[..., ::-1])
-        if pixfmt == "yuv444p":
+        if pixfmt in ("yuv444p", "yuv422p"):
             ycrcb = cv2.cvtColor(bgr, cv2.COLOR_BGR2YCrCb)
-            raw.append(np.ascontiguousarray(ycrcb[..., [0, 2, 1]].transpose(2, 0, 1)).tobytes())
+            planes = np.ascontiguousarray(ycrcb[..., [0, 2, 1]].transpose(2, 0, 1))
+            if pixfmt == "yuv422p":      # chroma: the mean of each horizontal pair
+                chroma = (planes[1:, :, 0::2].astype(int) + planes[1:, :, 1::2] + 1) // 2
+                planes = [planes[0], chroma[0].astype(np.uint8), chroma[1].astype(np.uint8)]
+            raw.append(b"".join(np.ascontiguousarray(p).tobytes() for p in planes))
         else:
             yuv = cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV_I420)
             raw.append((yuv.astype("<u2") << 2).tobytes() if pixfmt == "yuv420p10le"
@@ -671,6 +765,267 @@ def port_h264_digests(path):
                 frames["rgb"].append(sha(img))
     return {"luma_all": luma.hexdigest(), "rgb_all": rgb.hexdigest()}, frames, dec.stats, \
         dec.encoder
+
+
+def hvcc(config: bytes):
+    """The NAL length size and the NAL units (VPS, SPS, PPS, SEI, in order)
+    of an ``hvcC`` body."""
+    size, nals, pos = (config[21] & 3) + 1, [], 23
+    for _ in range(config[22]):
+        count = int.from_bytes(config[pos + 1:pos + 3], "big")
+        pos += 3
+        for _ in range(count):
+            n = int.from_bytes(config[pos:pos + 2], "big")
+            nals.append(bytes(config[pos + 2:pos + 2 + n]))
+            pos += 2 + n
+    return size, nals
+
+
+def hevc_annexb(sample: bytes, config: bytes) -> bytes:
+    """An MP4 sample in the form FFmpeg's ``hevc_mp4toannexb`` gives it:
+    each NAL unit behind a 4-byte start code, the ``hvcC``'s NAL units
+    before the first IRAP slice of the packet."""
+    size, sets = hvcc(config)
+    out, pos, irap_seen = bytearray(), 0, False
+    while pos < len(sample):
+        n = int.from_bytes(sample[pos:pos + size], "big")
+        nal = sample[pos + size:pos + size + n]
+        pos += size + n
+        irap = 16 <= (nal[0] >> 1) & 63 <= 23
+        if irap and not irap_seen:
+            out += b"".join(b"\0\0\0\1" + x for x in sets)
+        irap_seen |= irap
+        out += b"\0\0\0\1" + nal
+    return bytes(out)
+
+
+def hevc_scaling_list(path: Path) -> None:
+    """A custom scaling list file as libx265 reads it (HM's format, each
+    matrix in the up-right diagonal scan): lists of every size, the 16x16
+    and 32x32 DCs, and inter chroma V equal to inter chroma U with its DC,
+    which the encoder then codes as predicted from it (7.3.4)."""
+    lines = []
+    for size, count in ((4, 16), (8, 64), (16, 64), (32, 64)):
+        for k, kind in enumerate(("INTRA", "INTER")):
+            for c, comp in enumerate(("LUMA", "CHROMAU", "CHROMAV")):
+                name = f"{kind}{size}X{size}_{comp}"
+                if size == 32 and comp != "LUMA":
+                    name = f"{kind}32X32_{comp}_FROM16x16_{comp}"
+                cc = 1 if (kind, comp) == ("INTER", "CHROMAV") else c
+                vals = [8 + 4 * k + 3 * cc + (i * (5 + cc)) % 13 + size // 4 for i in range(count)]
+                lines.append(f"{name} =")
+                lines += [",".join(str(v) for v in vals[r:r + 8]) for r in range(0, count, 8)]
+                if size >= 16:
+                    lines += [f"{kind}{size}X{size}_{comp}_DC =", str(10 + 3 * k + 2 * cc + size // 8)]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def _st_rps(r, idx, sets):
+    """One st_ref_pic_set of an SPS (7.3.7): its deltas (negative, then
+    positive)."""
+    if idx and r.u(1):
+        sign, delta = r.u(1), r.ue() + 1
+        delta_rps = -delta if sign else delta
+        ref = sets[idx - 1]
+        neg, pos = [], []
+        for j, d in enumerate([*ref, 0]):
+            used = r.u(1)
+            if used or r.u(1):
+                v = (d + delta_rps) if j < len(ref) else delta_rps
+                (neg if v < 0 else pos if v > 0 else []).append(v)
+        return sorted(neg, reverse=True) + sorted(pos)
+    n_neg, n_pos = r.ue(), r.ue()
+    out, poc = [], 0
+    for _ in range(n_neg):
+        poc -= r.ue() + 1
+        r.u(1)
+        out.append(poc)
+    poc = 0
+    for _ in range(n_pos):
+        poc += r.ue() + 1
+        r.u(1)
+        out.append(poc)
+    return out
+
+
+def _hevc_colour_bits(rbsp: bytes):
+    """The bit offsets in an HEVC SPS's RBSP (past its NAL header) of
+    video_full_range_flag and matrix_coeffs (None without a colour
+    description)."""
+    r = _Bits(rbsp)
+    r.u(4)
+    sub = r.u(3)
+    r.u(1)
+    r.u(8), r.u(32), r.u(48), r.u(8)                 # general profile_tier_level
+    flags = [(r.u(1), r.u(1)) for _ in range(sub)]
+    if sub:
+        r.u(2 * (8 - sub))
+    for profile, level in flags:
+        r.u(88 * profile), r.u(8 * level)
+    r.ue()
+    if r.ue() == 3:
+        r.u(1)
+    r.ue(), r.ue()
+    if r.u(1):
+        for _ in range(4):
+            r.ue()
+    for _ in range(3):
+        r.ue()
+    for _ in range(sub + 1 if r.u(1) else 1):
+        r.ue(), r.ue(), r.ue()
+    for _ in range(6):
+        r.ue()
+    if r.u(1) and r.u(1):
+        raise ValueError("an SPS with scaling lists")
+    r.u(2)
+    if r.u(1):
+        raise ValueError("an SPS with PCM")
+    sets = []
+    for i in range(r.ue()):
+        sets.append(_st_rps(r, i, sets))
+    if r.u(1):
+        raise ValueError("an SPS with long-term references")
+    r.u(2)
+    if not r.u(1):
+        raise ValueError("no VUI")
+    if r.u(1) and r.u(8) == 255:
+        r.u(32)
+    if r.u(1):
+        r.u(1)
+    if not r.u(1):
+        raise ValueError("no video signal type")
+    r.u(3)
+    full = r.pos
+    r.u(1)
+    if not r.u(1):
+        return full, None
+    r.u(16)
+    return full, r.pos
+
+
+def without_hevc_colour(data: bytes) -> bytes:
+    """An MP4 of HEVC whose ``hvcC`` SPS has a VUI video signal type, its
+    video_full_range_flag set to 0 and its matrix_coeffs, if any, to 2
+    (unspecified): the same pictures, which OpenCV then gives as their
+    decoded luma."""
+    at = data.find(b"hvcC") + 4
+    size, nals = hvcc(data[at:at + 4096])
+    sps = next(n for n in nals if (n[0] >> 1) & 63 == 33)
+    start = data.find(sps)
+    rbsp, where = _unescape(sps[2:])
+    full, matrix = _hevc_colour_bits(rbsp)
+    bits = list("".join(f"{b:08b}" for b in rbsp))
+    bits[full] = "0"
+    if matrix is not None:
+        bits[matrix:matrix + 8] = list(f"{2:08b}")
+    edited = bytes(int("".join(bits[i:i + 8]), 2) for i in range(0, len(bits), 8))
+    out = bytearray(data)
+    for k in range(len(rbsp)):
+        out[start + 2 + where[k]] = edited[k]
+    if _unescape(bytes(out[start + 2:start + len(sps)]))[0] != edited:
+        raise ValueError("the edit would change the SPS's emulation prevention")
+    return bytes(out)
+
+
+def opencv_hevc_digests(path, colour=False):
+    """`opencv_digests` of an HEVC file, an MP4's packets as the port's
+    samples (each checked to be OpenCV's packet in `hevc_annexb`'s form);
+    with ``colour`` the luma planes of `without_hevc_colour`'s copy."""
+    cv, fps = opencv_digests(path)
+    if Path(path).suffix != ".avi":
+        stream = demux(str(path))
+        packets, _ = capture(path, [(cv2.CAP_PROP_FORMAT, -1)])
+        if len(packets) != len(stream) or any(
+                hevc_annexb(s, stream.config) != p.tobytes() for s, p in zip(stream.packets(), packets)):
+            raise RuntimeError(f"{path}: OpenCV's packets are not the samples in Annex B form")
+        cv["packets"] = [hashlib.sha256(s).hexdigest() for s in stream.packets()]
+    if colour:
+        with tempfile.TemporaryDirectory() as tmp:
+            plain = Path(tmp) / Path(path).name
+            plain.write_bytes(without_hevc_colour(Path(path).read_bytes()))
+            luma, _ = capture(plain, [(cv2.CAP_PROP_CONVERT_RGB, 0)])
+        cv["luma"] = [sha(y if y.ndim == 2 else y[..., 0]) for y in luma]
+    return cv, fps
+
+
+def port_hevc_digests(path):
+    """`port_digests` through `HevcDecoder`."""
+    stream = demux(str(path))
+    dec = HevcDecoder(stream.config)
+    luma, rgb = hashlib.sha256(), hashlib.sha256()
+    frames = {"packets": [hashlib.sha256(p).hexdigest() for p in stream.packets()],
+              "luma": [], "rgb": []}
+    for p in [*stream.packets(), None]:
+        for k, (img, y) in dec.output(p, rgb=True, luma=True):
+            if stream.shown[k]:
+                luma.update(y.tobytes())
+                rgb.update(img.tobytes())
+                frames["luma"].append(sha(y))
+                frames["rgb"].append(sha(img))
+    return {"luma_all": luma.hexdigest(), "rgb_all": rgb.hexdigest()}, frames, dec.stats, \
+        dec.encoder
+
+
+def hevc_main() -> None:
+    HEVC_OUT.mkdir(parents=True, exist_ok=True)
+    build = cv2.getBuildInformation()
+    avcodec = re.search(r"avcodec:\s+YES \(([^)]*)\)", build)
+    table = {}
+    render = {"walk": walk, "noise": noise, "fade": fade, "stripes": stripes}
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = Path(tmp) / "scaling_list.txt"
+        hevc_scaling_list(lists)
+        for name, (h, w, n, content, options) in HEVC_FILES.items():
+            path = HEVC_OUT / name
+            given = [o.replace(CUSTOM_LIST, f"scaling-list={lists}") for o in options]
+            write_libav(path, render[content](h, w, n), given, fps=HEVC_RATES.get(name, FPS))
+            colour = name.startswith("colour_")
+            cv, fps = opencv_hevc_digests(path, colour)
+            port, own, stats, encoder = port_hevc_digests(path)
+            same = {k: own[k] == cv[k] for k in cv}
+            frames = len(cv["rgb"])
+            if len(cv["packets"]) != n or not 0 < frames <= n or not all(same.values()):
+                raise RuntimeError(f"{name}: OpenCV reads {frames} frames and "
+                                   f"{len(cv['packets'])} packets of {n}; port equal: {same}")
+            table[name] = {"height": h, "width": w, "packets": n, "frames": frames,
+                           "options": options, "fps": fps, "bytes": path.stat().st_size,
+                           "encoder": encoder, "colour": colour, "stats": stats, "opencv": cv,
+                           "port": port}
+            print(f"{name}: {n} packets, {frames} frames {w}x{h}, {path.stat().st_size} bytes, "
+                  f"{options}; port equal to OpenCV: {same}; "
+                  f"{ {k: v for k, v in stats.items() if v} }")
+    refusals = {}
+    for name, (pixfmt, options, what) in HEVC_REFUSALS.items():
+        path = HEVC_OUT / name
+        write_libav(path, walk(48, 64, 6), options, pixfmt)
+        read = len(capture(path)[0])
+        try:
+            sum(1 for _ in VideoReader(str(path)))
+            raise RuntimeError(f"the port decodes {name}, which it should refuse")
+        except NotImplementedError as e:
+            if what not in str(e):
+                raise RuntimeError(f"{name}: {e}, want {what!r}")
+        refusals[name] = {"pixfmt": pixfmt, "options": options, "raises": what,
+                          "opencv_frames": read, "bytes": path.stat().st_size}
+        print(f"{name}: {path.stat().st_size} bytes, OpenCV reads {read} frames, the port raises "
+              f"NotImplementedError naming {what!r}")
+    libs = subprocess.run(["cc", "-E", "-dM", "-include", "libavcodec/version.h", "-include",
+                           "libavformat/version.h", "-x", "c", "/dev/null"],
+                          capture_output=True, text=True, check=True).stdout
+    ver = {k: re.search(rf"#define {k} (\d+)", libs).group(1) for k in
+           ("LIBAVCODEC_VERSION_MAJOR", "LIBAVCODEC_VERSION_MINOR", "LIBAVFORMAT_VERSION_MAJOR")}
+    meta = {"opencv": cv2.__version__, "libavcodec": avcodec.group(1) if avcodec else None,
+            "writer": f"libx265 through libavcodec {ver['LIBAVCODEC_VERSION_MAJOR']}."
+                      f"{ver['LIBAVCODEC_VERSION_MINOR']}, libavformat "
+                      f"{ver['LIBAVFORMAT_VERSION_MAJOR']}",
+            "renderer": "SyntheticConfig(height, width, num_planes=3, seed=0), scene 0",
+            "fps": FPS, "files": table, "refusals": refusals}
+    (HEVC_OUT / "fixtures.json").write_text(json.dumps(meta, indent=1) + "\n")
+    size = sum(p.stat().st_size for p in HEVC_OUT.iterdir())
+    if size > HEVC_LIMIT:
+        raise RuntimeError(f"{HEVC_OUT} holds {size} bytes, over {HEVC_LIMIT}")
+    print(f"wrote {len(table)} HEVC videos, {len(refusals)} refusals and fixtures.json to "
+          f"{HEVC_OUT}: {size / 1024:.0f} KiB")
 
 
 def h264_main() -> None:
@@ -834,13 +1189,15 @@ def mpeg4_main() -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=("mpeg4", "h264"), default=None,
-                        help="write one codec's fixtures (default: both)")
+    parser.add_argument("--only", choices=("mpeg4", "h264", "hevc"), default=None,
+                        help="write one codec's fixtures (default: all)")
     only = parser.parse_args().only
     if only in (None, "mpeg4"):
         mpeg4_main()
     if only in (None, "h264"):
         h264_main()
+    if only in (None, "hevc"):
+        hevc_main()
 
 
 if __name__ == "__main__":
